@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels (nvcc by hand, bound with ctypes).
+
+Each ``csrc/*.cu`` file is compiled on first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
+
+into ``build/repro_torch/`` at the root of the checkout, under a name keyed
+by a hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  The libraries expose a plain C interface
+(no PyTorch headers), which keeps a build to seconds.  Nothing here runs at
+import time: the CPU tests import every module without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# seconds each build took in this process (0.0 when an existing .so was loaded)
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine "
+                           "with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{key}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the keyed library exists; returns its path.
+    The compiler's output (ptxas registers, shared memory, spills) is kept
+    beside the library as ``<lib>.log``."""
+    lib = _lib_path(name)
+    if lib.exists():
+        BUILD_SECONDS.setdefault(name, 0.0)
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    lib.with_suffix(".log").write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load ``csrc/<name>.cu`` as a ctypes library."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build(name)))
+    return _LIBS[name]
+
+
+_FORBIDDEN_SASS = re.compile(r"\b(ATOM|ATOMS|ATOMG|RED|MEMBAR|FENCE)\b")
+_FORBIDDEN_PTX = re.compile(r"\b(atom|red|fence|membar)\.")
+
+
+def fence_audit(name: str) -> Dict[str, object]:
+    """Count synchronising instructions in the built kernel: SASS opcodes
+    ATOM*/RED*/MEMBAR/FENCE (``cuobjdump -sass`` of the library) and PTX
+    ``atom.``/``red.``/``fence.``/``membar.`` (``nvcc -ptx`` of the source).
+    A fence-free scheduler has zero of each."""
+    lib = build(name)
+    cuda_bin = Path(nvcc_path()).parent
+    cuobjdump = shutil.which("cuobjdump") or str(cuda_bin / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    ptx_file = lib.with_suffix(".ptx")
+    subprocess.run([nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-ptx", "-o",
+                    str(ptx_file), str(CSRC / f"{name}.cu")], check=True,
+                   capture_output=True, text=True)
+    ptx = ptx_file.read_text()
+    sass_hits: Dict[str, int] = {}
+    for m in _FORBIDDEN_SASS.finditer(sass):
+        sass_hits[m.group(1)] = sass_hits.get(m.group(1), 0) + 1
+    ptx_hits: Dict[str, int] = {}
+    for m in _FORBIDDEN_PTX.finditer(ptx):
+        ptx_hits[m.group(1)] = ptx_hits.get(m.group(1), 0) + 1
+    n_sass_instr = len(re.findall(r"/\*[0-9a-f]{4,}\*/", sass))
+    return {"sass": sass_hits, "ptx": ptx_hits,
+            "sass_instructions": n_sass_instr,
+            "sass_kernels": sorted(set(re.findall(r"Function : (\S+)", sass)))}

@@ -1,0 +1,155 @@
+"""Public model API of the port (dense family of ``repro/models/model.py``):
+cache init, prefill, the dense decode step and the work-stealing decode step.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from .._device import DeviceLike, resolve_device
+from . import attention as attn
+from . import transformer as tf
+from .common import rms_norm, swiglu
+
+
+class Caches(NamedTuple):
+    """Stacked per-layer decode state: ``kv`` is a KVCache of [L, B, S, Hkv, hd]."""
+
+    kv: Any = ()
+
+
+def _check_dense(cfg) -> None:
+    if cfg.family != "dense" or cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"the port serves dense GQA decoders only: {cfg.name}")
+
+
+def init_caches(cfg, batch: int, capacity: int, dtype=None,
+                device: DeviceLike = None) -> Caches:
+    """Zeroed caches with ``capacity`` sequence slots on ``device`` (default cuda)."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    dt = tf.torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.n_layers, batch, capacity, cfg.eff_heads[1], cfg.hd)
+    return Caches(kv=attn.KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                                  v=torch.zeros(shape, dtype=dt, device=dev)))
+
+
+def _embed(params, cfg, tokens):
+    return params["embed"][tokens].to(tf.torch_dtype(cfg.dtype))
+
+
+def _unembed_matrix(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embed"].T  # [d, V]
+    return params["unembed"]
+
+
+def _mask_pad_vocab(logits, cfg):
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    vpos = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(vpos < cfg.vocab_size, logits, torch.full_like(logits, -1e30))
+
+
+def _layer_cache(kv: attn.KVCache, idx: int) -> attn.KVCache:
+    return attn.KVCache(kv.k[idx], kv.v[idx])
+
+
+def _logits(params, cfg, h):
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", h, _unembed_matrix(params, cfg))[:, 0]
+    return _mask_pad_vocab(logits.float(), cfg)
+
+
+def decode_step(params, cfg, caches: Caches, tokens, pos):
+    """One dense decode step. tokens: [B, 1]; pos: scalar or [B] (slot of the
+    new token; attends cache[0..pos]).  Returns (logits [B, V] fp32, caches),
+    the caches updated in place."""
+    _check_dense(cfg)
+    x = _embed(params, cfg, tokens)
+    s = tf._res_scale(cfg)
+    h = x
+    for idx, w in enumerate(cfg.layer_windows):
+        p = tf.layer_params(params, idx)
+        hn = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        a, _ = attn.gqa_decode(hn, p["attn"], cfg, _layer_cache(caches.kv, idx), pos, w)
+        h = h + s * a
+        hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+        h = h + s * swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+    return _logits(params, cfg, h), caches
+
+
+def ws_decode_supported(cfg) -> bool:
+    """True when :func:`decode_step_ws` covers this architecture: full
+    (unwindowed) GQA decoders of the dense family."""
+    return (
+        cfg.family == "dense"
+        and cfg.attn_kind == "gqa"
+        and all(w == 0 for w in cfg.layer_windows)
+    )
+
+
+def decode_step_ws(params, cfg, caches: Caches, tokens, pos, *,
+                   schedule: str = "ws", bk: int = 64, n_programs: int = 8,
+                   mode=None):
+    """One decode step with attention on the work-stealing megakernel: one
+    launch per layer.  The Put is built once per step (the lengths are the
+    same in every layer) and placed on the device once; each launch clones
+    its mutable arrays."""
+    from repro_torch.pallas_ws.queues import to_device
+    from repro_torch.pallas_ws.ragged import decode_queue_state
+
+    if not ws_decode_supported(cfg):
+        raise NotImplementedError(f"decode_step_ws does not cover {cfg.name}")
+    x = _embed(params, cfg, tokens)
+    s = tf._res_scale(cfg)
+    B = x.shape[0]
+    S = caches.kv.k.shape[2]
+    H = params["layers"]["attn"]["wq"].shape[2]
+    state = decode_queue_state(attn.host_lengths(pos, B), H, S,
+                               n_programs=n_programs, bk=bk)
+    state = to_device(state, x.device)
+    h = x
+    for idx in range(cfg.n_layers):
+        p = tf.layer_params(params, idx)
+        hn = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        a, _ = attn.gqa_decode_ws(
+            hn, p["attn"], cfg, _layer_cache(caches.kv, idx), pos,
+            schedule=schedule, bk=bk, n_programs=n_programs, mode=mode, state=state,
+        )
+        h = h + s * a
+        hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+        h = h + s * swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+    return _logits(params, cfg, h), caches
+
+
+def prefill(params, cfg, batch, *, capacity: int | None = None, chunk: int = 1024):
+    """Process a full prompt; returns (last-token logits [B, V] fp32, Caches)."""
+    _check_dense(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, device=dev).expand(B, S)
+    dt = tf.torch_dtype(cfg.dtype)
+    s = tf._res_scale(cfg)
+    cap = capacity or S
+    caches = init_caches(cfg, B, cap, device=dev)
+    h = x
+    for idx, w in enumerate(cfg.layer_windows):
+        p = tf.layer_params(params, idx)
+        hn = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        k = torch.einsum("bsd,dhe->bshe", hn, p["attn"]["wk"])
+        v = torch.einsum("bsd,dhe->bshe", hn, p["attn"]["wv"])
+        k = attn.apply_rope(k, positions, cfg.rope_theta)
+        a = attn.gqa_train(hn, p["attn"], cfg, positions, window=w, chunk=chunk)
+        caches.kv.k[idx, :, :S] = k.to(dt)
+        caches.kv.v[idx, :, :S] = v.to(dt)
+        h = h + s * a
+        hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+        h = h + s * swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bd,dv->bv", h[:, -1], _unembed_matrix(params, cfg))
+    return _mask_pad_vocab(logits.float(), cfg), caches

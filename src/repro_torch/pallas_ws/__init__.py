@@ -1,0 +1,38 @@
+"""Work-stealing tile scheduler on the GPU (port of ``repro.pallas_ws``)."""
+
+from .kernel import (
+    MODES,
+    STEAL_POLICIES,
+    WSRunResult,
+    default_rounds,
+    launch_ws_grid,
+    launches,
+    plain_ws_grid,
+    reset_launches,
+    run_ws_schedule,
+)
+from .queues import QueueState, copy_state, make_queue_state, partition_tasks, queue_costs, to_device
+from .ragged import (
+    RaggedStats,
+    decode_queue_state,
+    normalized_out,
+    ragged_decode_attention,
+    ragged_decode_ref,
+)
+from .tasks import (
+    BOTTOM,
+    TASK_WIDTH,
+    TileTask,
+    emit_decode_tasks,
+    emit_flash_tasks,
+    multiplicity_divisor,
+)
+
+__all__ = [
+    "BOTTOM", "MODES", "STEAL_POLICIES", "TASK_WIDTH", "QueueState", "RaggedStats",
+    "TileTask", "WSRunResult", "copy_state", "decode_queue_state", "default_rounds",
+    "emit_decode_tasks", "emit_flash_tasks", "launch_ws_grid", "launches",
+    "make_queue_state", "multiplicity_divisor", "normalized_out", "partition_tasks",
+    "plain_ws_grid", "queue_costs", "ragged_decode_attention", "ragged_decode_ref",
+    "reset_launches", "run_ws_schedule", "to_device",
+]

@@ -1,0 +1,520 @@
+"""Fence-free work-stealing attention megakernel: wrapper and plain version
+(port of ``repro/pallas_ws/kernel.py``, attention family).
+
+The TPU kernel is one ``pallas_call`` over the grid ``(rounds, P)``: the
+scheduler shell ``_generic_ws_kernel`` (WS-WMULT Take/Steal with plain loads
+and stores, ``ws_try_extract``/``_probe_slot``/``ws_account``) around the
+attention tile body ``_attention_execute``.  Here the same function is the
+hand-written CUDA kernel ``csrc/ws_attention.cu``, launched by
+:func:`launch_ws_grid` for CUDA tensors, and :func:`plain_ws_grid`, a
+Python walk that mirrors the kernel statement by statement, for CPU tensors.
+
+``mode="lockstep"`` is the reference's semantics (Pallas interpret order):
+one walker over ``(r, p)``, program innermost; integer arrays bit-equal to
+the reference; ``out`` accumulates ``tile × mult``.  ``mode="free"`` (the
+default) is the paper's setting: on the card, P CTAs run concurrently until
+their views show every queue drained; ``out`` holds plain stores of whole
+normalised tiles and multiplicity is summed from per-program rows, so a
+free-mode ``out`` is never divided by ``mult``.  The plain version of free
+mode serialises the programs round-robin, one extraction each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .queues import QueueState, queue_costs
+from .tasks import (
+    BOTTOM,
+    F_B,
+    F_COST,
+    F_H,
+    F_KV,
+    F_OP,
+    F_QL,
+    F_QS,
+    F_TID,
+    max_cost,
+)
+
+NEG_INF = -1e30
+STEAL_POLICIES = ("cost", "scan")
+MODES = ("lockstep", "free")
+
+# Rounds the compressed no-steal drain needs (one slack round, as the reference).
+STATIC_COMPRESSED_ROUNDS = 2
+
+# Launches of each CUDA kernel in this process: the wrapper adds one where it
+# launches, and nowhere else.
+launches = {"ws_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+@dataclass
+class WSRunResult:
+    """Post-launch queue/telemetry arrays, int32 tensors on the launch's device."""
+
+    out: torch.Tensor         # [B, H, Sq_out, hd] fp32
+    head: torch.Tensor        # [n_queues]
+    local_head: torch.Tensor  # [n_programs, n_queues]
+    taken: torch.Tensor       # [n_queues, capacity]
+    remaining: torch.Tensor   # [n_queues]
+    clock: torch.Tensor       # [n_programs]
+    work: torch.Tensor        # [n_programs]
+    steals: torch.Tensor      # [n_programs]
+    scanned: torch.Tensor     # [n_programs]
+    mult: torch.Tensor        # [n_tasks] executions per task (free: summed rows)
+    mode: str = "free"
+
+    @property
+    def makespan(self) -> int:
+        return int(self.clock.max()) if self.clock.numel() else 0
+
+    @property
+    def total_work(self) -> int:
+        return int(self.work.sum())
+
+    @property
+    def wasted_slots(self) -> int:
+        return self.work.numel() * self.makespan - self.total_work
+
+    @property
+    def slots_scanned(self) -> int:
+        return int(self.scanned.sum())
+
+    @property
+    def extractions(self) -> int:
+        return int(self.mult.sum())
+
+    @property
+    def scan_per_extraction(self) -> float:
+        return self.slots_scanned / max(1, self.extractions)
+
+
+def default_rounds(state: QueueState, steal: bool,
+                   compress_runs: Optional[bool] = None,
+                   steal_run_cap: int = 1) -> int:
+    """Static upper bound on lockstep rounds to drain every queue: Graham's
+    ``ceil(total/P) + max_cost`` with stealing, O(1) for the compressed
+    no-steal drain, the heaviest queue otherwise."""
+    compress = (not steal) if compress_runs is None else compress_runs
+    costs = queue_costs(state)
+    total = int(costs.sum())
+    if total == 0:
+        return 1
+    mc = max_cost(state.task_list) if state.task_list else int(costs.max())
+    if steal:
+        return -(-total // state.n_programs) + max(1, steal_run_cap) * mc
+    if compress:
+        return STATIC_COMPRESSED_ROUNDS
+    return int(costs.max())
+
+
+# ---------------------------------------------------------------------------
+# plain version
+
+
+class _PlainWalk:
+    """Python mirror of ``csrc/ws_attention.cu``: the same scheduler functions
+    over list copies of the int32 arrays, the same tile in torch fp32."""
+
+    def __init__(self, arrs, q, k, v, out, *, steal, policy, bq, bk, causal,
+                 scale, g):
+        self.tasks = arrs["tasks"].tolist()
+        self.tail = arrs["tail"].tolist()
+        self.head = arrs["head"].tolist()
+        self.local_head = arrs["local_head"].tolist()
+        self.taken = arrs["taken"].tolist()
+        self.remaining = arrs["remaining"].tolist()
+        self.clock = arrs["clock"].tolist()
+        self.work = arrs["work"].tolist()
+        self.steals = arrs["steals"].tolist()
+        self.scanned = arrs["scanned"].tolist()
+        self.mult = arrs["mult"].tolist()
+        self.n_queues = len(self.head)
+        self.capacity = len(self.tasks[0])
+        self.q, self.k, self.v, self.out = q, k, v, out
+        self.steal, self.policy = steal, policy
+        self.bq, self.bk, self.causal, self.scale, self.g = bq, bk, causal, scale, g
+
+    def arrays(self):
+        names = ("head", "local_head", "taken", "remaining", "clock", "work",
+                 "steals", "scanned", "mult")
+        return {n: np.asarray(getattr(self, n), dtype=np.int32) for n in names}
+
+    # -- scheduler ------------------------------------------------------------
+    def rmax_read(self, p, v):
+        return max(self.local_head[p][v], self.head[v])
+
+    def probe(self, v, h, want):
+        issue = want and h < self.capacity
+        return (self.tasks[v][h][F_OP] if issue else BOTTOM), int(issue)
+
+    def claim_writes(self, p, v, h):
+        self.head[v] = h + 1
+        self.local_head[p][v] = h + 1
+
+    def scan_extract(self, p):
+        found, fq, fs, nread = False, 0, 0, 0
+        for j in range(self.n_queues if self.steal else 1):
+            v = (p + j) % self.n_queues
+            h = self.rmax_read(p, v)
+            op, issued = self.probe(v, h, not found)
+            live = op != BOTTOM
+            if not found and live:
+                self.claim_writes(p, v, h)
+                fq, fs = v, h
+            found = found or live
+            nread += issued
+        return found, fq, fs, nread
+
+    def cost_extract(self, p):
+        own = p % self.n_queues
+        h0 = self.rmax_read(p, own)
+        op0, issued0 = self.probe(own, h0, True)
+        own_live = op0 != BOTTOM
+        if own_live:
+            self.claim_writes(p, own, h0)
+        if not self.steal:
+            return own_live, own, h0, issued0
+        best_v, best, best_h = 0, 0, 0
+        for v in range(self.n_queues):
+            h = self.rmax_read(p, v)
+            score = max(self.remaining[v], 1) if h < self.tail[v] else 0
+            if v == 0 or score > best:  # first-index argmax
+                best_v, best, best_h = v, score, h
+        can = (not own_live) and best > 0
+        op, issued = self.probe(best_v, best_h, can)
+        live = can and op != BOTTOM
+        if live:
+            self.claim_writes(p, best_v, best_h)
+        return (own_live or live, own if own_live else best_v,
+                h0 if own_live else best_h, issued0 + issued)
+
+    def extract(self, p):
+        return self.scan_extract(p) if self.policy == "scan" else self.cost_extract(p)
+
+    def account(self, r, p, fq, fs, *, advisory, free):
+        rec = self.tasks[fq][fs]
+        tid, cost = rec[F_TID], rec[F_COST]
+        if free:
+            self.mult[p][tid] += 1
+        else:
+            self.mult[tid] += 1
+        self.taken[fq][fs] = p
+        if advisory:
+            self.remaining[fq] = max(self.remaining[fq] - cost, 0)
+        self.work[p] += cost
+        self.steals[p] += int(fq != p % self.n_queues)
+        self.clock[p] = self.clock[p] + cost if free else max(self.clock[p], r) + cost
+        return cost
+
+    # -- tile -----------------------------------------------------------------
+    def execute(self, fq, fs, *, store):
+        rec = self.tasks[fq][fs]
+        b, h, qs, ql = rec[F_B], rec[F_H], rec[F_QS], rec[F_QL]
+        kv_end, cost = rec[F_KV], rec[F_COST]
+        q, k, v = self.q, self.k, self.v
+        bq, bk = self.bq, self.bk
+        kh = h // self.g
+        Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
+        dev = q.device
+        qt = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
+        n = max(0, min(bq, Sq - qs))
+        qt[:n] = q[b, h, qs:qs + n].float()
+        m = torch.full((bq,), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((bq,), dtype=torch.float32, device=dev)
+        acc = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
+        rows = torch.arange(bq, device=dev)[:, None]
+        for ki in range(cost):
+            k0 = ki * bk
+            nk = max(0, min(bk, Sk - k0))
+            kt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
+            vt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
+            kt[:nk] = k[b, kh, k0:k0 + nk].float()
+            vt[:nk] = v[b, kh, k0:k0 + nk].float()
+            s = (qt @ kt.T) * self.scale
+            kpos = k0 + torch.arange(bk, device=dev)[None, :]
+            valid = kpos < kv_end
+            if self.causal:
+                valid = valid & (kpos <= qs + rows)
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.max(dim=1).values)
+            pexp = torch.exp(s - m_new[:, None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pexp.sum(dim=1)
+            acc = acc * corr[:, None] + pexp @ vt
+            m = m_new
+        tile = acc / torch.clamp(l, min=1e-30)[:, None]
+        tile[ql:] = 0.0
+        if store:
+            self.out[b, h, qs:qs + bq] = tile
+        else:
+            self.out[b, h, qs:qs + bq] += tile
+
+    # -- the two walks ----------------------------------------------------------
+    def lockstep(self, rounds, P, compress):
+        for r in range(rounds):
+            for p in range(P):
+                if compress:
+                    self._drain_run(r, p)
+                    continue
+                found, fq, fs, nread = (
+                    self.extract(p) if self.clock[p] <= r else (False, 0, 0, 0)
+                )
+                self.scanned[p] += nread
+                if found:
+                    self.execute(fq, fs, store=False)
+                    self.account(r, p, fq, fs, advisory=True, free=False)
+
+    def _drain_run(self, r, p):
+        if self.clock[p] > r:
+            return
+        own = p % self.n_queues
+
+        def probe_own():
+            h = self.rmax_read(p, own)
+            op, issued = self.probe(own, h, True)
+            self.scanned[p] += issued
+            return op != BOTTOM, h
+
+        live, h = probe_own()
+        total = 0
+        while live:
+            self.claim_writes(p, own, h)
+            self.execute(own, h, store=False)
+            total += self.account(r, p, own, h, advisory=False, free=False)
+            live, h = probe_own()
+        if total > 0:
+            self.remaining[own] = max(self.remaining[own] - total, 0)
+
+    def free(self, P):
+        active = [True] * P
+        while any(active):
+            for p in range(P):
+                if not active[p]:
+                    continue
+                found, fq, fs, nread = self.extract(p)
+                self.scanned[p] += nread
+                if not found:
+                    active[p] = False
+                    continue
+                self.execute(fq, fs, store=True)
+                self.account(0, p, fq, fs, advisory=True, free=True)
+
+
+# ---------------------------------------------------------------------------
+# launch
+
+
+def _check_records(tasks: np.ndarray, *, B, H, sq_out, bq, n_tasks) -> None:
+    """The kernel indexes q/out/mult with the live records' fields: reject a
+    host-built record that would read or write out of bounds."""
+    live = tasks[tasks[..., F_OP] != BOTTOM]
+    if not live.size:
+        return
+    bad = ((live[:, F_B] < 0) | (live[:, F_B] >= B) | (live[:, F_H] < 0)
+           | (live[:, F_H] >= H) | (live[:, F_QS] < 0) | (live[:, F_QS] + bq > sq_out)
+           | (live[:, F_TID] < 0) | (live[:, F_TID] >= n_tasks) | (live[:, F_COST] < 0))
+    if bad.any():
+        raise ValueError(f"task record out of range for B={B}, H={H}, Sq={sq_out}: "
+                         f"{live[bad][0].tolist()}")
+
+
+def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
+         steal=True, steal_policy="cost", steal_run_cap=1, rounds=None,
+         mult=None, compress_runs=None, mode=None, stage_open=None,
+         trace=False, trace_capacity=None, trace_remote=False,
+         fault_plan=None) -> WSRunResult:
+    if steal_run_cap != 1:
+        raise NotImplementedError("steal_run_cap > 1 (half-run steals) is not ported yet")
+    if trace or trace_capacity is not None or trace_remote:
+        raise NotImplementedError("trace rings are not ported yet")
+    if fault_plan is not None:
+        raise NotImplementedError("fault_plan is not ported yet")
+    if stage_open is not None:
+        raise NotImplementedError("stage_open is not ported yet")
+    if steal_policy not in STEAL_POLICIES:
+        raise ValueError(f"steal_policy must be one of {STEAL_POLICIES}: {steal_policy!r}")
+    mode = "free" if mode is None else mode
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}: {mode!r}")
+    compress = (not steal) if compress_runs is None else compress_runs
+    if compress and steal:
+        raise ValueError("compress_runs models the no-steal schedule only")
+    dev = q.device
+    if not (k.device == v.device == out.device == dev):
+        raise ValueError("q, k, v and out must lie on one device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q, k, v must share dtype float32 or bfloat16: "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, H, Sq, hd = q.shape
+    Hkv = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or H % Hkv:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if (out.dtype != torch.float32 or not out.is_contiguous()
+            or out.shape[:2] != (B, H) or out.shape[3] != hd
+            or out.shape[2] % bq or out.shape[2] < Sq):
+        raise ValueError(f"out must be contiguous float32 [B, H, Sq padded to bq, hd]: "
+                         f"{out.dtype} {tuple(out.shape)}")
+    P = state.n_programs
+    n_tasks = max(1, state.n_tasks)
+    if mult is not None and tuple(mult.shape) != (n_tasks,):
+        raise ValueError(f"carried mult has shape {tuple(mult.shape)}, expected ({n_tasks},)")
+    if isinstance(state.tasks, np.ndarray):
+        _check_records(state.tasks, B=B, H=H, sq_out=out.shape[2], bq=bq, n_tasks=n_tasks)
+    if mode == "lockstep" and rounds is None:
+        rounds = default_rounds(state, steal, compress_runs=compress)
+    remaining = state.remaining
+    if remaining is None:
+        remaining = queue_costs(state)
+
+    def i32(a, fresh):
+        t = torch.as_tensor(a, dtype=torch.int32, device=dev)
+        return t.clone() if fresh else t.contiguous()
+
+    arrs = {
+        "tasks": i32(state.tasks, False),
+        "tail": i32(state.tail, False),
+        "head": i32(state.head, True),
+        "local_head": i32(state.local_head, True),
+        "taken": i32(state.taken, True),
+        "remaining": i32(remaining, True),
+        "clock": torch.zeros(P, dtype=torch.int32, device=dev),
+        "work": torch.zeros(P, dtype=torch.int32, device=dev),
+        "steals": torch.zeros(P, dtype=torch.int32, device=dev),
+        "scanned": torch.zeros(P, dtype=torch.int32, device=dev),
+    }
+    mult0 = (torch.zeros(n_tasks, dtype=torch.int32, device=dev) if mult is None
+             else i32(mult, True))
+    arrs["mult"] = (mult0 if mode == "lockstep"
+                    else torch.zeros((P, n_tasks), dtype=torch.int32, device=dev))
+    g = H // Hkv
+    if plain:
+        walk = _PlainWalk({n: a.cpu().numpy() for n, a in arrs.items()}, q, k, v, out,
+                          steal=steal, policy=steal_policy, bq=bq, bk=bk,
+                          causal=causal, scale=scale, g=g)
+        if mode == "lockstep":
+            walk.lockstep(rounds, P, compress)
+        else:
+            walk.free(P)
+        for n, a in walk.arrays().items():
+            arrs[n].copy_(torch.from_numpy(a))
+    else:
+        _launch_cuda(arrs, q, k, v, out, mode=mode, rounds=rounds or 0, steal=steal,
+                     policy=steal_policy, compress=compress, causal=causal,
+                     bq=bq, bk=bk, scale=scale, g=g, n_tasks=n_tasks)
+    total_mult = arrs["mult"] if mode == "lockstep" else mult0 + arrs["mult"].sum(0, dtype=torch.int32)
+    return WSRunResult(
+        out=out, head=arrs["head"], local_head=arrs["local_head"],
+        taken=arrs["taken"], remaining=arrs["remaining"], clock=arrs["clock"],
+        work=arrs["work"], steals=arrs["steals"], scanned=arrs["scanned"],
+        mult=total_mult, mode=mode,
+    )
+
+
+def _kernel_fn():
+    """The C entry point of ``csrc/ws_attention.cu`` (built at first use)."""
+    from .. import _build
+
+    fn = _build.load("ws_attention").ws_attention_launch
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        # mode, dtype; 11 int32 arrays; q, k, v, out; strides; 9 sizes and
+        # flags; 8 shape ints; scale; stream
+        fn.argtypes = ([i, i] + [ptr] * 11 + [ptr] * 4 + [ptr]
+                       + [i] * 9 + [i] * 8 + [ctypes.c_float, ptr])
+        fn.restype = i
+    return fn
+
+
+def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
+                 causal, bq, bk, scale, g, n_tasks) -> None:
+    fn = _kernel_fn()
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride())
+    names = ("tasks", "tail", "head", "local_head", "taken", "remaining", "clock",
+             "work", "steals", "scanned", "mult")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(
+        MODES.index(mode), 1 if q.dtype == torch.bfloat16 else 0,
+        *[arrs[n].data_ptr() for n in names],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ctypes.cast(strides, ctypes.c_void_p),
+        arrs["head"].shape[0], arrs["tasks"].shape[1], arrs["clock"].shape[0],
+        n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),
+        int(causal),
+        H, Sq, out.shape[2], Sk, hd, g, bq, bk, float(scale), stream,
+    )
+    launches["ws_attention"] += 1
+    if err != 0:
+        raise RuntimeError(f"ws_attention launch failed with CUDA error {err}")
+
+
+def launch_ws_grid(state: QueueState, q, k, v, out, *, bq: int, bk: int,
+                   causal: bool, scale: float, steal: bool = True,
+                   steal_policy: str = "cost", steal_run_cap: int = 1,
+                   rounds: Optional[int] = None, mult=None,
+                   compress_runs: Optional[bool] = None, mode: Optional[str] = None,
+                   stage_open=None, trace: bool = False,
+                   trace_capacity: Optional[int] = None, trace_remote: bool = False,
+                   fault_plan=None) -> WSRunResult:
+    """Run the work-stealing grid with the attention tile body, narrowed to the
+    attention family.  ``out`` ([B, H, Sq_out, hd] fp32, contiguous) is
+    written in place: lockstep accumulates into it, free mode stores.
+
+    CUDA tensors launch ``csrc/ws_attention.cu``; CPU tensors run the plain
+    version.  There is no fallback between the two.
+    """
+    return _run(state, q, k, v, out, bq=bq, bk=bk, causal=causal, scale=scale,
+                steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap,
+                rounds=rounds, mult=mult, compress_runs=compress_runs, mode=mode,
+                stage_open=stage_open, trace=trace, trace_capacity=trace_capacity,
+                trace_remote=trace_remote, fault_plan=fault_plan,
+                plain=q.device.type == "cpu")
+
+
+def plain_ws_grid(state: QueueState, q, k, v, out, **kw) -> WSRunResult:
+    """The plain PyTorch version of :func:`launch_ws_grid` on any device: the
+    scheduler walk on the host, the tile math in torch on the tensors' device."""
+    return _run(state, q, k, v, out, plain=True, **kw)
+
+
+def run_ws_schedule(state: QueueState, q, k, v, *, causal: bool, bq: int, bk: int,
+                    steal: bool = True, steal_policy: str = "cost",
+                    steal_run_cap: int = 1, rounds: Optional[int] = None,
+                    out=None, mult=None, compress_runs: Optional[bool] = None,
+                    mode: Optional[str] = None, trace: bool = False,
+                    trace_capacity: Optional[int] = None, fault_plan=None) -> WSRunResult:
+    """Launch the attention megakernel over a prepared :class:`QueueState`.
+
+    ``q``: [B, H, Sq, hd]; ``k``/``v``: [B, Hkv, Sk, hd], any strides (the
+    kernel guards ``kpos < Sk`` and ``qpos < Sq`` itself, so nothing is
+    padded or copied).  ``out``/``mult`` may be carried over from a previous
+    launch (resume / multiplicity drills); ``out`` is [B, H, ceil(Sq/bq)·bq,
+    hd] fp32.
+    """
+    B, H, Sq, hd = q.shape
+    sq_out = -(-Sq // bq) * bq
+    if out is None:
+        out = torch.zeros((B, H, sq_out, hd), dtype=torch.float32, device=q.device)
+    else:
+        out = torch.as_tensor(out, dtype=torch.float32).to(q.device).clone().contiguous()
+        if tuple(out.shape) != (B, H, sq_out, hd):
+            raise ValueError(f"carried out has shape {tuple(out.shape)}, "
+                             f"expected {(B, H, sq_out, hd)}")
+    return launch_ws_grid(state, q, k, v, out, bq=bq, bk=bk, causal=causal,
+                          scale=hd ** -0.5, steal=steal, steal_policy=steal_policy,
+                          steal_run_cap=steal_run_cap, rounds=rounds, mult=mult,
+                          compress_runs=compress_runs, mode=mode, trace=trace,
+                          trace_capacity=trace_capacity, fault_plan=fault_plan)

@@ -1,0 +1,154 @@
+"""Per-program task queues as flat int32 arrays (WS-WMULT Fig. 7), the
+host Put — port of the dense-layout half of ``repro/pallas_ws/queues.py``.
+
+==========================  =====================================================
+paper (Fig. 7)              array (plain loads/stores only)
+==========================  =====================================================
+``tasks[1..∞]`` per queue   ``tasks[q, s, :]``  [n_queues, capacity, TASK_WIDTH]
+``Head`` register           ``head[q]``         [n_queues]
+process-local ``head``      ``local_head[p, q]`` [n_programs, n_queues]
+(announcement)              ``taken[q, s]``     [n_queues, capacity]
+``tail`` (owner-local)      ``tail[q]``         [n_queues], static: Puts happen
+                                                 before the launch
+==========================  =====================================================
+
+A host-built state holds numpy arrays; :func:`to_device` turns it into a
+state of device tensors once, so a decode step can launch the same Put in
+every layer without uploading it again (each launch clones the mutable
+arrays, so the state itself is never consumed).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .tasks import BOTTOM, F_COST, F_OP, TASK_WIDTH, TileTask
+
+
+@dataclass
+class QueueState:
+    """The Fig. 7 arrays (numpy on the host, or tensors after :func:`to_device`).
+
+    ``remaining[q]`` is the advisory per-queue cost summary the cost-aware
+    victim choice ranks by: initialised to the enqueued cost, decremented
+    best-effort by claimants; stale values mis-rank victims, nothing more.
+    """
+
+    tasks: np.ndarray        # [n_queues, capacity, TASK_WIDTH]
+    head: np.ndarray         # [n_queues]
+    tail: np.ndarray         # [n_queues]
+    local_head: np.ndarray   # [n_programs, n_queues]
+    taken: np.ndarray        # [n_queues, capacity]; -1 = not extracted
+    task_list: Optional[List[TileTask]] = None
+    remaining: Optional[np.ndarray] = None  # [n_queues]
+
+    @property
+    def n_queues(self) -> int:
+        return self.head.shape[0]
+
+    @property
+    def n_programs(self) -> int:
+        return self.local_head.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.tasks.shape[1]
+
+    @property
+    def n_tasks(self) -> int:
+        return len(self.task_list) if self.task_list is not None else 0
+
+
+def partition_tasks(
+    tasks: Sequence[TileTask], n_queues: int, partition: str = "owner"
+) -> List[List[TileTask]]:
+    """``"owner"``/``"batch"``: queue ``task.owner % n_queues`` (the skew
+    the thieves erase); ``"round_robin"``: task-index striping."""
+    buckets: List[List[TileTask]] = [[] for _ in range(n_queues)]
+    for i, t in enumerate(tasks):
+        q = (t.owner if partition in ("owner", "batch") else i) % n_queues
+        buckets[q].append(t)
+    return buckets
+
+
+def make_queue_state(
+    tasks: Sequence[TileTask],
+    n_programs: int,
+    n_queues: int | None = None,
+    partition: str = "batch",
+) -> QueueState:
+    """Lay tasks out in the Fig. 7 format; slots past each tail stay ⊥."""
+    n_queues = n_programs if n_queues is None else n_queues
+    buckets = partition_tasks(tasks, n_queues, partition)
+    cap = max(4, max((len(b) for b in buckets), default=0) + 2)
+    arr = np.full((n_queues, cap, TASK_WIDTH), BOTTOM, dtype=np.int32)
+    tail = np.zeros((n_queues,), dtype=np.int32)
+    remaining = np.zeros((n_queues,), dtype=np.int32)
+    for q, bucket in enumerate(buckets):
+        for s, t in enumerate(bucket):
+            arr[q, s] = t.encode()
+        tail[q] = len(bucket)
+        remaining[q] = sum(t.cost for t in bucket)
+    return QueueState(
+        tasks=arr,
+        head=np.zeros((n_queues,), dtype=np.int32),
+        tail=tail,
+        local_head=np.zeros((n_programs, n_queues), dtype=np.int32),
+        taken=np.full((n_queues, cap), -1, dtype=np.int32),
+        task_list=list(tasks),
+        remaining=remaining,
+    )
+
+
+def copy_state(state: QueueState) -> QueueState:
+    """Independent copy (arrays copied, task_list shared: tasks are
+    immutable records).  Drills mutate head/local bounds in place; the
+    fault-free oracle runs from a pristine copy."""
+
+    def cp(a):
+        if a is None:
+            return None
+        return a.clone() if isinstance(a, torch.Tensor) else np.array(a)
+
+    return QueueState(
+        tasks=cp(state.tasks),
+        head=cp(state.head),
+        tail=cp(state.tail),
+        local_head=cp(state.local_head),
+        taken=cp(state.taken),
+        task_list=state.task_list,
+        remaining=cp(state.remaining),
+    )
+
+
+def host_array(a) -> np.ndarray:
+    """numpy view of a host array or a (possibly device) tensor."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def queue_costs(state: QueueState) -> np.ndarray:
+    """Total tile-slot cost enqueued per queue (the static-schedule load)."""
+    tasks = host_array(state.tasks)
+    live = tasks[:, :, F_OP] != BOTTOM
+    return np.where(live, tasks[:, :, F_COST], 0).sum(axis=1)
+
+
+def to_device(state: QueueState, device) -> QueueState:
+    """The same state with every array an int32 tensor on ``device``."""
+    remaining = state.remaining
+    if remaining is None:
+        remaining = queue_costs(state).astype(np.int32)
+
+    def dev(a):
+        return torch.as_tensor(host_array(a), dtype=torch.int32).to(device)
+
+    return replace(
+        state,
+        tasks=dev(state.tasks), head=dev(state.head), tail=dev(state.tail),
+        local_head=dev(state.local_head), taken=dev(state.taken),
+        remaining=dev(remaining),
+    )

@@ -1,0 +1,112 @@
+"""Task records of the work-stealing tile scheduler (port of
+``repro/pallas_ws/tasks.py``, attention family).
+
+A task is one idempotent tile: a fixed-width int32 record in the Fig. 7
+``tasks`` array, where ``tasks[i] = ⊥`` is "field 0 == BOTTOM".  Executing
+a task computes its whole, disjoint output slice; ``mult[tid]`` counts
+executions so duplicates from the relaxed scheduler can be divided back
+out (lockstep accumulate) or are harmless (free-mode plain store).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+# int32 sentinel marking a never-filled task slot (the paper's ⊥).
+BOTTOM = -1
+
+# Record layout: 8 × int32 per task.  Field 0 and the tail two fields are
+# family-agnostic; fields 1-5 are the attention family's operands.
+TASK_WIDTH = 8
+F_OP = 0      # op id (>= 0 live; BOTTOM empty)
+F_B = 1       # batch row
+F_H = 2       # query head
+F_QS = 3      # first q row of the tile
+F_QL = 4      # number of live q rows (< bq on a ragged tail tile)
+F_KV = 5      # kv end, exclusive (== sequence length)
+F_TID = 6     # global task id (indexes the multiplicity counters)
+F_COST = 7    # tile-slots (kv blocks) this task occupies
+
+OP_FLASH_TILE = 0
+OP_DECODE_TILE = 1
+
+
+@dataclass(frozen=True)
+class TileTask:
+    """Attention-family task: one (b, h, q-block) tile sweeping kv [0, kv_end)."""
+
+    op: int
+    b: int
+    h: int
+    q_start: int
+    q_len: int
+    kv_end: int
+    tid: int
+    cost: int
+
+    @property
+    def owner(self) -> int:
+        """Owner-queue key for ``partition_tasks(partition="owner")``."""
+        return self.b
+
+    def encode(self) -> np.ndarray:
+        return np.array(
+            [self.op, self.b, self.h, self.q_start, self.q_len,
+             self.kv_end, self.tid, self.cost],
+            dtype=np.int32,
+        )
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def emit_flash_tasks(lengths, n_heads: int, bq: int, bk: int, causal: bool = True):
+    """One task per live (b, h, q-block) of a ragged batch; rows past
+    ``lengths[b]`` produce no task."""
+    tasks = []
+    tid = 0
+    for b, ln in enumerate(np.asarray(lengths, dtype=np.int64)):
+        ln = int(ln)
+        for h in range(n_heads):
+            for qi in range(_cdiv(ln, bq)):
+                qs = qi * bq
+                ql = min(bq, ln - qs)
+                kv_end = min(qs + bq, ln) if causal else ln
+                cost = max(1, _cdiv(kv_end, bk))
+                tasks.append(TileTask(OP_FLASH_TILE, b, h, qs, ql, ln, tid, cost))
+                tid += 1
+    return tasks
+
+
+def emit_decode_tasks(lengths, n_heads: int, bk: int):
+    """One task per live (b, h): a single query row sweeping kv [0, len)."""
+    tasks = []
+    tid = 0
+    for b, ln in enumerate(np.asarray(lengths, dtype=np.int64)):
+        ln = int(ln)
+        if ln <= 0:
+            continue
+        for h in range(n_heads):
+            tasks.append(
+                TileTask(OP_DECODE_TILE, b, h, 0, 1, ln, tid, max(1, _cdiv(ln, bk)))
+            )
+            tid += 1
+    return tasks
+
+
+def multiplicity_divisor(tasks, mult, out_shape) -> np.ndarray:
+    """Per-output-row divisor [B, H, Sq] for lockstep's accumulated
+    duplicates; rows owned by no task get divisor 1 and stay zero."""
+    B, H, Sq = out_shape
+    mult = np.asarray(mult)
+    div = np.ones((B, H, Sq), dtype=np.float32)
+    for t in tasks:
+        div[t.b, t.h, t.q_start: t.q_start + t.q_len] = max(1, int(mult[t.tid]))
+    return div
+
+
+def max_cost(tasks) -> int:
+    return max((t.cost for t in tasks), default=0)

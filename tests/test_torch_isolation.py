@@ -1,0 +1,200 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, runs on
+CUDA unless told otherwise, and never falls back to the CPU by itself.  The
+kernel checks at the bottom need a CUDA card and skip without one."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module(path):
+    parts = path.relative_to(PORT.parent).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+MODULES = sorted(_module(p) for p in PORT.rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {n}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import runpy; runpy.run_path(sys.argv[1], run_name='not_main')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.configs.llama3_2_3b import SMOKE
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import init_caches, init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(SMOKE)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_caches(SMOKE, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_jax({"embed": np.zeros((2, 2), np.float32)})
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu").type == "cpu"
+    assert init_params(SMOKE, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
+    from repro_torch.pallas_ws import emit_decode_tasks, launches, make_queue_state, run_ws_schedule
+
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 1, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 1, 16, 8)).astype(np.float32))
+    before = launches["ws_attention"]
+    res = run_ws_schedule(make_queue_state(emit_decode_tasks([16, 3], 2, 8), 2), q, k, k,
+                          causal=False, bq=1, bk=8)
+    assert launches["ws_attention"] == before
+    assert (res.mult == 1).all() and res.mode == "free"
+
+
+@pytest.mark.parametrize("kw", [dict(steal_run_cap=2), dict(trace=True),
+                                dict(fault_plan=object())])
+def test_unported_knobs_raise(kw):
+    from repro_torch.pallas_ws import emit_decode_tasks, make_queue_state, run_ws_schedule
+
+    q = torch.zeros((1, 1, 1, 8))
+    k = torch.zeros((1, 1, 8, 8))
+    with pytest.raises(NotImplementedError):
+        run_ws_schedule(make_queue_state(emit_decode_tasks([8], 1, 8), 1), q, k, k,
+                        causal=False, bq=1, bk=8, **kw)
+
+
+def test_kernel_wrapper_marshals_every_argument(monkeypatch):
+    """The CUDA launch cannot run here, so drive the wrapper's argument
+    marshalling against a stand-in for the C entry point that converts every
+    argument through its declared ctypes type and counts the launch."""
+    import ctypes
+    import types
+
+    from repro_torch import _build
+    from repro_torch.pallas_ws import emit_decode_tasks, kernel, make_queue_state
+
+    class EntryPoint:
+        argtypes = None
+        restype = ctypes.c_int
+        status = 0
+
+        def __call__(self, *args):
+            assert len(args) == len(self.argtypes)
+            for t, a in zip(self.argtypes, args):
+                t.from_param(a)
+            return self.status
+
+    entry = EntryPoint()
+    monkeypatch.setattr(_build, "load",
+                        lambda name: types.SimpleNamespace(ws_attention_launch=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    state = make_queue_state(emit_decode_tasks([16, 3], 2, 8), 2)
+    q = torch.zeros((2, 2, 1, 8))
+    k = torch.zeros((2, 16, 1, 8)).permute(0, 2, 1, 3)  # a strided cache view
+    arrs = {n: torch.as_tensor(getattr(state, n)) for n in
+            ("tasks", "tail", "head", "local_head", "taken", "remaining")}
+    for n in ("clock", "work", "steals", "scanned"):
+        arrs[n] = torch.zeros(2, dtype=torch.int32)
+    arrs["mult"] = torch.zeros((2, state.n_tasks), dtype=torch.int32)
+    out = torch.zeros((2, 2, 1, 8))
+    kw = dict(mode="free", rounds=0, steal=True, policy="cost", compress=False,
+              causal=False, bq=1, bk=8, scale=8 ** -0.5, g=2, n_tasks=state.n_tasks)
+    before = kernel.launches["ws_attention"]
+    kernel._launch_cuda(arrs, q, k, k, out, **kw)
+    assert kernel.launches["ws_attention"] == before + 1
+    entry.status = 1  # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        kernel._launch_cuda(arrs, q, k, k, out, **kw)
+
+
+def test_nvcc_flags_target_hopper():
+    from repro_torch import _build
+
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
+    assert (ROOT / ".gitignore").read_text().count("build/repro_torch/") == 1
+
+
+# ---------------------------------------------------------------------------
+# on the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steal,policy", [(True, "cost"), (True, "scan"), (False, "cost")])
+def test_kernel_lockstep_matches_plain_on_card(cuda_device, steal, policy):
+    from repro_torch.pallas_ws import emit_flash_tasks, make_queue_state, run_ws_schedule, to_device
+
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 40, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 2, 40, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 2, 40, 16)).astype(np.float32))
+    state = make_queue_state(emit_flash_tasks([40, 9], 4, 8, 8), 4)
+    kw = dict(causal=True, bq=8, bk=8, steal=steal, steal_policy=policy, mode="lockstep")
+    got = run_ws_schedule(to_device(state, cuda_device), q.to(cuda_device),
+                          k.to(cuda_device), v.to(cuda_device), **kw)
+    want = run_ws_schedule(state, q, k, v, **kw)
+    for f in ("head", "local_head", "taken", "remaining", "clock", "work", "steals",
+              "scanned", "mult"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_free_mode_runs_every_task_on_card(cuda_device):
+    from repro_torch.pallas_ws import emit_decode_tasks, make_queue_state, run_ws_schedule, to_device
+
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((4, 8, 1, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((4, 2, 200, 32)).astype(np.float32))
+    state = make_queue_state(emit_decode_tasks([200, 3, 77, 0], 8, 16), 8)
+    got = run_ws_schedule(to_device(state, cuda_device), q.to(cuda_device),
+                          k.to(cuda_device), k.to(cuda_device), causal=False, bq=1, bk=16)
+    want = run_ws_schedule(state, q, k, k, causal=False, bq=1, bk=16)
+    assert (got.mult[: state.n_tasks] >= 1).all()
+    torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-5)

@@ -4,23 +4,44 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build      nvcc builds csrc/ws_attention.cu for sm_90a from the checkout.
-2. parity     the kernel against its plain PyTorch version on CPU copies of
-              the same inputs, at the decode shapes of the main path
+1. build      nvcc builds csrc/ws_attention.cu and csrc/ws_expert.cu for
+              sm_90a from the checkout, one nvcc each, started together.
+2. parity     the attention kernel against its plain PyTorch version on
+              CPU copies of the same inputs, at the decode shapes of the main path
               (B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8, bf16, K/V read
               through the cache's transposed strides) and one causal flash
               launch (bq=16): lockstep integer arrays bit-equal and `out`
               within ATOL; free mode with every task run, `out` within ATOL
               of the plain version's normalised output, and a seeded rewind
               drill with mult == 2.
-3. audit      0 atom/red/fence/membar in the kernel's SASS and PTX.
-4. serving    llama3.2-3b at full width (bf16, random weights from a seed),
+3. expert     the expert kernel against its plain version on the card at
+              kimi-k2's full width (d 7168, f 2048, 384 experts, top-8,
+              bt 8, P 8, bf16 weights from seed 0), at a decode routing
+              (T=4) and a prefill routing (T=64): lockstep integer arrays
+              bit-equal (cost, scan, static), `out` within ATOL; free mode
+              runs every tile and its combine equals the plain version's
+              normalised one; a rewind drill without thieves gives mult == 2.
+              Then the attention kernel once at kimi's shape (H 64, Hkv 8,
+              hd 112), and the expert kernel's times at the decode routing.
+4. audit      0 atom/red/fence/membar in each kernel's SASS and PTX.
+5. serving    llama3.2-3b at full width (bf16, random weights from a seed),
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
               0; every request completes, launches == decode steps x 28, and
               decode_step_ws logits agree with the dense decode_step.
-5. times      kernel ms (free, lockstep), bound, plain version, and one
-              F.scaled_dot_product_attention call as a yardstick only.
+6. times      attention kernel ms (free, lockstep), bound, plain version,
+              and one F.scaled_dot_product_attention call as a yardstick only.
+7. moe        kimi-k2-1t-a32b at full width, depth 2, moe_dispatch="ws"
+              (bf16, random weights from seed 0), after the llama weights
+              are freed: 2 replicas x 4 slots x 1024 positions, 8 requests
+              all submitted to replica 0; every request completes, replica
+              1 steals, ws_attention launches == decode steps x 2 and
+              ws_expert launches == decode steps x 2 + prefills x 2; one
+              decode_step_ws counted alone launches each kernel twice; that
+              step's expert launches within ATOL of the plain version on
+              their own inputs (a bf16 evaluation must miss ATOL), and its
+              fp32 logits within LOGIT_ULP_SLACK one-ulp distances of the
+              same step on both plain versions.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the ported kernels, and {"ok": true, "device": {...}}.
@@ -28,11 +49,13 @@ object listing the ported kernels, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -50,8 +73,32 @@ ATOL = 1e-4
 # from it at most LOGIT_SLACK times as far as the dense bf16 step does.
 LOGIT_SLACK = 2.0
 
+# ws vs plain version of one kimi-k2 step.  Each expert launch of the step
+# is held to the plain version on its own inputs within ATOL (both fp32, the
+# same math summed in another order; ~1e-6 of |out|), and a bf16 evaluation
+# of the same rows, as the dense dispatch's einsums compute experts, must
+# miss ATOL (its products and hidden tile round to 2^-9 relative, ~1e-3 of
+# |out|).  End to end the two steps cannot be held closer than the bf16
+# residual stream allows: a last-bit difference flips the bf16 rounding of a
+# few activations, each flipped input of a d-wide projection perturbs its
+# outputs by ~sqrt(n/d) ulp and so flips ~sqrt(n*d) of them, and within a
+# few rounded products of two layers most elements of the final hidden state
+# differ by an ulp, whatever precision the experts use.  So the fp32 logits
+# (final norm and unembedding in fp32) are held to LOGIT_ULP_SLACK times the
+# distance that moving every element of the plain step's final hidden state
+# by one bf16 ulp makes: a saturated cascade reads about 1, and 2 allows
+# each element two stacked roundings (one per layer).  Top-k routing is discontinuous: a near-tie flipped
+# by a last-bit difference would change a token's experts, which says
+# nothing of the kernels, so the plain step replays the ws step's routing
+# and the number of top-k sets that would have differed is reported.
+LOGIT_ULP_SLACK = 2
+
 SEED = 0
 DECODE = dict(B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8)
+KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
+EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
+EXPERT_T = {"decode": 4, "prefill": 64}
+PHASES = ("build", "parity", "expert", "audit", "serving", "times", "moe")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -72,12 +119,14 @@ def phase_build():
     from repro_torch import _build
 
     t0 = time.perf_counter()
-    path = _build.build("ws_attention")
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.BUILD_SECONDS['ws_attention']:.2f} s)")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("[build] ptxas:", line.strip())
+    paths = _build.build_all(_build.KERNELS)
+    log(f"[build] {', '.join(p.name for p in paths.values())} in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc "
+        + ", ".join(f"{n} {_build.BUILD_SECONDS[n]:.2f} s" for n in paths) + ")")
+    for name, path in paths.items():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {name} ptxas:", line.strip())
     log("[build] card:", card_line())
 
 
@@ -87,8 +136,8 @@ def _ints(res):
     return {n: getattr(res, n).cpu().numpy() for n in names}
 
 
-def decode_inputs(rng, dev):
-    c = DECODE
+def decode_inputs(rng, dev, c=None):
+    c = DECODE if c is None else c
     lengths = rng.integers(16, c["S"] + 1, size=c["B"])
     lengths[0] = c["S"]  # one full-length slot: the skew the thieves erase
     q = torch.from_numpy(rng.standard_normal((c["B"], c["H"], c["hd"]), np.float32))
@@ -208,16 +257,270 @@ def phase_parity(dev):
     return max(errs)
 
 
+# ---------------------------------------------------------------------------
+# the expert kernel
+
+
+@contextmanager
+def plain_versions():
+    """Route both kernels' wrappers to their plain PyTorch versions on the
+    card (the comparisons' yardstick; the port itself never does this)."""
+    from repro_torch.moe_ws import expert_kernel as X
+    from repro_torch.pallas_ws import kernel as K
+
+    saved = K.launch_ws_grid, X.launch_moe_grid
+    K.launch_ws_grid, X.launch_moe_grid = K.plain_ws_grid, X.plain_moe_grid
+    try:
+        yield
+    finally:
+        K.launch_ws_grid, X.launch_moe_grid = saved
+
+
+@contextmanager
+def routing_tape(record=None, replay=None):
+    """Record the router's top-k of each MoE layer, or replay a recording
+    (counting the tokens whose own top-k set would have differed).  Yields
+    the counts [router calls, flips]; the caller checks the calls, so a
+    renamed router cannot leave the tape silently unused."""
+    from repro_torch.moe_ws import layer
+
+    orig = layer._router
+    tape = iter(replay) if replay is not None else None
+    counts = [0, 0]
+
+    def router(x_flat, p, cfg, group_size):
+        probs, gates, idx, aux = orig(x_flat, p, cfg, group_size)
+        counts[0] += 1
+        if record is not None:
+            record.append((gates, idx))
+        if tape is not None:
+            gates0, idx0 = next(tape)
+            differ = (idx.sort(-1).values != idx0.sort(-1).values).any(-1)
+            counts[1] += int(differ.sum())
+            gates, idx = gates0, idx0
+        return probs, gates, idx, aux
+
+    layer._router = router
+    try:
+        yield counts
+    finally:
+        layer._router = orig
+
+
+def expert_weights(dev):
+    """Full-width expert weights wg, wu [E, d, f], wd [E, f, d], bf16, drawn
+    slab by slab from seed 0 (the port's init of a MoE layer's experts)."""
+    from repro_torch.models.common import dense_init_slabs
+
+    c = EXPERT
+    kw = dict(generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    return (dense_init_slabs(c["d"], (c["E"], c["d"], c["f"]), torch.bfloat16, **kw),
+            dense_init_slabs(c["d"], (c["E"], c["d"], c["f"]), torch.bfloat16, **kw),
+            dense_init_slabs(c["f"], (c["E"], c["f"], c["d"]), torch.bfloat16, **kw))
+
+
+def expert_routing(rng, T):
+    """Top-k routing of T tokens (k distinct experts each, normalised gates)
+    and their fp32 activations, as the host Put lays them out."""
+    from repro_torch.moe_ws import route_to_tasks
+    from repro_torch.pallas_ws import make_queue_state
+
+    c = EXPERT
+    idx = np.stack([rng.choice(c["E"], c["k"], replace=False) for _ in range(T)])
+    gates = rng.uniform(0.1, 1.0, (T, c["k"])).astype(np.float32)
+    gates /= gates.sum(1, keepdims=True)
+    x = rng.standard_normal((T, c["d"])).astype(np.float32)
+    tasks, routed = route_to_tasks(idx, gates, c["E"], bt=c["bt"])
+    ws = make_queue_state(tasks, c["P"], n_queues=c["E"], partition="owner")
+    static = make_queue_state(tasks, c["P"], n_queues=c["P"], partition="owner")
+    return x, tasks, routed, ws, static
+
+
+def _moe(state, x, routed, w, *, plain=False, **kw):
+    from repro_torch.moe_ws import run_moe_schedule
+    from repro_torch.pallas_ws import to_device
+
+    if plain:
+        with plain_versions():
+            return run_moe_schedule(state, x, routed.tok_idx, *w, bt=EXPERT["bt"], **kw)
+    return run_moe_schedule(to_device(state, x.device), x, routed.tok_idx, *w,
+                            bt=EXPERT["bt"], **kw)
+
+
+def _check_expert(name, x, tasks, routed, ws, static, w):
+    """Lockstep bit-equality, free-mode completeness and the no-thief rewind
+    drill of the expert kernel against its plain version, on the card."""
+    from repro_torch.moe_ws import combine_routed
+    from repro_torch.pallas_ws import copy_state
+
+    errs = []
+    for steal, policy, state in ((True, "cost", ws), (True, "scan", ws), (False, "cost", static)):
+        kw = dict(mode="lockstep", steal=steal, steal_policy=policy)
+        res_k = _moe(state, x, routed, w, **kw)
+        torch.cuda.synchronize()
+        res_p = _moe(state, x, routed, w, plain=True, **kw)
+        ik, ip = _ints(res_k), _ints(res_p)
+        for n in ik:
+            if not np.array_equal(ik[n], ip[n]):
+                raise AssertionError(f"expert {name} steal={steal} {policy}: lockstep {n} "
+                                     "differs from the plain version")
+        err = float((res_k.out - res_p.out).abs().max())
+        if not err <= ATOL:
+            raise AssertionError(f"expert {name}: lockstep out max_abs_err {err} > {ATOL}")
+        errs.append(err)
+        if steal and policy == "cost":
+            expect = combine_routed(routed, tasks, res_p)
+        log(f"[expert] {name} steal={steal} {policy} lockstep: integer arrays bit-equal, "
+            f"out max_abs_err {err:.3g}, {state.n_tasks} tiles, makespan {res_k.makespan}")
+
+    res = _moe(ws, x, routed, w, mode="free")
+    torch.cuda.synchronize()
+    mult = res.mult[: ws.n_tasks].cpu()
+    if not bool((mult >= 1).all()):
+        raise AssertionError(f"expert {name}: free mode left {(mult == 0).sum()} tiles unexecuted")
+    err = float((combine_routed(routed, tasks, res) - expect).abs().max())
+    if not err <= ATOL:
+        raise AssertionError(f"expert {name}: free combine max_abs_err {err} > {ATOL}")
+    errs.append(err)
+    log(f"[expert] {name} free: mult in [{int(mult.min())}, {int(mult.max())}], "
+        f"sum(mult)/tiles {int(mult.sum()) / ws.n_tasks:.2f}, combine max_abs_err {err:.3g}")
+
+    # rewind drill without thieves: resume with every head at 0 and every
+    # local bound wiped; each tile runs exactly once more (mult == 2)
+    first = _moe(static, x, routed, w, mode="free", steal=False)
+    drill = copy_state(static)
+    drill.head = np.zeros_like(drill.head)
+    drill.local_head = np.zeros_like(drill.local_head)
+    drill.taken = first.taken.cpu().numpy()
+    drill.remaining = first.remaining.cpu().numpy()
+    second = _moe(drill, x, routed, w, mode="free", steal=False, mult=first.mult)
+    torch.cuda.synchronize()
+    m2 = second.mult[: static.n_tasks].cpu()
+    if not bool((m2 == 2).all()):
+        raise AssertionError(f"expert {name}: rewind drill mult in "
+                             f"[{int(m2.min())}, {int(m2.max())}], want 2")
+    err2 = float((combine_routed(routed, tasks, second) - expect).abs().max())
+    if not err2 <= ATOL:
+        raise AssertionError(f"expert {name}: rewind drill combine max_abs_err {err2} > {ATOL}")
+    log(f"[expert] {name} rewind drill: mult == 2 without thieves, combine max_abs_err {err2:.3g}")
+    return max(errs + [err2])
+
+
+def _fresh_arrays(state, mode, n):
+    """n launch-ready copies of a device state's mutable arrays."""
+    P, n_tasks = state.n_programs, max(1, state.n_tasks)
+    dev = state.tasks.device
+    arrs = []
+    for _ in range(n):
+        a = {x: getattr(state, x).clone() for x in ("head", "local_head", "taken", "remaining")}
+        a.update(tasks=state.tasks, tail=state.tail)
+        for x in ("clock", "work", "steals", "scanned"):
+            a[x] = torch.zeros(P, dtype=torch.int32, device=dev)
+        a["mult"] = torch.zeros((P, n_tasks) if mode == "free" else (n_tasks,),
+                                dtype=torch.int32, device=dev)
+        arrs.append(a)
+    return arrs
+
+
+def _expert_times(x, tasks, routed, ws, w):
+    from repro_torch.moe_ws import expert_kernel as X
+    from repro_torch.pallas_ws import kernel as K
+    from repro_torch.pallas_ws import to_device
+
+    c = EXPERT
+    dev = x.device
+    state = to_device(ws, dev)
+    tok = torch.from_numpy(routed.tok_idx).to(dev)
+    out = torch.zeros((routed.n_rows, c["d"]), dtype=torch.float32, device=dev)
+    times = {}
+    for mode, n in (("free", 10), ("lockstep", 3)):
+        rounds = K.default_rounds(ws, True)
+        arrs = _fresh_arrays(state, mode, n + 1)
+
+        def launch(i, mode=mode, rounds=rounds):
+            X._launch_cuda(arrs[i], x, tok, *w, out, mode=mode, rounds=rounds, steal=True,
+                           policy="cost", compress=False, bt=c["bt"], n_tasks=ws.n_tasks)
+
+        launch(n)  # warm-up
+        torch.cuda.synchronize()
+        times[mode] = _event_ms(launch, n)
+    _moe(ws, x, routed, w, plain=True, mode="free")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _moe(ws, x, routed, w, plain=True, mode="free")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    T = x.shape[0]
+    rows = T * c["k"]                                        # live routed rows
+    touched = int((routed.loads > 0).sum())                  # distinct experts
+    w_bytes = touched * 3 * c["d"] * c["f"] * 2              # their weights, bf16, once
+    io_bytes = T * c["d"] * 4 + routed.n_rows * (c["d"] * 4 + 4) + ws.n_tasks * 8 * 4
+    byte_ms = (w_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 6 * rows * c["d"] * c["f"] / BF16_FLOPS * 1e3
+    bound_ms = max(byte_ms, ops_ms)
+    bound_by = "bytes" if byte_ms >= ops_ms else "operations"
+    log(f"[times] ws_expert decode routing T={T} ({rows} rows over {touched} experts, "
+        f"{ws.n_tasks} tiles): kernel free {times['free']:.4f} ms, lockstep "
+        f"{times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{w_bytes + io_bytes} B), plain version {plain_ms:.2f} ms; no single PyTorch "
+        "call computes a gathered gated expert FFN, so there is no library time")
+    return dict(ms=times["free"], lockstep_ms=times["lockstep"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_expert(dev):
+    from repro_torch.pallas_ws import emit_decode_tasks, make_queue_state, normalized_out
+
+    c = EXPERT
+    t0 = time.perf_counter()
+    w = expert_weights(dev)
+    torch.cuda.synchronize()
+    log(f"[expert] weights E={c['E']} d={c['d']} f={c['f']} bf16 "
+        f"({sum(t.numel() for t in w) * 2 / 1e9:.2f} GB) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    errs, decode = [], None
+    for name, T in EXPERT_T.items():
+        x, tasks, routed, ws, static = expert_routing(rng, T)
+        x = torch.from_numpy(x).to(dev)
+        errs.append(_check_expert(f"{name} T={T}", x, tasks, routed, ws, static, w))
+        if decode is None:
+            decode = (x, tasks, routed, ws)
+
+    # the attention kernel once at kimi's shape (hd 112 is no multiple of 32)
+    k_ = KIMI_DECODE
+    lengths, q, k, v = decode_inputs(rng, dev, k_)
+    atasks = emit_decode_tasks(lengths, k_["H"], k_["bk"])
+    astate = make_queue_state(atasks, k_["P"])
+    q4 = q[:, :, None, :]
+    kw = dict(causal=False, bq=1, bk=k_["bk"])
+    res_p, err = _check_lockstep("kimi decode steal=True cost", astate, q4, k, v,
+                                 steal=True, steal_policy="cost", **kw)
+    expect = normalized_out(res_p, atasks, (k_["B"], k_["H"], 1))
+    attn_err = max(err, _check_free("kimi decode", astate, q4, k, v, expect, atasks, **kw))
+
+    times = _expert_times(*decode, w)
+    del w, decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs), attn_err=attn_err, **times)
+
+
 def phase_audit():
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch import _build
 
-    audit = _build.fence_audit("ws_attention")
-    log(f"[audit] kernels {audit['sass_kernels']}, {audit['sass_instructions']} SASS "
-        f"instructions; forbidden SASS {audit['sass']}, forbidden PTX {audit['ptx']}")
-    if audit["sass"] or audit["ptx"]:
-        raise AssertionError("the scheduler kernel is not fence-free")
-    if not audit["sass_kernels"]:
-        raise AssertionError("cuobjdump found no kernel in the library")
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+        audits = dict(zip(_build.KERNELS, pool.map(_build.fence_audit, _build.KERNELS)))
+    for name, audit in audits.items():
+        log(f"[audit] {name}: kernels {audit['sass_kernels']}, {audit['sass_instructions']} "
+            f"SASS instructions; forbidden SASS {audit['sass']}, forbidden PTX {audit['ptx']}")
+        if audit["sass"] or audit["ptx"]:
+            raise AssertionError(f"{name} is not fence-free")
+        if not audit["sass_kernels"]:
+            raise AssertionError(f"cuobjdump found no kernel in {name}")
 
 
 def phase_serving(dev):
@@ -250,7 +553,7 @@ def phase_serving(dev):
     done = front.run(max_iters=1000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_launches = launches["ws_attention"]
+    n_launches, n_exp = launches["ws_attention"], launches["ws_expert"]
 
     stats = front.stats()
     steps = sum(s["steps"] for s in stats["batchers"])
@@ -261,6 +564,8 @@ def phase_serving(dev):
             raise AssertionError(f"request {r.rid} produced {r.out}")
     if n_launches != steps * cfg.n_layers or n_launches == 0:
         raise AssertionError(f"ws_attention launches {n_launches} != {steps} steps x {cfg.n_layers}")
+    if n_exp != 0:
+        raise AssertionError(f"the dense model launched ws_expert {n_exp} times")
     lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
     stolen = stats["totals"]["stolen"]
     if stolen == 0:
@@ -271,13 +576,14 @@ def phase_serving(dev):
         "wall_s": wall, "tokens_per_s": tokens / wall, "decode_steps": steps,
         "step_ms_p50": float(np.percentile(lat, 50)),
         "step_ms_p99": float(np.percentile(lat, 99)),
-        "stolen": stolen, "launches": n_launches,
+        "stolen": stolen, "launches": n_launches, "ws_expert_launches": n_exp,
         "per_replica": stats["per_replica"],
     }
     log(f"[serving] {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
         f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, "
         f"step p50 {serving['step_ms_p50']:.2f} ms p99 {serving['step_ms_p99']:.2f} ms; "
-        f"stolen {stolen}; ws_attention launches {n_launches} == {steps} x {cfg.n_layers}")
+        f"stolen {stolen}; ws_attention launches {n_launches} == {steps} x {cfg.n_layers}, "
+        f"ws_expert launches {n_exp}")
 
     # ws vs dense logits on the same caches: four prompts in a fresh batcher
     b = ContinuousBatcher(params, cfg, slots=4, capacity=1024)
@@ -315,6 +621,238 @@ def phase_serving(dev):
     serving.update(logit_err_ws=err_ws, logit_err_dense=err_dense, logit_ws_vs_dense=diff,
                    logit_scale=scale, argmax_agree=agree)
     return serving, n_launches
+
+
+# ---------------------------------------------------------------------------
+# MoE serving
+
+
+@contextmanager
+def expert_launches(on_launch):
+    """Call ``on_launch(state, args, kwargs, res)`` after every expert launch
+    the MoE layers make.  The callers check that it ran once per counted
+    launch, so a renamed hook cannot pass unseen."""
+    from repro_torch.moe_ws import layer
+
+    orig = layer.run_moe_schedule
+
+    def run(state, *a, **kw):
+        res = orig(state, *a, **kw)
+        on_launch(state, a, kw, res)
+        return res
+
+    layer.run_moe_schedule = run
+    try:
+        yield
+    finally:
+        layer.run_moe_schedule = orig
+
+
+def bf16_rows(state, x, tok_idx, wg, wu, wd, bt):
+    """The routed rows of one expert launch computed as the dense dispatch's
+    einsums compute experts: bf16 operands, bf16 products and hidden tile.
+    The control that the fp32 comparison of a launch must reject."""
+    from repro_torch.pallas_ws.tasks import F_E, F_RL, F_RS
+
+    bf16 = torch.bfloat16
+    tok = torch.as_tensor(np.asarray(tok_idx), dtype=torch.int64, device=x.device)
+    out = torch.zeros((tok.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    for q in range(state.n_queues):
+        for rec in state.tasks[q, : int(state.tail[q])]:
+            e, rs, rl = int(rec[F_E]), int(rec[F_RS]), int(rec[F_RL])
+            xb = x[tok[rs:rs + rl]].to(bf16)
+            hb = torch.nn.functional.silu(xb @ wg[e].to(bf16)) * (xb @ wu[e].to(bf16))
+            out[rs:rs + rl] = (hb @ wd[e].to(bf16)).float()
+    return out
+
+
+def fp32_logits(params, cfg, h, chunk=16384):
+    """Logits of a final residual stream h [B, 1, d] with the final norm and
+    the unembedding in fp32 (the model rounds both to bf16)."""
+    from repro_torch.models.common import rms_norm
+
+    hn = rms_norm(h[:, 0].float(), params["final_norm"], cfg.norm_eps)
+    U = params["unembed"]
+    V = cfg.vocab_size
+    return torch.cat([hn @ U[:, i:min(i + chunk, V)].float() for i in range(0, V, chunk)], 1)
+
+
+def one_ulp(h, seed):
+    """h with every nonzero element moved one ulp of its dtype (bf16 on the
+    card) up or down in magnitude, the direction drawn from ``seed``."""
+    itype = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[h.dtype]
+    g = torch.Generator(device=h.device).manual_seed(seed)
+    step = torch.randint(0, 2, h.shape, generator=g, device=h.device).to(itype) * 2 - 1
+    bits = h.contiguous().view(itype)
+    return torch.where(h != 0, (bits + step).view(h.dtype), h)
+
+
+def phase_moe(dev):
+    from repro_torch.configs.kimi_k2_1t_a32b import CONFIG
+    from repro_torch.models import decode_hidden, decode_hidden_ws, decode_step_ws, init_params
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.model import Caches
+    from repro_torch.moe_ws import run_moe_schedule
+    from repro_torch.pallas_ws import launches, reset_launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] device memory in use before init: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cfg = CONFIG.replace(n_layers=2, moe_dispatch="ws")
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[moe] {cfg.name} depth {L} (of {CONFIG.n_layers}) at full width: "
+        f"{n_params / 1e9:.3f} B parameters, {n_bytes / 2**30:.2f} GiB ({cfg.dtype}, router "
+        f"fp32) initialised in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB in use")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(8, 65, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+    max_new = 8
+    front = WorkStealingFrontend(
+        lambda: ContinuousBatcher(params, cfg, slots=4, capacity=1024), n_replicas=2)
+    for rid, p in enumerate(prompts):
+        front.submit(0, Request(rid=rid, tokens=p, max_new=max_new))
+
+    dup = []
+    with expert_launches(lambda st, a, kw, res: dup.append(
+            (int(res.mult[: st.n_tasks].sum()), st.n_tasks))):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = front.run(max_iters=1000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_attn, n_exp = launches["ws_attention"], launches["ws_expert"]
+
+    stats = front.stats()
+    steps = sum(s["steps"] for s in stats["batchers"])
+    prefills = sum(s["admitted"] for s in stats["batchers"])
+    if sorted(done) != list(range(len(prompts))) or front.rejected:
+        raise AssertionError(f"completed {sorted(done)}, rejected {sorted(front.rejected)}")
+    for r in done.values():
+        if len(r.out) != max_new or not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request {r.rid} produced {r.out}")
+    if n_attn != steps * L or n_attn == 0:
+        raise AssertionError(f"ws_attention launches {n_attn} != {steps} steps x {L}")
+    if n_exp != (steps + prefills) * L or n_exp == 0:
+        raise AssertionError(f"ws_expert launches {n_exp} != ({steps} steps + "
+                             f"{prefills} prefills) x {L}")
+    if len(dup) != n_exp:
+        raise AssertionError(f"the launch hook saw {len(dup)} of {n_exp} expert launches")
+    stolen = stats["totals"]["stolen"]
+    if stolen == 0:
+        raise AssertionError("replica 1 stole nothing")
+    lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
+    tokens = sum(len(r.out) for r in done.values())
+    duplication = sum(m for m, _ in dup) / sum(n for _, n in dup)
+    serving = {
+        "model": f"{cfg.name} (depth {L})", "requests": len(done),
+        "prompt_tokens": int(lens.sum()), "new_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "decode_steps": steps, "prefills": prefills,
+        "step_ms_p50": float(np.percentile(lat, 50)),
+        "step_ms_p99": float(np.percentile(lat, 99)),
+        "stolen": stolen, "ws_attention_launches": n_attn, "ws_expert_launches": n_exp,
+        "expert_duplication": duplication, "per_replica": stats["per_replica"],
+    }
+    log(f"[moe] {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
+        f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, {prefills} "
+        f"prefills, step p50 {serving['step_ms_p50']:.2f} ms p99 "
+        f"{serving['step_ms_p99']:.2f} ms; stolen {stolen}; ws_attention launches {n_attn} "
+        f"== {steps} x {L}; ws_expert launches {n_exp} == ({steps} + {prefills}) x {L}; "
+        f"free-mode expert duplication sum(mult)/tiles {duplication:.3f}")
+
+    # one decode step of four admitted prompts, on copies of the same caches
+    b = ContinuousBatcher(params, cfg, slots=4, capacity=1024)
+    for rid in range(4):
+        assert b.admit(Request(rid=rid, tokens=prompts[rid], max_new=max_new))
+    tok = torch.tensor([[r.out[-1]] for r in b.live], device=dev)
+    pos = b.pos.copy()
+
+    def clone():
+        return Caches(kv=KVCache(b.caches.kv.k.clone(), b.caches.kv.v.clone()))
+
+    # launches of one decode_step_ws call, counted from 0
+    V = cfg.vocab_size
+    reset_launches()
+    lg_step = decode_step_ws(params, cfg, clone(), tok, pos)[0][:, :V]
+    torch.cuda.synchronize()
+    per_step = {n: launches[n] for n in ("ws_attention", "ws_expert")}
+    if per_step != {"ws_attention": L, "ws_expert": L}:
+        raise AssertionError(f"one decode_step_ws launched {per_step}, want {L} of each")
+    if tuple(lg_step.shape) != (4, V) or not bool(torch.isfinite(lg_step).all()):
+        raise AssertionError(f"ws logits {tuple(lg_step.shape)} not finite")
+
+    # the same step again with its expert launches recorded and its routing
+    # taped, then on both plain versions replaying that routing, then the
+    # dense (capacity-dropping, bf16 experts) step
+    tape, recorded = [], []
+    with expert_launches(lambda *r: recorded.append(r)), \
+            routing_tape(record=tape) as rec_counts:
+        h_ws = decode_hidden_ws(params, cfg, clone(), tok, pos)[0]
+    with plain_versions(), routing_tape(replay=tape) as rep_counts:
+        h_plain = decode_hidden_ws(params, cfg, clone(), tok, pos)[0]
+    h_dense = decode_hidden(params, cfg.replace(moe_dispatch="dense"), clone(), tok, pos)[0]
+    torch.cuda.synchronize()
+    if not (len(recorded) == len(tape) == rec_counts[0] == rep_counts[0] == L):
+        raise AssertionError(f"hooks: {len(recorded)} launches, {len(tape)} taped and "
+                             f"{rep_counts[0]} replayed routings, want {L}")
+
+    # each expert launch of the step against the plain version on its own
+    # inputs, and the same rows in bf16 as the control that must fail
+    launch_err, control_err = 0.0, float("inf")
+    for st, args, kw, res in recorded:
+        with plain_versions():
+            res_p = run_moe_schedule(st, *args, **kw)
+        ctl = bf16_rows(st, args[0].float(), *args[1:], kw["bt"])
+        launch_err = max(launch_err, float((res.out - res_p.out).abs().max()))
+        control_err = min(control_err, float((ctl - res_p.out).abs().max()))
+    log(f"[moe] the step's {L} expert launches against the plain version on their own "
+        f"inputs: out max_abs_err {launch_err:.3g} (<= ATOL {ATOL}); the same rows with "
+        f"bf16 products (the dense dispatch's arithmetic) {control_err:.3g} (> ATOL)")
+    if not launch_err <= ATOL:
+        raise AssertionError(f"served expert launches differ from the plain version by "
+                             f"{launch_err} > {ATOL}")
+    if not control_err > ATOL:
+        raise AssertionError(f"the bf16 control came within ATOL ({control_err}): the "
+                             "launch check cannot tell fp32 from bf16 expert math")
+
+    # end to end: logits with the final norm and unembedding in fp32
+    lg_ws, lg_plain, lg_dense = (fp32_logits(params, cfg, h) for h in (h_ws, h_plain, h_dense))
+    lg_ulp = fp32_logits(params, cfg, one_ulp(h_plain, SEED))
+    err = float((lg_ws - lg_plain).abs().max())
+    err_dense = float((lg_dense - lg_plain).abs().max())
+    err_ulp = float((lg_ulp - lg_plain).abs().max())
+    scale = float(lg_plain.abs().max())
+    agree_plain = int((lg_ws.argmax(-1) == lg_plain.argmax(-1)).sum())
+    agree_dense = int((lg_ws.argmax(-1) == lg_dense.argmax(-1)).sum())
+    agree_step = int((lg_step.argmax(-1) == lg_ws.argmax(-1)).sum())
+    tol = LOGIT_ULP_SLACK * err_ulp
+    log(f"[moe] fp32 logits vs the plain-version step (max |logit| {scale:.4g}): ws "
+        f"{err:.4g} (<= {tol:.4g} = {LOGIT_ULP_SLACK} x {err_ulp:.4g}, the plain step's "
+        f"final hidden state moved one bf16 ulp per element), argmax agree {agree_plain}/4, "
+        f"top-k sets that would have differed {rep_counts[1]}/{4 * L}; dense decode_step "
+        f"{err_dense:.4g} ({err_dense / err_ulp:.3g} one-ulp distances against ws's "
+        f"{err / err_ulp:.3g}), argmax agree with ws {agree_dense}/4; decode_step_ws's own "
+        f"(bf16) logits argmax agree {agree_step}/4")
+    if not err <= tol:
+        raise AssertionError(f"ws logits differ from the plain-version step by {err} > {tol}")
+    serving.update(ws_expert_launches_per_decode_step=per_step["ws_expert"],
+                   ws_attention_launches_per_decode_step=per_step["ws_attention"],
+                   launch_err=launch_err, launch_bf16_control_err=control_err,
+                   logit_err_ws_vs_plain=err, logit_tol=tol, logit_one_ulp=err_ulp,
+                   logit_err_dense_vs_plain=err_dense, logit_scale=scale,
+                   argmax_agree_plain=agree_plain, argmax_agree_dense=agree_dense,
+                   routing_flips=rep_counts[1])
+    del b, front, params, recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serving
 
 
 def _map(tree, fn):
@@ -361,15 +899,7 @@ def phase_times(dev):
         rounds = K.default_rounds(decode_queue_state(lengths, c["H"], c["S"],
                                                      n_programs=c["P"], bk=c["bk"]), True)
         n = 20 if mode == "free" else 3
-        arrs = []
-        for _ in range(n + 2):
-            a = {x: getattr(state, x).clone() for x in ("head", "local_head", "taken", "remaining")}
-            a.update(tasks=state.tasks, tail=state.tail)
-            for x in ("clock", "work", "steals", "scanned"):
-                a[x] = torch.zeros(c["P"], dtype=torch.int32, device=dev)
-            a["mult"] = torch.zeros((c["P"], n_tasks) if mode == "free" else (n_tasks,),
-                                    dtype=torch.int32, device=dev)
-            arrs.append(a)
+        arrs = _fresh_arrays(state, mode, n + 2)
 
         def launch(i, mode=mode, rounds=rounds):
             K._launch_cuda(arrs[i], q4, k, v, out, mode=mode, rounds=rounds, steal=True,
@@ -425,7 +955,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,parity,audit,serving,times",
+    ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of the phases (all by default)")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -440,26 +970,43 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     phase_build()
     max_err = phase_parity(dev) if "parity" in phases else None
+    expert = phase_expert(dev) if "expert" in phases else {}
     if "audit" in phases:
         phase_audit()
     serving, n_launches = phase_serving(dev) if "serving" in phases else (None, None)
     times = phase_times(dev) if "times" in phases else {}
-    if phases != {"build", "parity", "audit", "serving", "times"}:
+    moe = phase_moe(dev) if "moe" in phases else None
+    if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed; a partial run prints no result")
         return 3
-    kernel = {
+    attention = {
         "name": "ws_attention",
         "route": "cuda",
         "source": "src/repro_torch/csrc/ws_attention.cu",
         "replaces": "src/repro/pallas_ws/kernel.py:334",
         "launches": n_launches,
-        "max_abs_err": max_err,
+        "launches_by_path": {"llama3.2-3b": n_launches,
+                             moe["model"]: moe["ws_attention_launches"]},
+        "max_abs_err": max(max_err, expert["attn_err"]),
         **times,
+    }
+    expert_line = {
+        "name": "ws_expert",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ws_expert.cu",
+        "replaces": "src/repro/moe_ws/expert_kernel.py:47",
+        "launches": moe["ws_expert_launches"],
+        "launches_by_path": {"llama3.2-3b": serving["ws_expert_launches"],
+                             moe["model"]: moe["ws_expert_launches"]},
+        "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
+        "max_abs_err": expert["max_abs_err"],
+        **{k: v for k, v in expert.items() if k not in ("max_abs_err", "attn_err")},
     }
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     log("[serving] " + json.dumps(serving))
+    log("[moe] " + json.dumps(moe))
     print(card_line())
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [attention, expert_line]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

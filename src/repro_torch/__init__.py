@@ -1,14 +1,16 @@
 """PyTorch + CUDA port of the fence-free work-stealing serving stack.
 
 The JAX package ``repro`` is the reference; this package mirrors its module
-names (``pallas_ws``, ``models``, ``serving``, ``core``, ``wstrace``) so each
-port sits beside its counterpart.  It imports ``torch`` and numpy only —
-never ``jax`` and nothing of ``repro``.
+names (``pallas_ws``, ``moe_ws``, ``models``, ``serving``, ``core``,
+``wstrace``) so each port sits beside its counterpart.  It imports
+``torch`` and numpy only — never ``jax`` and nothing of ``repro``.
 
-The work-stealing attention megakernel is hand-written CUDA C++ for Hopper
-(``csrc/ws_attention.cu``), built with ``nvcc`` at first use
-(:mod:`repro_torch._build`).  Each kernel wrapper launches it for CUDA
-tensors and runs its plain PyTorch version for CPU tensors.
+The work-stealing megakernels are hand-written CUDA C++ for Hopper around
+one fence-free scheduler (``csrc/ws_sched.cuh``): attention tiles
+(``csrc/ws_attention.cu``) and MoE expert tiles (``csrc/ws_expert.cu``),
+built with ``nvcc`` at first use (:mod:`repro_torch._build`).  Each kernel
+wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
+version for CPU tensors.
 """
 
 from ._device import resolve_device

@@ -6,9 +6,11 @@ Each ``csrc/*.cu`` file is compiled on first use with
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
 
 into ``build/repro_torch/`` at the root of the checkout, under a name keyed
-by a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  The libraries expose a plain C interface
-(no PyTorch headers), which keeps a build to seconds.  Nothing here runs at
+by a hash of the source, of every ``csrc/*.cuh`` header it includes
+(``ws_sched.cuh``, the scheduler both kernels share) and of the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
+The libraries expose a plain C interface (no PyTorch headers), which keeps a
+build to seconds.  Nothing here runs at
 import time: the CPU tests import every module without ``nvcc``.
 """
 
@@ -21,10 +23,12 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("ws_attention", "ws_expert")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -43,10 +47,32 @@ def nvcc_path() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str, csrc: Path) -> List[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, transitively."""
+    todo, seen = [csrc / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [csrc / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
+def source_key(name: str, csrc: Optional[Path] = None) -> str:
+    """Hash of the source, its included headers (by name and bytes) and the flags."""
+    csrc = CSRC if csrc is None else csrc
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_sources(name, csrc)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{key}.so"
+    return BUILD_DIR / f"{name}_{source_key(name)}.so"
 
 
 def build(name: str) -> Path:
@@ -69,6 +95,13 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
     os.replace(tmp, lib)
     return lib
+
+
+def build_all(names) -> Dict[str, Path]:
+    """Build several kernels at once: one ``nvcc`` each, all started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

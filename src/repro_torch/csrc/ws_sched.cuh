@@ -1,0 +1,318 @@
+// Fence-free WS-WMULT scheduler shared by the port's megakernels (sm_90a).
+//
+// Replaces the scheduler shell of repro/pallas_ws/kernel.py:
+// `_generic_ws_kernel` with `ws_try_extract`, `_probe_slot` and `ws_account`
+// (the `pallas_call` of `launch_ws_grid`).  A kernel supplies the tile body;
+// both walks below are templates over it, so every kernel runs the same
+// scheduler code.
+//
+// Two walks.
+//  * lockstep (mode 0): the reference's semantics, the order of Pallas
+//    interpret mode.  ONE CTA walks the (rounds, P) grid serially, program
+//    index innermost; its threads share the tile math.  Every integer array
+//    (head, local_head, taken, remaining, clock, work, steals, scanned, mult)
+//    ends bit-equal to the reference; the tile body accumulates.
+//  * free (mode 1): the paper's setting.  P persistent CTAs run concurrently;
+//    each loops Take/Steal by the same policy until an extraction fails,
+//    which happens exactly when its view max(local_head[p,v], head[v]) >=
+//    tail[v] holds for every queue it may probe (a slot below tail always
+//    holds a live record).  Two writes of the reference would lose updates
+//    between concurrent CTAs, so they change form: the tile body makes a
+//    plain store of its whole tile (idempotent: duplicates write the same
+//    bits), and multiplicity goes into per-program rows mult[P, n_tasks]
+//    that the wrapper sums.  clock[p] is the sum of the costs program p ran.
+//
+// Fence-free.  head, local_head, taken and remaining are touched only by
+// volatile global loads and stores.  There is no atomic, no fence, no
+// membar: thread 0 of a CTA runs the scheduler and hands its decision to the
+// other threads through shared memory and __syncthreads().
+//
+// A tile body is a callable `body(const int* rec, bool store)` run by every
+// thread of the CTA with the claimed record in shared memory; `store` is
+// true in free mode.  It must end with __syncthreads() before it returns.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define BOTTOM (-1)
+#define TASK_WIDTH 8
+#define F_OP 0
+#define F_TID 6
+#define F_COST 7
+
+struct WSQueues {
+  const int* tasks;          // [n_queues, capacity, TASK_WIDTH]
+  const int* tail;           // [n_queues]
+  volatile int* head;        // [n_queues]
+  volatile int* local_head;  // [n_programs, n_queues]
+  volatile int* taken;       // [n_queues, capacity]
+  volatile int* remaining;   // [n_queues]
+  int* clock;                // [n_programs]
+  int* work;
+  int* steals;
+  int* scanned;
+  int* mult;                 // lockstep [n_tasks]; free [n_programs, n_tasks]
+  int n_queues, capacity, n_programs, n_tasks, rounds;
+  int steal, policy, compress;
+};
+
+// The scheduler's hand-off to the CTA's threads (one per CTA, in shared memory).
+struct WSShared {
+  int found, fq, fs;
+  int rec[TASK_WIDTH];
+};
+
+struct Claim {
+  int found, fq, fs, nread;
+};
+
+// ---------------------------------------------------------------------------
+// scheduler (thread 0 only)
+
+__device__ __forceinline__ int rmax_read(const WSQueues& Q, int p, int v) {
+  int lh = Q.local_head[p * Q.n_queues + v];
+  int hv = Q.head[v];
+  return lh > hv ? lh : hv;
+}
+
+// Guarded ⊥-probe: the op field is loaded only when wanted and h < capacity.
+__device__ __forceinline__ int probe(const WSQueues& Q, int v, int h, bool want,
+                                     int* probed) {
+  bool fire = want && (h < Q.capacity);
+  *probed = fire ? 1 : 0;
+  return fire ? Q.tasks[((long long)v * Q.capacity + h) * TASK_WIDTH + F_OP]
+               : BOTTOM;
+}
+
+__device__ __forceinline__ void claim_writes(const WSQueues& Q, int p, int v, int h) {
+  Q.head[v] = h + 1;                        // plain write, no CAS
+  Q.local_head[p * Q.n_queues + v] = h + 1; // persistent local bound
+}
+
+// "scan" policy: p-relative sequential scan over every queue.
+__device__ Claim scan_extract(const WSQueues& Q, int p) {
+  Claim c = {0, 0, 0, 0};
+  int n_scan = Q.steal ? Q.n_queues : 1;
+  for (int j = 0; j < n_scan; ++j) {
+    int v = (p + j) % Q.n_queues;
+    int h = rmax_read(Q, p, v);
+    int probed;
+    int op = probe(Q, v, h, !c.found, &probed);
+    bool live = op != BOTTOM;
+    if (!c.found && live) {
+      claim_writes(Q, p, v, h);
+      c.fq = v;
+      c.fs = h;
+    }
+    c.found = c.found || live;
+    c.nread += probed;
+  }
+  return c;
+}
+
+// "cost" policy: own-queue probe, then the first-index argmax of
+// max(remaining, 1) over queues whose head view is below their tail.
+__device__ Claim cost_extract(const WSQueues& Q, int p) {
+  int own = p % Q.n_queues;
+  int h0 = rmax_read(Q, p, own);
+  int probed0;
+  int op0 = probe(Q, own, h0, true, &probed0);
+  bool own_live = op0 != BOTTOM;
+  if (own_live) claim_writes(Q, p, own, h0);
+  if (!Q.steal) {
+    Claim c = {own_live ? 1 : 0, own, h0, probed0};
+    return c;
+  }
+  int best_v = 0, best = 0, best_h = 0;
+  for (int v = 0; v < Q.n_queues; ++v) {
+    int h = rmax_read(Q, p, v);
+    int rem = Q.remaining[v];
+    int score = (h < Q.tail[v]) ? (rem > 1 ? rem : 1) : 0;
+    if (v == 0 || score > best) {
+      best = score;
+      best_v = v;
+      best_h = h;
+    }
+  }
+  bool can = !own_live && best > 0;
+  int probed;
+  int op = probe(Q, best_v, best_h, can, &probed);
+  bool live = can && op != BOTTOM;
+  if (live) claim_writes(Q, p, best_v, best_h);
+  Claim c;
+  c.found = (own_live || live) ? 1 : 0;
+  c.fq = own_live ? own : best_v;
+  c.fs = own_live ? h0 : best_h;
+  c.nread = probed0 + probed;
+  return c;
+}
+
+__device__ __forceinline__ Claim extract(const WSQueues& Q, int p) {
+  return Q.policy == 1 ? scan_extract(Q, p) : cost_extract(Q, p);
+}
+
+// Bookkeeping after an execution (ws_account).  Returns the task's cost.
+__device__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
+                       bool advisory, bool free_mode) {
+  const int* rec = Q.tasks + ((long long)fq * Q.capacity + fs) * TASK_WIDTH;
+  int tid = rec[F_TID];
+  int cost = rec[F_COST];
+  if (free_mode) {
+    Q.mult[(long long)p * Q.n_tasks + tid] += 1;  // this program's row only
+  } else {
+    Q.mult[tid] += 1;
+  }
+  Q.taken[(long long)fq * Q.capacity + fs] = p;
+  if (advisory) {
+    int rem = Q.remaining[fq] - cost;            // plain read + plain write
+    Q.remaining[fq] = rem > 0 ? rem : 0;
+  }
+  Q.work[p] += cost;
+  Q.steals[p] += (fq != p % Q.n_queues) ? 1 : 0;
+  if (free_mode) {
+    Q.clock[p] += cost;
+  } else {
+    int c = Q.clock[p];
+    Q.clock[p] = (c > r ? c : r) + cost;
+  }
+  return cost;
+}
+
+__device__ __forceinline__ void load_record(const WSQueues& Q, int fq, int fs, int* s_rec) {
+  const int* rec = Q.tasks + ((long long)fq * Q.capacity + fs) * TASK_WIDTH;
+  for (int f = 0; f < TASK_WIDTH; ++f) s_rec[f] = rec[f];
+}
+
+// ---------------------------------------------------------------------------
+// walks (all threads)
+
+template <class Body>
+__device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
+  const bool t0 = threadIdx.x == 0;
+  for (int r = 0; r < Q.rounds; ++r) {
+    for (int p = 0; p < Q.n_programs; ++p) {
+      if (Q.compress) {
+        // Round compression (no thieves): an idle owner drains its whole
+        // queue inside this cell, with one coalesced advisory write.
+        const int own = p % Q.n_queues;
+        bool idle = false;
+        int total = 0;
+        if (t0) {
+          idle = Q.clock[p] <= r;
+          sh.found = 0;
+          if (idle) {
+            int h = rmax_read(Q, p, own);
+            int probed;
+            int op = probe(Q, own, h, true, &probed);
+            Q.scanned[p] += probed;
+            sh.found = op != BOTTOM;
+            sh.fq = own;
+            sh.fs = h;
+            if (sh.found) load_record(Q, own, h, sh.rec);
+          }
+        }
+        __syncthreads();
+        while (sh.found) {
+          if (t0) claim_writes(Q, p, own, sh.fs);
+          body(sh.rec, false);
+          if (t0) {
+            total += account(Q, r, p, own, sh.fs, false, false);
+            int h = rmax_read(Q, p, own);
+            int probed;
+            int op = probe(Q, own, h, true, &probed);
+            Q.scanned[p] += probed;
+            sh.found = op != BOTTOM;
+            sh.fs = h;
+            if (sh.found) load_record(Q, own, h, sh.rec);
+          }
+          __syncthreads();
+        }
+        if (t0 && idle && total > 0) {
+          int rem = Q.remaining[own] - total;
+          Q.remaining[own] = rem > 0 ? rem : 0;
+        }
+        __syncthreads();
+      } else {
+        if (t0) {
+          Claim c = {0, 0, 0, 0};
+          if (Q.clock[p] <= r) c = extract(Q, p);
+          Q.scanned[p] += c.nread;
+          sh.found = c.found;
+          sh.fq = c.fq;
+          sh.fs = c.fs;
+          if (c.found) load_record(Q, c.fq, c.fs, sh.rec);
+        }
+        __syncthreads();
+        if (sh.found) {
+          body(sh.rec, false);
+          if (t0) account(Q, r, p, sh.fq, sh.fs, true, false);
+        }
+        __syncthreads();
+      }
+    }
+  }
+}
+
+template <class Body>
+__device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
+  const int p = blockIdx.x;
+  const bool t0 = threadIdx.x == 0;
+  while (true) {
+    if (t0) {
+      Claim c = extract(Q, p);
+      Q.scanned[p] += c.nread;
+      sh.found = c.found;
+      sh.fq = c.fq;
+      sh.fs = c.fs;
+      if (c.found) load_record(Q, c.fq, c.fs, sh.rec);
+    }
+    __syncthreads();
+    if (!sh.found) break;  // this program's view: every queue drained
+    body(sh.rec, true);
+    if (t0) account(Q, 0, p, sh.fq, sh.fs, true, true);
+    __syncthreads();
+  }
+}
+
+// The queue half of every C entry point's arguments.
+static inline WSQueues ws_queues(
+    const int* tasks, const int* tail, int* head, int* local_head, int* taken,
+    int* remaining, int* clock, int* work, int* steals, int* scanned, int* mult,
+    int n_queues, int capacity, int n_programs, int n_tasks, int rounds,
+    int steal, int policy, int compress) {
+  WSQueues Q;
+  Q.tasks = tasks;
+  Q.tail = tail;
+  Q.head = head;
+  Q.local_head = local_head;
+  Q.taken = taken;
+  Q.remaining = remaining;
+  Q.clock = clock;
+  Q.work = work;
+  Q.steals = steals;
+  Q.scanned = scanned;
+  Q.mult = mult;
+  Q.n_queues = n_queues;
+  Q.capacity = capacity;
+  Q.n_programs = n_programs;
+  Q.n_tasks = n_tasks;
+  Q.rounds = rounds;
+  Q.steal = steal;
+  Q.policy = policy;
+  Q.compress = compress;
+  return Q;
+}
+
+// Launch a scheduler kernel `kern(Q, tile_args)`: one CTA in lockstep mode,
+// P CTAs in free mode.  Returns the CUDA error of the launch (0 on success).
+template <class TileArgs>
+static int ws_launch(void (*kern)(WSQueues, TileArgs), int mode, const WSQueues& Q,
+                     const TileArgs& a, int threads, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(mode == 0 ? 1 : Q.n_programs);
+  kern<<<grid, threads, smem, stream>>>(Q, a);
+  return (int)cudaGetLastError();
+}

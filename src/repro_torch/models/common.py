@@ -20,6 +20,19 @@ def dense_init(d_in: int, shape, dtype, *, generator, device) -> torch.Tensor:
                         generator=generator, device=device)
 
 
+def dense_init_slabs(d_in: int, shape, dtype, *, generator, device) -> torch.Tensor:
+    """:func:`dense_init` drawn one slab of the last two axes at a time
+    (per layer and expert), so the fp32 temporary is one [d, f] slab and not
+    the whole tensor: a full-width layer's experts are 33.8 GB in bf16."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    slabs = out.view(-1, *shape[-2:])
+    buf = torch.empty(shape[-2:], dtype=torch.float32, device=device)
+    scale = (3.0 / max(d_in, 1)) ** 0.5
+    for slab in slabs:
+        slab.copy_(buf.uniform_(-scale, scale, generator=generator))
+    return out
+
+
 def rms_norm(x, weight, eps: float):
     dt = x.dtype
     x = x.float()

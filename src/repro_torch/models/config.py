@@ -1,9 +1,9 @@
-"""Model configuration for the port (the dense-family subset of
+"""Model configuration for the port (the dense and MoE subset of
 ``repro/models/config.py``).
 
-A frozen dataclass with the fields and derived properties the dense GQA
-decoder reads.  Field names and defaults match the reference, so a config
-prints and compares the same way in both packages.
+A frozen dataclass with the fields and derived properties the GQA decoder
+reads, dense or with MoE FFNs.  Field names and defaults match the
+reference, so a config prints and compares the same way in both packages.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # the port builds "dense" only
+    family: str  # the port builds "dense" and "moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,6 +28,21 @@ class ModelConfig:
     attn_kind: str = "gqa"
     window: int = 0                 # sliding-window size; 0 = full attention
     locals_per_global: int = 0
+
+    # -- MoE ------------------------------------------------------------------
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0               # per-expert hidden
+    first_k_dense: int = 0          # leading dense layers (counted only, as the reference)
+    capacity_factor: float = 1.25
+    # "dense" = capacity-dropping dispatch/combine einsums; "ws" = dropless
+    # expert tiles through the work-stealing expert megakernel; "mesh-ws" is
+    # the reference's cross-device dispatch, not ported (it raises).
+    moe_dispatch: str = "dense"
+    # backward evaluation of the ws dispatch; the port is forward only
+    moe_grad_dispatch: str = "dense"
+
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -43,6 +58,10 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     @property
     def eff_heads(self) -> Tuple[int, int]:

@@ -1,5 +1,8 @@
-"""Public model API of the port (dense family of ``repro/models/model.py``):
-cache init, prefill, the dense decode step and the work-stealing decode step.
+"""Public model API of the port (the GQA decoders of ``repro/models/model.py``,
+dense or MoE): cache init, prefill, the dense decode step and the
+work-stealing decode step.  A MoE layer's FFN goes through
+:func:`~repro_torch.models.moe.moe_ffn_dispatch`, so ``cfg.moe_dispatch ==
+"ws"`` runs the expert megakernel in every step and in prefill.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from .._device import DeviceLike, resolve_device
 from . import attention as attn
 from . import transformer as tf
 from .common import rms_norm, swiglu
+from .moe import moe_ffn_dispatch
 
 
 class Caches(NamedTuple):
@@ -20,15 +24,10 @@ class Caches(NamedTuple):
     kv: Any = ()
 
 
-def _check_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"the port serves dense GQA decoders only: {cfg.name}")
-
-
 def init_caches(cfg, batch: int, capacity: int, dtype=None,
                 device: DeviceLike = None) -> Caches:
     """Zeroed caches with ``capacity`` sequence slots on ``device`` (default cuda)."""
-    _check_dense(cfg)
+    tf.check_supported(cfg)
     dev = resolve_device(device)
     dt = tf.torch_dtype(dtype or cfg.dtype)
     shape = (cfg.n_layers, batch, capacity, cfg.eff_heads[1], cfg.hd)
@@ -57,6 +56,14 @@ def _layer_cache(kv: attn.KVCache, idx: int) -> attn.KVCache:
     return attn.KVCache(kv.k[idx], kv.v[idx])
 
 
+def _ffn(h, p, cfg, mode=None):
+    """The layer's FFN on normalised ``h``: the MoE dispatch where the layer
+    has ``moe`` (``mode`` is the expert kernel's), else the SwiGLU MLP."""
+    if "moe" in p:
+        return moe_ffn_dispatch(h, p["moe"], cfg, mode=mode)[0]
+    return swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+
+
 def _logits(params, cfg, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", h, _unembed_matrix(params, cfg))[:, 0]
@@ -67,7 +74,14 @@ def decode_step(params, cfg, caches: Caches, tokens, pos):
     """One dense decode step. tokens: [B, 1]; pos: scalar or [B] (slot of the
     new token; attends cache[0..pos]).  Returns (logits [B, V] fp32, caches),
     the caches updated in place."""
-    _check_dense(cfg)
+    h, caches = decode_hidden(params, cfg, caches, tokens, pos)
+    return _logits(params, cfg, h), caches
+
+
+def decode_hidden(params, cfg, caches: Caches, tokens, pos):
+    """:func:`decode_step` up to the final norm: returns (the residual stream
+    [B, 1, d] in the model's dtype, caches)."""
+    tf.check_supported(cfg)
     x = _embed(params, cfg, tokens)
     s = tf._res_scale(cfg)
     h = x
@@ -77,15 +91,15 @@ def decode_step(params, cfg, caches: Caches, tokens, pos):
         a, _ = attn.gqa_decode(hn, p["attn"], cfg, _layer_cache(caches.kv, idx), pos, w)
         h = h + s * a
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-        h = h + s * swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
-    return _logits(params, cfg, h), caches
+        h = h + s * _ffn(hn, p, cfg)
+    return h, caches
 
 
 def ws_decode_supported(cfg) -> bool:
     """True when :func:`decode_step_ws` covers this architecture: full
-    (unwindowed) GQA decoders of the dense family."""
+    (unwindowed) GQA decoders, dense or MoE."""
     return (
-        cfg.family == "dense"
+        cfg.family in ("dense", "moe")
         and cfg.attn_kind == "gqa"
         and all(w == 0 for w in cfg.layer_windows)
     )
@@ -95,9 +109,20 @@ def decode_step_ws(params, cfg, caches: Caches, tokens, pos, *,
                    schedule: str = "ws", bk: int = 64, n_programs: int = 8,
                    mode=None):
     """One decode step with attention on the work-stealing megakernel: one
-    launch per layer.  The Put is built once per step (the lengths are the
-    same in every layer) and placed on the device once; each launch clones
-    its mutable arrays."""
+    launch per layer.  The attention Put is built once per step (the lengths
+    are the same in every layer) and placed on the device once; each launch
+    clones its mutable arrays.  A MoE layer adds one expert launch with its
+    own Put (routing differs per layer); ``mode`` applies to both kernels."""
+    h, caches = decode_hidden_ws(params, cfg, caches, tokens, pos, schedule=schedule,
+                                 bk=bk, n_programs=n_programs, mode=mode)
+    return _logits(params, cfg, h), caches
+
+
+def decode_hidden_ws(params, cfg, caches: Caches, tokens, pos, *,
+                     schedule: str = "ws", bk: int = 64, n_programs: int = 8,
+                     mode=None):
+    """:func:`decode_step_ws` up to the final norm: returns (the residual
+    stream [B, 1, d] in the model's dtype, caches)."""
     from repro_torch.pallas_ws.queues import to_device
     from repro_torch.pallas_ws.ragged import decode_queue_state
 
@@ -121,13 +146,13 @@ def decode_step_ws(params, cfg, caches: Caches, tokens, pos, *,
         )
         h = h + s * a
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-        h = h + s * swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
-    return _logits(params, cfg, h), caches
+        h = h + s * _ffn(hn, p, cfg, mode)
+    return h, caches
 
 
 def prefill(params, cfg, batch, *, capacity: int | None = None, chunk: int = 1024):
     """Process a full prompt; returns (last-token logits [B, V] fp32, Caches)."""
-    _check_dense(cfg)
+    tf.check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
@@ -149,7 +174,7 @@ def prefill(params, cfg, batch, *, capacity: int | None = None, chunk: int = 102
         caches.kv.v[idx, :, :S] = v.to(dt)
         h = h + s * a
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-        h = h + s * swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+        h = h + s * _ffn(hn, p, cfg)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bd,dv->bv", h[:, -1], _unembed_matrix(params, cfg))
     return _mask_pad_vocab(logits.float(), cfg), caches

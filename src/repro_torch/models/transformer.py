@@ -1,9 +1,11 @@
-"""Parameter init of the dense decoder (port of ``init_params`` and
-``_res_scale`` in ``repro/models/transformer.py``).
+"""Parameter init of the GQA decoder, dense or MoE (port of ``init_params``
+and ``_res_scale`` in ``repro/models/transformer.py``).
 
 Parameters are a nested dict of tensors in the reference's layout: per-layer
 weights stacked on a leading [L] axis (``wq`` [L, d, H, hd], ``wo``
-[L, H, hd, d], ...).  Init runs on the device from a seeded
+[L, H, hd, d], ...).  A MoE layer holds ``moe`` (router, ``we_*``,
+``ws_*``) where a dense layer holds ``mlp``; as in the reference, every layer
+of a MoE config is a MoE layer.  Init runs on the device from a seeded
 ``torch.Generator``, so full width needs no weights file.  The numbers
 differ from ``jax.random``'s; tests carry the reference's weights across
 with :func:`repro_torch.convert.params_from_jax` instead.
@@ -18,6 +20,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from .common import dense_init
+from .moe import init_moe
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -26,10 +29,22 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def check_supported(cfg) -> None:
+    """The families the port builds: dense GQA decoders, and GQA decoders
+    with MoE FFNs and full (unwindowed) attention.  Anything else raises."""
+    if cfg.attn_kind == "gqa" and cfg.family == "dense":
+        return
+    if (cfg.attn_kind == "gqa" and cfg.family == "moe" and cfg.is_moe
+            and all(w == 0 for w in cfg.layer_windows)):
+        return
+    raise NotImplementedError(f"the port builds dense GQA decoders and unwindowed GQA "
+                              f"MoE decoders only: {cfg.name} ({cfg.family}, "
+                              f"{cfg.attn_kind})")
+
+
 def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
-    """Random dense-decoder parameters on ``device`` (default ``cuda``)."""
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"the port initialises dense GQA decoders only: {cfg.name}")
+    """Random decoder parameters on ``device`` (default ``cuda``)."""
+    check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -62,13 +77,13 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]
         attn["wo"] *= q_real[None, :, None, None]
         attn["wk"] *= kv_real[None, None, :, None]
         attn["wv"] *= kv_real[None, None, :, None]
-    params["layers"] = {
-        "attn_norm": zeros((L, d)),
-        "attn": attn,
-        "mlp_norm": zeros((L, d)),
-        "mlp": {"wg": init(d, (L, d, f)), "wu": init(d, (L, d, f)),
-                "wd": init(f, (L, f, d))},
-    }
+    params["layers"] = {"attn_norm": zeros((L, d)), "attn": attn, "mlp_norm": zeros((L, d))}
+    if cfg.family == "moe":
+        params["layers"]["moe"] = init_moe(cfg, dtype, generator=gen, device=dev,
+                                           n_layers=L)
+    else:
+        params["layers"]["mlp"] = {"wg": init(d, (L, d, f)), "wu": init(d, (L, d, f)),
+                                   "wd": init(f, (L, f, d))}
     return params
 
 

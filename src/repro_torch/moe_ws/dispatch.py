@@ -1,0 +1,159 @@
+"""Router output → expert-tile task queues, the host Put (port of the host
+half of ``repro/moe_ws/dispatch.py``).
+
+Routing is lowered to the paper's scheduling problem:
+
+1.  the routed (token, expert) pairs are grouped by expert into one flat
+    array (:class:`RoutedSet`); each expert owns a contiguous row range,
+    padded to a multiple of the tile height ``bt``, so an expert tile owns a
+    disjoint contiguous slice of the routed output;
+2.  one :class:`~repro_torch.pallas_ws.tasks.ExpertTask` per tile, with
+    ``cost = live rows``;
+3.  the tasks go to per-expert owner queues (``partition="owner"``): a hot
+    expert's queue is as overloaded as its router load, which is the skew
+    the megakernel's thieves erase.
+
+No capacity anywhere: every routed pair gets a row and every row a task,
+so the dispatch is dropless.  Duplicated tile execution is normalised by
+:func:`row_divisor`.  The port is eager, so only the host Put is here; the
+reference's traced Puts (``route_to_tasks_jax``, ``route_to_tasks_pool_jax``)
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.pallas_ws.kernel import STATIC_COMPRESSED_ROUNDS
+from repro_torch.pallas_ws.tasks import ExpertTask
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class RoutedSet:
+    """Expert-grouped routed (token, expert) pairs, kernel-ready (numpy).
+
+    Each expert's row range is padded up to a multiple of ``bt``, so every
+    tile's ``[row_start, row_start + bt)`` slice is disjoint from every other
+    tile's.  Pad rows point at token 0 with gate 0 and are masked dead inside
+    the kernel, so they contribute exactly zero to the combine.
+    """
+
+    tok_idx: np.ndarray     # [n_rows] int32: token index per row (0 on pads)
+    gates: np.ndarray       # [n_rows] float32: combine weight (0 on pads)
+    expert_off: np.ndarray  # [E + 1] int32: expert e owns rows [off[e], off[e+1])
+    loads: np.ndarray       # [E] int64: live routed rows per expert
+    n_rows: int             # bt-aligned total rows (>= n_routed)
+    n_routed: int           # live rows (== T * top_k)
+    n_tokens: int
+    # [n_rows] int32: the flat (token·k + choice) pair that produced each
+    # row, ``n_routed`` on pads
+    row_src: Optional[np.ndarray] = None
+
+    @property
+    def n_experts(self) -> int:
+        return len(self.expert_off) - 1
+
+    def expert_loads(self) -> np.ndarray:
+        """Live routed rows per expert: the raw router skew."""
+        return self.loads
+
+
+def route_to_tasks(idx, gates, n_experts: int, bt: int = 8
+                   ) -> Tuple[List[ExpertTask], RoutedSet]:
+    """Lower concrete top-k routing to expert tiles.
+
+    ``idx``: [T, k] int expert choices; ``gates``: [T, k] float combine
+    weights (already normalised).  Grouping is stable in (token, choice)
+    order within each expert, so the layout is deterministic.
+    """
+    idx = np.asarray(idx)
+    gates = np.asarray(gates, dtype=np.float32)
+    T, k = idx.shape
+    if gates.shape != (T, k):
+        raise ValueError(f"gates {gates.shape} do not match idx {(T, k)}")
+
+    flat_e = idx.reshape(-1)
+    flat_t = np.repeat(np.arange(T, dtype=np.int32), k)
+    flat_g = gates.reshape(-1)
+    # stable counting sort by expert: contiguous per-expert row ranges
+    order = np.argsort(flat_e, kind="stable")
+    loads = np.bincount(flat_e, minlength=n_experts).astype(np.int64)
+    padded = -(-loads // bt) * bt  # bt-aligned range per expert
+    expert_off = np.zeros(n_experts + 1, dtype=np.int32)
+    np.cumsum(padded, out=expert_off[1:])
+    n_rows = max(bt, int(expert_off[-1]))
+
+    tok_idx = np.zeros(n_rows, dtype=np.int32)
+    gate_rows = np.zeros(n_rows, dtype=np.float32)
+    row_src = np.full(n_rows, T * k, dtype=np.int32)
+    src = 0
+    for e in range(n_experts):
+        lo = int(expert_off[e])
+        ln = int(loads[e])
+        tok_idx[lo: lo + ln] = flat_t[order[src: src + ln]]
+        gate_rows[lo: lo + ln] = flat_g[order[src: src + ln]]
+        row_src[lo: lo + ln] = order[src: src + ln]
+        src += ln
+
+    tasks: List[ExpertTask] = []
+    tid = 0
+    for e in range(n_experts):
+        start = int(expert_off[e])
+        for i in range(0, int(loads[e]), bt):
+            rl = min(bt, int(loads[e]) - i)
+            tasks.append(ExpertTask(expert=e, row_start=start + i, row_len=rl,
+                                    tid=tid, cost=rl))
+            tid += 1
+
+    return tasks, RoutedSet(
+        tok_idx=tok_idx, gates=gate_rows, expert_off=expert_off, loads=loads,
+        n_rows=n_rows, n_routed=T * k, n_tokens=T, row_src=row_src,
+    )
+
+
+def expert_rounds_bound(n_routed: int, bt: int, n_queues: int, n_programs: int,
+                        steal: bool, steal_run_cap: int = 1) -> int:
+    """Worst-case lockstep rounds to drain any routing of ``n_routed`` pairs
+    (cost unit: routed rows).  Stealing: Graham's ``ceil(total/P) +
+    max_cost`` on the worst admissible total (a tile costs at most ``bt``).
+    No stealing: run compression drains each owner's queue in its first idle
+    round, so the bound is O(1)."""
+    if steal:
+        return _cdiv(n_routed, n_programs) + max(1, steal_run_cap) * bt
+    return STATIC_COMPRESSED_ROUNDS
+
+
+def divisor_from_tiles(row_start, row_len, tile_mult, n_rows: int) -> np.ndarray:
+    """Per-row multiplicity divisor: tile ``i`` owns rows ``[row_start[i],
+    row_start[i] + row_len[i])``, which get ``max(1, tile_mult[i])``; every
+    other row gets 1."""
+    starts = np.asarray(row_start, dtype=np.int64)
+    lens = np.asarray(row_len, dtype=np.int64)
+    m = np.maximum(1, np.asarray(tile_mult)).astype(np.float32)
+    div = np.ones((n_rows,), dtype=np.float32)
+    total = int(lens.sum())
+    if total:
+        # concatenated aranges: [0..len0) ++ [0..len1) ++ ...
+        offs = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        div[np.repeat(starts, lens) + offs] = np.repeat(m, lens)
+    return div
+
+
+def row_divisor(tasks: Sequence[ExpertTask], mult, n_rows: int) -> np.ndarray:
+    """Per-row multiplicity divisor of a lockstep launch: each live row
+    belongs to exactly one tile, so dividing its accumulated output by that
+    tile's execution count is exact.  Pad rows keep divisor 1."""
+    mult = np.asarray(mult)
+    if not tasks:
+        return np.ones((n_rows,), dtype=np.float32)
+    starts = np.fromiter((t.row_start for t in tasks), np.int64, len(tasks))
+    lens = np.fromiter((t.row_len for t in tasks), np.int64, len(tasks))
+    tids = np.fromiter((t.tid for t in tasks), np.int64, len(tasks))
+    return divisor_from_tiles(starts, lens, mult[tids], n_rows)

@@ -1,0 +1,226 @@
+"""Fence-free work-stealing expert megakernel: wrapper and plain version
+(port of the forward half of ``repro/moe_ws/expert_kernel.py``).
+
+One task is ``row_len`` routed rows of one expert's gated FFN:
+
+    gather   xt = x[tok_idx[rs : rs + bt]]                 # [bt, d] fp32
+    FFN      y  = silu(xt @ wg[e]) * (xt @ wu[e]) @ wd[e]   # [bt, f] -> [bt, d]
+    mask     rows at or past row_len are zero
+    write    out[rs : rs + bt]                              # lockstep +=, free =
+
+The TPU kernel is the tile body ``_expert_execute`` inside the scheduler
+shell of ``launch_ws_grid``.  Here it is the hand-written CUDA kernel
+``csrc/ws_expert.cu`` (the shared scheduler of ``csrc/ws_sched.cuh`` around
+an expert tile), launched by :func:`launch_moe_grid` for CUDA tensors, and
+:func:`plain_moe_grid` for CPU tensors: the scheduler walk shared with the
+attention family (``pallas_ws.kernel._PlainWalk``) with the expert tile in
+torch fp32.  The modes are the attention family's: lockstep is the
+reference's order and accumulates ``tile × mult``; free mode runs P
+concurrent CTAs that store whole tiles, so its ``out`` is already
+normalised.  The backward tile (``_expert_grad_execute``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.pallas_ws.kernel import (
+    MODES,
+    STEAL_POLICIES,
+    WSRunResult,
+    _PlainWalk,
+    launch_grid,
+    launches,
+    scheduler_knobs,
+)
+from repro_torch.pallas_ws.queues import QueueState
+from repro_torch.pallas_ws.tasks import BOTTOM, F_COST, F_E, F_OP, F_RL, F_RS, F_TID
+
+# Columns one thread of csrc/ws_expert.cu loads at once (its CPT): d and f
+# must be multiples of it and the weights 16-byte aligned.
+EXPERT_COLS = 8
+
+
+class _ExpertWalk(_PlainWalk):
+    """The plain version of ``csrc/ws_expert.cu``: the shared walk with the
+    expert tile in torch fp32 on the tensors' device."""
+
+    def __init__(self, arrs, x, tok_idx, wg, wu, wd, out, *, bt, steal, policy):
+        super().__init__(arrs, steal=steal, policy=policy)
+        self.x, self.tok_idx, self.out = x, tok_idx.long(), out
+        self.wg, self.wu, self.wd = wg, wu, wd
+        self.bt = bt
+
+    def execute(self, fq, fs, *, store):
+        rec = self.tasks[fq][fs]
+        e, rs, rl = rec[F_E], rec[F_RS], rec[F_RL]
+        xt = self.x[self.tok_idx[rs:rs + self.bt]]                      # gather [bt, d]
+        h = F.silu(xt @ self.wg[e].float()) * (xt @ self.wu[e].float())
+        y = h @ self.wd[e].float()
+        y[rl:] = 0.0
+        if store:
+            self.out[rs:rs + self.bt] = y
+        else:
+            self.out[rs:rs + self.bt] += y
+
+
+def _check_expert_records(tasks: np.ndarray, *, n_experts, n_rows, bt, n_tasks) -> None:
+    """The kernel indexes the weights, tok_idx/out and mult with the live
+    records' fields: reject a host-built record that would read or write out
+    of bounds."""
+    live = tasks[tasks[..., F_OP] != BOTTOM]
+    if not live.size:
+        return
+    bad = ((live[:, F_E] < 0) | (live[:, F_E] >= n_experts) | (live[:, F_RS] < 0)
+           | (live[:, F_RS] + bt > n_rows) | (live[:, F_TID] < 0)
+           | (live[:, F_TID] >= n_tasks) | (live[:, F_COST] < 0))
+    if bad.any():
+        raise ValueError(f"expert task record out of range for E={n_experts}, "
+                         f"n_rows={n_rows}, bt={bt}: {live[bad][0].tolist()}")
+
+
+def _run(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt, plain: bool,
+         steal=True, steal_policy="cost", steal_run_cap=1, rounds=None, mult=None,
+         compress_runs=None, mode=None, trace=False, trace_capacity=None,
+         fault_plan=None) -> WSRunResult:
+    mode, compress = scheduler_knobs(
+        steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap, mode=mode,
+        compress_runs=compress_runs, trace=trace, trace_capacity=trace_capacity,
+        fault_plan=fault_plan)
+    dev = x.device
+    if not all(t.device == dev for t in (tok_idx, wg, wu, wd, out)):
+        raise ValueError("x, tok_idx, wg, wu, wd and out must lie on one device")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous float32 [T, d]: {x.dtype} {tuple(x.shape)}")
+    T, d = x.shape
+    if not (wg.dtype == wu.dtype == wd.dtype) or wg.dtype not in (torch.float32,
+                                                                  torch.bfloat16):
+        raise ValueError(f"wg, wu, wd must share dtype float32 or bfloat16: "
+                         f"{wg.dtype}, {wu.dtype}, {wd.dtype}")
+    E, _, f = wg.shape
+    if (wg.shape != (E, d, f) or wu.shape != (E, d, f) or wd.shape != (E, f, d)
+            or not (wg.is_contiguous() and wu.is_contiguous() and wd.is_contiguous())):
+        raise ValueError(f"weights must be contiguous wg/wu [E, d, f], wd [E, f, d] for "
+                         f"d={d}: {tuple(wg.shape)}, {tuple(wu.shape)}, {tuple(wd.shape)}")
+    if tok_idx.dtype != torch.int32 or tok_idx.dim() != 1 or not tok_idx.is_contiguous():
+        raise ValueError(f"tok_idx must be contiguous int32 [n_rows]: {tok_idx.dtype}")
+    n_rows = tok_idx.shape[0]
+    if (out.dtype != torch.float32 or not out.is_contiguous()
+            or tuple(out.shape) != (n_rows, d)):
+        raise ValueError(f"out must be contiguous float32 [n_rows={n_rows}, d={d}]: "
+                         f"{out.dtype} {tuple(out.shape)}")
+    if isinstance(state.tasks, np.ndarray):
+        _check_expert_records(state.tasks, n_experts=E, n_rows=n_rows, bt=bt,
+                              n_tasks=max(1, state.n_tasks))
+    if not plain and (d % EXPERT_COLS or f % EXPERT_COLS or any(
+            w.data_ptr() % 16 for w in (wg, wu, wd))):
+        raise ValueError(f"ws_expert needs d and f multiples of {EXPERT_COLS} and "
+                         f"16-byte aligned weights: d={d}, f={f}")
+
+    def walk(arrs, **kw):
+        return _ExpertWalk(arrs, x, tok_idx, wg, wu, wd, out, bt=bt, **kw)
+
+    def launch(arrs, **kw):
+        _launch_cuda(arrs, x, tok_idx, wg, wu, wd, out, bt=bt, **kw)
+
+    return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
+                       compress=compress, steal=steal, steal_policy=steal_policy,
+                       rounds=rounds, mult=mult)
+
+
+def _kernel_fn():
+    """The C entry point of ``csrc/ws_expert.cu`` (built at first use)."""
+    from .. import _build
+
+    fn = _build.load("ws_expert").ws_expert_launch
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        # mode, dtype; 11 int32 arrays; x, tok_idx, wg, wu, wd, out; 8 sizes
+        # and flags; d, f, bt; stream
+        fn.argtypes = [i, i] + [ptr] * 11 + [ptr] * 6 + [i] * 8 + [i] * 3 + [ptr]
+        fn.restype = i
+    return fn
+
+
+def _launch_cuda(arrs, x, tok_idx, wg, wu, wd, out, *, mode, rounds, steal, policy,
+                 compress, bt, n_tasks) -> None:
+    fn = _kernel_fn()
+    names = ("tasks", "tail", "head", "local_head", "taken", "remaining", "clock",
+             "work", "steals", "scanned", "mult")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(
+        MODES.index(mode), 1 if wg.dtype == torch.bfloat16 else 0,
+        *[arrs[n].data_ptr() for n in names],
+        x.data_ptr(), tok_idx.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+        out.data_ptr(),
+        arrs["head"].shape[0], arrs["tasks"].shape[1], arrs["clock"].shape[0],
+        n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),
+        x.shape[1], wg.shape[2], bt, stream,
+    )
+    launches["ws_expert"] += 1
+    if err != 0:
+        raise RuntimeError(f"ws_expert launch failed with CUDA error {err}")
+
+
+def launch_moe_grid(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt: int,
+                    **kw) -> WSRunResult:
+    """Run the work-stealing grid with the expert tile body.  ``out``
+    ([n_rows, d] fp32, contiguous) is written in place: lockstep accumulates
+    into it, free mode stores.  Keywords: the scheduler's (``steal``,
+    ``steal_policy``, ``rounds``, ``mult``, ``compress_runs``, ``mode``, ...).
+
+    CUDA tensors launch ``csrc/ws_expert.cu``; CPU tensors run the plain
+    version.  There is no fallback between the two.
+    """
+    return _run(state, x, tok_idx, wg, wu, wd, out, bt=bt,
+                plain=x.device.type == "cpu", **kw)
+
+
+def plain_moe_grid(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt: int,
+                   **kw) -> WSRunResult:
+    """The plain PyTorch version of :func:`launch_moe_grid` on any device: the
+    scheduler walk on the host, the tile math in torch on the tensors' device."""
+    return _run(state, x, tok_idx, wg, wu, wd, out, bt=bt, plain=True, **kw)
+
+
+def run_moe_schedule(state: QueueState, x, tok_idx, wg, wu, wd, *, bt: int,
+                     steal: bool = True, steal_policy: str = "cost",
+                     steal_run_cap: int = 1, rounds: Optional[int] = None, out=None,
+                     mult=None, compress_runs: Optional[bool] = None,
+                     mode: Optional[str] = None, trace: bool = False,
+                     trace_capacity: Optional[int] = None,
+                     fault_plan=None) -> WSRunResult:
+    """Launch the expert megakernel over a prepared :class:`QueueState`.
+
+    ``x``: [T, d] token activations (taken as fp32); ``tok_idx``: [n_rows]
+    routed row → token map (``RoutedSet.tok_idx``, numpy or a tensor);
+    ``wg``/``wu``: [E, d, f]; ``wd``: [E, f, d], fp32 or bf16.  ``out`` is
+    the routed-row output [n_rows, d] fp32, carried over on relaunch for the
+    multiplicity drills, as is ``mult``.
+    """
+    dev = x.device
+    x = x.float().contiguous()
+    if isinstance(tok_idx, torch.Tensor):
+        tok_idx = tok_idx.to(device=dev, dtype=torch.int32).contiguous()
+    else:
+        tok_host = np.asarray(tok_idx)
+        if tok_host.size and (tok_host.min() < 0 or tok_host.max() >= x.shape[0]):
+            raise ValueError(f"tok_idx out of range for T={x.shape[0]}")
+        tok_idx = torch.from_numpy(tok_host.astype(np.int32)).to(dev)
+    shape = (tok_idx.shape[0], x.shape[1])
+    if out is None:
+        out = torch.zeros(shape, dtype=torch.float32, device=dev)
+    else:
+        out = torch.as_tensor(out, dtype=torch.float32).to(dev).clone().contiguous()
+        if tuple(out.shape) != shape:
+            raise ValueError(f"carried out has shape {tuple(out.shape)}, expected {shape}")
+    return launch_moe_grid(state, x, tok_idx, wg, wu, wd, out, bt=bt, steal=steal,
+                           steal_policy=steal_policy, steal_run_cap=steal_run_cap,
+                           rounds=rounds, mult=mult, compress_runs=compress_runs,
+                           mode=mode, trace=trace, trace_capacity=trace_capacity,
+                           fault_plan=fault_plan)

@@ -21,7 +21,9 @@ from .ragged import (
 )
 from .tasks import (
     BOTTOM,
+    OP_EXPERT_TILE,
     TASK_WIDTH,
+    ExpertTask,
     TileTask,
     emit_decode_tasks,
     emit_flash_tasks,
@@ -29,7 +31,8 @@ from .tasks import (
 )
 
 __all__ = [
-    "BOTTOM", "MODES", "STEAL_POLICIES", "TASK_WIDTH", "QueueState", "RaggedStats",
+    "BOTTOM", "MODES", "OP_EXPERT_TILE", "STEAL_POLICIES", "TASK_WIDTH", "ExpertTask",
+    "QueueState", "RaggedStats",
     "TileTask", "WSRunResult", "copy_state", "decode_queue_state", "default_rounds",
     "emit_decode_tasks", "emit_flash_tasks", "launch_ws_grid", "launches",
     "make_queue_state", "multiplicity_divisor", "normalized_out", "partition_tasks",

@@ -1,13 +1,18 @@
-"""Fence-free work-stealing attention megakernel: wrapper and plain version
-(port of ``repro/pallas_ws/kernel.py``, attention family).
+"""Fence-free work-stealing megakernel: the scheduler shared by every tile
+family, and the attention family's wrapper and plain version (port of
+``repro/pallas_ws/kernel.py``).
 
 The TPU kernel is one ``pallas_call`` over the grid ``(rounds, P)``: the
 scheduler shell ``_generic_ws_kernel`` (WS-WMULT Take/Steal with plain loads
-and stores, ``ws_try_extract``/``_probe_slot``/``ws_account``) around the
-attention tile body ``_attention_execute``.  Here the same function is the
-hand-written CUDA kernel ``csrc/ws_attention.cu``, launched by
-:func:`launch_ws_grid` for CUDA tensors, and :func:`plain_ws_grid`, a
-Python walk that mirrors the kernel statement by statement, for CPU tensors.
+and stores, ``ws_try_extract``/``_probe_slot``/``ws_account``) around a
+tile body.  Here the shell is ``csrc/ws_sched.cuh``, templated over the
+tile, and its Python mirror :class:`_PlainWalk`; :func:`scheduler_knobs`
+and :func:`launch_grid` are the family-agnostic half of a launch.  The
+attention family (tile body ``_attention_execute``) is the hand-written
+CUDA kernel ``csrc/ws_attention.cu``, launched by :func:`launch_ws_grid`
+for CUDA tensors, and :func:`plain_ws_grid`, whose walk mirrors the kernel
+statement by statement, for CPU tensors.  The expert family lives in
+``repro_torch.moe_ws.expert_kernel`` on the same two shared pieces.
 
 ``mode="lockstep"`` is the reference's semantics (Pallas interpret order):
 one walker over ``(r, p)``, program innermost; integer arrays bit-equal to
@@ -51,7 +56,7 @@ STATIC_COMPRESSED_ROUNDS = 2
 
 # Launches of each CUDA kernel in this process: the wrapper adds one where it
 # launches, and nowhere else.
-launches = {"ws_attention": 0}
+launches = {"ws_attention": 0, "ws_expert": 0}
 
 
 def reset_launches() -> None:
@@ -63,7 +68,7 @@ def reset_launches() -> None:
 class WSRunResult:
     """Post-launch queue/telemetry arrays, int32 tensors on the launch's device."""
 
-    out: torch.Tensor         # [B, H, Sq_out, hd] fp32
+    out: torch.Tensor         # the family's fp32 output ([B, H, Sq_out, hd] for attention)
     head: torch.Tensor        # [n_queues]
     local_head: torch.Tensor  # [n_programs, n_queues]
     taken: torch.Tensor       # [n_queues, capacity]
@@ -124,11 +129,11 @@ def default_rounds(state: QueueState, steal: bool,
 
 
 class _PlainWalk:
-    """Python mirror of ``csrc/ws_attention.cu``: the same scheduler functions
-    over list copies of the int32 arrays, the same tile in torch fp32."""
+    """Python mirror of the scheduler in ``csrc/ws_sched.cuh``: the same
+    functions over list copies of the int32 arrays.  A subclass supplies the
+    tile body ``execute(fq, fs, store=)``, as each CUDA kernel does."""
 
-    def __init__(self, arrs, q, k, v, out, *, steal, policy, bq, bk, causal,
-                 scale, g):
+    def __init__(self, arrs, *, steal, policy):
         self.tasks = arrs["tasks"].tolist()
         self.tail = arrs["tail"].tolist()
         self.head = arrs["head"].tolist()
@@ -142,9 +147,7 @@ class _PlainWalk:
         self.mult = arrs["mult"].tolist()
         self.n_queues = len(self.head)
         self.capacity = len(self.tasks[0])
-        self.q, self.k, self.v, self.out = q, k, v, out
         self.steal, self.policy = steal, policy
-        self.bq, self.bk, self.causal, self.scale, self.g = bq, bk, causal, scale, g
 
     def arrays(self):
         names = ("head", "local_head", "taken", "remaining", "clock", "work",
@@ -218,48 +221,8 @@ class _PlainWalk:
         self.clock[p] = self.clock[p] + cost if free else max(self.clock[p], r) + cost
         return cost
 
-    # -- tile -----------------------------------------------------------------
     def execute(self, fq, fs, *, store):
-        rec = self.tasks[fq][fs]
-        b, h, qs, ql = rec[F_B], rec[F_H], rec[F_QS], rec[F_QL]
-        kv_end, cost = rec[F_KV], rec[F_COST]
-        q, k, v = self.q, self.k, self.v
-        bq, bk = self.bq, self.bk
-        kh = h // self.g
-        Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
-        dev = q.device
-        qt = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
-        n = max(0, min(bq, Sq - qs))
-        qt[:n] = q[b, h, qs:qs + n].float()
-        m = torch.full((bq,), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((bq,), dtype=torch.float32, device=dev)
-        acc = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
-        rows = torch.arange(bq, device=dev)[:, None]
-        for ki in range(cost):
-            k0 = ki * bk
-            nk = max(0, min(bk, Sk - k0))
-            kt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
-            vt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
-            kt[:nk] = k[b, kh, k0:k0 + nk].float()
-            vt[:nk] = v[b, kh, k0:k0 + nk].float()
-            s = (qt @ kt.T) * self.scale
-            kpos = k0 + torch.arange(bk, device=dev)[None, :]
-            valid = kpos < kv_end
-            if self.causal:
-                valid = valid & (kpos <= qs + rows)
-            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.max(dim=1).values)
-            pexp = torch.exp(s - m_new[:, None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + pexp.sum(dim=1)
-            acc = acc * corr[:, None] + pexp @ vt
-            m = m_new
-        tile = acc / torch.clamp(l, min=1e-30)[:, None]
-        tile[ql:] = 0.0
-        if store:
-            self.out[b, h, qs:qs + bq] = tile
-        else:
-            self.out[b, h, qs:qs + bq] += tile
+        raise NotImplementedError
 
     # -- the two walks ----------------------------------------------------------
     def lockstep(self, rounds, P, compress):
@@ -312,6 +275,59 @@ class _PlainWalk:
                 self.account(0, p, fq, fs, advisory=True, free=True)
 
 
+class _AttentionWalk(_PlainWalk):
+    """The plain version of ``csrc/ws_attention.cu``: the shared walk with
+    the attention tile in torch fp32 on the tensors' device."""
+
+    def __init__(self, arrs, q, k, v, out, *, steal, policy, bq, bk, causal,
+                 scale, g):
+        super().__init__(arrs, steal=steal, policy=policy)
+        self.q, self.k, self.v, self.out = q, k, v, out
+        self.bq, self.bk, self.causal, self.scale, self.g = bq, bk, causal, scale, g
+
+    def execute(self, fq, fs, *, store):
+        rec = self.tasks[fq][fs]
+        b, h, qs, ql = rec[F_B], rec[F_H], rec[F_QS], rec[F_QL]
+        kv_end, cost = rec[F_KV], rec[F_COST]
+        q, k, v = self.q, self.k, self.v
+        bq, bk = self.bq, self.bk
+        kh = h // self.g
+        Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
+        dev = q.device
+        qt = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
+        n = max(0, min(bq, Sq - qs))
+        qt[:n] = q[b, h, qs:qs + n].float()
+        m = torch.full((bq,), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((bq,), dtype=torch.float32, device=dev)
+        acc = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
+        rows = torch.arange(bq, device=dev)[:, None]
+        for ki in range(cost):
+            k0 = ki * bk
+            nk = max(0, min(bk, Sk - k0))
+            kt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
+            vt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
+            kt[:nk] = k[b, kh, k0:k0 + nk].float()
+            vt[:nk] = v[b, kh, k0:k0 + nk].float()
+            s = (qt @ kt.T) * self.scale
+            kpos = k0 + torch.arange(bk, device=dev)[None, :]
+            valid = kpos < kv_end
+            if self.causal:
+                valid = valid & (kpos <= qs + rows)
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.max(dim=1).values)
+            pexp = torch.exp(s - m_new[:, None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pexp.sum(dim=1)
+            acc = acc * corr[:, None] + pexp @ vt
+            m = m_new
+        tile = acc / torch.clamp(l, min=1e-30)[:, None]
+        tile[ql:] = 0.0
+        if store:
+            self.out[b, h, qs:qs + bq] = tile
+        else:
+            self.out[b, h, qs:qs + bq] += tile
+
+
 # ---------------------------------------------------------------------------
 # launch
 
@@ -330,11 +346,11 @@ def _check_records(tasks: np.ndarray, *, B, H, sq_out, bq, n_tasks) -> None:
                          f"{live[bad][0].tolist()}")
 
 
-def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
-         steal=True, steal_policy="cost", steal_run_cap=1, rounds=None,
-         mult=None, compress_runs=None, mode=None, stage_open=None,
-         trace=False, trace_capacity=None, trace_remote=False,
-         fault_plan=None) -> WSRunResult:
+def scheduler_knobs(*, steal, steal_policy, steal_run_cap, mode, compress_runs,
+                    stage_open=None, trace=False, trace_capacity=None,
+                    trace_remote=False, fault_plan=None):
+    """Check the scheduler's knobs (every family); returns ``(mode, compress)``.
+    Knobs the port does not carry yet raise ``NotImplementedError``."""
     if steal_run_cap != 1:
         raise NotImplementedError("steal_run_cap > 1 (half-run steals) is not ported yet")
     if trace or trace_capacity is not None or trace_remote:
@@ -351,27 +367,21 @@ def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
     compress = (not steal) if compress_runs is None else compress_runs
     if compress and steal:
         raise ValueError("compress_runs models the no-steal schedule only")
-    dev = q.device
-    if not (k.device == v.device == out.device == dev):
-        raise ValueError("q, k, v and out must lie on one device")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q, k, v must share dtype float32 or bfloat16: "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    B, H, Sq, hd = q.shape
-    Hkv = k.shape[1]
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or H % Hkv:
-        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if (out.dtype != torch.float32 or not out.is_contiguous()
-            or out.shape[:2] != (B, H) or out.shape[3] != hd
-            or out.shape[2] % bq or out.shape[2] < Sq):
-        raise ValueError(f"out must be contiguous float32 [B, H, Sq padded to bq, hd]: "
-                         f"{out.dtype} {tuple(out.shape)}")
+    return mode, compress
+
+
+def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
+                compress: bool, steal: bool, steal_policy: str, rounds, mult) -> WSRunResult:
+    """The family-agnostic half of a launch: fresh copies of the mutable queue
+    arrays on ``out``'s device, then the plain walk (``walk(host_arrays,
+    steal=, policy=)`` returns a :class:`_PlainWalk`) or the CUDA kernel
+    (``launch(arrays, mode=, rounds=, steal=, policy=, compress=, n_tasks=)``)
+    over them.  Free mode's per-program multiplicity rows are summed here."""
+    dev = out.device
     P = state.n_programs
     n_tasks = max(1, state.n_tasks)
     if mult is not None and tuple(mult.shape) != (n_tasks,):
         raise ValueError(f"carried mult has shape {tuple(mult.shape)}, expected ({n_tasks},)")
-    if isinstance(state.tasks, np.ndarray):
-        _check_records(state.tasks, B=B, H=H, sq_out=out.shape[2], bq=bq, n_tasks=n_tasks)
     if mode == "lockstep" and rounds is None:
         rounds = default_rounds(state, steal, compress_runs=compress)
     remaining = state.remaining
@@ -398,21 +408,18 @@ def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
              else i32(mult, True))
     arrs["mult"] = (mult0 if mode == "lockstep"
                     else torch.zeros((P, n_tasks), dtype=torch.int32, device=dev))
-    g = H // Hkv
     if plain:
-        walk = _PlainWalk({n: a.cpu().numpy() for n, a in arrs.items()}, q, k, v, out,
-                          steal=steal, policy=steal_policy, bq=bq, bk=bk,
-                          causal=causal, scale=scale, g=g)
+        w = walk({n: a.cpu().numpy() for n, a in arrs.items()}, steal=steal,
+                 policy=steal_policy)
         if mode == "lockstep":
-            walk.lockstep(rounds, P, compress)
+            w.lockstep(rounds, P, compress)
         else:
-            walk.free(P)
-        for n, a in walk.arrays().items():
+            w.free(P)
+        for n, a in w.arrays().items():
             arrs[n].copy_(torch.from_numpy(a))
     else:
-        _launch_cuda(arrs, q, k, v, out, mode=mode, rounds=rounds or 0, steal=steal,
-                     policy=steal_policy, compress=compress, causal=causal,
-                     bq=bq, bk=bk, scale=scale, g=g, n_tasks=n_tasks)
+        launch(arrs, mode=mode, rounds=rounds or 0, steal=steal, policy=steal_policy,
+               compress=compress, n_tasks=n_tasks)
     total_mult = arrs["mult"] if mode == "lockstep" else mult0 + arrs["mult"].sum(0, dtype=torch.int32)
     return WSRunResult(
         out=out, head=arrs["head"], local_head=arrs["local_head"],
@@ -420,6 +427,48 @@ def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
         work=arrs["work"], steals=arrs["steals"], scanned=arrs["scanned"],
         mult=total_mult, mode=mode,
     )
+
+
+def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
+         steal=True, steal_policy="cost", steal_run_cap=1, rounds=None,
+         mult=None, compress_runs=None, mode=None, stage_open=None,
+         trace=False, trace_capacity=None, trace_remote=False,
+         fault_plan=None) -> WSRunResult:
+    mode, compress = scheduler_knobs(
+        steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap, mode=mode,
+        compress_runs=compress_runs, stage_open=stage_open, trace=trace,
+        trace_capacity=trace_capacity, trace_remote=trace_remote, fault_plan=fault_plan)
+    dev = q.device
+    if not (k.device == v.device == out.device == dev):
+        raise ValueError("q, k, v and out must lie on one device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q, k, v must share dtype float32 or bfloat16: "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, H, Sq, hd = q.shape
+    Hkv = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or H % Hkv:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if (out.dtype != torch.float32 or not out.is_contiguous()
+            or out.shape[:2] != (B, H) or out.shape[3] != hd
+            or out.shape[2] % bq or out.shape[2] < Sq):
+        raise ValueError(f"out must be contiguous float32 [B, H, Sq padded to bq, hd]: "
+                         f"{out.dtype} {tuple(out.shape)}")
+    if isinstance(state.tasks, np.ndarray):
+        _check_records(state.tasks, B=B, H=H, sq_out=out.shape[2], bq=bq,
+                       n_tasks=max(1, state.n_tasks))
+    g = H // Hkv
+
+    def walk(arrs, **kw):
+        return _AttentionWalk(arrs, q, k, v, out, bq=bq, bk=bk, causal=causal,
+                              scale=scale, g=g, **kw)
+
+    def launch(arrs, **kw):
+        _launch_cuda(arrs, q, k, v, out, causal=causal, bq=bq, bk=bk, scale=scale,
+                     g=g, **kw)
+
+    return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
+                       compress=compress, steal=steal, steal_policy=steal_policy,
+                       rounds=rounds, mult=mult)
 
 
 def _kernel_fn():

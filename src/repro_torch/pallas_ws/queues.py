@@ -21,12 +21,14 @@ arrays, so the state itself is never consumed).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from .tasks import BOTTOM, F_COST, F_OP, TASK_WIDTH, TileTask
+from .tasks import BOTTOM, F_COST, F_OP, TASK_WIDTH, ExpertTask, TileTask
+
+Task = Union[TileTask, ExpertTask]
 
 
 @dataclass
@@ -43,7 +45,7 @@ class QueueState:
     tail: np.ndarray         # [n_queues]
     local_head: np.ndarray   # [n_programs, n_queues]
     taken: np.ndarray        # [n_queues, capacity]; -1 = not extracted
-    task_list: Optional[List[TileTask]] = None
+    task_list: Optional[List[Task]] = None
     remaining: Optional[np.ndarray] = None  # [n_queues]
 
     @property
@@ -64,11 +66,12 @@ class QueueState:
 
 
 def partition_tasks(
-    tasks: Sequence[TileTask], n_queues: int, partition: str = "owner"
-) -> List[List[TileTask]]:
-    """``"owner"``/``"batch"``: queue ``task.owner % n_queues`` (the skew
-    the thieves erase); ``"round_robin"``: task-index striping."""
-    buckets: List[List[TileTask]] = [[] for _ in range(n_queues)]
+    tasks: Sequence[Task], n_queues: int, partition: str = "owner"
+) -> List[List[Task]]:
+    """``"owner"``/``"batch"``: queue ``task.owner % n_queues`` (a batch row
+    for attention, an expert for MoE dispatch: the skew the thieves erase);
+    ``"round_robin"``: task-index striping."""
+    buckets: List[List[Task]] = [[] for _ in range(n_queues)]
     for i, t in enumerate(tasks):
         q = (t.owner if partition in ("owner", "batch") else i) % n_queues
         buckets[q].append(t)
@@ -76,7 +79,7 @@ def partition_tasks(
 
 
 def make_queue_state(
-    tasks: Sequence[TileTask],
+    tasks: Sequence[Task],
     n_programs: int,
     n_queues: int | None = None,
     partition: str = "batch",

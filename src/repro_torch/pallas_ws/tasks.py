@@ -1,5 +1,5 @@
 """Task records of the work-stealing tile scheduler (port of
-``repro/pallas_ws/tasks.py``, attention family).
+``repro/pallas_ws/tasks.py``, attention and expert families).
 
 A task is one idempotent tile: a fixed-width int32 record in the Fig. 7
 ``tasks`` array, where ``tasks[i] = ⊥`` is "field 0 == BOTTOM".  Executing
@@ -18,7 +18,7 @@ import numpy as np
 BOTTOM = -1
 
 # Record layout: 8 × int32 per task.  Field 0 and the tail two fields are
-# family-agnostic; fields 1-5 are the attention family's operands.
+# family-agnostic; fields 1-5 are the family's operands.
 TASK_WIDTH = 8
 F_OP = 0      # op id (>= 0 live; BOTTOM empty)
 F_B = 1       # batch row
@@ -29,8 +29,14 @@ F_KV = 5      # kv end, exclusive (== sequence length)
 F_TID = 6     # global task id (indexes the multiplicity counters)
 F_COST = 7    # tile-slots (kv blocks) this task occupies
 
+# Expert family (fields 1-3; 4-5 unused, BOTTOM).
+F_E = 1       # expert id
+F_RS = 2      # first routed row of the tile
+F_RL = 3      # live routed rows (< bt on an expert's tail tile)
+
 OP_FLASH_TILE = 0
 OP_DECODE_TILE = 1
+OP_EXPERT_TILE = 2
 
 
 @dataclass(frozen=True)
@@ -55,6 +61,35 @@ class TileTask:
         return np.array(
             [self.op, self.b, self.h, self.q_start, self.q_len,
              self.kv_end, self.tid, self.cost],
+            dtype=np.int32,
+        )
+
+
+@dataclass(frozen=True)
+class ExpertTask:
+    """Expert-family task: ``row_len`` routed rows of one expert's FFN.
+
+    ``row_start`` indexes the expert-grouped routed arrays (see
+    ``moe_ws.dispatch``), so each task owns a disjoint contiguous slice of
+    the routed output.  ``cost`` is the number of live rows: expert FFN work
+    is tokens × d_ff and d_ff is uniform across experts.
+    """
+
+    expert: int
+    row_start: int
+    row_len: int
+    tid: int
+    cost: int
+    op: int = OP_EXPERT_TILE
+
+    @property
+    def owner(self) -> int:
+        return self.expert
+
+    def encode(self) -> np.ndarray:
+        return np.array(
+            [self.op, self.expert, self.row_start, self.row_len,
+             BOTTOM, BOTTOM, self.tid, self.cost],
             dtype=np.int32,
         )
 

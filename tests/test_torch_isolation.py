@@ -146,6 +146,78 @@ def test_kernel_wrapper_marshals_every_argument(monkeypatch):
         kernel._launch_cuda(arrs, q, k, k, out, **kw)
 
 
+def test_expert_kernel_wrapper_marshals_every_argument(monkeypatch):
+    """The expert counterpart: drive ``ws_expert_launch``'s ctypes
+    marshalling against a stand-in entry point that converts every argument
+    through its declared type, and count the launch."""
+    import ctypes
+    import types
+
+    from repro_torch import _build
+    from repro_torch.moe_ws import expert_kernel, route_to_tasks
+
+    class EntryPoint:
+        argtypes = None
+        restype = ctypes.c_int
+        status = 0
+
+        def __call__(self, *args):
+            assert len(args) == len(self.argtypes) == 31
+            for t, a in zip(self.argtypes, args):
+                t.from_param(a)
+            return self.status
+
+    entry = EntryPoint()
+    monkeypatch.setattr(_build, "load",
+                        lambda name: types.SimpleNamespace(ws_expert_launch=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    from repro_torch.pallas_ws import make_queue_state
+
+    tasks, routed = route_to_tasks(np.array([[0, 1], [1, 2], [2, 0]]),
+                                   np.full((3, 2), 0.5, np.float32), 4, bt=8)
+    state = make_queue_state(tasks, 2, n_queues=4, partition="owner")
+    arrs = {n: torch.as_tensor(getattr(state, n)) for n in
+            ("tasks", "tail", "head", "local_head", "taken", "remaining")}
+    for n in ("clock", "work", "steals", "scanned"):
+        arrs[n] = torch.zeros(2, dtype=torch.int32)
+    arrs["mult"] = torch.zeros((2, state.n_tasks), dtype=torch.int32)
+    x = torch.zeros((3, 16))
+    tok = torch.from_numpy(routed.tok_idx)
+    wg = torch.zeros((4, 16, 8), dtype=torch.bfloat16)
+    wd = torch.zeros((4, 8, 16), dtype=torch.bfloat16)
+    out = torch.zeros((routed.n_rows, 16))
+    kw = dict(mode="free", rounds=0, steal=True, policy="cost", compress=False, bt=8,
+              n_tasks=state.n_tasks)
+    before = expert_kernel.launches["ws_expert"]
+    expert_kernel._launch_cuda(arrs, x, tok, wg, wg, wd, out, **kw)
+    assert expert_kernel.launches["ws_expert"] == before + 1
+    entry.status = 2  # cudaErrorMemoryAllocation
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        expert_kernel._launch_cuda(arrs, x, tok, wg, wg, wd, out, **kw)
+
+
+def test_build_key_covers_included_headers(tmp_path):
+    """Editing the shared scheduler header changes the cached library's key
+    of every kernel that includes it; editing one kernel changes its own."""
+    import shutil
+
+    from repro_torch import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    keys = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
+    assert keys == {n: _build.source_key(n) for n in _build.KERNELS}
+    with open(csrc / "ws_sched.cuh", "a") as fh:
+        fh.write("// edited\n")
+    edited = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
+    assert all(edited[n] != keys[n] for n in _build.KERNELS)
+    with open(csrc / "ws_expert.cu", "a") as fh:
+        fh.write("// edited\n")
+    assert _build.source_key("ws_expert", csrc) != edited["ws_expert"]
+    assert _build.source_key("ws_attention", csrc) == edited["ws_attention"]
+
+
 def test_nvcc_flags_target_hopper():
     from repro_torch import _build
 
@@ -198,3 +270,50 @@ def test_kernel_free_mode_runs_every_task_on_card(cuda_device):
     want = run_ws_schedule(state, q, k, k, causal=False, bq=1, bk=16)
     assert (got.mult[: state.n_tasks] >= 1).all()
     torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-5)
+
+
+def _expert_inputs(seed, T=16, d=64, f=32, E=8, k=2, bt=8, P=8, steal=True):
+    from repro_torch.moe_ws import route_to_tasks
+    from repro_torch.pallas_ws import make_queue_state
+
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(E, k, replace=False) for _ in range(T)])
+    gates = rng.uniform(0.1, 1.0, (T, k)).astype(np.float32)
+    gates /= gates.sum(1, keepdims=True)
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32))
+    w = [torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[1])).astype(np.float32))
+         for s in ((E, d, f), (E, d, f), (E, f, d))]
+    tasks, routed = route_to_tasks(idx, gates, E, bt=bt)
+    state = make_queue_state(tasks, P, n_queues=E if steal else P, partition="owner")
+    return idx, gates, x, w, tasks, routed, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steal,policy", [(True, "cost"), (True, "scan"), (False, "cost")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_kernel_lockstep_matches_plain_on_card(cuda_device, steal, policy, dtype):
+    from repro_torch.moe_ws import run_moe_schedule
+    from repro_torch.pallas_ws import to_device
+
+    _, _, x, w, _, routed, state = _expert_inputs(8, steal=steal)
+    w = [a.to(dtype) for a in w]
+    kw = dict(bt=8, steal=steal, steal_policy=policy, mode="lockstep")
+    got = run_moe_schedule(to_device(state, cuda_device), x.to(cuda_device), routed.tok_idx,
+                           *[a.to(cuda_device) for a in w], **kw)
+    want = run_moe_schedule(state, x, routed.tok_idx, *w, **kw)
+    for f in ("head", "local_head", "taken", "remaining", "clock", "work", "steals",
+              "scanned", "mult"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_expert_kernel_free_mode_runs_every_tile_on_card(cuda_device):
+    from repro_torch.moe_ws import combine_routed, expert_ffn_nodrop_ref, run_moe_schedule
+
+    idx, gates, x, w, tasks, routed, state = _expert_inputs(9)
+    got = run_moe_schedule(state, x.to(cuda_device), routed.tok_idx,
+                           *[a.to(cuda_device) for a in w], bt=8, mode="free")
+    assert (got.mult[: state.n_tasks] >= 1).all()
+    torch.testing.assert_close(combine_routed(routed, tasks, got).cpu(),
+                               expert_ffn_nodrop_ref(idx, gates, x, *w), rtol=0, atol=1e-5)

@@ -104,3 +104,103 @@ def test_ws_and_dense_decode_agree_in_the_port(setup):
     a, _ = decode_step_ws(s["tp"], SMOKE, _clone(s["tc"]), tok, s["pos"])
     b, _ = decode_step(s["tp"], SMOKE, _clone(s["tc"]), tok, s["pos"])
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# kimi-k2 SMOKE (GQA + MoE, moe_dispatch="ws"): the expert megakernel's plain
+# version in every MoE layer.  Same tolerance: fp32 on both sides.
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    from repro.configs.kimi_k2_1t_a32b import SMOKE as J_KIMI
+    from repro_torch.configs.kimi_k2_1t_a32b import SMOKE as KIMI
+
+    jcfg, tcfg = J_KIMI.replace(moe_dispatch="ws"), KIMI.replace(moe_dispatch="ws")
+    jp = j_init(jax.random.PRNGKey(2), jcfg)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    jl, jc = j_prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, capacity=32)
+    tl, tc = prefill(tp, tcfg, {"tokens": torch.from_numpy(toks).long()}, capacity=32)
+    nt = rng.integers(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
+    pos = np.array([12, 7], np.int32)
+    jws, _ = j_decode_ws(jp, jcfg, jc, jnp.asarray(nt), pos)
+    return dict(jcfg=jcfg, tcfg=tcfg, jp=jp, tp=tp, jl=jl, jc=jc, tl=tl, tc=tc, nt=nt,
+                pos=pos, jws=jws)
+
+
+def test_params_from_jax_carries_the_moe_subtree(moe_setup):
+    s = moe_setup
+    jm, tm = s["jp"]["layers"]["moe"], s["tp"]["layers"]["moe"]
+    assert sorted(tm) == sorted(jm) == ["router", "we_d", "we_g", "we_u",
+                                        "ws_d", "ws_g", "ws_u"]
+    assert tm["router"].dtype == torch.float32
+    for k in jm:
+        np.testing.assert_array_equal(tm[k].numpy(), np.asarray(jm[k]), err_msg=k)
+    from repro_torch.models import init_params
+
+    mine = init_params(s["tcfg"], seed=0, device="cpu")
+    shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), s["jp"])
+    assert jax.tree_util.tree_map(lambda t: tuple(t.shape), mine) == shapes
+
+
+def test_moe_prefill_matches_reference(moe_setup):
+    s = moe_setup
+    np.testing.assert_allclose(s["tl"].numpy(), np.asarray(s["jl"]), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(s["tc"].kv.k.numpy(), np.asarray(s["jc"].kv.k), rtol=0, atol=ATOL)
+
+
+def test_moe_decode_step_matches_reference(moe_setup):
+    s = moe_setup
+    jl, _ = j_decode(s["jp"], s["jcfg"], s["jc"], jnp.asarray(s["nt"]), jnp.asarray(s["pos"]))
+    tl, _ = decode_step(s["tp"], s["tcfg"], _clone(s["tc"]), torch.from_numpy(s["nt"]).long(),
+                        s["pos"])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["free", "lockstep"])
+def test_moe_decode_step_ws_matches_reference(moe_setup, mode):
+    s = moe_setup
+    tl, tc = decode_step_ws(s["tp"], s["tcfg"], _clone(s["tc"]),
+                            torch.from_numpy(s["nt"]).long(), s["pos"], mode=mode)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(s["jws"]), rtol=0, atol=ATOL)
+
+
+def test_moe_support_is_exactly_the_references(moe_setup):
+    """MoE with full GQA attention is served by the ws step; MLA and
+    windowed MoE raise instead of falling through to another step."""
+    from repro_torch.models import init_caches, init_params, ws_decode_supported
+
+    cfg = moe_setup["tcfg"]
+    assert ws_decode_supported(cfg)
+    for bad in (cfg.replace(attn_kind="mla"), cfg.replace(window=4),
+                cfg.replace(family="ssm")):
+        assert not ws_decode_supported(bad)
+        with pytest.raises(NotImplementedError):
+            init_params(bad, device="cpu")
+        with pytest.raises(NotImplementedError):
+            init_caches(bad, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError):
+            decode_step_ws(moe_setup["tp"], bad, _clone(moe_setup["tc"]),
+                           torch.from_numpy(moe_setup["nt"]).long(), moe_setup["pos"])
+
+
+@pytest.mark.parametrize("ws", [False, True], ids=["dense_step", "ws_step"])
+def test_moe_decode_hidden_is_the_step_before_its_unembedding(moe_setup, ws):
+    """decode_hidden(_ws) returns the residual stream that decode_step(_ws)
+    normalises and unembeds: the same logits, bit for bit."""
+    from repro_torch.models import decode_hidden, decode_hidden_ws
+    from repro_torch.models.common import rms_norm
+
+    s = moe_setup
+    cfg = s["tcfg"]
+    hidden, step = (decode_hidden_ws, decode_step_ws) if ws else (decode_hidden, decode_step)
+    tok = torch.from_numpy(s["nt"]).long()
+    h, _ = hidden(s["tp"], cfg, _clone(s["tc"]), tok, s["pos"])
+    tl, _ = step(s["tp"], cfg, _clone(s["tc"]), tok, s["pos"])
+    assert tuple(h.shape) == (2, 1, cfg.d_model)
+    hn = rms_norm(h, s["tp"]["final_norm"], cfg.norm_eps)
+    lg = torch.einsum("bsd,dv->bsv", hn, s["tp"]["unembed"])[:, 0].float()
+    V = cfg.vocab_size
+    torch.testing.assert_close(tl[:, :V], lg[:, :V], rtol=0, atol=0)

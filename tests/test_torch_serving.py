@@ -161,3 +161,71 @@ def test_wswmult_owner_fifo_and_weak_multiplicity():
     again = [q.steal(1) for _ in range(6)]
     assert again[:5] == [5, 6, 7, 8, 9] and again[5] is EMPTY  # thief 1: no repeats
     assert q.take() is EMPTY
+
+
+def test_moe_frontend_streams_match_jax_engine():
+    """kimi-k2 SMOKE with moe_dispatch="ws": the 2-replica frontend's greedy
+    streams equal the JAX engine's, and each batcher takes the ws step."""
+    jax = pytest.importorskip("jax")
+    from repro.configs.kimi_k2_1t_a32b import SMOKE as J_KIMI
+    from repro.models import init_params as j_init
+    from repro.serving.engine import ContinuousBatcher as JBatcher
+    from repro.serving.engine import Request as JRequest
+    from repro.serving.engine import WorkStealingFrontend as JFrontend
+    from repro_torch.configs.kimi_k2_1t_a32b import SMOKE as KIMI
+    from repro_torch.convert import params_from_jax
+    from repro_torch.serving import ContinuousBatcher
+
+    jcfg, tcfg = J_KIMI.replace(moe_dispatch="ws"), KIMI.replace(moe_dispatch="ws")
+    jp = j_init(jax.random.PRNGKey(4), jcfg)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, jcfg.vocab_size, (6,)).astype(np.int32) for _ in range(4)]
+
+    def serve(front, req_cls):
+        for rid, p in enumerate(prompts):
+            front.submit(0, req_cls(rid=rid, tokens=p, max_new=2))
+        done = front.run(max_iters=100)
+        return {rid: list(r.out) for rid, r in done.items()}, front
+
+    want, _ = serve(JFrontend(lambda: JBatcher(jp, jcfg, slots=2, capacity=16),
+                              n_replicas=2), JRequest)
+    got, front = serve(WorkStealingFrontend(
+        lambda: ContinuousBatcher(tp, tcfg, slots=2, capacity=16), n_replicas=2), Request)
+    assert got == want and sorted(got) == [0, 1, 2, 3]
+    assert all(b.use_ws for b in front.batchers)
+
+
+def test_moe_batcher_takes_the_ws_step(monkeypatch):
+    """A MoE config's batcher decodes with decode_step_ws, never the dense
+    decode_step, and its MoE layers go through the ws dispatch."""
+    from repro_torch.configs.kimi_k2_1t_a32b import SMOKE as KIMI
+    from repro_torch.models import init_params
+    from repro_torch.moe_ws import layer
+    from repro_torch.serving import ContinuousBatcher, engine
+
+    cfg = KIMI.replace(moe_dispatch="ws")
+    calls = {"ws": 0, "moe_ws": 0}
+
+    def ws_step(*a, **kw):
+        calls["ws"] += 1
+        return decode_ws(*a, **kw)
+
+    def moe_ws(*a, **kw):
+        calls["moe_ws"] += 1
+        return moe(*a, **kw)
+
+    def dense_step(*a, **kw):
+        raise AssertionError("the dense decode step ran")
+
+    decode_ws, moe = engine.decode_step_ws, layer.moe_ffn_ws
+    monkeypatch.setattr(engine, "decode_step_ws", ws_step)
+    monkeypatch.setattr(engine, "decode_step", dense_step)
+    monkeypatch.setattr(layer, "moe_ffn_ws", moe_ws)
+    monkeypatch.setattr("repro_torch.moe_ws.moe_ffn_ws", moe_ws)
+    b = ContinuousBatcher(init_params(cfg, seed=0, device="cpu"), cfg, slots=2, capacity=16)
+    assert b.use_ws
+    assert b.admit(Request(0, np.arange(5, dtype=np.int32), max_new=3))
+    b.step()
+    assert calls["ws"] == 1
+    assert calls["moe_ws"] == 2 * cfg.n_layers  # one prefill and one decode step

@@ -4,8 +4,9 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build      nvcc builds csrc/ws_attention.cu and csrc/ws_expert.cu for
-              sm_90a from the checkout, one nvcc each, started together.
+1. build      nvcc builds csrc/ws_attention.cu, csrc/ws_expert.cu and
+              csrc/ws_expert_grad.cu for sm_90a from the checkout, one nvcc
+              each, started together.
 2. parity     the attention kernel against its plain PyTorch version on
               CPU copies of the same inputs, at the decode shapes of the main path
               (B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8, bf16, K/V read
@@ -42,6 +43,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               their own inputs (a bf16 evaluation must miss ATOL), and its
               fp32 logits within LOGIT_ULP_SLACK one-ulp distances of the
               same step on both plain versions.
+8. grad       the expert backward kernel against its plain version at
+              deepseek-v2's full width (d 5120, f 1536, 160 experts top-6,
+              bt 8, P 8, bf16 weights from seed 0; 8 x 64 tokens, unit
+              cotangents): lockstep integer arrays bit-equal on the
+              shared-pool layout (cost, scan) and on dense static queues,
+              each column group of `out` within GRAD_RTOL of its scale; free
+              mode runs every live tile and prints sum(mult)/tiles; the
+              no-thief rewind drill gives mult == 2 with the rows unchanged;
+              the forward kernel on the same pool queues, bit-equal too.
+9. train      deepseek-v2-236b at full width cut to 1 layer (5.02 B
+              parameters, bf16, AdamW with fp32 states), moe_dispatch and
+              moe_grad_dispatch "ws", 8 x 64 tokens, seed 0.  Before the
+              optimizer exists: one step's loss and every gradient against
+              the same step on the plain versions of both kernels, with
+              ws_expert 2 and ws_expert_grad 1 launches; that step's grad
+              launch against the plain version on its own inputs (a bf16
+              evaluation of the same rows must miss); the grad kernel's
+              times at that launch.  Then 3 steps through train() (its
+              make_optimizer / make_train_step / make_batch), launches
+              counted from 0 (2 and 1 a step), finite losses, step seconds
+              and peak device memory printed.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the ported kernels, and {"ok": true, "device": {...}}.
@@ -98,7 +120,7 @@ DECODE = dict(B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8)
 KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
-PHASES = ("build", "parity", "expert", "audit", "serving", "times", "moe")
+PHASES = ("build", "parity", "expert", "audit", "serving", "times", "moe", "grad", "train")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -263,17 +285,18 @@ def phase_parity(dev):
 
 @contextmanager
 def plain_versions():
-    """Route both kernels' wrappers to their plain PyTorch versions on the
+    """Route every kernel's wrapper to its plain PyTorch version on the
     card (the comparisons' yardstick; the port itself never does this)."""
     from repro_torch.moe_ws import expert_kernel as X
     from repro_torch.pallas_ws import kernel as K
 
-    saved = K.launch_ws_grid, X.launch_moe_grid
-    K.launch_ws_grid, X.launch_moe_grid = K.plain_ws_grid, X.plain_moe_grid
+    saved = K.launch_ws_grid, X.launch_moe_grid, X.launch_moe_grad_grid
+    K.launch_ws_grid, X.launch_moe_grid, X.launch_moe_grad_grid = (
+        K.plain_ws_grid, X.plain_moe_grid, X.plain_moe_grad_grid)
     try:
         yield
     finally:
-        K.launch_ws_grid, X.launch_moe_grid = saved
+        K.launch_ws_grid, X.launch_moe_grid, X.launch_moe_grad_grid = saved
 
 
 @contextmanager
@@ -292,7 +315,7 @@ def routing_tape(record=None, replay=None):
         probs, gates, idx, aux = orig(x_flat, p, cfg, group_size)
         counts[0] += 1
         if record is not None:
-            record.append((gates, idx))
+            record.append((gates.detach(), idx))
         if tape is not None:
             gates0, idx0 = next(tape)
             differ = (idx.sort(-1).values != idx0.sort(-1).values).any(-1)
@@ -307,12 +330,13 @@ def routing_tape(record=None, replay=None):
         layer._router = orig
 
 
-def expert_weights(dev):
+def expert_weights(dev, c=None):
     """Full-width expert weights wg, wu [E, d, f], wd [E, f, d], bf16, drawn
-    slab by slab from seed 0 (the port's init of a MoE layer's experts)."""
+    slab by slab from seed 0 (the port's init of a MoE layer's experts), at
+    kimi-k2's widths unless ``c`` names others."""
     from repro_torch.models.common import dense_init_slabs
 
-    c = EXPERT
+    c = EXPERT if c is None else c
     kw = dict(generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
     return (dense_init_slabs(c["d"], (c["E"], c["d"], c["f"]), torch.bfloat16, **kw),
             dense_init_slabs(c["d"], (c["E"], c["d"], c["f"]), torch.bfloat16, **kw),
@@ -414,6 +438,8 @@ def _fresh_arrays(state, mode, n):
     for _ in range(n):
         a = {x: getattr(state, x).clone() for x in ("head", "local_head", "taken", "remaining")}
         a.update(tasks=state.tasks, tail=state.tail)
+        if state.pool_off is not None:
+            a["pool_off"] = state.pool_off
         for x in ("clock", "work", "steals", "scanned"):
             a[x] = torch.zeros(P, dtype=torch.int32, device=dev)
         a["mult"] = torch.zeros((P, n_tasks) if mode == "free" else (n_tasks,),
@@ -554,6 +580,7 @@ def phase_serving(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_launches, n_exp = launches["ws_attention"], launches["ws_expert"]
+    n_grad = launches["ws_expert_grad"]
 
     stats = front.stats()
     steps = sum(s["steps"] for s in stats["batchers"])
@@ -564,8 +591,9 @@ def phase_serving(dev):
             raise AssertionError(f"request {r.rid} produced {r.out}")
     if n_launches != steps * cfg.n_layers or n_launches == 0:
         raise AssertionError(f"ws_attention launches {n_launches} != {steps} steps x {cfg.n_layers}")
-    if n_exp != 0:
-        raise AssertionError(f"the dense model launched ws_expert {n_exp} times")
+    if n_exp != 0 or n_grad != 0:
+        raise AssertionError(f"the dense model launched ws_expert {n_exp} and "
+                             f"ws_expert_grad {n_grad} times")
     lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
     stolen = stats["totals"]["stolen"]
     if stolen == 0:
@@ -577,7 +605,7 @@ def phase_serving(dev):
         "step_ms_p50": float(np.percentile(lat, 50)),
         "step_ms_p99": float(np.percentile(lat, 99)),
         "stolen": stolen, "launches": n_launches, "ws_expert_launches": n_exp,
-        "per_replica": stats["per_replica"],
+        "ws_expert_grad_launches": n_grad, "per_replica": stats["per_replica"],
     }
     log(f"[serving] {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
         f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, "
@@ -729,6 +757,7 @@ def phase_moe(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_attn, n_exp = launches["ws_attention"], launches["ws_expert"]
+        n_grad = launches["ws_expert_grad"]
 
     stats = front.stats()
     steps = sum(s["steps"] for s in stats["batchers"])
@@ -745,6 +774,8 @@ def phase_moe(dev):
                              f"{prefills} prefills) x {L}")
     if len(dup) != n_exp:
         raise AssertionError(f"the launch hook saw {len(dup)} of {n_exp} expert launches")
+    if n_grad != 0:
+        raise AssertionError(f"serving launched ws_expert_grad {n_grad} times")
     stolen = stats["totals"]["stolen"]
     if stolen == 0:
         raise AssertionError("replica 1 stole nothing")
@@ -758,7 +789,7 @@ def phase_moe(dev):
         "step_ms_p50": float(np.percentile(lat, 50)),
         "step_ms_p99": float(np.percentile(lat, 99)),
         "stolen": stolen, "ws_attention_launches": n_attn, "ws_expert_launches": n_exp,
-        "expert_duplication": duplication, "per_replica": stats["per_replica"],
+        "ws_expert_grad_launches": n_grad, "expert_duplication": duplication, "per_replica": stats["per_replica"],
     }
     log(f"[moe] {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
         f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, {prefills} "
@@ -782,9 +813,10 @@ def phase_moe(dev):
     reset_launches()
     lg_step = decode_step_ws(params, cfg, clone(), tok, pos)[0][:, :V]
     torch.cuda.synchronize()
-    per_step = {n: launches[n] for n in ("ws_attention", "ws_expert")}
-    if per_step != {"ws_attention": L, "ws_expert": L}:
-        raise AssertionError(f"one decode_step_ws launched {per_step}, want {L} of each")
+    per_step = {n: launches[n] for n in ("ws_attention", "ws_expert", "ws_expert_grad")}
+    if per_step != {"ws_attention": L, "ws_expert": L, "ws_expert_grad": 0}:
+        raise AssertionError(f"one decode_step_ws launched {per_step}, want {L} of each "
+                             "forward kernel and no ws_expert_grad")
     if tuple(lg_step.shape) != (4, V) or not bool(torch.isfinite(lg_step).all()):
         raise AssertionError(f"ws logits {tuple(lg_step.shape)} not finite")
 
@@ -844,6 +876,7 @@ def phase_moe(dev):
         raise AssertionError(f"ws logits differ from the plain-version step by {err} > {tol}")
     serving.update(ws_expert_launches_per_decode_step=per_step["ws_expert"],
                    ws_attention_launches_per_decode_step=per_step["ws_attention"],
+                   ws_expert_grad_launches_per_decode_step=per_step["ws_expert_grad"],
                    launch_err=launch_err, launch_bf16_control_err=control_err,
                    logit_err_ws_vs_plain=err, logit_tol=tol, logit_one_ulp=err_ulp,
                    logit_err_dense_vs_plain=err_dense, logit_scale=scale,
@@ -853,6 +886,481 @@ def phase_moe(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return serving
+
+
+# ---------------------------------------------------------------------------
+# training: the expert backward kernel and the deepseek-v2 train step
+
+
+# deepseek-v2 at full width: d 5120, f 1536, 160 experts top-6; T = 8 x 64
+# tokens, the train step's batch
+GRAD = dict(d=5120, f=1536, E=160, k=6, bt=8, P=8, T=512)
+# A grad block [dx | du | dv | h | dgate] is held column group by column
+# group, each to GRAD_RTOL of the group's own largest magnitude: the groups
+# span six orders of magnitude (in the train step h is O(10) and the
+# cotangent groups O(1e-5); with unit cotangents dgate sums 5120 products
+# and reaches ~170), and fp32 sums of the same products in another order
+# differ by ~1e-6 of the group's scale.  A bf16-product evaluation misses by
+# ~1e-3 of it, in every group.
+GRAD_RTOL = 1e-4
+# The train step against the same step on the plain versions.  The model
+# is bf16: a last-bit difference of one expert row flips the bf16 rounding
+# of an activation, and within a few rounded d-wide products almost every
+# element of the step's gradients differs by an ulp; reductions over the
+# 512 tokens with cancelling terms (the norm weights' gradients) read that
+# as ~0.6% of their norm on an H100.  So each parameter's
+# gradient is held to STEP_ULP_SLACK times the distance that moving every
+# element of the MoE layer's output one bf16 ulp makes in the plain step
+# (the saturated cascade itself); the loss within 1e-3 (the reference's
+# drop-free ws-vs-dense trajectory bound).
+STEP_ULP_SLACK = 2
+STEP_LOSS_ATOL = 1e-3
+# Launches of one train step of the 1-layer model: ws_expert in the forward
+# and again in the remat replay, ws_expert_grad once, and no ws_attention
+# (MLA trains on flash_ref, plain ops in the reference as here).
+STEP_LAUNCHES = {"ws_attention": 0, "ws_expert": 2, "ws_expert_grad": 1}
+
+
+def grad_group_errs(a, b, d, f):
+    """Per column group of the grad block: max |a - b| / max |b|."""
+    groups = (("dx", slice(0, d)), ("du", slice(d, d + f)), ("dv", slice(d + f, d + 2 * f)),
+              ("h", slice(d + 2 * f, d + 3 * f)), ("dgate", slice(d + 3 * f, d + 3 * f + 1)))
+    return {n: float((a[:, sl] - b[:, sl]).abs().max())
+            / max(float(b[:, sl].abs().max()), 1e-30) for n, sl in groups}
+
+
+def _check_grad_block(name, a, b, d, f):
+    errs = grad_group_errs(a, b, d, f)
+    worst = max(errs.values())
+    if not worst <= GRAD_RTOL:
+        raise AssertionError(f"{name}: grad block differs from the plain version by "
+                             f"{errs} (relative to each group's scale) > {GRAD_RTOL}")
+    return float((a - b).abs().max()), worst
+
+
+def _grad_run(state, x, gy, routed, w, *, plain=False, **kw):
+    from repro_torch.moe_ws import run_moe_grad_schedule
+    from repro_torch.pallas_ws import to_device
+
+    if plain:
+        with plain_versions():
+            return run_moe_grad_schedule(state, x, gy, routed.tok_idx, routed.gates, *w,
+                                         bt=GRAD["bt"], **kw)
+    return run_moe_grad_schedule(to_device(state, x.device), x, gy, routed.tok_idx,
+                                 routed.gates, *w, bt=GRAD["bt"], **kw)
+
+
+def phase_grad(dev):
+    """ws_expert_grad against its plain version at deepseek-v2 full width:
+    lockstep on the pool layout (cost, scan) and on dense static queues,
+    free mode, the no-thief rewind drill; then ws_expert on pool queues."""
+    from repro_torch.moe_ws import expert_rounds_bound, route_to_tasks, route_to_tasks_pool
+    from repro_torch.moe_ws.layer import _normalised
+    from repro_torch.pallas_ws import copy_state, make_pool_queue_state, make_queue_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[grad] device memory in use before: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    c = GRAD
+    d, f = c["d"], c["f"]
+    t0 = time.perf_counter()
+    w = expert_weights(dev, GRAD)
+    torch.cuda.synchronize()
+    log(f"[grad] deepseek-v2 expert weights E={c['E']} d={d} f={f} bf16 "
+        f"({sum(t.numel() for t in w) * 2 / 1e9:.2f} GB) drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    idx = np.stack([rng.choice(c["E"], c["k"], replace=False) for _ in range(c["T"])])
+    gates = rng.uniform(0.1, 1.0, (c["T"], c["k"])).astype(np.float32)
+    gates /= gates.sum(1, keepdims=True)
+    x = torch.from_numpy(rng.standard_normal((c["T"], d)).astype(np.float32)).to(dev)
+    gy = torch.from_numpy(rng.standard_normal((c["T"], d)).astype(np.float32)).to(dev)
+    records, tail, pool_off, routed = route_to_tasks_pool(idx, gates, c["E"], bt=c["bt"])
+    pool = make_pool_queue_state(records, tail, pool_off, routed.loads, c["P"],
+                                 n_tasks=records.shape[0])
+    tasks, hrouted = route_to_tasks(idx, gates, c["E"], bt=c["bt"])
+    static = make_queue_state(tasks, c["P"], n_queues=c["P"], partition="owner")
+    rounds = expert_rounds_bound(idx.size, c["bt"], c["E"], c["P"], True)
+    n_live = int(tail.sum())
+    log(f"[grad] routing T={c['T']} top-{c['k']}: {idx.size} rows, {n_live} live tiles in a "
+        f"pool of {records.shape[0]}, {int((routed.loads > 0).sum())} experts touched")
+
+    abs_errs, rel_errs = [], []
+    cases = ((pool, routed, dict(steal=True, steal_policy="cost", rounds=rounds)),
+             (pool, routed, dict(steal=True, steal_policy="scan", rounds=rounds)),
+             (static, hrouted, dict(steal=False)))
+    for state, rt, kw in cases:
+        name = (f"{'pool' if state.pool else 'dense'} steal={kw['steal']} "
+                f"{kw.get('steal_policy', 'cost')}")
+        t0 = time.perf_counter()
+        res_k = _grad_run(state, x, gy, rt, w, mode="lockstep", **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        res_p = _grad_run(state, x, gy, rt, w, mode="lockstep", plain=True, **kw)
+        ik, ip = _ints(res_k), _ints(res_p)
+        for n in ik:
+            if not np.array_equal(ik[n], ip[n]):
+                raise AssertionError(f"ws_expert_grad {name}: lockstep {n} differs from the "
+                                     "plain version")
+        a, r = _check_grad_block(f"ws_expert_grad {name} lockstep", res_k.out, res_p.out, d, f)
+        abs_errs.append(a)
+        rel_errs.append(r)
+        if state.pool and kw["steal_policy"] == "cost":
+            expect = _normalised(res_p, routed, None, c["bt"])
+        if not state.pool:
+            expect_static = _normalised(res_p, hrouted, tasks, c["bt"])
+        log(f"[grad] ws_expert_grad {name} lockstep: integer arrays bit-equal, out max_abs_err "
+            f"{a:.3g}, max group-relative err {r:.3g} (<= {GRAD_RTOL}), {ms:.1f} ms")
+
+    res = _grad_run(pool, x, gy, routed, w, mode="free")
+    torch.cuda.synchronize()
+    mult = res.mult[:n_live].cpu()
+    if not (bool((mult >= 1).all()) and bool((res.mult[n_live:] == 0).all())):
+        raise AssertionError(f"ws_expert_grad free: {(mult == 0).sum()} live tiles unexecuted "
+                             "or a dead pool slot executed")
+    a, r = _check_grad_block("ws_expert_grad free", res.out, expect, d, f)
+    abs_errs.append(a)
+    rel_errs.append(r)
+    duplication = int(mult.sum()) / n_live
+    log(f"[grad] ws_expert_grad free (pool): mult in [{int(mult.min())}, {int(mult.max())}], "
+        f"sum(mult)/tiles {duplication:.2f}, out max_abs_err {a:.3g}, group-relative {r:.3g}")
+
+    # rewind drill without thieves: resume with every head at 0 and every
+    # local bound wiped; each tile runs exactly once more (mult == 2) and its
+    # stored rows do not change
+    first = _grad_run(static, x, gy, hrouted, w, mode="free", steal=False)
+    drill = copy_state(static)
+    drill.head = np.zeros_like(drill.head)
+    drill.local_head = np.zeros_like(drill.local_head)
+    drill.taken = first.taken.cpu().numpy()
+    drill.remaining = first.remaining.cpu().numpy()
+    second = _grad_run(drill, x, gy, hrouted, w, mode="free", steal=False, mult=first.mult,
+                       out=first.out)
+    torch.cuda.synchronize()
+    m2 = second.mult[: static.n_tasks].cpu()
+    if not bool((m2 == 2).all()):
+        raise AssertionError(f"ws_expert_grad rewind drill mult in [{int(m2.min())}, "
+                             f"{int(m2.max())}], want 2")
+    a, r = _check_grad_block("ws_expert_grad rewind drill", second.out, expect_static, d, f)
+    abs_errs.append(a)
+    rel_errs.append(r)
+    log(f"[grad] ws_expert_grad rewind drill: mult == 2 without thieves, rows unchanged "
+        f"(max_abs_err {a:.3g}, group-relative {r:.3g})")
+
+    # the forward kernel on the same pool queues
+    fwd = []
+    for plain in (False, True):
+        if plain:
+            with plain_versions():
+                fwd.append(_moe_pool(pool, x, routed, w, rounds))
+        else:
+            fwd.append(_moe_pool(pool, x, routed, w, rounds))
+        torch.cuda.synchronize()
+    ik, ip = _ints(fwd[0]), _ints(fwd[1])
+    for n in ik:
+        if not np.array_equal(ik[n], ip[n]):
+            raise AssertionError(f"ws_expert on pool queues: lockstep {n} differs")
+    fwd_err = float((fwd[0].out - fwd[1].out).abs().max())
+    if not fwd_err <= ATOL:
+        raise AssertionError(f"ws_expert on pool queues: out max_abs_err {fwd_err} > {ATOL}")
+    log(f"[grad] ws_expert on pool queues lockstep: integer arrays bit-equal, out max_abs_err "
+        f"{fwd_err:.3g}")
+    del w, res, first, second, fwd, x, gy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(abs_errs), max_group_rel_err=max(rel_errs),
+                free_duplication=duplication, pool_fwd_err=fwd_err)
+
+
+def _moe_pool(state, x, routed, w, rounds):
+    from repro_torch.moe_ws import run_moe_schedule
+    from repro_torch.pallas_ws import to_device
+
+    return run_moe_schedule(to_device(state, x.device), x, routed.tok_idx, *w, bt=GRAD["bt"],
+                            mode="lockstep", rounds=rounds)
+
+
+@contextmanager
+def moe_output_moved_one_ulp(seed):
+    """Every MoE layer's output moved one bf16 ulp per element (``one_ulp``),
+    a constant shift the gradient flows through unchanged."""
+    import repro_torch.moe_ws as M
+
+    orig = M.moe_ffn_ws
+
+    def moved(*a, **kw):
+        y, aux = orig(*a, **kw)
+        yd = y.detach()
+        return y + (one_ulp(yd, seed) - yd), aux
+
+    M.moe_ffn_ws = moved
+    try:
+        yield
+    finally:
+        M.moe_ffn_ws = orig
+
+
+@contextmanager
+def grad_launches(on_launch):
+    """Call ``on_launch(state, args, kwargs, res)`` after every backward
+    expert launch the MoE layers make (the callers count them)."""
+    from repro_torch.moe_ws import layer
+
+    orig = layer.run_moe_grad_schedule
+
+    def run(state, *a, **kw):
+        res = orig(state, *a, **kw)
+        on_launch(state, a, kw, res)
+        return res
+
+    layer.run_moe_grad_schedule = run
+    try:
+        yield
+    finally:
+        layer.run_moe_grad_schedule = orig
+
+
+def bf16_grad_rows(state, x, gy, tok_idx, gate_rows, wg, wu, wd, bt):
+    """The grad block of one launch's live tiles with bf16 operands and
+    products: the control the fp32 comparison must reject."""
+    from repro_torch.pallas_ws.tasks import BOTTOM, F_E, F_OP, F_RL, F_RS, TASK_WIDTH
+
+    bf16 = torch.bfloat16
+    dev = wg.device
+    tok = torch.as_tensor(np.asarray(tok_idx), dtype=torch.int64, device=dev)
+    gr = torch.as_tensor(np.asarray(gate_rows), dtype=torch.float32, device=dev)
+    d, f = wg.shape[1], wg.shape[2]
+    out = torch.zeros((tok.shape[0], d + 3 * f + 1), dtype=torch.float32, device=dev)
+    recs = np.asarray(state.tasks).reshape(-1, TASK_WIDTH)
+    for rec in recs[recs[:, F_OP] != BOTTOM]:
+        e, rs, rl = int(rec[F_E]), int(rec[F_RS]), int(rec[F_RL])
+        t = tok[rs:rs + rl]
+        xb, cb = x[t].to(bf16), gy[t].to(bf16)
+        wgb, wub, wdb = wg[e].to(bf16), wu[e].to(bf16), wd[e].to(bf16)
+        u, v = xb @ wgb, xb @ wub
+        sig = torch.sigmoid(u)
+        s = u * sig
+        h = s * v
+        dgate = (cb * (h @ wdb)).sum(-1, keepdim=True)
+        dh = (gr[rs:rs + rl, None].to(bf16) * cb) @ wdb.T
+        dv = dh * s
+        du = dh * v * (sig * (1 + u * (1 - sig)))
+        out[rs:rs + rl] = torch.cat([du @ wgb.T + dv @ wub.T, du, dv, h, dgate], 1).float()
+    return out
+
+
+def _grad_times(state, args, kw):
+    """ws_expert_grad's kernel time (free, lockstep) at one recorded launch
+    of the train step, its bound, and the plain version's time."""
+    from repro_torch.moe_ws import expert_kernel as X
+    from repro_torch.moe_ws import run_moe_grad_schedule
+    from repro_torch.pallas_ws import to_device
+
+    x_in, gy, tok_idx, gate_rows, wg, wu, wd = args
+    dev = wg.device
+    x = x_in.float().contiguous()
+    tok = torch.from_numpy(np.asarray(tok_idx, dtype=np.int32)).to(dev)
+    gr = torch.from_numpy(np.asarray(gate_rows, dtype=np.float32)).to(dev)
+    T, d = x.shape
+    f = wg.shape[2]
+    W = X.grad_out_width(d, f)
+    out = torch.zeros((tok.shape[0], W), dtype=torch.float32, device=dev)
+    ds = to_device(state, dev)
+    times = {}
+    for mode, n in (("free", 3), ("lockstep", 1)):
+        arrs = _fresh_arrays(ds, mode, n + 1)
+
+        def launch(i, mode=mode):
+            X._launch_grad_cuda(arrs[i], x, gy, tok, gr, wg, wu, wd, out, mode=mode,
+                                rounds=kw["rounds"], steal=True, policy="cost",
+                                compress=False, bt=kw["bt"], n_tasks=state.n_tasks)
+
+        if mode == "free":
+            launch(n)  # warm-up
+            torch.cuda.synchronize()
+        times[mode] = _event_ms(launch, n)
+    # the forward kernel at the same routing, for the step's breakdown
+    fwd_out = torch.zeros((tok.shape[0], d), dtype=torch.float32, device=dev)
+    arrs = _fresh_arrays(ds, "free", 3)
+
+    def fwd(i):
+        X._launch_cuda(arrs[i], x, tok, wg, wu, wd, fwd_out, mode="free", rounds=0, steal=True,
+                       policy="cost", compress=False, bt=kw["bt"], n_tasks=state.n_tasks)
+
+    fwd(2)  # warm-up
+    torch.cuda.synchronize()
+    fwd_ms = _event_ms(fwd, 2)
+    with plain_versions():
+        run_moe_grad_schedule(state, *args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_moe_grad_schedule(state, *args, **kw)
+        torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    rows = int(np.asarray(state.remaining).sum())        # live routed rows
+    touched = int((np.asarray(state.tail) > 0).sum())    # experts with tiles
+    w_bytes = touched * 3 * d * f * wg.element_size()    # their weights, once
+    io_bytes = (2 * T * d * 4 + tok.shape[0] * (W * 4 + 8)
+                + int(np.asarray(state.tasks).size) * 4)  # x, gy, out block, tok/gates, records
+    byte_ms = (w_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 12 * rows * d * f / BF16_FLOPS * 1e3         # u, v, yhat, dh: 2df each; dx 4df
+    bound_ms = max(byte_ms, ops_ms)
+    bound_by = "bytes" if byte_ms >= ops_ms else "operations"
+    log(f"[times] ws_expert_grad at the train step's routing ({rows} rows over {touched} "
+        f"experts, {int(np.asarray(state.tail).sum())} tiles): kernel free {times['free']:.4f} "
+        f"ms, lockstep {times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{w_bytes + io_bytes} B; operations {ops_ms:.5f} ms), plain version {plain_ms:.2f} ms; "
+        "no single PyTorch call computes the gathered expert FFN's transpose, so there is "
+        f"no library time; ws_expert free at the same routing {fwd_ms:.4f} ms")
+    return dict(ms=times["free"], lockstep_ms=times["lockstep"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ws_expert_free_ms_at_train_routing=fwd_ms)
+
+
+def phase_train(dev):
+    """deepseek-v2 at full width, 1 layer, both ws kernels: one step's loss
+    and grads against the plain-version step, each grad launch against the
+    plain version (bf16 control), then 3 optimizer steps through train()."""
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import loss_and_grads, train_policy
+    from repro_torch.launch.train import train
+    from repro_torch.models import ShapeConfig, init_params
+    from repro_torch.moe_ws import run_moe_grad_schedule
+    from repro_torch.optim import tree_leaves
+    from repro_torch.pallas_ws import launches, reset_launches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] device memory in use before init: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    cfg = CONFIG.replace(n_layers=1, moe_dispatch="ws", moe_grad_dispatch="ws")
+    rows, seq = 8, 64
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"[train] {cfg.name} depth 1 (of {CONFIG.n_layers}) at full width: {n_params / 1e9:.3f} "
+        f"B parameters (param_count {cfg.param_count() / 1e9:.3f} B, policy "
+        f"{train_policy(cfg)}), {n_bytes / 1e9:.2f} GB, initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, ShapeConfig("custom", "train", seq, rows), 0, n_rows=rows, seed=SEED).items()}
+
+    # one step's loss and grads on the kernels, its grad launch recorded
+    recorded, routes = [], []
+    with grad_launches(lambda *r: recorded.append(r)), routing_tape(record=routes) as n_routes:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_k, _, g_k = loss_and_grads(params, cfg, batch)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        per_step = {n: launches[n] for n in ("ws_attention", "ws_expert", "ws_expert_grad")}
+    if per_step != STEP_LAUNCHES or len(recorded) != 1:
+        raise AssertionError(f"one loss_and_grads launched {per_step} (hook saw "
+                             f"{len(recorded)}), want {STEP_LAUNCHES}: ws_expert forward and "
+                             "remat replay, no ws_attention (MLA trains on flash_ref)")
+    routes_p, routes_u = [], []
+    with plain_versions(), routing_tape(record=routes_p) as n_routes_p:
+        loss_p, _, g_p = loss_and_grads(params, cfg, batch)
+    # the yardstick: the plain step with the MoE output moved one bf16 ulp
+    with plain_versions(), routing_tape(record=routes_u) as n_routes_u, \
+            moe_output_moved_one_ulp(SEED):
+        loss_u, _, g_u = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    # the router runs in the layer's forward and again in its remat replay
+    if not (len(routes) == n_routes[0] == n_routes_p[0] == n_routes_u[0] == 2):
+        raise AssertionError(f"router calls {n_routes[0]}, {n_routes_p[0]}, {n_routes_u[0]} "
+                             f"({len(routes)} taped), want 2 a step: forward and remat replay")
+    for rr in (routes_p, routes_u):
+        if not all(torch.equal(a[1], b[1]) for a, b in zip(routes, rr)):
+            raise AssertionError("a plain-version step routed differently")
+    loss_err = abs(float(loss_k) - float(loss_p))
+    worst, worst_name, worst_rel = -1.0, None, 0.0
+    for name, a, b, u in zip(_paths(g_k), tree_leaves(g_k), tree_leaves(g_p), tree_leaves(g_u)):
+        b32 = b.float()
+        dist = float((a.float() - b32).norm())
+        yard = float((u.float() - b32).norm())
+        ratio = dist / max(yard, 1e-30)
+        worst_rel = max(worst_rel, dist / max(float(b32.norm()), 1e-30))
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    log(f"[train] one step on both ws kernels in {grad_s:.2f} s (launches {per_step}): loss {float(loss_k):.6f}, plain-version step {float(loss_p):.6f} (|diff| "
+        f"{loss_err:.3g} <= {STEP_LOSS_ATOL}; the one-ulp move {abs(float(loss_u) - float(loss_p)):.3g}); "
+        f"gradients: worst {worst_name} at {worst:.3g} one-ulp distances (<= {STEP_ULP_SLACK}), "
+        f"largest distance {worst_rel:.3g} of a gradient's norm")
+    if not (loss_err <= STEP_LOSS_ATOL and worst <= STEP_ULP_SLACK):
+        raise AssertionError("the train step differs from the plain-version step")
+    del g_p, g_k, g_u
+
+    # the step's grad launch against the plain version on its own inputs,
+    # and the same rows with bf16 products as the control that must fail
+    st, args, kw, res = recorded[0]
+    d, f = cfg.d_model, cfg.moe_d_ff
+    with plain_versions(), torch.no_grad():
+        res_p = run_moe_grad_schedule(st, *args, **kw)
+        ctl = grad_group_errs(bf16_grad_rows(st, args[0].float(), *args[1:], kw["bt"]),
+                              res_p.out, d, f)
+    launch_abs, launch_rel = _check_grad_block("the train step's ws_expert_grad launch",
+                                               res.out, res_p.out, d, f)
+    log(f"[train] the step's ws_expert_grad launch against the plain version on its own "
+        f"inputs: max_abs_err {launch_abs:.3g}, group-relative {launch_rel:.3g} (<= "
+        f"{GRAD_RTOL}); the same rows with bf16 products, group-relative "
+        + ", ".join(f"{n} {e:.3g}" for n, e in ctl.items()) + f" (each > {GRAD_RTOL})")
+    if not min(ctl.values()) > GRAD_RTOL:
+        raise AssertionError(f"the bf16 control came within {GRAD_RTOL} ({ctl}): the launch "
+                             "check cannot tell fp32 from bf16 expert math")
+    with torch.no_grad():
+        times = _grad_times(st, args, kw)
+    del recorded, res, res_p, st, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3 optimizer steps through the port's train(), counted from 0
+    snaps, step_s, metrics, peaks = [], [], [], []
+
+    def on_step(step, state, m, seconds):
+        snaps.append({n: launches[n] for n in STEP_LAUNCHES})
+        step_s.append(seconds)
+        metrics.append(m)
+        peaks.append(torch.cuda.max_memory_allocated())
+
+    in_use = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, losses = train("deepseek-v2-236b", smoke=False, n_layers=1, steps=3, rows=rows,
+                      seq=seq, moe_dispatch="ws", moe_grad_dispatch="ws", seed=SEED,
+                      device=dev, params=params, on_step=on_step, log_every=1)
+    totals = {n: launches[n] for n in STEP_LAUNCHES}
+    peak = max(peaks)
+    steps = [{n: b[n] - (a[n] if a else 0) for n in b} for a, b in zip([None] + snaps, snaps)]
+    if any(s != STEP_LAUNCHES for s in steps):
+        raise AssertionError(f"launches per train step {steps}, want {STEP_LAUNCHES}")
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    log(f"[train] 3 steps: losses {losses}, step seconds {[round(s, 3) for s in step_s]}, "
+        f"peak device memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB; {in_use / 1e9:.2f} GB "
+        f"in use before train()), launches per step "
+        f"{steps[0]}, total {totals}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(model=f"{cfg.name} (depth 1, train)", losses=losses, step_s=step_s,
+                peak_bytes=peak, step_peak_bytes=peaks, in_use_before_bytes=in_use, loss_vs_plain=loss_err, grad_vs_plain_ulp_distances=worst,
+                grad_vs_plain_rel=worst_rel,
+                one_step_s=grad_s, launches=totals, launches_per_step=steps[0],
+                launch_abs_err=launch_abs, launch_rel_err=launch_rel,
+                launch_bf16_control_rel=min(ctl.values()), grad_times=times,
+                ce=[m["ce"] for m in metrics], aux=[m["aux"] for m in metrics])
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + k + "/")
+    else:
+        yield prefix.rstrip("/")
 
 
 def _map(tree, fn):
@@ -976,6 +1484,8 @@ def main(argv=None) -> int:
     serving, n_launches = phase_serving(dev) if "serving" in phases else (None, None)
     times = phase_times(dev) if "times" in phases else {}
     moe = phase_moe(dev) if "moe" in phases else None
+    grad = phase_grad(dev) if "grad" in phases else None
+    training = phase_train(dev) if "train" in phases else None
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed; a partial run prints no result")
         return 3
@@ -986,7 +1496,9 @@ def main(argv=None) -> int:
         "replaces": "src/repro/pallas_ws/kernel.py:334",
         "launches": n_launches,
         "launches_by_path": {"llama3.2-3b": n_launches,
-                             moe["model"]: moe["ws_attention_launches"]},
+                             moe["model"]: moe["ws_attention_launches"],
+                             training["model"]: training["launches"]["ws_attention"]},
+        "launches_per_train_step": training["launches_per_step"]["ws_attention"],
         "max_abs_err": max(max_err, expert["attn_err"]),
         **times,
     }
@@ -997,16 +1509,35 @@ def main(argv=None) -> int:
         "replaces": "src/repro/moe_ws/expert_kernel.py:47",
         "launches": moe["ws_expert_launches"],
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_launches"],
-                             moe["model"]: moe["ws_expert_launches"]},
+                             moe["model"]: moe["ws_expert_launches"],
+                             training["model"]: training["launches"]["ws_expert"]},
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
+        "launches_per_train_step": training["launches_per_step"]["ws_expert"],
         "max_abs_err": expert["max_abs_err"],
         **{k: v for k, v in expert.items() if k not in ("max_abs_err", "attn_err")},
+    }
+    grad_line = {
+        "name": "ws_expert_grad",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ws_expert_grad.cu",
+        "replaces": "src/repro/moe_ws/expert_kernel.py:87",
+        "launches": training["launches"]["ws_expert_grad"],
+        "launches_by_path": {"llama3.2-3b": serving["ws_expert_grad_launches"],
+                             moe["model"]: moe["ws_expert_grad_launches"],
+                             training["model"]: training["launches"]["ws_expert_grad"]},
+        "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
+        "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
+        "max_abs_err": max(grad["max_abs_err"], training["launch_abs_err"]),
+        "max_group_rel_err": max(grad["max_group_rel_err"], training["launch_rel_err"]),
+        **training["grad_times"],
     }
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     log("[serving] " + json.dumps(serving))
     log("[moe] " + json.dumps(moe))
+    log("[grad] " + json.dumps(grad))
+    log("[train] " + json.dumps({k: v for k, v in training.items() if k != "grad_times"}))
     print(card_line())
-    print(json.dumps({"kernels": [attention, expert_line]}))
+    print(json.dumps({"kernels": [attention, expert_line, grad_line]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

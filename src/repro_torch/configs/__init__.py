@@ -1,2 +1,20 @@
-"""Configurations the port can serve (``llama3_2_3b``, ``kimi_k2_1t_a32b``:
-each with ``CONFIG`` and ``SMOKE``)."""
+"""Configurations the port builds (``llama3_2_3b``, ``kimi_k2_1t_a32b``,
+``deepseek_v2_236b``: each with ``CONFIG`` and ``SMOKE``), and
+:func:`get_config` by the reference's arch ids."""
+
+import importlib
+
+ARCH_MODULES = {
+    "llama3.2-3b": "llama3_2_3b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+}
+
+
+def get_config(arch: str, smoke: bool = False):
+    """The config of ``arch`` (full width, or its ``SMOKE`` size)."""
+    if arch not in ARCH_MODULES:
+        raise NotImplementedError(f"the port has no config for {arch!r}: "
+                                  f"{sorted(ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch]}")
+    return mod.SMOKE if smoke else mod.CONFIG

@@ -3,7 +3,10 @@
 ``params_from_jax`` takes the reference's parameter tree with every leaf
 already turned into a numpy array (the caller does ``np.asarray``; this
 module imports no JAX) and returns the same nested dict of torch tensors,
-layouts unchanged, so both packages compute the same function.
+layouts unchanged, so both packages compute the same function: GQA and MLA
+layers (``wdkv``, ``wkr``, ``wuk``, ``wuv``, ``wdq``/``wuq``, ``wo``), routed
+and shared experts alike, since the port keeps the reference's parameter
+tree.
 """
 
 from __future__ import annotations

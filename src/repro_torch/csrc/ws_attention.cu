@@ -202,7 +202,7 @@ extern "C" int ws_attention_launch(
     int steal, int policy, int compress, int causal,
     int H, int Sq, int Sq_out, int Sk, int hd, int g, int bq, int bk,
     float scale, void* stream) {
-  WSQueues Q = ws_queues(tasks, tail, head, local_head, taken, remaining, clock, work,
+  WSQueues Q = ws_queues(tasks, nullptr, tail, head, local_head, taken, remaining, clock, work,
                          steals, scanned, mult, n_queues, capacity, n_programs,
                          n_tasks, rounds, steal, policy, compress);
   AttnArgs A;

@@ -4,7 +4,8 @@
 // `_expert_execute`, run by the scheduler shell `_generic_ws_kernel` of
 // repro/pallas_ws/kernel.py (`launch_ws_grid`, reached through
 // `run_moe_schedule`).  The shell is ws_sched.cuh, shared with the attention
-// kernel; this file holds the expert tile and the C entry point.
+// and backward kernels (its queues dense or shared-pool); this file holds the
+// expert tile and the C entry point.
 //
 // What it computes.  Per claimed record (e, rs, rl) of the dropless MoE
 // dispatch, where rows [rs, rs + bt) of the expert-grouped routed arrays
@@ -34,6 +35,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "ws_load8.cuh"
 #include "ws_sched.cuh"
 
 #define F_E 1
@@ -53,25 +55,6 @@ struct ExpertArgs {
   float* out;            // [n_rows, d] contiguous fp32
   int d, f, bt;
 };
-
-// Eight consecutive weights widened to fp32 (p is 16-byte aligned).
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  float4 a = *reinterpret_cast<const float4*>(p);
-  float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
 
 // ---------------------------------------------------------------------------
 // expert tile (all threads)
@@ -220,14 +203,14 @@ static int launch(const WSQueues& Q, const ExpertArgs& A, int mode, size_t smem,
 
 extern "C" int ws_expert_launch(
     int mode, int dtype,
-    const int* tasks, const int* tail, int* head, int* local_head, int* taken,
+    const int* tasks, const int* pool_off, const int* tail, int* head, int* local_head, int* taken,
     int* remaining, int* clock, int* work, int* steals, int* scanned, int* mult,
     const float* x, const int* tok_idx, const void* wg, const void* wu,
     const void* wd, float* out,
     int n_queues, int capacity, int n_programs, int n_tasks, int rounds,
     int steal, int policy, int compress,
     int d, int f, int bt, void* stream) {
-  WSQueues Q = ws_queues(tasks, tail, head, local_head, taken, remaining, clock, work,
+  WSQueues Q = ws_queues(tasks, pool_off, tail, head, local_head, taken, remaining, clock, work,
                          steals, scanned, mult, n_queues, capacity, n_programs,
                          n_tasks, rounds, steal, policy, compress);
   ExpertArgs A;

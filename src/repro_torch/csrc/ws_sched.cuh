@@ -22,6 +22,14 @@
 //    bits), and multiplicity goes into per-program rows mult[P, n_tasks]
 //    that the wrapper sums.  clock[p] is the sum of the costs program p ran.
 //
+// Two queue layouts (the reference's `_slot_field`/`_probe_slot`).  Dense:
+// slot (q, s) is tasks[q, s] and taken[q, s], and a probe issues only while
+// s < capacity.  Shared pool (pool_off != null): queue q owns the contiguous
+// pool segment [pool_off[q], pool_off[q] + tail[q]), slot (q, s) is
+// tasks[pool_off[q] + s] and taken[pool_off[q] + s], and a probe issues only
+// while s < tail[q]: a read past tail would land in the next queue's
+// segment, a wrong task and not a fault, so it must never issue.
+//
 // Fence-free.  head, local_head, taken and remaining are touched only by
 // volatile global loads and stores.  There is no atomic, no fence, no
 // membar: thread 0 of a CTA runs the scheduler and hands its decision to the
@@ -42,11 +50,12 @@
 #define F_COST 7
 
 struct WSQueues {
-  const int* tasks;          // [n_queues, capacity, TASK_WIDTH]
+  const int* tasks;          // dense [n_queues, capacity, TASK_WIDTH]; pool [capacity, TASK_WIDTH]
+  const int* pool_off;       // pool [n_queues + 1] segment offsets; dense null
   const int* tail;           // [n_queues]
   volatile int* head;        // [n_queues]
   volatile int* local_head;  // [n_programs, n_queues]
-  volatile int* taken;       // [n_queues, capacity]
+  volatile int* taken;       // dense [n_queues, capacity]; pool [capacity]
   volatile int* remaining;   // [n_queues]
   int* clock;                // [n_programs]
   int* work;
@@ -76,13 +85,18 @@ __device__ __forceinline__ int rmax_read(const WSQueues& Q, int p, int v) {
   return lh > hv ? lh : hv;
 }
 
-// Guarded ⊥-probe: the op field is loaded only when wanted and h < capacity.
+// Flat index of slot (v, s) in tasks (records) and taken, in either layout.
+__device__ __forceinline__ long long slot_index(const WSQueues& Q, int v, int s) {
+  return Q.pool_off ? (long long)Q.pool_off[v] + s : (long long)v * Q.capacity + s;
+}
+
+// Guarded ⊥-probe: the op field is loaded only when wanted and the slot is
+// meaningful: h < capacity (dense) or h < tail[v] (pool).
 __device__ __forceinline__ int probe(const WSQueues& Q, int v, int h, bool want,
                                      int* probed) {
-  bool fire = want && (h < Q.capacity);
+  bool fire = want && (Q.pool_off ? h < Q.tail[v] : h < Q.capacity);
   *probed = fire ? 1 : 0;
-  return fire ? Q.tasks[((long long)v * Q.capacity + h) * TASK_WIDTH + F_OP]
-               : BOTTOM;
+  return fire ? Q.tasks[slot_index(Q, v, h) * TASK_WIDTH + F_OP] : BOTTOM;
 }
 
 __device__ __forceinline__ void claim_writes(const WSQueues& Q, int p, int v, int h) {
@@ -155,7 +169,8 @@ __device__ __forceinline__ Claim extract(const WSQueues& Q, int p) {
 // Bookkeeping after an execution (ws_account).  Returns the task's cost.
 __device__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
                        bool advisory, bool free_mode) {
-  const int* rec = Q.tasks + ((long long)fq * Q.capacity + fs) * TASK_WIDTH;
+  const long long slot = slot_index(Q, fq, fs);
+  const int* rec = Q.tasks + slot * TASK_WIDTH;
   int tid = rec[F_TID];
   int cost = rec[F_COST];
   if (free_mode) {
@@ -163,7 +178,7 @@ __device__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
   } else {
     Q.mult[tid] += 1;
   }
-  Q.taken[(long long)fq * Q.capacity + fs] = p;
+  Q.taken[slot] = p;
   if (advisory) {
     int rem = Q.remaining[fq] - cost;            // plain read + plain write
     Q.remaining[fq] = rem > 0 ? rem : 0;
@@ -180,7 +195,7 @@ __device__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
 }
 
 __device__ __forceinline__ void load_record(const WSQueues& Q, int fq, int fs, int* s_rec) {
-  const int* rec = Q.tasks + ((long long)fq * Q.capacity + fs) * TASK_WIDTH;
+  const int* rec = Q.tasks + slot_index(Q, fq, fs) * TASK_WIDTH;
   for (int f = 0; f < TASK_WIDTH; ++f) s_rec[f] = rec[f];
 }
 
@@ -276,13 +291,15 @@ __device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
 }
 
 // The queue half of every C entry point's arguments.
+// ``pool_off`` is null for the dense layout.
 static inline WSQueues ws_queues(
-    const int* tasks, const int* tail, int* head, int* local_head, int* taken,
+    const int* tasks, const int* pool_off, const int* tail, int* head, int* local_head, int* taken,
     int* remaining, int* clock, int* work, int* steals, int* scanned, int* mult,
     int n_queues, int capacity, int n_programs, int n_tasks, int rounds,
     int steal, int policy, int compress) {
   WSQueues Q;
   Q.tasks = tasks;
+  Q.pool_off = pool_off;
   Q.tail = tail;
   Q.head = head;
   Q.local_head = local_head;

@@ -1,0 +1,120 @@
+"""End-to-end training entry point of the port (``repro/launch/train.py``
+counterpart, without checkpointing and without the ``sched/`` microbatch
+rounds).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b \
+        --steps 3 --moe-dispatch ws --moe-grad-dispatch ws --device cpu
+
+runs the smoke config on the CPU (the kernels' plain versions); on a CUDA
+card drop ``--device cpu`` (the default is ``cuda``, and it raises without
+one).  ``--full-config`` takes the full width, and ``--n-layers`` cuts its
+depth.  Each step draws its batch from the synthetic corpus
+(:func:`repro_torch.data.make_batch`) and goes through
+:func:`~repro_torch.launch.steps.make_optimizer` and
+:func:`~repro_torch.launch.steps.make_train_step`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs import ARCH_MODULES, get_config
+from repro_torch.data import make_batch
+from repro_torch.launch.steps import make_optimizer, make_train_step
+from repro_torch.models import init_params
+from repro_torch.models.config import ShapeConfig
+
+
+def train(arch: str, *, smoke: bool = True, steps: int = 100, rows: int = 8, seq: int = 64,
+          moe_dispatch: str | None = None, moe_grad_dispatch: str | None = None,
+          ws_mode: str | None = None, lr: float = 3e-3, ckpt_dir: str | None = None,
+          resume: bool = False, preempt_at: int | None = None, seed: int = 0,
+          log_every: int = 10, log_path: str | None = None, n_layers: int | None = None,
+          device: DeviceLike = None, params=None, on_step=None):
+    """Train ``arch`` for ``steps`` steps of ``rows`` x ``seq`` tokens; returns
+    ``(state, losses)``.  The knobs are the reference's; ``n_layers`` cuts the
+    depth, ``device`` is ``cuda`` unless given, ``params`` replaces the
+    seeded init (for example the reference's parameters carried across by
+    :func:`repro_torch.convert.params_from_jax`; they are updated in place),
+    and ``on_step(step, state, metrics, seconds)`` is called after every
+    step.  Checkpointing
+    (``ckpt_dir``, ``resume``, ``preempt_at``) and ``ws_mode`` are not
+    ported and raise."""
+    if ckpt_dir is not None or resume or preempt_at is not None:
+        raise NotImplementedError("checkpointing (ckpt_dir, resume, preempt_at) is not "
+                                  "ported yet")
+    if ws_mode is not None:
+        raise NotImplementedError("ws_mode (the sched/ microbatch rounds) is not ported yet")
+    dev = resolve_device(device)
+    cfg = get_config(arch, smoke=smoke)
+    if moe_dispatch is not None:
+        cfg = cfg.replace(moe_dispatch=moe_dispatch)
+    if moe_grad_dispatch is not None:
+        cfg = cfg.replace(moe_grad_dispatch=moe_grad_dispatch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    shape = ShapeConfig("custom", "train", seq, rows)
+    opt = make_optimizer(cfg, total_steps=steps, peak_lr=lr)
+    if params is None:
+        params = init_params(cfg, seed=seed, device=dev)
+    state = {"params": params, "opt": opt.init(params)}
+    step_fn = make_train_step(cfg, opt)
+    losses = []
+    t0 = time.time()
+    for step in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in make_batch(cfg, shape, step, n_rows=rows, seed=seed).items()}
+        t_step = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t_step
+        losses.append(metrics["loss"])
+        if on_step is not None:
+            on_step(step, state, metrics, seconds)
+        if step % log_every == 0 or step == steps - 1:
+            msg = {"step": step, "loss": round(metrics["loss"], 4),
+                   "t": round(time.time() - t0, 1)}
+            print(f"[train] {json.dumps(msg)}")
+            if log_path:
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(msg) + "\n")
+    return state, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="deepseek-v2-236b", choices=sorted(ARCH_MODULES))
+    ap.add_argument("--full-config", action="store_true", help="full (non-smoke) config")
+    ap.add_argument("--n-layers", type=int, default=None, help="cut the depth")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--rows", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--moe-dispatch", default=None, choices=["dense", "ws"])
+    ap.add_argument("--moe-grad-dispatch", default=None, choices=["dense", "ws"])
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-path", default=None)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    _, losses = train(args.arch, smoke=not args.full_config, steps=args.steps,
+                      rows=args.rows, seq=args.seq, moe_dispatch=args.moe_dispatch,
+                      moe_grad_dispatch=args.moe_grad_dispatch, lr=args.lr, seed=args.seed,
+                      log_every=args.log_every, log_path=args.log_path,
+                      n_layers=args.n_layers, device=args.device)
+    k = max(len(losses) // 10, 1)
+    print(f"[train] done: first-{k} mean loss {np.mean(losses[:k]):.4f} -> "
+          f"last-{k} mean loss {np.mean(losses[-k:]):.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

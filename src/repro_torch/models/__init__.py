@@ -1,7 +1,8 @@
-"""GQA decoder of the port, dense or MoE (``repro.models`` counterpart)."""
+"""Decoders of the port (``repro.models`` counterpart): GQA decoders, dense
+or MoE, served and trained; MLA+MoE decoders (deepseek-v2) trained."""
 
-from .attention import KVCache, gqa_decode, gqa_decode_ws, gqa_train
-from .config import ModelConfig
+from .attention import KVCache, flash_ref, gqa_decode, gqa_decode_ws, gqa_train, mla_train
+from .config import ModelConfig, ShapeConfig
 from .model import (
     Caches,
     decode_hidden,
@@ -9,15 +10,18 @@ from .model import (
     decode_step,
     decode_step_ws,
     init_caches,
+    loss_fn,
     prefill,
+    vocab_parallel_xent,
     ws_decode_supported,
 )
 from .moe import init_moe, moe_ffn, moe_ffn_dispatch, router_topk
-from .transformer import init_params
+from .transformer import init_params, lm_hidden
 
 __all__ = [
-    "Caches", "KVCache", "ModelConfig", "decode_hidden", "decode_hidden_ws", "decode_step",
-    "decode_step_ws", "gqa_decode", "gqa_decode_ws", "gqa_train", "init_caches", "init_moe",
-    "init_params", "moe_ffn", "moe_ffn_dispatch", "prefill", "router_topk",
+    "Caches", "KVCache", "ModelConfig", "ShapeConfig", "decode_hidden", "decode_hidden_ws",
+    "decode_step", "decode_step_ws", "flash_ref", "gqa_decode", "gqa_decode_ws", "gqa_train",
+    "init_caches", "init_moe", "init_params", "lm_hidden", "loss_fn", "mla_train", "moe_ffn",
+    "moe_ffn_dispatch", "prefill", "router_topk", "vocab_parallel_xent",
     "ws_decode_supported",
 ]

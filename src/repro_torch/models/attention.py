@@ -1,9 +1,15 @@
-"""GQA attention (port of the dense half of ``repro/models/attention.py``).
+"""GQA and MLA attention (port of ``repro/models/attention.py``: GQA
+prefill and decode, MLA training).
 
-* prefill — chunked flash-style attention as plain tensor ops
+* train / prefill — chunked flash-style attention as plain tensor ops
   (:func:`flash_ref`): outer loop over query chunks, inner loop over key
-  chunks with an online softmax.  The reference computes it outside any
-  Pallas kernel, and so does the port.
+  chunks with an online softmax.  Its backward is the reference's custom
+  VJP as a ``torch.autograd.Function``: P is recomputed blockwise from the
+  saved logsumexp, so training keeps no score blocks.  The reference
+  computes it outside any Pallas kernel, and so does the port.
+* MLA (deepseek-v2) training — :func:`mla_train`: low-rank q and kv
+  projections, a rope part shared across heads, then :func:`flash_ref`.
+  MLA decode is not ported.
 * decode — one query token against a [B, S, Hkv, hd] KV cache:
   :func:`gqa_decode` is the dense masked contraction (the oracle);
   :func:`gqa_decode_ws` routes the attention core through the work-stealing
@@ -20,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .common import apply_rope
+from .common import apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -52,7 +58,8 @@ def _flash_mask(s, qpos, kpos, causal: bool, win: int):
 
 
 def _flash_fwd_impl(q, k, v, win: int, qoff: int, causal: bool, chunk: int):
-    """Online-softmax attention; q, k, v: [B, S, H, hd] (kv head-expanded)."""
+    """Online-softmax attention; q, k, v: [B, S, H, hd] (kv head-expanded).
+    Returns (out [B, Sq, H, hdv] in q's dtype, lse [B, Sq, H] fp32)."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     hdv = v.shape[-1]
@@ -65,7 +72,7 @@ def _flash_fwd_impl(q, k, v, win: int, qoff: int, causal: bool, chunk: int):
     vs = v.reshape(B, nk, ck, H, hdv).permute(1, 0, 3, 2, 4)
     pos = torch.arange(c, device=q.device)
     posk = torch.arange(ck, device=q.device)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qb = qs[qi]
         qpos = qoff + qi * c + pos
@@ -85,15 +92,74 @@ def _flash_fwd_impl(q, k, v, win: int, qoff: int, causal: bool, chunk: int):
             m = m_new
         l = torch.clamp(l, min=1e-30)
         outs.append((acc / l[..., None]).to(q.dtype))
-    out = torch.stack(outs)  # [nq, B, H, c, hdv]
-    return out.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, hdv)
+        lses.append(m + torch.log(l))
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, Sq, H, hdv)
+    lse = torch.stack(lses).permute(1, 0, 3, 2).reshape(B, Sq, H)  # [nq,B,H,c] -> [B,Sq,H]
+    return out, lse
+
+
+def _flash_bwd_impl(q, k, v, out, lse, do, win: int, qoff: int, causal: bool, chunk: int):
+    """Flash backward: P recomputed per (q-chunk, k-chunk) block from the
+    saved lse; transients are O(chunk²), dq/dk/dv accumulate in fp32."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    hdv = v.shape[-1]
+    scale = hd ** -0.5
+    c = _pick_chunk(Sq, chunk)
+    ck = _pick_chunk(Sk, chunk)
+    nq, nk = Sq // c, Sk // ck
+    D = (do.float() * out.float()).sum(-1)                  # [B, Sq, H]
+    qf, dof = q.float(), do.float()
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Sk, H, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Sk, H, hdv), dtype=torch.float32, device=q.device)
+    qpos_base = torch.arange(c, device=q.device)
+    kpos_base = torch.arange(ck, device=q.device)
+    for qi in range(nq):
+        qsl = slice(qi * c, (qi + 1) * c)
+        qb, dob = qf[:, qsl], dof[:, qsl]                   # [B, c, H, hd]
+        lseb = lse[:, qsl].transpose(1, 2)[..., None]       # [B, H, c, 1]
+        Db = D[:, qsl].transpose(1, 2)[..., None]
+        qpos = qoff + qi * c + qpos_base
+        for ki in range(nk):
+            ksl = slice(ki * ck, (ki + 1) * ck)
+            kb, vb = kf[:, ksl], vf[:, ksl]
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
+            s = _flash_mask(s, qpos, ki * ck + kpos_base, causal, win)
+            p = torch.exp(s - lseb)                         # [B, H, c, ck]
+            dv[:, ksl] += torch.einsum("bhqk,bqhd->bkhd", p, dob)
+            dp = torch.einsum("bqhd,bkhd->bhqk", dob, vb)
+            ds = p * (dp - Db) * scale
+            dq[:, qsl] += torch.einsum("bhqk,bkhd->bqhd", ds, kb)
+            dk[:, ksl] += torch.einsum("bhqk,bqhd->bkhd", ds, qb)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """:func:`flash_ref` with the reference's custom VJP: the forward saves
+    (q, k, v, out, lse) and the backward recomputes P blockwise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, win, qoff, causal, chunk):
+        out, lse = _flash_fwd_impl(q, k, v, win, qoff, causal, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (win, qoff, causal, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_ref(q, k, v, *, causal: bool, window: int, chunk: int = 1024):
-    """Online-softmax attention over [B, S, H, hd]; window <= 0 is full.
-    (The reference's banded fast path for static windows is not ported: the
-    port serves unwindowed GQA only.)"""
-    return _flash_fwd_impl(q, k, v, int(window), 0, causal, chunk)
+    """Online-softmax attention over [B, S, H, hd] (kv head-expanded);
+    window <= 0 is full.  Differentiable through the flash VJP.  (The
+    reference's banded fast path for static windows is not ported: the port
+    builds unwindowed attention only.)"""
+    return _Flash.apply(q, k, v, int(window), 0, causal, chunk)
 
 
 def expand_kv(k, n_rep: int):
@@ -201,3 +267,60 @@ def gqa_decode_ws(x, p, cfg, cache: KVCache, pos, *, schedule="ws", bk=64,
     )
     o = o.reshape(B, 1, H, hd).to(x.dtype)
     return torch.einsum("bshe,hed->bsd", o, p["wo"]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2), training
+
+
+def init_mla(cfg, dtype, *, generator, device, n_layers=None):
+    """MLA projections; with ``n_layers`` every tensor gets a leading [L]
+    axis (the reference's layout)."""
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    qlr, kvlr, rhd, vhd = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_hd
+    lead = () if n_layers is None else (n_layers,)
+
+    def init(d_in, shape):
+        return dense_init(d_in, lead + shape, dtype, generator=generator, device=device)
+
+    p = {
+        "wdkv": init(d, (d, kvlr)),
+        "wkr": init(d, (d, rhd)),
+        "wuk": init(kvlr, (kvlr, H, hd)),
+        "wuv": init(kvlr, (kvlr, H, vhd)),
+        "wo": init(H * vhd, (H, vhd, d)),
+    }
+    if qlr:
+        p["wdq"] = init(d, (d, qlr))
+        p["wuq"] = init(qlr, (qlr, H, hd + rhd))
+    else:
+        p["wq"] = init(d, (d, H, hd + rhd))
+    return p
+
+
+def _mla_q(x, p, cfg, positions):
+    hd = cfg.hd
+    if cfg.q_lora_rank:
+        cq = torch.einsum("bsd,dr->bsr", x, p["wdq"])
+        q = torch.einsum("bsr,rhe->bshe", cq, p["wuq"])
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_train(x, p, cfg, positions, window: int, chunk: int = 1024):
+    """Causal MLA self-attention over [B, S, d]: q and kv through their
+    low-rank latents, the rope key shared across heads."""
+    B, S, _ = x.shape
+    H, rhd = cfg.n_heads, cfg.rope_head_dim
+    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    ckv = torch.einsum("bsd,dr->bsr", x, p["wdkv"])
+    k_rope = apply_rope(torch.einsum("bsd,de->bse", x, p["wkr"])[:, :, None, :], positions,
+                        cfg.rope_theta)  # [B, S, 1, rhd]
+    k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["wuk"])
+    v = torch.einsum("bsr,rhe->bshe", ckv, p["wuv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rhd)], dim=-1)
+    o = flash_ref(q, k, v, causal=True, window=window, chunk=chunk)
+    return torch.einsum("bshe,hed->bsd", o, p["wo"]).to(x.dtype)

@@ -1,9 +1,12 @@
-"""Model configuration for the port (the dense and MoE subset of
+"""Model configuration for the port (the dense, MoE and MLA subset of
 ``repro/models/config.py``).
 
-A frozen dataclass with the fields and derived properties the GQA decoder
-reads, dense or with MoE FFNs.  Field names and defaults match the
-reference, so a config prints and compares the same way in both packages.
+A frozen dataclass with the fields and derived properties the decoders
+read: GQA or MLA attention, dense or MoE FFNs, and the analytic
+``param_count`` the trainer's policy reads.  Field names and defaults
+match the reference, so a config prints and compares the same way in both
+packages.  :class:`ShapeConfig` is one input-shape cell (sequence length
+and batch rows), as the reference's.
 """
 
 from __future__ import annotations
@@ -25,9 +28,15 @@ class ModelConfig:
     vocab_size: int
 
     head_dim: Optional[int] = None  # default d_model // n_heads
-    attn_kind: str = "gqa"
+    attn_kind: str = "gqa"          # gqa | mla
     window: int = 0                 # sliding-window size; 0 = full attention
     locals_per_global: int = 0
+
+    # -- MLA (deepseek-v2) ----------------------------------------------------
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    rope_head_dim: int = 64
+    v_head_dim: int = 0             # defaults to head_dim
 
     # -- MoE ------------------------------------------------------------------
     n_experts: int = 0
@@ -40,7 +49,9 @@ class ModelConfig:
     # expert tiles through the work-stealing expert megakernel; "mesh-ws" is
     # the reference's cross-device dispatch, not ported (it raises).
     moe_dispatch: str = "dense"
-    # backward evaluation of the ws dispatch; the port is forward only
+    # backward evaluation of the ws dispatch's custom VJP: "dense" = the
+    # closed-form transpose over the routed pairs; "ws" = its per-row tiles
+    # through the expert backward megakernel
     moe_grad_dispatch: str = "dense"
 
     rope_theta: float = 10000.0
@@ -58,6 +69,10 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def v_hd(self) -> int:
+        return self.v_head_dim if self.v_head_dim else self.hd
 
     @property
     def is_moe(self) -> bool:
@@ -90,3 +105,40 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count, embedding and LM head included (the
+        reference's terms for the attention decoders, dense or MoE)."""
+        d, V = self.d_model, self.vocab_size
+        total = V * d * (1 if self.tie_embeddings else 2)
+        if self.attn_kind == "mla":
+            hd, rhd, H = self.hd, self.rope_head_dim, self.n_heads
+            attn = (d * self.q_lora_rank + self.q_lora_rank * H * (hd + rhd)
+                    if self.q_lora_rank else d * H * (hd + rhd))
+            attn += d * (self.kv_lora_rank + rhd)
+            attn += self.kv_lora_rank * H * (hd + self.v_hd)
+            attn += H * self.v_hd * d
+        else:
+            attn = 2 * d * self.n_heads * self.hd + 2 * d * self.n_kv_heads * self.hd
+
+        def dense_ffn(dff: int) -> int:
+            return 3 * d * dff  # SwiGLU
+
+        if self.is_moe:
+            moe = d * self.n_experts + (self.n_experts + self.n_shared_experts) * dense_ffn(
+                self.moe_d_ff)
+            dense_layers = self.first_k_dense
+            return (total + self.n_layers * attn
+                    + dense_layers * dense_ffn(self.d_ff if self.d_ff else self.moe_d_ff * 4)
+                    + (self.n_layers - dense_layers) * moe)
+        return total + self.n_layers * (attn + dense_ffn(self.d_ff))
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k | custom
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int

@@ -1,8 +1,11 @@
-"""Public model API of the port (the GQA decoders of ``repro/models/model.py``,
-dense or MoE): cache init, prefill, the dense decode step and the
-work-stealing decode step.  A MoE layer's FFN goes through
+"""Public model API of the port (the decoders of ``repro/models/model.py``):
+the training loss (:func:`loss_fn`, GQA or MLA, dense or MoE), and for GQA
+decoders cache init, prefill, the dense decode step and the work-stealing
+decode step.  A MoE layer's FFN goes through
 :func:`~repro_torch.models.moe.moe_ffn_dispatch`, so ``cfg.moe_dispatch ==
-"ws"`` runs the expert megakernel in every step and in prefill.
+"ws"`` runs the expert megakernel in every step, in prefill and in the
+training forward, and its backward megakernel in the training backward
+when ``cfg.moe_grad_dispatch == "ws"``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,51 @@ from . import attention as attn
 from . import transformer as tf
 from .common import rms_norm, swiglu
 from .moe import moe_ffn_dispatch
+
+
+AUX_LOSS_W = 0.01
+
+
+def vocab_parallel_xent(hidden, w_un, labels, mask=None, valid_vocab=None,
+                        row_weights=None):
+    """Cross entropy of ``hidden @ w_un`` (fp32 logits [B, S, V]) against
+    ``labels``: the gold logit by an iota == label mask, the log-sum-exp
+    around a detached max.  ``valid_vocab`` masks the padded vocab columns;
+    ``row_weights`` [B] returns ``Σ_b w_b · token-mean(nll_b)`` instead of
+    the global token mean (the reference's multiplicity weighting)."""
+    logits = torch.einsum("bsd,dv->bsv", hidden, w_un).float()
+    vpos = torch.arange(logits.shape[-1], device=logits.device)
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        logits = torch.where(vpos < valid_vocab, logits, torch.full_like(logits, -1e30))
+    gold = torch.where(vpos == labels[..., None], logits, torch.zeros_like(logits)).sum(-1)
+    m = logits.amax(dim=-1).detach()
+    lse = torch.log(torch.exp(logits - m[..., None]).sum(-1)) + m
+    nll = lse - gold
+    mk = mask.float() if mask is not None else torch.ones_like(nll)
+    if row_weights is not None:
+        row_mean = (nll * mk).sum(1) / torch.clamp(mk.sum(1), min=1.0)
+        return (row_mean * row_weights).sum()
+    return (nll * mk).sum() / torch.clamp(mk.sum(), min=1.0)
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True, chunk: int = 1024,
+            row_weights=None):
+    """Mean next-token cross entropy (+ the MoE aux loss) of ``batch["tokens"]``
+    [B, S] (the lm and moe families).  Returns (loss, {"ce", "aux"})."""
+    tf.check_supported(cfg, training=True)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    h, aux = tf.lm_hidden(params, cfg, x, positions, remat=remat, chunk=chunk)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    ce = vocab_parallel_xent(h, _unembed_matrix(params, cfg), labels, mask,
+                             valid_vocab=cfg.vocab_size, row_weights=row_weights)
+    weight = row_weights.sum() if row_weights is not None else 1.0
+    return ce + AUX_LOSS_W * aux * weight, {"ce": ce, "aux": aux}
 
 
 class Caches(NamedTuple):
@@ -36,7 +84,7 @@ def init_caches(cfg, batch: int, capacity: int, dtype=None,
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(tf.torch_dtype(cfg.dtype))
+    return params["embed"][tokens.long()].to(tf.torch_dtype(cfg.dtype))
 
 
 def _unembed_matrix(params, cfg):

@@ -15,9 +15,12 @@ Routing is lowered to the paper's scheduling problem:
 
 No capacity anywhere: every routed pair gets a row and every row a task,
 so the dispatch is dropless.  Duplicated tile execution is normalised by
-:func:`row_divisor`.  The port is eager, so only the host Put is here; the
-reference's traced Puts (``route_to_tasks_jax``, ``route_to_tasks_pool_jax``)
-are not ported yet.
+:func:`row_divisor`.  Two Puts: the host Put :func:`route_to_tasks` (task
+objects, compact per-expert queues) and the shared-pool Put
+:func:`route_to_tasks_pool` (the reference's ``route_to_tasks_pool_jax``
+in numpy: flat records, one pool segment per expert), which the training
+path and the backward use.  The padded traced Put (``route_to_tasks_jax``)
+is not ported: the port is eager.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.pallas_ws.kernel import STATIC_COMPRESSED_ROUNDS
-from repro_torch.pallas_ws.tasks import ExpertTask
+from repro_torch.pallas_ws.tasks import BOTTOM, OP_EXPERT_TILE, ExpertTask
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -118,6 +121,79 @@ def route_to_tasks(idx, gates, n_experts: int, bt: int = 8
     )
 
 
+def _group_by_expert(idx, gates, n_experts: int):
+    """Stable sort of the routed (token, choice) pairs by expert, with each
+    expert's segment bounds read off the sorted keys (``searchsorted``):
+    expert ``e``'s pairs are ``order[start[e] : start[e] + loads[e]]``."""
+    idx = np.asarray(idx, dtype=np.int32)
+    gates = np.asarray(gates, dtype=np.float32)
+    T, k = idx.shape
+    if gates.shape != (T, k):
+        raise ValueError(f"gates {gates.shape} do not match idx {(T, k)}")
+    flat_e = idx.reshape(-1)
+    flat_t = np.repeat(np.arange(T, dtype=np.int32), k)
+    flat_g = gates.reshape(-1)
+    order = np.argsort(flat_e, kind="stable").astype(np.int32)
+    sorted_e = flat_e[order]
+    e_ids = np.arange(n_experts, dtype=np.int32)
+    start = np.searchsorted(sorted_e, e_ids, side="left").astype(np.int32)
+    loads = np.searchsorted(sorted_e, e_ids, side="right").astype(np.int32) - start
+    return T, k, order, flat_t, flat_g, loads, start
+
+
+def route_to_tasks_pool(idx, gates, n_experts: int, bt: int = 8
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, RoutedSet]:
+    """The shared-pool Put (``route_to_tasks_pool_jax`` of the reference).
+
+    One flat pool of ``pool_tiles = ceil(T·k / bt) + E`` tiles holds every
+    expert's tiles at the tile offset ``toff[e] = Σ_{e'<e} ceil(loads[e'] /
+    bt)``; each expert wastes less than one tile, so the pool fits any
+    routing, a token's repeated expert included.  Pool tile ``j`` owns
+    routed rows ``[j·bt, (j+1)·bt)`` and is its own ``tid``.  Each output
+    array is one gather per row (row ``row_off[e] + j`` holds pair
+    ``order[start[e] + j]`` iff ``j < loads[e]``), as the reference builds
+    it; rows past a segment's live prefix and the pool suffix are dead
+    (token 0, gate 0, ``row_src = T·k``) and the suffix records are ⊥.
+
+    Needs per-expert queues (queue ``e`` is the segment ``[toff[e],
+    toff[e+1])``).  Returns ``(records [pool_tiles, TASK_WIDTH], tail [E],
+    pool_off [E + 1], routed)`` for :func:`~repro_torch.pallas_ws.queues.make_pool_queue_state`.
+    """
+    E = n_experts
+    T, k, order, flat_t, flat_g, loads, start = _group_by_expert(idx, gates, E)
+    Tk = T * k
+    pool_tiles = _cdiv(Tk, bt) + E
+    n_tiles = (loads + bt - 1) // bt
+    toff = np.concatenate([np.zeros(1, np.int32), np.cumsum(n_tiles).astype(np.int32)])
+    row_off = toff * bt
+    n_rows = pool_tiles * bt
+
+    rows = np.arange(n_rows, dtype=np.int32)
+    tile_row = rows // bt
+    e_row = np.clip(np.searchsorted(toff, tile_row, side="right") - 1, 0, E - 1)
+    j_row = rows - row_off[e_row]
+    row_live = (tile_row < toff[E]) & (j_row < loads[e_row])
+    pair = order[np.minimum(start[e_row] + j_row, Tk - 1)]
+    tok_idx = np.where(row_live, flat_t[pair], 0).astype(np.int32)
+    gate_rows = np.where(row_live, flat_g[pair], np.float32(0)).astype(np.float32)
+    row_src = np.where(row_live, pair, Tk).astype(np.int32)
+
+    # pool tile j belongs to the expert whose segment holds j (an empty
+    # expert's duplicate offset resolves to the next non-empty one)
+    j = np.arange(pool_tiles, dtype=np.int32)
+    e_of = np.clip(np.searchsorted(toff, j, side="right") - 1, 0, E - 1).astype(np.int32)
+    live = j < toff[E]
+    rl = np.where(live, np.clip(loads[e_of] - (j - toff[e_of]) * bt, 0, bt), 0)
+    bot = np.full((pool_tiles,), BOTTOM, np.int32)
+    records = np.stack([
+        np.where(live, OP_EXPERT_TILE, BOTTOM), np.where(live, e_of, BOTTOM),
+        j * bt, rl, bot, bot, j, rl,
+    ], axis=-1).astype(np.int32)
+    routed = RoutedSet(tok_idx=tok_idx, gates=gate_rows, expert_off=row_off, loads=loads,
+                       n_rows=n_rows, n_routed=Tk, n_tokens=T, row_src=row_src)
+    return records, n_tiles.astype(np.int32), toff, routed
+
+
 def expert_rounds_bound(n_routed: int, bt: int, n_queues: int, n_programs: int,
                         steal: bool, steal_run_cap: int = 1) -> int:
     """Worst-case lockstep rounds to drain any routing of ``n_routed`` pairs
@@ -133,9 +209,10 @@ def expert_rounds_bound(n_routed: int, bt: int, n_queues: int, n_programs: int,
 def divisor_from_tiles(row_start, row_len, tile_mult, n_rows: int) -> np.ndarray:
     """Per-row multiplicity divisor: tile ``i`` owns rows ``[row_start[i],
     row_start[i] + row_len[i])``, which get ``max(1, tile_mult[i])``; every
-    other row gets 1."""
+    other row gets 1.  An int ``row_len`` is the pool layout's uniform tile
+    height: a live tile's pad rows get its divisor too (they hold 0)."""
     starts = np.asarray(row_start, dtype=np.int64)
-    lens = np.asarray(row_len, dtype=np.int64)
+    lens = np.broadcast_to(np.asarray(row_len, dtype=np.int64), starts.shape)
     m = np.maximum(1, np.asarray(tile_mult)).astype(np.float32)
     div = np.ones((n_rows,), dtype=np.float32)
     total = int(lens.sum())

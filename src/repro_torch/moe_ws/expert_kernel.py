@@ -1,5 +1,5 @@
-"""Fence-free work-stealing expert megakernel: wrapper and plain version
-(port of the forward half of ``repro/moe_ws/expert_kernel.py``).
+"""Fence-free work-stealing expert megakernels, forward and backward:
+wrappers and plain versions (port of ``repro/moe_ws/expert_kernel.py``).
 
 One task is ``row_len`` routed rows of one expert's gated FFN:
 
@@ -17,7 +17,20 @@ attention family (``pallas_ws.kernel._PlainWalk``) with the expert tile in
 torch fp32.  The modes are the attention family's: lockstep is the
 reference's order and accumulates ``tile × mult``; free mode runs P
 concurrent CTAs that store whole tiles, so its ``out`` is already
-normalised.  The backward tile (``_expert_grad_execute``) is not ported yet.
+normalised.
+
+Backward: one task is the transpose of the same tile.  It gathers its rows'
+activations and output cotangents, replays the FFN and emits per row
+
+    [dx (d) | du (f) | dv (f) | h (f) | dgate (1)]     # fp32 [bt, d + 3f + 1]
+
+the pieces of the no-drop reference VJP (:func:`grad_out_width`).  Every
+output is per routed row, hence disjoint across tiles, so duplicates are
+normalised exactly as in the forward.  The TPU kernel is the tile body
+``_expert_grad_execute``; here it is ``csrc/ws_expert_grad.cu``, launched
+by :func:`launch_moe_grad_grid` for CUDA tensors, with
+:func:`plain_moe_grad_grid` (the shared walk with the tile in torch fp32)
+for CPU tensors.  Both kernels take dense or shared-pool queues.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from repro_torch.pallas_ws.kernel import (
     _PlainWalk,
     launch_grid,
     launches,
+    queue_dims,
     scheduler_knobs,
 )
 from repro_torch.pallas_ws.queues import QueueState
@@ -57,7 +71,7 @@ class _ExpertWalk(_PlainWalk):
         self.bt = bt
 
     def execute(self, fq, fs, *, store):
-        rec = self.tasks[fq][fs]
+        rec = self.rec(fq, fs)
         e, rs, rl = rec[F_E], rec[F_RS], rec[F_RL]
         xt = self.x[self.tok_idx[rs:rs + self.bt]]                      # gather [bt, d]
         h = F.silu(xt @ self.wg[e].float()) * (xt @ self.wu[e].float())
@@ -69,10 +83,17 @@ class _ExpertWalk(_PlainWalk):
             self.out[rs:rs + self.bt] += y
 
 
-def _check_expert_records(tasks: np.ndarray, *, n_experts, n_rows, bt, n_tasks) -> None:
+def _check_expert_records(state: QueueState, *, n_experts, n_rows, bt, n_tasks) -> None:
     """The kernel indexes the weights, tok_idx/out and mult with the live
-    records' fields: reject a host-built record that would read or write out
-    of bounds."""
+    records' fields, and the pool's records with ``pool_off`` and ``tail``:
+    reject a host-built state that would read or write out of bounds."""
+    tasks = state.tasks
+    if state.pool:
+        off, tail = np.asarray(state.pool_off), np.asarray(state.tail)
+        if (off.shape != (state.n_queues + 1,) or (off[:-1] < 0).any()
+                or (off[:-1] + tail > tasks.shape[0]).any()):
+            raise ValueError(f"pool segments out of range for {tasks.shape[0]} slots: "
+                             f"pool_off {off.tolist()}, tail {tail.tolist()}")
     live = tasks[tasks[..., F_OP] != BOTTOM]
     if not live.size:
         return
@@ -84,17 +105,11 @@ def _check_expert_records(tasks: np.ndarray, *, n_experts, n_rows, bt, n_tasks) 
                          f"n_rows={n_rows}, bt={bt}: {live[bad][0].tolist()}")
 
 
-def _run(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt, plain: bool,
-         steal=True, steal_policy="cost", steal_run_cap=1, rounds=None, mult=None,
-         compress_runs=None, mode=None, trace=False, trace_capacity=None,
-         fault_plan=None) -> WSRunResult:
-    mode, compress = scheduler_knobs(
-        steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap, mode=mode,
-        compress_runs=compress_runs, trace=trace, trace_capacity=trace_capacity,
-        fault_plan=fault_plan)
+def _check_inputs(state: QueueState, x, tok_idx, wg, wu, wd, *, bt, plain: bool):
+    """Checks shared by both expert kernels; returns ``(d, f, n_rows)``."""
     dev = x.device
-    if not all(t.device == dev for t in (tok_idx, wg, wu, wd, out)):
-        raise ValueError("x, tok_idx, wg, wu, wd and out must lie on one device")
+    if not all(t.device == dev for t in (tok_idx, wg, wu, wd)):
+        raise ValueError("x, tok_idx, wg, wu and wd must lie on one device")
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"x must be contiguous float32 [T, d]: {x.dtype} {tuple(x.shape)}")
     T, d = x.shape
@@ -110,17 +125,33 @@ def _run(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt, plain: bool,
     if tok_idx.dtype != torch.int32 or tok_idx.dim() != 1 or not tok_idx.is_contiguous():
         raise ValueError(f"tok_idx must be contiguous int32 [n_rows]: {tok_idx.dtype}")
     n_rows = tok_idx.shape[0]
-    if (out.dtype != torch.float32 or not out.is_contiguous()
-            or tuple(out.shape) != (n_rows, d)):
-        raise ValueError(f"out must be contiguous float32 [n_rows={n_rows}, d={d}]: "
-                         f"{out.dtype} {tuple(out.shape)}")
     if isinstance(state.tasks, np.ndarray):
-        _check_expert_records(state.tasks, n_experts=E, n_rows=n_rows, bt=bt,
+        _check_expert_records(state, n_experts=E, n_rows=n_rows, bt=bt,
                               n_tasks=max(1, state.n_tasks))
     if not plain and (d % EXPERT_COLS or f % EXPERT_COLS or any(
-            w.data_ptr() % 16 for w in (wg, wu, wd))):
-        raise ValueError(f"ws_expert needs d and f multiples of {EXPERT_COLS} and "
-                         f"16-byte aligned weights: d={d}, f={f}")
+            w.data_ptr() % 16 for w in (x, wg, wu, wd))):
+        raise ValueError(f"the expert kernels need d and f multiples of {EXPERT_COLS} "
+                         f"and 16-byte aligned x and weights: d={d}, f={f}")
+    return d, f, n_rows
+
+
+def _check_out(out, shape, dev):
+    if (out.device != dev or out.dtype != torch.float32 or not out.is_contiguous()
+            or tuple(out.shape) != shape):
+        raise ValueError(f"out must be contiguous float32 {shape} on {dev}: "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+
+
+def _run(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt, plain: bool,
+         steal=True, steal_policy="cost", steal_run_cap=1, rounds=None, mult=None,
+         compress_runs=None, mode=None, trace=False, trace_capacity=None,
+         fault_plan=None) -> WSRunResult:
+    mode, compress = scheduler_knobs(
+        steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap, mode=mode,
+        compress_runs=compress_runs, trace=trace, trace_capacity=trace_capacity,
+        fault_plan=fault_plan)
+    d, _, n_rows = _check_inputs(state, x, tok_idx, wg, wu, wd, bt=bt, plain=plain)
+    _check_out(out, (n_rows, d), x.device)
 
     def walk(arrs, **kw):
         return _ExpertWalk(arrs, x, tok_idx, wg, wu, wd, out, bt=bt, **kw)
@@ -140,27 +171,34 @@ def _kernel_fn():
     fn = _build.load("ws_expert").ws_expert_launch
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        # mode, dtype; 11 int32 arrays; x, tok_idx, wg, wu, wd, out; 8 sizes
-        # and flags; d, f, bt; stream
-        fn.argtypes = [i, i] + [ptr] * 11 + [ptr] * 6 + [i] * 8 + [i] * 3 + [ptr]
+        # mode, dtype; 12 int32 arrays (pool_off null on the dense layout);
+        # x, tok_idx, wg, wu, wd, out; 8 sizes and flags; d, f, bt; stream
+        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 6 + [i] * 8 + [i] * 3 + [ptr]
         fn.restype = i
     return fn
+
+
+_QUEUE_ARRAYS = ("tasks", "pool_off", "tail", "head", "local_head", "taken", "remaining",
+                 "clock", "work", "steals", "scanned", "mult")
+
+
+def _queue_args(arrs):
+    """The 12 queue pointers of both expert entry points (pool_off is null on
+    the dense layout)."""
+    return [arrs[n].data_ptr() if n in arrs else None for n in _QUEUE_ARRAYS]
 
 
 def _launch_cuda(arrs, x, tok_idx, wg, wu, wd, out, *, mode, rounds, steal, policy,
                  compress, bt, n_tasks) -> None:
     fn = _kernel_fn()
-    names = ("tasks", "tail", "head", "local_head", "taken", "remaining", "clock",
-             "work", "steals", "scanned", "mult")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
         MODES.index(mode), 1 if wg.dtype == torch.bfloat16 else 0,
-        *[arrs[n].data_ptr() for n in names],
+        *_queue_args(arrs),
         x.data_ptr(), tok_idx.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
         out.data_ptr(),
-        arrs["head"].shape[0], arrs["tasks"].shape[1], arrs["clock"].shape[0],
-        n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),
-        x.shape[1], wg.shape[2], bt, stream,
+        *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy),
+        int(compress), x.shape[1], wg.shape[2], bt, stream,
     )
     launches["ws_expert"] += 1
     if err != 0:
@@ -203,6 +241,17 @@ def run_moe_schedule(state: QueueState, x, tok_idx, wg, wu, wd, *, bt: int,
     the routed-row output [n_rows, d] fp32, carried over on relaunch for the
     multiplicity drills, as is ``mult``.
     """
+    x, tok_idx, out = _prepare(x, tok_idx, out, x.shape[1])
+    return launch_moe_grid(state, x, tok_idx, wg, wu, wd, out, bt=bt, steal=steal,
+                           steal_policy=steal_policy, steal_run_cap=steal_run_cap,
+                           rounds=rounds, mult=mult, compress_runs=compress_runs,
+                           mode=mode, trace=trace, trace_capacity=trace_capacity,
+                           fault_plan=fault_plan)
+
+
+def _prepare(x, tok_idx, out, width: int):
+    """fp32 contiguous ``x``, int32 ``tok_idx`` on x's device (range-checked
+    on the host), and a fresh or carried-over (copied) ``out`` [n_rows, width]."""
     dev = x.device
     x = x.float().contiguous()
     if isinstance(tok_idx, torch.Tensor):
@@ -212,15 +261,172 @@ def run_moe_schedule(state: QueueState, x, tok_idx, wg, wu, wd, *, bt: int,
         if tok_host.size and (tok_host.min() < 0 or tok_host.max() >= x.shape[0]):
             raise ValueError(f"tok_idx out of range for T={x.shape[0]}")
         tok_idx = torch.from_numpy(tok_host.astype(np.int32)).to(dev)
-    shape = (tok_idx.shape[0], x.shape[1])
+    shape = (tok_idx.shape[0], width)
     if out is None:
         out = torch.zeros(shape, dtype=torch.float32, device=dev)
     else:
         out = torch.as_tensor(out, dtype=torch.float32).to(dev).clone().contiguous()
         if tuple(out.shape) != shape:
             raise ValueError(f"carried out has shape {tuple(out.shape)}, expected {shape}")
-    return launch_moe_grid(state, x, tok_idx, wg, wu, wd, out, bt=bt, steal=steal,
-                           steal_policy=steal_policy, steal_run_cap=steal_run_cap,
-                           rounds=rounds, mult=mult, compress_runs=compress_runs,
-                           mode=mode, trace=trace, trace_capacity=trace_capacity,
-                           fault_plan=fault_plan)
+    return x, tok_idx, out
+
+
+# ---------------------------------------------------------------------------
+# backward: the transpose tile
+
+
+def grad_out_width(d: int, f: int) -> int:
+    """Columns of the grad launch's per-row output block:
+    ``[dx (d) | du (f) | dv (f) | h (f) | dgate (1)]``."""
+    return d + 3 * f + 1
+
+
+def dsilu(u, sig):
+    """d/du silu(u) given ``sig = sigmoid(u)``: the one form both backward
+    evaluations (the dense transpose and the grad tile) use."""
+    return sig * (1.0 + u * (1.0 - sig))
+
+
+class _ExpertGradWalk(_PlainWalk):
+    """The plain version of ``csrc/ws_expert_grad.cu``: the shared walk with
+    the transpose tile (``_expert_grad_execute``) in torch fp32."""
+
+    def __init__(self, arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, bt, steal,
+                 policy):
+        super().__init__(arrs, steal=steal, policy=policy)
+        self.x, self.gy, self.tok_idx, self.gate_rows = x, gy, tok_idx.long(), gate_rows
+        self.wg, self.wu, self.wd, self.out = wg, wu, wd, out
+        self.bt = bt
+
+    def execute(self, fq, fs, *, store):
+        rec = self.rec(fq, fs)
+        e, rs, rl = rec[F_E], rec[F_RS], rec[F_RL]
+        tok = self.tok_idx[rs:rs + self.bt]
+        xt, ct = self.x[tok], self.gy[tok]                              # [bt, d]
+        gr = self.gate_rows[rs:rs + self.bt]
+        wg, wu, wd = self.wg[e].float(), self.wu[e].float(), self.wd[e].float()
+        # replay the forward tile
+        u, v = xt @ wg, xt @ wu
+        sig = torch.sigmoid(u)
+        s = u * sig
+        h = s * v
+        yhat = h @ wd
+        # closed-form transpose of gate · (silu(x wg) ⊙ (x wu)) wd
+        dgate = (ct * yhat).sum(-1, keepdim=True)
+        dh = (gr[:, None] * ct) @ wd.T
+        dv = dh * s
+        du = dh * v * dsilu(u, sig)
+        dxr = du @ wg.T + dv @ wu.T
+        block = torch.cat([dxr, du, dv, h, dgate], dim=1)
+        block[rl:] = 0.0
+        if store:
+            self.out[rs:rs + self.bt] = block
+        else:
+            self.out[rs:rs + self.bt] += block
+
+
+def _run_grad(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, bt,
+              plain: bool, steal=True, steal_policy="cost", steal_run_cap=1,
+              rounds=None, mult=None, compress_runs=None, mode=None, trace=False,
+              trace_capacity=None) -> WSRunResult:
+    mode, compress = scheduler_knobs(
+        steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap, mode=mode,
+        compress_runs=compress_runs, trace=trace, trace_capacity=trace_capacity)
+    d, f, n_rows = _check_inputs(state, x, tok_idx, wg, wu, wd, bt=bt, plain=plain)
+    dev = x.device
+    if (gy.device != dev or gy.dtype != torch.float32 or not gy.is_contiguous()
+            or gy.shape != x.shape or (not plain and gy.data_ptr() % 16)):
+        raise ValueError(f"gy must be contiguous (16-byte aligned) float32 {tuple(x.shape)} "
+                         f"on {dev}: {gy.dtype} {tuple(gy.shape)}")
+    if (gate_rows.device != dev or gate_rows.dtype != torch.float32
+            or tuple(gate_rows.shape) != (n_rows,) or not gate_rows.is_contiguous()):
+        raise ValueError(f"gate_rows must be contiguous float32 [{n_rows}] on {dev}")
+    _check_out(out, (n_rows, grad_out_width(d, f)), dev)
+
+    def walk(arrs, **kw):
+        return _ExpertGradWalk(arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, bt=bt, **kw)
+
+    def launch(arrs, **kw):
+        _launch_grad_cuda(arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, bt=bt, **kw)
+
+    return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
+                       compress=compress, steal=steal, steal_policy=steal_policy,
+                       rounds=rounds, mult=mult)
+
+
+def _grad_kernel_fn():
+    """The C entry point of ``csrc/ws_expert_grad.cu`` (built at first use)."""
+    from .. import _build
+
+    fn = _build.load("ws_expert_grad").ws_expert_grad_launch
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        # mode, dtype; 12 int32 arrays; x, gy, tok_idx, gate_rows, wg, wu, wd,
+        # out; 8 sizes and flags; d, f, bt; stream
+        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 8 + [i] * 8 + [i] * 3 + [ptr]
+        fn.restype = i
+    return fn
+
+
+def _launch_grad_cuda(arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, mode, rounds,
+                      steal, policy, compress, bt, n_tasks) -> None:
+    fn = _grad_kernel_fn()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(
+        MODES.index(mode), 1 if wg.dtype == torch.bfloat16 else 0,
+        *_queue_args(arrs),
+        x.data_ptr(), gy.data_ptr(), tok_idx.data_ptr(), gate_rows.data_ptr(),
+        wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), out.data_ptr(),
+        *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy),
+        int(compress), x.shape[1], wg.shape[2], bt, stream,
+    )
+    launches["ws_expert_grad"] += 1
+    if err != 0:
+        raise RuntimeError(f"ws_expert_grad launch failed with CUDA error {err}")
+
+
+def launch_moe_grad_grid(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *,
+                         bt: int, **kw) -> WSRunResult:
+    """Run the work-stealing grid with the transpose tile body.  ``out``
+    ([n_rows, grad_out_width(d, f)] fp32, contiguous) is written in place:
+    lockstep accumulates into it, free mode stores.
+
+    CUDA tensors launch ``csrc/ws_expert_grad.cu``; CPU tensors run the
+    plain version.  There is no fallback between the two.
+    """
+    return _run_grad(state, x, gy, tok_idx, gate_rows, wg, wu, wd, out, bt=bt,
+                     plain=x.device.type == "cpu", **kw)
+
+
+def plain_moe_grad_grid(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *,
+                        bt: int, **kw) -> WSRunResult:
+    """The plain PyTorch version of :func:`launch_moe_grad_grid` on any device."""
+    return _run_grad(state, x, gy, tok_idx, gate_rows, wg, wu, wd, out, bt=bt, plain=True,
+                     **kw)
+
+
+def run_moe_grad_schedule(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, wd, *,
+                          bt: int, steal: bool = True, steal_policy: str = "cost",
+                          steal_run_cap: int = 1, rounds: Optional[int] = None, out=None,
+                          mult=None, compress_runs: Optional[bool] = None,
+                          mode: Optional[str] = None, trace: bool = False,
+                          trace_capacity: Optional[int] = None) -> WSRunResult:
+    """Launch the transpose (backward) megakernel over a prepared
+    :class:`QueueState`: the second launch of the custom VJP's
+    ``grad_dispatch="ws"`` backward.
+
+    ``gy``: [T, d] cotangent of the combined routed output; ``gate_rows``:
+    [n_rows] per-row combine gates (``RoutedSet.gates``); the rest as
+    :func:`run_moe_schedule`.  ``res.out`` is the per-row VJP block
+    ``[n_rows, grad_out_width(d, f)]`` (lockstep: tile x mult, divide by the
+    tile divisor before use; free: already normalised), carried over on
+    relaunch for the multiplicity drills, as is ``mult``.
+    """
+    x, tok_idx, out = _prepare(x, tok_idx, out, grad_out_width(x.shape[1], wg.shape[2]))
+    gy = gy.to(device=x.device, dtype=torch.float32).contiguous()
+    gate_rows = torch.as_tensor(gate_rows, dtype=torch.float32).to(x.device).contiguous()
+    return launch_moe_grad_grid(state, x, gy, tok_idx, gate_rows, wg, wu, wd, out, bt=bt,
+                                steal=steal, steal_policy=steal_policy,
+                                steal_run_cap=steal_run_cap, rounds=rounds, mult=mult,
+                                compress_runs=compress_runs, mode=mode, trace=trace,
+                                trace_capacity=trace_capacity)

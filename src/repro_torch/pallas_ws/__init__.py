@@ -11,7 +11,15 @@ from .kernel import (
     reset_launches,
     run_ws_schedule,
 )
-from .queues import QueueState, copy_state, make_queue_state, partition_tasks, queue_costs, to_device
+from .queues import (
+    QueueState,
+    copy_state,
+    make_pool_queue_state,
+    make_queue_state,
+    partition_tasks,
+    queue_costs,
+    to_device,
+)
 from .ragged import (
     RaggedStats,
     decode_queue_state,
@@ -35,7 +43,7 @@ __all__ = [
     "QueueState", "RaggedStats",
     "TileTask", "WSRunResult", "copy_state", "decode_queue_state", "default_rounds",
     "emit_decode_tasks", "emit_flash_tasks", "launch_ws_grid", "launches",
-    "make_queue_state", "multiplicity_divisor", "normalized_out", "partition_tasks",
+    "make_pool_queue_state", "make_queue_state", "multiplicity_divisor", "normalized_out", "partition_tasks",
     "plain_ws_grid", "queue_costs", "ragged_decode_attention", "ragged_decode_ref",
     "reset_launches", "run_ws_schedule", "to_device",
 ]

@@ -56,7 +56,7 @@ STATIC_COMPRESSED_ROUNDS = 2
 
 # Launches of each CUDA kernel in this process: the wrapper adds one where it
 # launches, and nowhere else.
-launches = {"ws_attention": 0, "ws_expert": 0}
+launches = {"ws_attention": 0, "ws_expert": 0, "ws_expert_grad": 0}
 
 
 def reset_launches() -> None:
@@ -71,7 +71,7 @@ class WSRunResult:
     out: torch.Tensor         # the family's fp32 output ([B, H, Sq_out, hd] for attention)
     head: torch.Tensor        # [n_queues]
     local_head: torch.Tensor  # [n_programs, n_queues]
-    taken: torch.Tensor       # [n_queues, capacity]
+    taken: torch.Tensor       # [n_queues, capacity] (flat [pool_slots] on the pool layout)
     remaining: torch.Tensor   # [n_queues]
     clock: torch.Tensor       # [n_programs]
     work: torch.Tensor        # [n_programs]
@@ -130,10 +130,13 @@ def default_rounds(state: QueueState, steal: bool,
 
 class _PlainWalk:
     """Python mirror of the scheduler in ``csrc/ws_sched.cuh``: the same
-    functions over list copies of the int32 arrays.  A subclass supplies the
-    tile body ``execute(fq, fs, store=)``, as each CUDA kernel does."""
+    functions over list copies of the int32 arrays, in the dense or the
+    shared-pool layout (``arrs["pool_off"]``).  A subclass supplies the tile
+    body ``execute(fq, fs, store=)``, as each CUDA kernel does, and reads
+    its record with :meth:`rec`."""
 
     def __init__(self, arrs, *, steal, policy):
+        self.pool_off = arrs["pool_off"].tolist() if "pool_off" in arrs else None
         self.tasks = arrs["tasks"].tolist()
         self.tail = arrs["tail"].tolist()
         self.head = arrs["head"].tolist()
@@ -146,8 +149,16 @@ class _PlainWalk:
         self.scanned = arrs["scanned"].tolist()
         self.mult = arrs["mult"].tolist()
         self.n_queues = len(self.head)
-        self.capacity = len(self.tasks[0])
+        self.capacity = len(self.tasks) if self.pool_off is not None else len(self.tasks[0])
         self.steal, self.policy = steal, policy
+
+    def slot(self, v, s):
+        """Flat pool index of slot (v, s) (pool layout only)."""
+        return self.pool_off[v] + s
+
+    def rec(self, v, s):
+        """The task record at queue slot (v, s)."""
+        return self.tasks[self.slot(v, s)] if self.pool_off is not None else self.tasks[v][s]
 
     def arrays(self):
         names = ("head", "local_head", "taken", "remaining", "clock", "work",
@@ -159,8 +170,10 @@ class _PlainWalk:
         return max(self.local_head[p][v], self.head[v])
 
     def probe(self, v, h, want):
-        issue = want and h < self.capacity
-        return (self.tasks[v][h][F_OP] if issue else BOTTOM), int(issue)
+        # pool: a read past tail[v] would land in the next queue's segment
+        bound = self.tail[v] if self.pool_off is not None else self.capacity
+        issue = want and h < bound
+        return (self.rec(v, h)[F_OP] if issue else BOTTOM), int(issue)
 
     def claim_writes(self, p, v, h):
         self.head[v] = h + 1
@@ -207,13 +220,16 @@ class _PlainWalk:
         return self.scan_extract(p) if self.policy == "scan" else self.cost_extract(p)
 
     def account(self, r, p, fq, fs, *, advisory, free):
-        rec = self.tasks[fq][fs]
+        rec = self.rec(fq, fs)
         tid, cost = rec[F_TID], rec[F_COST]
         if free:
             self.mult[p][tid] += 1
         else:
             self.mult[tid] += 1
-        self.taken[fq][fs] = p
+        if self.pool_off is not None:
+            self.taken[self.slot(fq, fs)] = p
+        else:
+            self.taken[fq][fs] = p
         if advisory:
             self.remaining[fq] = max(self.remaining[fq] - cost, 0)
         self.work[p] += cost
@@ -286,7 +302,7 @@ class _AttentionWalk(_PlainWalk):
         self.bq, self.bk, self.causal, self.scale, self.g = bq, bk, causal, scale, g
 
     def execute(self, fq, fs, *, store):
-        rec = self.tasks[fq][fs]
+        rec = self.rec(fq, fs)
         b, h, qs, ql = rec[F_B], rec[F_H], rec[F_QS], rec[F_QL]
         kv_end, cost = rec[F_KV], rec[F_COST]
         q, k, v = self.q, self.k, self.v
@@ -346,6 +362,13 @@ def _check_records(tasks: np.ndarray, *, B, H, sq_out, bq, n_tasks) -> None:
                          f"{live[bad][0].tolist()}")
 
 
+def queue_dims(arrs):
+    """``(n_queues, capacity, n_programs)`` of a launch's arrays, either layout:
+    the capacity bounds slot indices per queue (dense) or over the pool."""
+    cap = arrs["tasks"].shape[0] if "pool_off" in arrs else arrs["tasks"].shape[1]
+    return arrs["head"].shape[0], cap, arrs["clock"].shape[0]
+
+
 def scheduler_knobs(*, steal, steal_policy, steal_run_cap, mode, compress_runs,
                     stage_open=None, trace=False, trace_capacity=None,
                     trace_remote=False, fault_plan=None):
@@ -376,7 +399,8 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
     arrays on ``out``'s device, then the plain walk (``walk(host_arrays,
     steal=, policy=)`` returns a :class:`_PlainWalk`) or the CUDA kernel
     (``launch(arrays, mode=, rounds=, steal=, policy=, compress=, n_tasks=)``)
-    over them.  Free mode's per-program multiplicity rows are summed here."""
+    over them.  A shared-pool state adds ``arrays["pool_off"]``.  Free
+    mode's per-program multiplicity rows are summed here."""
     dev = out.device
     P = state.n_programs
     n_tasks = max(1, state.n_tasks)
@@ -399,6 +423,7 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
         "local_head": i32(state.local_head, True),
         "taken": i32(state.taken, True),
         "remaining": i32(remaining, True),
+        **({"pool_off": i32(state.pool_off, False)} if state.pool else {}),
         "clock": torch.zeros(P, dtype=torch.int32, device=dev),
         "work": torch.zeros(P, dtype=torch.int32, device=dev),
         "steals": torch.zeros(P, dtype=torch.int32, device=dev),
@@ -439,6 +464,9 @@ def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
         compress_runs=compress_runs, stage_open=stage_open, trace=trace,
         trace_capacity=trace_capacity, trace_remote=trace_remote, fault_plan=fault_plan)
     dev = q.device
+    if state.pool:
+        raise NotImplementedError("the attention family runs on the dense layout; the "
+                                  "shared pool is the expert families'")
     if not (k.device == v.device == out.device == dev):
         raise ValueError("q, k, v and out must lie on one device")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
@@ -500,8 +528,7 @@ def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
         *[arrs[n].data_ptr() for n in names],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p),
-        arrs["head"].shape[0], arrs["tasks"].shape[1], arrs["clock"].shape[0],
-        n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),
+        *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),
         int(causal),
         H, Sq, out.shape[2], Sk, hd, g, bq, bk, float(scale), stream,
     )

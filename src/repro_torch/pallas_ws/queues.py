@@ -1,5 +1,7 @@
 """Per-program task queues as flat int32 arrays (WS-WMULT Fig. 7), the
-host Put — port of the dense-layout half of ``repro/pallas_ws/queues.py``.
+host Puts — port of ``repro/pallas_ws/queues.py`` (the dense host Put
+:func:`make_queue_state` and the shared-pool Put
+:func:`make_pool_queue_state`).
 
 ==========================  =====================================================
 paper (Fig. 7)              array (plain loads/stores only)
@@ -11,6 +13,13 @@ process-local ``head``      ``local_head[p, q]`` [n_programs, n_queues]
 ``tail`` (owner-local)      ``tail[q]``         [n_queues], static: Puts happen
                                                  before the launch
 ==========================  =====================================================
+
+Two layouts share :class:`QueueState`.  **Dense**: ``tasks[q, s]`` with a
+static per-queue capacity.  **Shared pool** (``pool_off`` set): one flat
+slot pool ``tasks[j]`` in which queue ``q`` owns the contiguous segment
+``[pool_off[q], pool_off[q] + tail[q])``; slot ``(q, s)`` is pool index
+``pool_off[q] + s`` and ``taken`` is flat ``[pool_slots]``, so the pool
+never pays the dense layout's per-queue worst-case padding.
 
 A host-built state holds numpy arrays; :func:`to_device` turns it into a
 state of device tensors once, so a decode step can launch the same Put in
@@ -40,13 +49,19 @@ class QueueState:
     best-effort by claimants; stale values mis-rank victims, nothing more.
     """
 
-    tasks: np.ndarray        # [n_queues, capacity, TASK_WIDTH]
+    tasks: np.ndarray        # [n_queues, capacity, TASK_WIDTH] | pool: [pool_slots, TASK_WIDTH]
     head: np.ndarray         # [n_queues]
     tail: np.ndarray         # [n_queues]
     local_head: np.ndarray   # [n_programs, n_queues]
-    taken: np.ndarray        # [n_queues, capacity]; -1 = not extracted
+    taken: np.ndarray        # [n_queues, capacity] | pool: [pool_slots]; -1 = not extracted
     task_list: Optional[List[Task]] = None
     remaining: Optional[np.ndarray] = None  # [n_queues]
+    n_tasks_hint: Optional[int] = None      # multiplicity slots when task_list is None
+    pool_off: Optional[np.ndarray] = None   # [n_queues + 1] pool segment offsets
+
+    @property
+    def pool(self) -> bool:
+        return self.pool_off is not None
 
     @property
     def n_queues(self) -> int:
@@ -58,11 +73,14 @@ class QueueState:
 
     @property
     def capacity(self) -> int:
-        return self.tasks.shape[1]
+        """Bound on slot indices: per queue (dense), the whole pool (pool)."""
+        return self.tasks.shape[0] if self.pool else self.tasks.shape[1]
 
     @property
     def n_tasks(self) -> int:
-        return len(self.task_list) if self.task_list is not None else 0
+        if self.task_list is not None:
+            return len(self.task_list)
+        return self.n_tasks_hint or 0
 
 
 def partition_tasks(
@@ -107,6 +125,35 @@ def make_queue_state(
     )
 
 
+def make_pool_queue_state(records, tail, pool_off, remaining, n_programs: int, *,
+                          n_tasks: int) -> QueueState:
+    """The shared-pool Put: wrap pre-compacted flat records.
+
+    ``records``: [pool_slots, TASK_WIDTH], where queue ``q``'s live slots
+    already fill the segment ``[pool_off[q], pool_off[q] + tail[q])`` in
+    queue order and the pool suffix is all ⊥ (as
+    :func:`repro_torch.moe_ws.dispatch.route_to_tasks_pool` builds them);
+    ``pool_off``: [n_queues + 1]; ``tail``: [n_queues] live slots per
+    queue; ``remaining``: [n_queues] initial advisories.  ``n_tasks`` sizes
+    the multiplicity buffer: pool slot index == ``tid`` == multiplicity
+    index, so the dead suffix keeps ``mult == 0``.
+    """
+    records = np.asarray(records, dtype=np.int32)
+    tail = np.asarray(tail, dtype=np.int32)
+    n_queues = tail.shape[0]
+    return QueueState(
+        tasks=records,
+        head=np.zeros((n_queues,), dtype=np.int32),
+        tail=tail,
+        local_head=np.zeros((n_programs, n_queues), dtype=np.int32),
+        taken=np.full((records.shape[0],), -1, dtype=np.int32),
+        task_list=None,
+        remaining=np.asarray(remaining, dtype=np.int32),
+        n_tasks_hint=int(n_tasks),
+        pool_off=np.asarray(pool_off, dtype=np.int32),
+    )
+
+
 def copy_state(state: QueueState) -> QueueState:
     """Independent copy (arrays copied, task_list shared: tasks are
     immutable records).  Drills mutate head/local bounds in place; the
@@ -125,6 +172,8 @@ def copy_state(state: QueueState) -> QueueState:
         taken=cp(state.taken),
         task_list=state.task_list,
         remaining=cp(state.remaining),
+        n_tasks_hint=state.n_tasks_hint,
+        pool_off=cp(state.pool_off),
     )
 
 
@@ -136,6 +185,14 @@ def host_array(a) -> np.ndarray:
 def queue_costs(state: QueueState) -> np.ndarray:
     """Total tile-slot cost enqueued per queue (the static-schedule load)."""
     tasks = host_array(state.tasks)
+    if state.pool:
+        off, tail = host_array(state.pool_off), host_array(state.tail)
+        costs = np.zeros((state.n_queues,), dtype=np.int64)
+        live = tasks[:, F_OP] != BOTTOM
+        for q in range(state.n_queues):
+            seg = slice(int(off[q]), int(off[q]) + int(tail[q]))
+            costs[q] = np.where(live[seg], tasks[seg, F_COST], 0).sum()
+        return costs
     live = tasks[:, :, F_OP] != BOTTOM
     return np.where(live, tasks[:, :, F_COST], 0).sum(axis=1)
 
@@ -154,4 +211,5 @@ def to_device(state: QueueState, device) -> QueueState:
         tasks=dev(state.tasks), head=dev(state.head), tail=dev(state.tail),
         local_head=dev(state.local_head), taken=dev(state.taken),
         remaining=dev(remaining),
+        pool_off=None if state.pool_off is None else dev(state.pool_off),
     )

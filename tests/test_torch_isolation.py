@@ -162,7 +162,7 @@ def test_expert_kernel_wrapper_marshals_every_argument(monkeypatch):
         status = 0
 
         def __call__(self, *args):
-            assert len(args) == len(self.argtypes) == 31
+            assert len(args) == len(self.argtypes) == 32
             for t, a in zip(self.argtypes, args):
                 t.from_param(a)
             return self.status
@@ -195,6 +195,64 @@ def test_expert_kernel_wrapper_marshals_every_argument(monkeypatch):
     entry.status = 2  # cudaErrorMemoryAllocation
     with pytest.raises(RuntimeError, match="CUDA error 2"):
         expert_kernel._launch_cuda(arrs, x, tok, wg, wg, wd, out, **kw)
+
+
+def test_expert_grad_kernel_wrapper_marshals_every_argument(monkeypatch):
+    """The backward counterpart, on the shared-pool layout: drive
+    ``ws_expert_grad_launch``'s ctypes marshalling (``pool_off`` a real
+    pointer here, null on the dense layout) against a stand-in entry point
+    that converts every argument through its declared type, and count the
+    launch."""
+    import ctypes
+    import types
+
+    from repro_torch import _build
+    from repro_torch.moe_ws import expert_kernel, grad_out_width, route_to_tasks_pool
+    from repro_torch.pallas_ws import make_pool_queue_state
+
+    class EntryPoint:
+        argtypes = None
+        restype = ctypes.c_int
+        status = 0
+        pool_off = None
+
+        def __call__(self, *args):
+            assert len(args) == len(self.argtypes) == 34
+            for t, a in zip(self.argtypes, args):
+                t.from_param(a)
+            self.pool_off = args[3]
+            return self.status
+
+    entry = EntryPoint()
+    monkeypatch.setattr(_build, "load",
+                        lambda name: types.SimpleNamespace(ws_expert_grad_launch=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    records, tail, pool_off, routed = route_to_tasks_pool(
+        np.array([[0, 1], [1, 2], [2, 2]]), np.full((3, 2), 0.5, np.float32), 4, bt=8)
+    state = make_pool_queue_state(records, tail, pool_off, routed.loads, 2,
+                                  n_tasks=records.shape[0])
+    arrs = {n: torch.as_tensor(getattr(state, n)) for n in
+            ("tasks", "pool_off", "tail", "head", "local_head", "taken", "remaining")}
+    for n in ("clock", "work", "steals", "scanned"):
+        arrs[n] = torch.zeros(2, dtype=torch.int32)
+    arrs["mult"] = torch.zeros((2, state.n_tasks), dtype=torch.int32)
+    assert expert_kernel.queue_dims(arrs) == (4, records.shape[0], 2)
+    x = torch.zeros((3, 16))
+    tok = torch.from_numpy(routed.tok_idx)
+    gates = torch.from_numpy(routed.gates)
+    wg = torch.zeros((4, 16, 8), dtype=torch.bfloat16)
+    wd = torch.zeros((4, 8, 16), dtype=torch.bfloat16)
+    out = torch.zeros((routed.n_rows, grad_out_width(16, 8)))
+    kw = dict(mode="free", rounds=0, steal=True, policy="cost", compress=False, bt=8,
+              n_tasks=state.n_tasks)
+    before = expert_kernel.launches["ws_expert_grad"]
+    expert_kernel._launch_grad_cuda(arrs, x, x, tok, gates, wg, wg, wd, out, **kw)
+    assert expert_kernel.launches["ws_expert_grad"] == before + 1
+    assert entry.pool_off == arrs["pool_off"].data_ptr()
+    entry.status = 2  # cudaErrorMemoryAllocation
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        expert_kernel._launch_grad_cuda(arrs, x, x, tok, gates, wg, wg, wd, out, **kw)
 
 
 def test_build_key_covers_included_headers(tmp_path):
@@ -317,3 +375,95 @@ def test_expert_kernel_free_mode_runs_every_tile_on_card(cuda_device):
     assert (got.mult[: state.n_tasks] >= 1).all()
     torch.testing.assert_close(combine_routed(routed, tasks, got).cpu(),
                                expert_ffn_nodrop_ref(idx, gates, x, *w), rtol=0, atol=1e-5)
+
+
+def _pool_inputs(seed, T=16, d=64, f=32, E=8, k=2, bt=8, P=8, kind="uniform"):
+    """A shared-pool Put of a seeded routing (``repeat-expert``: every token
+    names one expert k times), its activations, cotangents and weights."""
+    from repro_torch.moe_ws import route_to_tasks_pool
+    from repro_torch.pallas_ws import make_pool_queue_state
+
+    rng = np.random.default_rng(seed)
+    if kind == "repeat-expert":
+        idx = np.repeat(rng.integers(0, E, (T, 1)), k, axis=1)
+    else:
+        idx = np.stack([rng.choice(E, k, replace=False) for _ in range(T)])
+    gates = rng.uniform(0.1, 1.0, (T, k)).astype(np.float32)
+    gates /= gates.sum(1, keepdims=True)
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32))
+    gy = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32))
+    w = [torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[1])).astype(np.float32))
+         for s in ((E, d, f), (E, d, f), (E, f, d))]
+    records, tail, pool_off, routed = route_to_tasks_pool(idx, gates, E, bt=bt)
+    state = make_pool_queue_state(records, tail, pool_off, routed.loads, P,
+                                  n_tasks=records.shape[0])
+    return x, gy, w, routed, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "repeat-expert"])
+@pytest.mark.parametrize("policy", ["cost", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_grad_kernel_lockstep_matches_plain_on_card(cuda_device, kind, policy, dtype):
+    from repro_torch.moe_ws import expert_rounds_bound, run_moe_grad_schedule
+    from repro_torch.pallas_ws import to_device
+
+    x, gy, w, routed, state = _pool_inputs(10, kind=kind)
+    w = [a.to(dtype) for a in w]
+    kw = dict(bt=8, steal_policy=policy, mode="lockstep",
+              rounds=expert_rounds_bound(32, 8, 8, 8, True))
+    got = run_moe_grad_schedule(to_device(state, cuda_device), x.to(cuda_device),
+                                gy.to(cuda_device), routed.tok_idx, routed.gates,
+                                *[a.to(cuda_device) for a in w], **kw)
+    want = run_moe_grad_schedule(state, x, gy, routed.tok_idx, routed.gates, *w, **kw)
+    for f in ("head", "local_head", "taken", "remaining", "clock", "work", "steals",
+              "scanned", "mult"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_expert_grad_kernel_free_mode_runs_every_tile_on_card(cuda_device):
+    from repro_torch.moe_ws import run_moe_grad_schedule
+
+    x, gy, w, routed, state = _pool_inputs(11)
+    got = run_moe_grad_schedule(state, x.to(cuda_device), gy.to(cuda_device),
+                                routed.tok_idx, routed.gates,
+                                *[a.to(cuda_device) for a in w], bt=8, mode="free")
+    want = run_moe_grad_schedule(state, x, gy, routed.tok_idx, routed.gates, *w, bt=8,
+                                 mode="free")
+    n_live = int(state.tail.sum())
+    assert (got.mult[:n_live] >= 1).all() and (got.mult[n_live:] == 0).all()
+    torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "repeat-expert"])
+def test_expert_kernel_pool_layout_matches_plain_on_card(cuda_device, kind):
+    from repro_torch.moe_ws import expert_rounds_bound, run_moe_schedule
+    from repro_torch.pallas_ws import to_device
+
+    x, _, w, routed, state = _pool_inputs(12, kind=kind)
+    kw = dict(bt=8, mode="lockstep", rounds=expert_rounds_bound(32, 8, 8, 8, True))
+    got = run_moe_schedule(to_device(state, cuda_device), x.to(cuda_device), routed.tok_idx,
+                           *[a.to(cuda_device) for a in w], **kw)
+    want = run_moe_schedule(state, x, routed.tok_idx, *w, **kw)
+    for f in ("head", "local_head", "taken", "remaining", "clock", "work", "steals",
+              "scanned", "mult"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_expert_grad_kernel_launches_at_kimi_hidden_width(cuda_device):
+    """Shared memory grows with f only: at kimi-k2's f 2048 the grad tile
+    holds h, du, dv [8, 2048] and a 512-column chunk (213,312 bytes, under
+    the 227 KB a CTA can have); the launch must be accepted and agree."""
+    from repro_torch.moe_ws import run_moe_grad_schedule
+
+    x, gy, w, routed, state = _pool_inputs(13, T=4, d=64, f=2048, E=2, k=1)
+    w = [a.to(torch.bfloat16) for a in w]
+    got = run_moe_grad_schedule(state, x.to(cuda_device), gy.to(cuda_device), routed.tok_idx,
+                                routed.gates, *[a.to(cuda_device) for a in w], bt=8)
+    want = run_moe_grad_schedule(state, x, gy, routed.tok_idx, routed.gates, *w, bt=8)
+    torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-4)

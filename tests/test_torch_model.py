@@ -168,8 +168,12 @@ def test_moe_decode_step_ws_matches_reference(moe_setup, mode):
 
 
 def test_moe_support_is_exactly_the_references(moe_setup):
-    """MoE with full GQA attention is served by the ws step; MLA and
-    windowed MoE raise instead of falling through to another step."""
+    """MoE with full GQA attention is served by the ws step.  MLA is built
+    for training now: ``init_params`` gives the reference's parameter tree
+    (the same keys and shapes), while MLA decode still raises, as do
+    windowed MoE and other families, instead of falling through to another
+    step."""
+    from repro.models import init_params as j_init_params
     from repro_torch.models import init_caches, init_params, ws_decode_supported
 
     cfg = moe_setup["tcfg"]
@@ -177,8 +181,15 @@ def test_moe_support_is_exactly_the_references(moe_setup):
     for bad in (cfg.replace(attn_kind="mla"), cfg.replace(window=4),
                 cfg.replace(family="ssm")):
         assert not ws_decode_supported(bad)
-        with pytest.raises(NotImplementedError):
-            init_params(bad, device="cpu")
+        if bad.attn_kind == "mla":
+            jcfg = moe_setup["jcfg"].replace(attn_kind="mla")
+            shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape),
+                                            j_init_params(jax.random.PRNGKey(0), jcfg))
+            got = init_params(bad, device="cpu")
+            assert shapes == jax.tree_util.tree_map(lambda t: tuple(t.shape), got)
+        else:
+            with pytest.raises(NotImplementedError):
+                init_params(bad, device="cpu")
         with pytest.raises(NotImplementedError):
             init_caches(bad, 1, 8, device="cpu")
         with pytest.raises(NotImplementedError):

@@ -214,23 +214,94 @@ def test_nodrop_ref_matches_port_ws_and_reference(layer_inputs):
     np.testing.assert_allclose(ref.numpy(), np.asarray(jref), rtol=0, atol=ATOL)
 
 
+def _layer_grads(fn, params, x, names):
+    """Gradients of ``sum(y * c) + aux`` w.r.t. x and ``names`` (a fixed
+    random projection ``c``, so every cotangent direction is exercised at
+    O(1) scale)."""
+    c = np.random.default_rng(13).standard_normal(x.shape).astype(np.float32)
+    if isinstance(x, np.ndarray) or hasattr(x, "block_until_ready"):
+        def loss(p, xx):
+            y, aux = fn(xx, p)
+            return (y * jnp.asarray(c)).sum() + aux
+
+        gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+        return [np.asarray(gx)] + [np.asarray(gp[n]) for n in names]
+    y, aux = fn(x, params)
+    loss = (y * torch.from_numpy(c)).sum() + aux
+    return [g.numpy() for g in torch.autograd.grad(loss, [x] + [params[n] for n in names])]
+
+
 @pytest.mark.parametrize("kw", [dict(queue_layout="pool"), dict(grad_dispatch="ws"),
                                 dict(trace=True), dict(steal_run_cap=2)])
 def test_unported_knobs_raise(layer_inputs, kw):
-    _, tp, x = layer_inputs
-    with pytest.raises(NotImplementedError):
-        moe_ffn_ws(torch.from_numpy(x), tp, SMOKE, **kw)
+    """Trace rings and ``steal_run_cap > 1`` are not ported and raise.  The
+    shared-pool layout and the ws backward are ported now, so their cases
+    hold the port to the reference instead: the pool layout's forward
+    (lockstep, with its launch telemetry), and the gradients of the layer
+    with ``grad_dispatch="ws"``."""
+    jp, tp, x = layer_inputs
+    if "trace" in kw or "steal_run_cap" in kw:
+        with pytest.raises(NotImplementedError):
+            moe_ffn_ws(torch.from_numpy(x), tp, SMOKE, **kw)
+        return
+    if "queue_layout" in kw:
+        jy, jaux, jst = j_moe_ffn_ws(jnp.asarray(x), jp, J_SMOKE, return_stats=True, **kw)
+        ty, taux, tst = moe_ffn_ws(torch.from_numpy(x), tp, SMOKE, mode="lockstep",
+                                   return_stats=True, **kw)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0, atol=ATOL)
+        assert float(taux) == pytest.approx(float(jaux), abs=1e-6)
+        for f in ("n_tasks", "makespan", "total_work", "steals", "mult_max",
+                  "slots_scanned", "queue_loads"):
+            assert getattr(tst, f) == getattr(jst, f), f
+        return
+    names = sorted(tp)
+    tpg = {n: t.clone().requires_grad_() for n, t in tp.items()}
+    want = _layer_grads(lambda xx, p: j_moe_ffn_ws(xx, p, J_SMOKE, **kw), jp, x, names)
+    for mode in ("free", "lockstep"):
+        got = _layer_grads(lambda xx, p: moe_ffn_ws(xx, p, SMOKE, mode=mode, **kw), tpg,
+                           torch.from_numpy(x).requires_grad_(), names)
+        for g, w, n in zip(got, want, ["x"] + names):
+            np.testing.assert_allclose(g, w, rtol=0, atol=ATOL, err_msg=f"{mode} d{n}")
 
 
 def test_backward_and_mesh_dispatch_raise(layer_inputs):
-    _, tp, x = layer_inputs
+    """The backward is ported: with inputs that require grad the layer
+    records its custom VJP and its gradients (the dense transpose, by
+    default) match the reference's, and under ``no_grad`` it runs the same
+    forward.  The cross-device ``mesh-ws`` dispatch still raises."""
+    jp, tp, x = layer_inputs
+    names = sorted(tp)
+    tpg = {n: t.clone().requires_grad_() for n, t in tp.items()}
+    want = _layer_grads(lambda xx, p: j_moe_ffn_ws(xx, p, J_SMOKE), jp, x, names)
     xg = torch.from_numpy(x).requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        moe_ffn_ws(xg, tp, SMOKE)
+    got = _layer_grads(lambda xx, p: moe_ffn_ws(xx, p, SMOKE), tpg, xg, names)
+    for g, w, n in zip(got, want, ["x"] + names):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL, err_msg=f"d{n}")
     with torch.no_grad():
-        moe_ffn_ws(xg, tp, SMOKE)
+        y, _ = moe_ffn_ws(xg, tp, SMOKE)
+    y_grad, _ = moe_ffn_ws(xg, tpg, SMOKE)
+    torch.testing.assert_close(y, y_grad.detach(), rtol=0, atol=ATOL)
     with pytest.raises(NotImplementedError, match="mesh-ws"):
         moe_ffn_dispatch(torch.from_numpy(x), tp, SMOKE.replace(moe_dispatch="mesh-ws"))
+
+
+def test_return_stats_under_autograd_raises(layer_inputs):
+    """``return_stats`` runs the forward launch alone, with no backward: the
+    reference refuses it under ``jax.grad`` and the port refuses it when
+    autograd records the call, rather than detaching the routed experts'
+    output.  Under ``no_grad`` the same call returns its stats."""
+    jp, tp, x = layer_inputs
+    with pytest.raises(ValueError, match="return_stats"):
+        jax.grad(lambda xx: j_moe_ffn_ws(xx, jp, J_SMOKE, return_stats=True)[0].sum())(
+            jnp.asarray(x))
+    for n in ("x", "we_g"):
+        xg = torch.from_numpy(x).requires_grad_(n == "x")
+        tpg = {k: t.clone().requires_grad_(k == n) for k, t in tp.items()}
+        with pytest.raises(ValueError, match="return_stats"):
+            moe_ffn_ws(xg, tpg, SMOKE, return_stats=True)
+        with torch.no_grad():
+            _, _, st = moe_ffn_ws(xg, tpg, SMOKE, return_stats=True)
+        assert st.n_tasks > 0
 
 
 def test_bad_expert_records_are_rejected():

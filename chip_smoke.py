@@ -4,9 +4,9 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build      nvcc builds csrc/ws_attention.cu, csrc/ws_expert.cu and
-              csrc/ws_expert_grad.cu for sm_90a from the checkout, one nvcc
-              each, started together.
+1. build      nvcc builds csrc/ws_attention.cu, csrc/ws_expert.cu,
+              csrc/ws_expert_grad.cu and csrc/ws_unified.cu for sm_90a from
+              the checkout, one nvcc each, started together.
 2. parity     the attention kernel against its plain PyTorch version on
               CPU copies of the same inputs, at the decode shapes of the main path
               (B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8, bf16, K/V read
@@ -64,6 +64,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               make_optimizer / make_train_step / make_batch), launches
               counted from 0 (2 and 1 a step), finite losses, step seconds
               and peak device memory printed.
+10. unified   llama3.2-3b in fp32 at full width (28 layers, 14.43 GB) through
+              the unified step (ws_unified): one lockstep decode step at the
+              serving shape (4 slots x 1024 positions) and one with a folded
+              100-token prompt against the plain version (integer arrays
+              bit-equal, logits, caches and the prompt's k/v within
+              UNIFIED_RTOL of their scale), the lockstep step against the
+              split fp32 step, free mode's 86 per-stage launches (every task
+              run, within UNIFIED_RTOL of lockstep), times and bounds; then
+              2 replicas of ContinuousBatcher(unified_step=True) serve 8
+              requests (prompts 16-128 tokens) with no degradation and one
+              ws_unified launch per step and no other kernel, and their
+              greedy streams equal the split engine's (a difference passes
+              only at a top-2 near-tie within the tolerance).
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the ported kernels, and {"ok": true, "device": {...}}.
@@ -120,7 +133,8 @@ DECODE = dict(B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8)
 KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
-PHASES = ("build", "parity", "expert", "audit", "serving", "times", "moe", "grad", "train")
+PHASES = ("build", "parity", "expert", "audit", "serving", "times", "moe", "grad", "train",
+          "unified")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -580,7 +594,7 @@ def phase_serving(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_launches, n_exp = launches["ws_attention"], launches["ws_expert"]
-    n_grad = launches["ws_expert_grad"]
+    n_grad, n_uni = launches["ws_expert_grad"], launches["ws_unified"]
 
     stats = front.stats()
     steps = sum(s["steps"] for s in stats["batchers"])
@@ -591,9 +605,9 @@ def phase_serving(dev):
             raise AssertionError(f"request {r.rid} produced {r.out}")
     if n_launches != steps * cfg.n_layers or n_launches == 0:
         raise AssertionError(f"ws_attention launches {n_launches} != {steps} steps x {cfg.n_layers}")
-    if n_exp != 0 or n_grad != 0:
-        raise AssertionError(f"the dense model launched ws_expert {n_exp} and "
-                             f"ws_expert_grad {n_grad} times")
+    if n_exp != 0 or n_grad != 0 or n_uni != 0:
+        raise AssertionError(f"the split path launched ws_expert {n_exp}, ws_expert_grad "
+                             f"{n_grad} and ws_unified {n_uni} times")
     lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
     stolen = stats["totals"]["stolen"]
     if stolen == 0:
@@ -605,7 +619,8 @@ def phase_serving(dev):
         "step_ms_p50": float(np.percentile(lat, 50)),
         "step_ms_p99": float(np.percentile(lat, 99)),
         "stolen": stolen, "launches": n_launches, "ws_expert_launches": n_exp,
-        "ws_expert_grad_launches": n_grad, "per_replica": stats["per_replica"],
+        "ws_expert_grad_launches": n_grad, "ws_unified_launches": n_uni,
+        "per_replica": stats["per_replica"],
     }
     log(f"[serving] {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
         f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, "
@@ -757,7 +772,7 @@ def phase_moe(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_attn, n_exp = launches["ws_attention"], launches["ws_expert"]
-        n_grad = launches["ws_expert_grad"]
+        n_grad, n_uni = launches["ws_expert_grad"], launches["ws_unified"]
 
     stats = front.stats()
     steps = sum(s["steps"] for s in stats["batchers"])
@@ -774,8 +789,9 @@ def phase_moe(dev):
                              f"{prefills} prefills) x {L}")
     if len(dup) != n_exp:
         raise AssertionError(f"the launch hook saw {len(dup)} of {n_exp} expert launches")
-    if n_grad != 0:
-        raise AssertionError(f"serving launched ws_expert_grad {n_grad} times")
+    if n_grad != 0 or n_uni != 0:
+        raise AssertionError(f"serving launched ws_expert_grad {n_grad} and ws_unified "
+                             f"{n_uni} times")
     stolen = stats["totals"]["stolen"]
     if stolen == 0:
         raise AssertionError("replica 1 stole nothing")
@@ -789,7 +805,8 @@ def phase_moe(dev):
         "step_ms_p50": float(np.percentile(lat, 50)),
         "step_ms_p99": float(np.percentile(lat, 99)),
         "stolen": stolen, "ws_attention_launches": n_attn, "ws_expert_launches": n_exp,
-        "ws_expert_grad_launches": n_grad, "expert_duplication": duplication, "per_replica": stats["per_replica"],
+        "ws_expert_grad_launches": n_grad, "ws_unified_launches": n_uni,
+        "expert_duplication": duplication, "per_replica": stats["per_replica"],
     }
     log(f"[moe] {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
         f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, {prefills} "
@@ -918,7 +935,7 @@ STEP_LOSS_ATOL = 1e-3
 # Launches of one train step of the 1-layer model: ws_expert in the forward
 # and again in the remat replay, ws_expert_grad once, and no ws_attention
 # (MLA trains on flash_ref, plain ops in the reference as here).
-STEP_LAUNCHES = {"ws_attention": 0, "ws_expert": 2, "ws_expert_grad": 1}
+STEP_LAUNCHES = {"ws_attention": 0, "ws_expert": 2, "ws_expert_grad": 1, "ws_unified": 0}
 
 
 def grad_group_errs(a, b, d, f):
@@ -1256,7 +1273,7 @@ def phase_train(dev):
         loss_k, _, g_k = loss_and_grads(params, cfg, batch)
         torch.cuda.synchronize()
         grad_s = time.perf_counter() - t0
-        per_step = {n: launches[n] for n in ("ws_attention", "ws_expert", "ws_expert_grad")}
+        per_step = {n: launches[n] for n in STEP_LAUNCHES}
     if per_step != STEP_LAUNCHES or len(recorded) != 1:
         raise AssertionError(f"one loss_and_grads launched {per_step} (hook saw "
                              f"{len(recorded)}), want {STEP_LAUNCHES}: ws_expert forward and "
@@ -1353,6 +1370,254 @@ def phase_train(dev):
                 launch_abs_err=launch_abs, launch_rel_err=launch_rel,
                 launch_bf16_control_rel=min(ctl.values()), grad_times=times,
                 ce=[m["ce"] for m in metrics], aux=[m["aux"] for m in metrics])
+
+
+# ---------------------------------------------------------------------------
+# the unified engine step
+
+
+# llama3.2-3b in fp32 at full width, all 28 layers (14.43 GB), at the serving
+# decode shape: 4 slots of 1024 positions, the live lengths of decode_inputs,
+# and a folded prompt of 100 tokens (ragged q blocks of 32).  Serving prompts
+# are 16-128 tokens: a fold is a GEMM over every weight on ONE SM (8 rows a
+# weight read), seconds per prompt where the split path's prefill is cuBLAS.
+UNIFIED = dict(B=4, cap=1024, Lp=100, P=8, requests=8, prompt_lens=(16, 129), max_new=8)
+# Kernel against plain version, and against the split fp32 step: the same
+# fp32 math summed in another order (k-slices of 4 or 2 and 8-row blocks in
+# the kernel, ATen's own blocking in the plain and split steps) over
+# 3072- and 8192-term dot products, 28 layers deep.  A few ulps a product,
+# compounding through the residual stream, stays far below 1e-4 of the
+# largest logit; a wrong phase (a missing residual, an unnormalised tile, a
+# mis-roped row) moves logits by O(1).
+UNIFIED_RTOL = 1e-4
+FP32_FLOPS = 67e12             # H100 SXM dense fp32 outside the tensor cores
+
+
+def _rel(a, b):
+    """max |a - b| over max(1, max |b|)."""
+    return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+
+
+def _unified_bound(params, cfg, lengths, R, n_logit_rows, Lp):
+    """The least time of one unified step: every weight read once, the live
+    K/V rows read once, the new rows and the logits written once (bytes); its
+    products over the fp32 peak (operations)."""
+    d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    Hkv, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    layer = sum(t.numel() for t in _leaves(params["layers"]))
+    unembed = params["unembed"].numel()
+    live = int(np.sum(lengths))
+    kv_row = 2 * Hkv * hd * 4 * L
+    by = ((layer + unembed + d) * 4 + R * d * 4 + live * kv_row + R * kv_row
+          + n_logit_rows * V * 4)
+    ops = (2 * layer * R + 2 * unembed * n_logit_rows + 4 * live * H * hd * L
+           + 2 * Lp * Lp * H * hd * L)
+    byte_ms, ops_ms = by / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return max(byte_ms, ops_ms), ("bytes" if byte_ms >= ops_ms else "operations"), by, ops
+
+
+def phase_unified(dev):
+    """llama3.2-3b in fp32 at full width through the unified step: kernel
+    against plain version (decode and a folded prompt), against the split
+    fp32 step, free mode's per-stage launches, times, then 2 replicas of the
+    unified engine serving 8 requests against the split engine's streams."""
+    from repro_torch.configs.llama3_2_3b import CONFIG
+    from repro_torch.models import (
+        Caches, KVCache, decode_step_unified, decode_step_ws, init_params,
+        plain_decode_step_unified, prefill,
+    )
+    from repro_torch.models.unified import plan_step, run_step
+    from repro_torch.pallas_ws import launches, reset_launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = UNIFIED
+    cfg = CONFIG.replace(dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[unified] {cfg.name} fp32: {n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB; "
+        f"param_count(), without the norms, {cfg.param_count():,}), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(16, c["cap"] + 1, size=c["B"])
+    lengths[0] = c["cap"]
+    pos = lengths - 1
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (c["B"], 1))).to(dev)
+    ptok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, c["Lp"]))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (cfg.n_layers, c["B"], c["cap"], cfg.n_kv_heads, cfg.hd)
+    k0 = torch.randn(shape, generator=gen, device=dev)
+    v0 = torch.randn(shape, generator=gen, device=dev)
+
+    def caches():
+        return Caches(kv=KVCache(k0.clone(), v0.clone()))
+
+    V = cfg.vocab_size
+    errs, out = [], {}
+    for fold in (False, True):
+        kw = dict(prefill_tokens=ptok) if fold else {}
+        name = "fold" if fold else "decode"
+        lk, ck, rk = decode_step_unified(params, cfg, caches(), tok, pos, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, cp, rp = plain_decode_step_unified(params, cfg, caches(), tok, pos, **kw)
+        torch.cuda.synchronize()
+        out[f"plain_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        ik, ip = _ints(rk.res), _ints(rp.res)
+        for n in ik:
+            if not np.array_equal(ik[n], ip[n]):
+                raise AssertionError(f"unified {name}: lockstep {n} differs from the plain version")
+        e = {"logits": _rel(lk, lp), "kc": _rel(ck.kv.k, cp.kv.k), "vc": _rel(ck.kv.v, cp.kv.v)}
+        if fold:
+            e.update(prefill_logits=_rel(rk.prefill_logits, rp.prefill_logits),
+                     prefill_k=_rel(rk.prefill_kv.k, rp.prefill_kv.k),
+                     prefill_v=_rel(rk.prefill_kv.v, rp.prefill_kv.v))
+        abs_err = float((lk - lp).abs().max())
+        errs.append(abs_err)
+        if not (max(e.values()) <= UNIFIED_RTOL and bool(torch.isfinite(lk[:, :V]).all())):
+            raise AssertionError(f"unified {name} against the plain version: {e} > {UNIFIED_RTOL}")
+        log(f"[unified] {name} step (lengths {lengths.tolist()}"
+            + (f", prompt {c['Lp']} tokens" if fold else "") + f", {rk.n_tasks} tasks, "
+            f"{rk.rounds} rounds, {rk.launches} launch): integer arrays bit-equal to the plain "
+            f"version; relative errors " + ", ".join(f"{n} {v:.3g}" for n, v in e.items())
+            + f" (<= {UNIFIED_RTOL}); logits max_abs_err {abs_err:.3g}")
+        del ck, cp, rk, rp
+    ls, _ = decode_step_ws(params, cfg, caches(), tok, pos)
+    lu, _, _ = decode_step_unified(params, cfg, caches(), tok, pos)
+    split_err = _rel(lu, ls)
+    log(f"[unified] against the split fp32 step (decode_step_ws, ws_attention): relative "
+        f"logit error {split_err:.3g} (<= {UNIFIED_RTOL}), argmax agree "
+        f"{int((lu[:, :V].argmax(-1) == ls[:, :V].argmax(-1)).sum())}/{c['B']}")
+    if not split_err <= UNIFIED_RTOL:
+        raise AssertionError("the unified step strays from the split step")
+    lf, _, rf = decode_step_unified(params, cfg, caches(), tok, pos, mode="free")
+    torch.cuda.synchronize()
+    mult = rf.res.mult[:rf.n_tasks].cpu()
+    free_err = _rel(lf, lu)
+    log(f"[unified] free mode: {rf.launches} per-stage launches, every task run (mult in "
+        f"[{int(mult.min())}, {int(mult.max())}], sum(mult)/tasks "
+        f"{float(mult.sum()) / rf.n_tasks:.3f}), logits within {free_err:.3g} of lockstep")
+    if rf.launches != 2 + 3 * cfg.n_layers or not bool((mult >= 1).all()) \
+            or not free_err <= UNIFIED_RTOL:
+        raise AssertionError("free-mode per-stage launches failed")
+
+    # times: the step's launches alone (plan built outside), the attention
+    # buffers zeroed before each lockstep launch (tiles accumulate there)
+    run = dict(steal=True, steal_policy="cost", n_programs=c["P"])
+    times = {}
+    for name, kw, mode, n in (("ms", {}, "lockstep", 3), ("fold_ms", dict(prefill_tokens=ptok),
+                                                          "lockstep", 2),
+                              ("free_ms", {}, "free", 3)):
+        plan = plan_step(params, cfg, caches(), tok, pos, **kw)
+
+        def step(_, plan=plan, mode=mode):
+            plan.bufs["att"].zero_()
+            if "attp" in plan.bufs:
+                plan.bufs["attp"].zero_()
+            run_step(params, cfg, plan, mode=mode, **run)
+
+        step(0)
+        torch.cuda.synchronize()
+        times[name] = _event_ms(step, n)
+        del plan
+    cs = caches()
+    decode_step_ws(params, cfg, cs, tok, pos)
+    torch.cuda.synchronize()
+    times["split_step_ms"] = _event_ms(lambda _: decode_step_ws(params, cfg, cs, tok, pos), 5)
+    del cs
+    bound, bound_by, by, ops = _unified_bound(params, cfg, lengths, c["B"], c["B"], 0)
+    fbound, fbound_by, fby, fops = _unified_bound(params, cfg, lengths, c["B"] + c["Lp"],
+                                                  c["B"] + 1, c["Lp"])
+    log(f"[times] ws_unified lockstep decode step {times['ms']:.2f} ms (1 launch), with a "
+        f"{c['Lp']}-token fold {times['fold_ms']:.2f} ms, free mode {times['free_ms']:.2f} ms "
+        f"({rf.launches} launches); bound {bound:.4f} ms ({bound_by}: {by} B, {ops} flops), "
+        f"fold bound {fbound:.4f} ms ({fbound_by}: {fby} B, {fops} flops); plain version "
+        f"{out['plain_decode_ms']:.1f} ms (fold {out['plain_fold_ms']:.1f} ms); split fp32 "
+        f"step (decode_step_ws) {times['split_step_ms']:.2f} ms; no single PyTorch call "
+        "computes an engine step, so there is no library time")
+
+    # serving: 2 replicas of the unified engine, then the split engine, on
+    # the same requests
+    lens = rng.integers(*c["prompt_lens"], size=c["requests"])
+    prompts = [rng.integers(0, V, size=int(n)).astype(np.int32) for n in lens]
+
+    def serve(unified):
+        front = WorkStealingFrontend(lambda: ContinuousBatcher(
+            params, cfg, slots=c["B"], capacity=c["cap"], unified_step=unified), n_replicas=2)
+        for rid, p in enumerate(prompts):
+            front.submit(0, Request(rid=rid, tokens=p, max_new=c["max_new"]))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = front.run(max_iters=1000)
+        torch.cuda.synchronize()
+        counts = {n: launches[n] for n in launches}
+        return front, done, time.perf_counter() - t0, counts
+
+    front, done, wall, counts = serve(True)
+    stats = front.stats()
+    steps = sum(s["steps"] for s in stats["batchers"])
+    if sorted(done) != list(range(len(prompts))) or front.rejected:
+        raise AssertionError(f"completed {sorted(done)}, rejected {sorted(front.rejected)}")
+    for r in done.values():
+        if len(r.out) != c["max_new"] or not all(0 <= t < V for t in r.out):
+            raise AssertionError(f"request {r.rid} produced {r.out}")
+    degr = [b.degradations for b in front.batchers]
+    if any(degr):
+        raise AssertionError(f"unified steps fell back to the split path: {degr}")
+    if counts != {"ws_attention": 0, "ws_expert": 0, "ws_expert_grad": 0, "ws_unified": steps} \
+            or steps == 0:
+        raise AssertionError(f"launches {counts}, want ws_unified == {steps} steps and no other")
+    lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
+    tokens = sum(len(r.out) for r in done.values())
+    serving = {
+        "model": f"{cfg.name} fp32 unified", "requests": len(done),
+        "prompt_tokens": int(lens.sum()), "new_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "steps": steps, "launches_per_step": 1,
+        "step_ms_p50": float(np.percentile(lat, 50)),
+        "step_ms_p99": float(np.percentile(lat, 99)),
+        "stolen": stats["totals"]["stolen"], "launches": counts,
+    }
+    log(f"[unified] serving: {len(done)} requests ({int(lens.sum())} prompt tokens), {tokens} "
+        f"new tokens in {wall:.2f} s ({tokens / wall:.2f} tokens/s incl. folded prefills); "
+        f"{steps} unified steps, 1 launch each (ws_unified {counts['ws_unified']}, no other "
+        f"kernel), step p50 {serving['step_ms_p50']:.2f} ms p99 {serving['step_ms_p99']:.2f} ms; "
+        f"stolen {serving['stolen']}; degradations none")
+    del front
+    _, done_s, wall_s, _ = serve(False)
+    differ = 0
+    for rid, r in sorted(done.items()):
+        want = done_s[rid].out
+        if r.out == want:
+            continue
+        differ += 1
+        j = next(i for i, (a, b) in enumerate(zip(r.out, want)) if a != b)
+        seq = np.concatenate([prompts[rid], np.asarray(want[:j], np.int32)])
+        lg, _ = prefill(params, cfg, {"tokens": torch.from_numpy(seq).to(dev)[None].long()},
+                        capacity=len(seq))
+        top = torch.topk(lg[0, :V], 2).values
+        gap, limit = float(top[0] - top[1]), 2 * UNIFIED_RTOL * max(1.0, float(lg.abs().max()))
+        log(f"[unified] request {rid} differs from the split engine first at token {j}: top-2 "
+            f"logit gap {gap:.3g} (a near-tie flips when under {limit:.3g})")
+        if not gap < limit:
+            raise AssertionError(f"request {rid}: unified and split streams differ at token {j} "
+                                 f"with a top-2 gap of {gap} >= {limit}")
+    log(f"[unified] greedy streams: {len(done) - differ}/{len(done)} equal to the split "
+        f"engine's ({wall_s:.2f} s)")
+    serving.update(split_wall_s=wall_s, streams_equal=len(done) - differ)
+    del params, k0, v0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs), split_rel_err=split_err, free_rel_err=free_err,
+                free_launches_per_step=rf.launches,
+                free_mult_per_task=float(mult.sum()) / rf.n_tasks, bound_ms=bound,
+                bound_by=bound_by, fold_bound_ms=fbound, fold_bound_by=fbound_by,
+                plain_ms=out["plain_decode_ms"], plain_fold_ms=out["plain_fold_ms"],
+                library_ms=None, **times), serving
 
 
 def _paths(tree, prefix=""):
@@ -1486,6 +1751,7 @@ def main(argv=None) -> int:
     moe = phase_moe(dev) if "moe" in phases else None
     grad = phase_grad(dev) if "grad" in phases else None
     training = phase_train(dev) if "train" in phases else None
+    unified, userving = phase_unified(dev) if "unified" in phases else (None, None)
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed; a partial run prints no result")
         return 3
@@ -1497,7 +1763,8 @@ def main(argv=None) -> int:
         "launches": n_launches,
         "launches_by_path": {"llama3.2-3b": n_launches,
                              moe["model"]: moe["ws_attention_launches"],
-                             training["model"]: training["launches"]["ws_attention"]},
+                             training["model"]: training["launches"]["ws_attention"],
+                             userving["model"]: userving["launches"]["ws_attention"]},
         "launches_per_train_step": training["launches_per_step"]["ws_attention"],
         "max_abs_err": max(max_err, expert["attn_err"]),
         **times,
@@ -1510,7 +1777,8 @@ def main(argv=None) -> int:
         "launches": moe["ws_expert_launches"],
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_launches"],
                              moe["model"]: moe["ws_expert_launches"],
-                             training["model"]: training["launches"]["ws_expert"]},
+                             training["model"]: training["launches"]["ws_expert"],
+                             userving["model"]: userving["launches"]["ws_expert"]},
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert"],
         "max_abs_err": expert["max_abs_err"],
@@ -1524,20 +1792,35 @@ def main(argv=None) -> int:
         "launches": training["launches"]["ws_expert_grad"],
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_grad_launches"],
                              moe["model"]: moe["ws_expert_grad_launches"],
-                             training["model"]: training["launches"]["ws_expert_grad"]},
+                             training["model"]: training["launches"]["ws_expert_grad"],
+                             userving["model"]: userving["launches"]["ws_expert_grad"]},
         "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
         "max_abs_err": max(grad["max_abs_err"], training["launch_abs_err"]),
         "max_group_rel_err": max(grad["max_group_rel_err"], training["launch_rel_err"]),
         **training["grad_times"],
     }
+    unified_line = {
+        "name": "ws_unified",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ws_unified.cu",
+        "replaces": "src/repro/models/unified.py:415",
+        "launches": userving["launches"]["ws_unified"],
+        "launches_by_path": {"llama3.2-3b": serving["ws_unified_launches"],
+                             moe["model"]: moe["ws_unified_launches"],
+                             training["model"]: training["launches"]["ws_unified"],
+                             userving["model"]: userving["launches"]["ws_unified"]},
+        "launches_per_step": {"lockstep": 1, "free": unified["free_launches_per_step"]},
+        **unified,
+    }
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     log("[serving] " + json.dumps(serving))
     log("[moe] " + json.dumps(moe))
     log("[grad] " + json.dumps(grad))
     log("[train] " + json.dumps({k: v for k, v in training.items() if k != "grad_times"}))
+    log("[unified] " + json.dumps(userving))
     print(card_line())
-    print(json.dumps({"kernels": [attention, expert_line, grad_line]}))
+    print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,8 +10,9 @@ nothing of ``repro``.
 The work-stealing megakernels are hand-written CUDA C++ for Hopper around
 one fence-free scheduler (``csrc/ws_sched.cuh``, dense or shared-pool
 queues): attention tiles (``csrc/ws_attention.cu``), MoE expert tiles
-(``csrc/ws_expert.cu``) and their transpose for the backward
-(``csrc/ws_expert_grad.cu``), built with ``nvcc`` at first use
+(``csrc/ws_expert.cu``), their transpose for the backward
+(``csrc/ws_expert_grad.cu``) and the one-launch unified engine step
+(``csrc/ws_unified.cu``), built with ``nvcc`` at first use
 (:mod:`repro_torch._build`).  Each kernel
 wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version for CPU tensors.

@@ -28,7 +28,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("ws_attention", "ws_expert", "ws_expert_grad")
+KERNELS = ("ws_attention", "ws_expert", "ws_expert_grad", "ws_unified")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

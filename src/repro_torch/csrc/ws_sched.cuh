@@ -30,6 +30,18 @@
 // while s < tail[q]: a read past tail would land in the next queue's
 // segment, a wrong task and not a fault, so it must never issue.
 //
+// Stage gate (stage_open != null, lockstep only): queue v is invisible to
+// every probe and to the victim scan until round stage_open[v], the
+// reference's `stage_ref[v] <= r` (the unified engine step's Graham stage
+// windows).  stage_open is nondecreasing (stage-major queues).
+//
+// Victim window (lockstep).  The cost policy's victim scan covers [lo, hi):
+// the single walker's heads only grow, so a queue with head >= tail is
+// drained for every view and stays so (lo skips past it), and queues from
+// hi on are not open yet.  Neither can score, so the first-index argmax and
+// every count are those of the full scan; a step of the unified walk then
+// scans one stage's queues, not all 2 + 3L stages'.
+//
 // Fence-free.  head, local_head, taken and remaining are touched only by
 // volatile global loads and stores.  There is no atomic, no fence, no
 // membar: thread 0 of a CTA runs the scheduler and hands its decision to the
@@ -52,6 +64,7 @@
 struct WSQueues {
   const int* tasks;          // dense [n_queues, capacity, TASK_WIDTH]; pool [capacity, TASK_WIDTH]
   const int* pool_off;       // pool [n_queues + 1] segment offsets; dense null
+  const int* stage_open;     // [n_queues] open round of each queue; null when ungated
   const int* tail;           // [n_queues]
   volatile int* head;        // [n_queues]
   volatile int* local_head;  // [n_programs, n_queues]
@@ -104,15 +117,19 @@ __device__ __forceinline__ void claim_writes(const WSQueues& Q, int p, int v, in
   Q.local_head[p * Q.n_queues + v] = h + 1; // persistent local bound
 }
 
+__device__ __forceinline__ bool is_open(const WSQueues& Q, int v, int r) {
+  return Q.stage_open == nullptr || Q.stage_open[v] <= r;
+}
+
 // "scan" policy: p-relative sequential scan over every queue.
-__device__ Claim scan_extract(const WSQueues& Q, int p) {
+__device__ Claim scan_extract(const WSQueues& Q, int p, int r) {
   Claim c = {0, 0, 0, 0};
   int n_scan = Q.steal ? Q.n_queues : 1;
   for (int j = 0; j < n_scan; ++j) {
     int v = (p + j) % Q.n_queues;
     int h = rmax_read(Q, p, v);
     int probed;
-    int op = probe(Q, v, h, !c.found, &probed);
+    int op = probe(Q, v, h, !c.found && is_open(Q, v, r), &probed);
     bool live = op != BOTTOM;
     if (!c.found && live) {
       claim_writes(Q, p, v, h);
@@ -126,12 +143,13 @@ __device__ Claim scan_extract(const WSQueues& Q, int p) {
 }
 
 // "cost" policy: own-queue probe, then the first-index argmax of
-// max(remaining, 1) over queues whose head view is below their tail.
-__device__ Claim cost_extract(const WSQueues& Q, int p) {
+// max(remaining, 1) over open queues of [lo, hi) whose head view is below
+// their tail.
+__device__ Claim cost_extract(const WSQueues& Q, int p, int r, int lo, int hi) {
   int own = p % Q.n_queues;
   int h0 = rmax_read(Q, p, own);
   int probed0;
-  int op0 = probe(Q, own, h0, true, &probed0);
+  int op0 = probe(Q, own, h0, is_open(Q, own, r), &probed0);
   bool own_live = op0 != BOTTOM;
   if (own_live) claim_writes(Q, p, own, h0);
   if (!Q.steal) {
@@ -139,11 +157,11 @@ __device__ Claim cost_extract(const WSQueues& Q, int p) {
     return c;
   }
   int best_v = 0, best = 0, best_h = 0;
-  for (int v = 0; v < Q.n_queues; ++v) {
+  for (int v = lo; v < hi; ++v) {
     int h = rmax_read(Q, p, v);
     int rem = Q.remaining[v];
-    int score = (h < Q.tail[v]) ? (rem > 1 ? rem : 1) : 0;
-    if (v == 0 || score > best) {
+    int score = (h < Q.tail[v] && is_open(Q, v, r)) ? (rem > 1 ? rem : 1) : 0;
+    if (v == lo || score > best) {
       best = score;
       best_v = v;
       best_h = h;
@@ -162,8 +180,8 @@ __device__ Claim cost_extract(const WSQueues& Q, int p) {
   return c;
 }
 
-__device__ __forceinline__ Claim extract(const WSQueues& Q, int p) {
-  return Q.policy == 1 ? scan_extract(Q, p) : cost_extract(Q, p);
+__device__ __forceinline__ Claim extract(const WSQueues& Q, int p, int r, int lo, int hi) {
+  return Q.policy == 1 ? scan_extract(Q, p, r) : cost_extract(Q, p, r, lo, hi);
 }
 
 // Bookkeeping after an execution (ws_account).  Returns the task's cost.
@@ -205,7 +223,11 @@ __device__ __forceinline__ void load_record(const WSQueues& Q, int fq, int fs, i
 template <class Body>
 __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
   const bool t0 = threadIdx.x == 0;
+  int lo = 0, hi = Q.stage_open ? 0 : Q.n_queues;  // thread 0's victim window
   for (int r = 0; r < Q.rounds; ++r) {
+    if (t0) {
+      while (hi < Q.n_queues && Q.stage_open[hi] <= r) ++hi;
+    }
     for (int p = 0; p < Q.n_programs; ++p) {
       if (Q.compress) {
         // Round compression (no thieves): an idle owner drains its whole
@@ -251,7 +273,10 @@ __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
       } else {
         if (t0) {
           Claim c = {0, 0, 0, 0};
-          if (Q.clock[p] <= r) c = extract(Q, p);
+          if (Q.clock[p] <= r) {
+            while (lo < hi && Q.head[lo] >= Q.tail[lo]) ++lo;
+            c = extract(Q, p, r, lo, hi);
+          }
           Q.scanned[p] += c.nread;
           sh.found = c.found;
           sh.fq = c.fq;
@@ -275,7 +300,7 @@ __device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
   const bool t0 = threadIdx.x == 0;
   while (true) {
     if (t0) {
-      Claim c = extract(Q, p);
+      Claim c = extract(Q, p, 0, 0, Q.n_queues);
       Q.scanned[p] += c.nread;
       sh.found = c.found;
       sh.fq = c.fq;
@@ -300,6 +325,7 @@ static inline WSQueues ws_queues(
   WSQueues Q;
   Q.tasks = tasks;
   Q.pool_off = pool_off;
+  Q.stage_open = nullptr;
   Q.tail = tail;
   Q.head = head;
   Q.local_head = local_head;

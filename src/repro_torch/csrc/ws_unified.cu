@@ -1,0 +1,529 @@
+// The unified engine step on Hopper (sm_90a): one fence-free work-stealing
+// launch that runs a whole decode step (and optionally one folded prompt's
+// prefill) of a dense GQA decoder in fp32.
+//
+// Replaces the TPU kernel of repro/models/unified.py: the `execute` closure
+// of `decode_step_unified` (launched through `launch_ws_grid`, whose
+// `pallas_call` is repro/pallas_ws/kernel.py:805), dense half.  The
+// scheduler and its walks are ws_sched.cuh with the stage gate; the
+// attention tile is ws_attn_tile.cuh.
+//
+// What it computes.  Each claimed record dispatches on F_OP:
+//  * OP_DECODE_TILE: one (b, h) query row against the layer's KV cache, read
+//    in place from [L, B, cap, Hkv, hd] through strides (bq 1, bk_d, not
+//    causal), into att[l] [B, H, hd];
+//  * OP_FLASH_TILE: a causal (h, q-block) tile of the folded prompt against
+//    its k/v rows in kp/vp [L, 1, cap, Hkv, hd], into attp[l];
+//  * OP_STEP_GLUE, by phase:
+//      GLUE_EMBED   embedding rows -> h[0] [R, d] (R = B decode rows, then
+//                   the prompt's Lp rows);
+//      GLUE_PRE     rms_norm(h[l % 2]); q, k, v against wq, wk, wv; RoPE at
+//                   each row's position; the new k/v row of every slot
+//                   spliced into kc/vc[l], the prompt's into kp/vp[l]; q into
+//                   qd (decode) and qp [H, Lp_pad, hd] (prompt);
+//      GLUE_POST    the attention rows divided by their tiles' mult (lockstep
+//                   only: free-mode tiles store whole tiles), wo, residual,
+//                   rms_norm, SwiGLU MLP, residual -> h[(l + 1) % 2];
+//      GLUE_LOGITS  final rms_norm of the decode rows and the prompt's last
+//                   row, unembed -> logits [B + 1, Vp], pad vocab -1e30.
+// Every product is computed here by hand (fp32 FMAs on CUDA cores); no
+// library call is made.
+//
+// Lockstep (mode 0) is one launch of one CTA walking the (rounds, P) grid
+// with the stage gate: the whole engine step.  Free mode (mode 1) runs P
+// CTAs over one stage's queues; the wrapper launches once per stage, since
+// free CTAs have no rounds to gate by and a device-side wait would need
+// acquire/release ordering.  Several CTAs can then run one glue task at once,
+// so no glue phase updates a buffer in place: each reads what earlier stages
+// wrote (the residual stream ping-pongs between h[0] and h[1]) and writes
+// buffers that only this phase writes, with a single content each, so a
+// duplicate writes the bits the first execution wrote.
+//
+// No atomics and no fences: reductions are warp shuffles and shared-memory
+// sums, ordering inside the CTA is __syncthreads(), ordering between stages
+// is the rounds (lockstep) or the kernel boundaries (free).
+//
+// What bounds it on this card.  A decode step reads every weight once
+// (11.28 GB of layer weights and 1.58 GB of unembedding for llama3.2-3b in
+// fp32) plus the live K/V rows: bytes.  In lockstep all of it streams
+// through ONE SM, so the step is bound by what one SM can pull, far below
+// the card's 3.35 TB/s.  The products are GEMVs over 16-byte weight loads
+// with many in flight per thread; a folded prompt is a GEMM of 8 rows per
+// weight read, near one SM's fp32 FMA rate.  Spreading glue work over
+// the card is later work.
+
+#include <cuda_runtime.h>
+
+#include "ws_attn_tile.cuh"
+
+#define OP_FLASH_TILE 0
+#define OP_DECODE_TILE 1
+#define OP_STEP_GLUE 3
+#define F_PHASE 1
+#define F_LAYER 2
+#define GLUE_EMBED 0
+#define GLUE_PRE 1
+#define GLUE_POST 2
+#define GLUE_LOGITS 4
+#define UTHREADS 512
+
+struct UArgs {
+  // inputs
+  const int* tok;           // [B]
+  const int* pos;           // [B] position of each slot's new token
+  const int* ptok;          // [Lp] folded prompt (null when Lp == 0)
+  const float* embed;       // [V, d]
+  const float* final_norm;  // [d]
+  const float* unembed;     // [d, Vp]
+  const float* attn_norm;   // [L, d]
+  const float* wq;          // [L, d, H * hd]
+  const float* wk;          // [L, d, Hkv * hd]
+  const float* wv;          // [L, d, Hkv * hd]
+  const float* wo;          // [L, H * hd, d]
+  const float* mlp_norm;    // [L, d]
+  const float* wg;          // [L, d, f]
+  const float* wu;          // [L, d, f]
+  const float* wd;          // [L, f, d]
+  // outputs
+  float* kc;                // [L, B, cap, Hkv, hd] (updated in place)
+  float* vc;
+  float* kp;                // [L, 1, cap, Hkv, hd]
+  float* vp;
+  float* h;                 // [2, R, d] residual stream, ping-pong
+  float* qd;                // [B, H, hd]
+  float* qp;                // [H, Lp_pad, hd]
+  float* att;               // [L, B, H, hd]
+  float* attp;              // [L, H, Lp_pad, hd]
+  float* logits;            // [B + 1, Vp]: the decode rows, then the prompt's
+  // scratch, one content each per phase
+  float* xn;                // [R, d]
+  float* sq;                // [R, H * hd]
+  float* sk;                // [R, Hkv * hd]
+  float* sv;                // [R, Hkv * hd]
+  float* sa;                // [R, d]
+  float* sh2;               // [R, d]
+  float* sg;                // [R, f]
+  float* su;                // [R, f]
+  float* shm;               // [R, f]
+  float* sm;                // [R, d]
+  int B, Lp, L, d, H, Hkv, hd, f, V, Vp, cap;
+  int bk_d, bq_p, bk_p, nq_p, Lp_pad, n_flash_l, dec_att_base, pre_att_base;
+  float eps, theta, res_scale, scale;
+};
+
+// ---------------------------------------------------------------------------
+// glue building blocks (all threads; each ends with __syncthreads())
+
+// Y[r, n] = sum_k X[r, k] W[k, n] for r < R, n < N.  W is row-major with
+// row stride ldw, its rows 16-byte aligned and N % 4 == 0.  A thread owns 4
+// adjacent columns and 1/KS of the k range; the KS partial sums meet in
+// shared memory.  X is staged in chunks of KC columns, RB rows at a time,
+// so each weight load feeds RB rows; UNROLL loads stay in flight a thread.
+template <int RB>
+__device__ void gemm(const float* X, int ldx, int R, const float* __restrict__ W, long long ldw,
+                     int K, int N, float* Y, int ldy, float* smem) {
+  constexpr int KS = RB <= 4 ? 4 : 2;
+  constexpr int KC = RB <= 4 ? 1024 : 512;
+  constexpr int UNROLL = RB <= 4 ? 8 : 4;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int TW = nt / KS;
+  const int c = tid % TW, s = tid / TW;
+  float* xs = smem;             // [KC][RB]
+  float* red = xs + KC * RB;    // [KS - 1][RB][TW * 4]
+  for (int r0 = 0; r0 < R; r0 += RB) {
+    const int nr = min(RB, R - r0);
+    for (int n0 = 0; n0 < N; n0 += TW * 4) {
+      const int n = n0 + c * 4;
+      const bool live = n < N;
+      float acc[RB][4];
+#pragma unroll
+      for (int i = 0; i < RB; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      for (int k0 = 0; k0 < K; k0 += KC) {
+        const int kc = min(KC, K - k0);
+        __syncthreads();
+        for (int e = tid; e < kc * RB; e += nt) {
+          const int i = e / kc, kk = e % kc;
+          xs[kk * RB + i] = i < nr ? X[(long long)(r0 + i) * ldx + k0 + kk] : 0.f;
+        }
+        __syncthreads();
+        if (live) {
+          const float* wp = W + (long long)k0 * ldw + n;
+#pragma unroll UNROLL
+          for (int kk = s; kk < kc; kk += KS) {
+            const float4 w = __ldg(reinterpret_cast<const float4*>(wp + (long long)kk * ldw));
+            const float4* xr = reinterpret_cast<const float4*>(xs + kk * RB);
+#pragma unroll
+            for (int i4 = 0; i4 < RB / 4; ++i4) {
+              const float4 a = xr[i4];
+              const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                float* o = acc[i4 * 4 + j];
+                o[0] = fmaf(av[j], w.x, o[0]);
+                o[1] = fmaf(av[j], w.y, o[1]);
+                o[2] = fmaf(av[j], w.z, o[2]);
+                o[3] = fmaf(av[j], w.w, o[3]);
+              }
+            }
+          }
+        }
+      }
+      if (live && s > 0) {
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+          *reinterpret_cast<float4*>(red + ((long long)(s - 1) * RB + i) * TW * 4 + c * 4) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+      __syncthreads();
+      if (live && s == 0) {
+        for (int t = 1; t < KS; ++t) {
+#pragma unroll
+          for (int i = 0; i < RB; ++i) {
+            const float4 p = *reinterpret_cast<const float4*>(
+                red + ((long long)(t - 1) * RB + i) * TW * 4 + c * 4);
+            acc[i][0] += p.x;
+            acc[i][1] += p.y;
+            acc[i][2] += p.z;
+            acc[i][3] += p.w;
+          }
+        }
+        for (int i = 0; i < nr; ++i) {
+          float* y = Y + (long long)(r0 + i) * ldy + n;
+          y[0] = acc[i][0];
+          y[1] = acc[i][1];
+          y[2] = acc[i][2];
+          y[3] = acc[i][3];
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// gemm in row blocks of 4 (decode batches up to 4) or 8.  A 16-row block
+// would halve a folded prompt's weight reads, but its 64 accumulators spill
+// at the 128 registers a thread of a 512-thread CTA has.
+__device__ void gemm_rows(const float* X, int ldx, int R, const float* W, long long ldw, int K,
+                          int N, float* Y, int ldy, float* smem) {
+  if (R <= 4)
+    gemm<4>(X, ldx, R, W, ldw, K, N, Y, ldy, smem);
+  else
+    gemm<8>(X, ldx, R, W, ldw, K, N, Y, ldy, smem);
+}
+
+// Y[r] = X[r] / sqrt(mean(X[r]^2) + eps) * (1 + w), one warp a row.
+__device__ void rms_rows(const float* X, float* Y, int n, int d, const float* __restrict__ w,
+                         float eps) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nw = blockDim.x / 32;
+  for (int r = warp; r < n; r += nw) {
+    const float* x = X + (long long)r * d;
+    float ss = 0.f;
+    for (int k = lane; k < d; k += 32) ss += x[k] * x[k];
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float inv = 1.f / sqrtf(ss / (float)d + eps);
+    float* y = Y + (long long)r * d;
+    for (int k = lane; k < d; k += 32) y[k] = (x[k] * inv) * (1.f + __ldg(w + k));
+  }
+  __syncthreads();
+}
+
+// y = a + s * b over n elements.
+__device__ void axpy(const float* a, const float* b, float s, float* y, long long n) {
+  for (long long e = threadIdx.x; e < n; e += blockDim.x) y[e] = a[e] + s * b[e];
+  __syncthreads();
+}
+
+// RoPE of row r's head vector x [hd] at `pos` into y: the halves rotate as
+// pairs (x1, x2) by angle pos / theta^(2i / hd).
+__device__ __forceinline__ void rope_pair(const float* x, float* y, int i, int hd, int pos,
+                                          float theta) {
+  const int half = hd / 2;
+  const float fr = 1.f / powf(theta, (float)(2 * i) / (float)hd);
+  const float ang = (float)pos * fr;
+  const float c = cosf(ang), s = sinf(ang);
+  const float x1 = x[i], x2 = x[i + half];
+  y[i] = x1 * c - x2 * s;
+  y[i + half] = x1 * s + x2 * c;
+}
+
+// ---------------------------------------------------------------------------
+// glue phases
+
+__device__ void glue_embed(const UArgs& A) {
+  const int R = A.B + A.Lp;
+  for (long long e = threadIdx.x; e < (long long)R * A.d; e += blockDim.x) {
+    const int r = (int)(e / A.d), k = (int)(e % A.d);
+    const int t = r < A.B ? A.tok[r] : A.ptok[r - A.B];
+    A.h[e] = __ldg(A.embed + (long long)t * A.d + k);
+  }
+  __syncthreads();
+}
+
+__device__ void glue_pre(const UArgs& A, int l, float* smem) {
+  const int R = A.B + A.Lp, d = A.d, hd = A.hd, H = A.H, Hkv = A.Hkv;
+  const int nq = H * hd, nkv = Hkv * hd;
+  const float* h = A.h + (long long)(l % 2) * R * d;
+  rms_rows(h, A.xn, R, d, A.attn_norm + (long long)l * d, A.eps);
+  gemm_rows(A.xn, d, R, A.wq + (long long)l * d * nq, nq, d, nq, A.sq, nq, smem);
+  gemm_rows(A.xn, d, R, A.wk + (long long)l * d * nkv, nkv, d, nkv, A.sk, nkv, smem);
+  gemm_rows(A.xn, d, R, A.wv + (long long)l * d * nkv, nkv, d, nkv, A.sv, nkv, smem);
+  const int half = hd / 2;
+  const long long cache_l = (long long)l * A.B * A.cap * nkv;
+  const long long pre_l = (long long)l * A.cap * nkv;
+  // q rows: RoPE into qd (decode) or qp (prompt, [H, Lp_pad, hd])
+  for (int e = threadIdx.x; e < R * H * half; e += blockDim.x) {
+    const int r = e / (H * half), hh = (e / half) % H, i = e % half;
+    const int p = r < A.B ? A.pos[r] : r - A.B;
+    float* y = r < A.B ? A.qd + ((long long)r * H + hh) * hd
+                       : A.qp + ((long long)hh * A.Lp_pad + (r - A.B)) * hd;
+    rope_pair(A.sq + (long long)r * nq + hh * hd, y, i, hd, p, A.theta);
+  }
+  // k rows: RoPE into the cache row of the slot (decode) or of the prompt
+  for (int e = threadIdx.x; e < R * Hkv * half; e += blockDim.x) {
+    const int r = e / (Hkv * half), hh = (e / half) % Hkv, i = e % half;
+    const bool dec = r < A.B;
+    const int p = dec ? A.pos[r] : r - A.B;
+    float* y = dec ? A.kc + cache_l + ((long long)r * A.cap + p) * nkv + hh * hd
+                   : A.kp + pre_l + (long long)p * nkv + hh * hd;
+    rope_pair(A.sk + (long long)r * nkv + hh * hd, y, i, hd, p, A.theta);
+  }
+  // v rows: copied into the cache row
+  for (int e = threadIdx.x; e < R * nkv; e += blockDim.x) {
+    const int r = e / nkv, j = e % nkv;
+    const bool dec = r < A.B;
+    float* y = dec ? A.vc + cache_l + ((long long)r * A.cap + A.pos[r]) * nkv
+                   : A.vp + pre_l + (long long)(r - A.B) * nkv;
+    y[j] = A.sv[(long long)r * nkv + j];
+  }
+  __syncthreads();
+}
+
+__device__ void glue_post(const UArgs& A, int l, const int* mult, bool divide, float* smem) {
+  const int R = A.B + A.Lp, d = A.d, hd = A.hd, H = A.H, f = A.f;
+  const int nq = H * hd;
+  const float* h = A.h + (long long)(l % 2) * R * d;
+  float* h_out = A.h + (long long)((l + 1) % 2) * R * d;
+  // the attention rows, multiplicity-normalised (lockstep accumulates)
+  for (int e = threadIdx.x; e < R * nq; e += blockDim.x) {
+    const int r = e / nq, hh = (e % nq) / hd, k = e % hd;
+    float v, div = 1.f;
+    if (r < A.B) {
+      const int t = A.dec_att_base + (l * A.B + r) * H + hh;
+      v = A.att[(((long long)l * A.B + r) * H + hh) * hd + k];
+      if (divide) div = (float)max(mult[t], 1);
+    } else {
+      const int i = r - A.B;
+      const int t = A.pre_att_base + l * A.n_flash_l + hh * A.nq_p + i / A.bq_p;
+      v = A.attp[(((long long)l * H + hh) * A.Lp_pad + i) * hd + k];
+      if (divide) div = (float)max(mult[t], 1);
+    }
+    A.sq[e] = v / div;
+  }
+  __syncthreads();
+  gemm_rows(A.sq, nq, R, A.wo + (long long)l * nq * d, d, nq, d, A.sa, d, smem);
+  axpy(h, A.sa, A.res_scale, A.sh2, (long long)R * d);
+  rms_rows(A.sh2, A.xn, R, d, A.mlp_norm + (long long)l * d, A.eps);
+  gemm_rows(A.xn, d, R, A.wg + (long long)l * d * f, f, d, f, A.sg, f, smem);
+  gemm_rows(A.xn, d, R, A.wu + (long long)l * d * f, f, d, f, A.su, f, smem);
+  for (long long e = threadIdx.x; e < (long long)R * f; e += blockDim.x) {
+    const float g = A.sg[e];
+    A.shm[e] = g / (1.f + expf(-g)) * A.su[e];
+  }
+  __syncthreads();
+  gemm_rows(A.shm, f, R, A.wd + (long long)l * f * d, d, f, d, A.sm, d, smem);
+  axpy(A.sh2, A.sm, A.res_scale, h_out, (long long)R * d);
+}
+
+__device__ void glue_logits(const UArgs& A, float* smem) {
+  const int R = A.B + A.Lp, d = A.d;
+  const float* h = A.h + (long long)(A.L % 2) * R * d;
+  rms_rows(h, A.xn, A.B, d, A.final_norm, A.eps);
+  const int n = A.B + (A.Lp ? 1 : 0);
+  if (A.Lp) rms_rows(h + (long long)(R - 1) * d, A.xn + (long long)A.B * d, 1, d, A.final_norm,
+                     A.eps);
+  gemm_rows(A.xn, d, n, A.unembed, A.Vp, d, A.Vp, A.logits, A.Vp, smem);
+  const int pad = A.Vp - A.V;
+  for (int e = threadIdx.x; e < n * pad; e += blockDim.x)
+    A.logits[(long long)(e / pad) * A.Vp + A.V + e % pad] = -1e30f;
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// the tile body: dispatch on F_OP
+
+struct UnifiedTile {
+  const UArgs& A;
+  const int* mult;  // lockstep: the live [n_tasks] counts
+  float* smem;
+
+  __device__ void operator()(const int* rec, bool store) const {
+    const int op = rec[F_OP];
+    if (op == OP_DECODE_TILE || op == OP_FLASH_TILE) {
+      const bool dec = op == OP_DECODE_TILE;
+      const long long nkv = (long long)A.Hkv * A.hd;
+      AttnArgs a;
+      a.causal = dec ? 0 : 1;
+      a.H = A.H;
+      a.hd = A.hd;
+      a.g = A.H / A.Hkv;
+      a.scale = A.scale;
+      a.q_sd = a.k_sd = a.v_sd = 1;
+      a.k_sh = a.v_sh = A.hd;
+      a.k_ss = a.v_ss = nkv;
+      a.k_sb = a.v_sb = (long long)A.cap * nkv;
+      if (dec) {
+        const int l = (rec[F_TID] - A.dec_att_base) / (A.B * A.H);
+        const long long off = (long long)l * A.B * A.cap * nkv;
+        a.q = A.qd;
+        a.q_sb = (long long)A.H * A.hd;
+        a.q_sh = A.hd;
+        a.q_ss = A.hd;
+        a.k = A.kc + off;
+        a.v = A.vc + off;
+        a.out = A.att + (long long)l * A.B * A.H * A.hd;
+        a.Sq = 1;
+        a.Sq_out = 1;
+        a.Sk = A.cap;
+        a.bq = 1;
+        a.bk = A.bk_d;
+      } else {
+        const int l = (rec[F_TID] - A.pre_att_base) / A.n_flash_l;
+        const long long off = (long long)l * A.cap * nkv;
+        a.q = A.qp;
+        a.q_sb = 0;
+        a.q_sh = (long long)A.Lp_pad * A.hd;
+        a.q_ss = A.hd;
+        a.k = A.kp + off;
+        a.v = A.vp + off;
+        a.out = A.attp + (long long)l * A.H * A.Lp_pad * A.hd;
+        a.Sq = A.Lp_pad;
+        a.Sq_out = A.Lp_pad;
+        a.Sk = A.Lp;
+        a.bq = A.bq_p;
+        a.bk = A.bk_p;
+      }
+      execute_tile<float>(a, smem, rec, store);
+      return;
+    }
+    // OP_STEP_GLUE
+    const int phase = rec[F_PHASE], l = rec[F_LAYER];
+    if (phase == GLUE_EMBED) {
+      glue_embed(A);
+    } else if (phase == GLUE_PRE) {
+      glue_pre(A, l, smem);
+    } else if (phase == GLUE_POST) {
+      glue_post(A, l, mult, !store, smem);
+    } else {
+      glue_logits(A, smem);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// kernels
+
+__global__ void __launch_bounds__(UTHREADS, 1) ws_unified_lockstep(WSQueues Q, UArgs A) {
+  extern __shared__ float smem[];
+  __shared__ WSShared sh;
+  ws_lockstep(Q, sh, UnifiedTile{A, Q.mult, smem});
+}
+
+__global__ void __launch_bounds__(UTHREADS, 1) ws_unified_free(WSQueues Q, UArgs A) {
+  extern __shared__ float smem[];
+  __shared__ WSShared sh;
+  ws_free(Q, sh, UnifiedTile{A, Q.mult, smem});
+}
+
+// Dynamic shared memory of the largest body: a gemm row block or a tile.
+static size_t unified_smem(const UArgs& A) {
+  size_t gemm;
+  const int nt = UTHREADS;
+  const size_t g4 = 1024 * 4 + 3 * 4 * (nt / 4) * 4;
+  const size_t g8 = 512 * 8 + 1 * 8 * (nt / 2) * 4;
+  gemm = g4 > g8 ? g4 : g8;
+  const size_t dec = 2 * A.hd + (size_t)A.bk_d * A.hd + A.bk_d + 3;
+  const size_t fl = A.Lp ? 2 * (size_t)A.bq_p * A.hd + (size_t)A.bk_p * A.hd +
+                               (size_t)A.bq_p * A.bk_p + 3 * A.bq_p
+                         : 0;
+  size_t m = gemm > dec ? gemm : dec;
+  m = m > fl ? m : fl;
+  return m * sizeof(float);
+}
+
+// ptrs: the 35 pointers of UArgs in declaration order; dims: its 19 ints;
+// fdims: eps, theta, res_scale, scale.
+extern "C" int ws_unified_launch(
+    int mode,
+    const int* tasks, const int* tail, int* head, int* local_head, int* taken,
+    int* remaining, int* clock, int* work, int* steals, int* scanned, int* mult,
+    const int* stage_open, void* const* ptrs, const int* dims, const float* fdims,
+    int n_queues, int capacity, int n_programs, int n_tasks, int rounds,
+    int steal, int policy, void* stream) {
+  WSQueues Q = ws_queues(tasks, nullptr, tail, head, local_head, taken, remaining, clock, work,
+                         steals, scanned, mult, n_queues, capacity, n_programs, n_tasks, rounds,
+                         steal, policy, 0);
+  Q.stage_open = stage_open;
+  UArgs A;
+  int i = 0;
+  A.tok = (const int*)ptrs[i++];
+  A.pos = (const int*)ptrs[i++];
+  A.ptok = (const int*)ptrs[i++];
+  A.embed = (const float*)ptrs[i++];
+  A.final_norm = (const float*)ptrs[i++];
+  A.unembed = (const float*)ptrs[i++];
+  A.attn_norm = (const float*)ptrs[i++];
+  A.wq = (const float*)ptrs[i++];
+  A.wk = (const float*)ptrs[i++];
+  A.wv = (const float*)ptrs[i++];
+  A.wo = (const float*)ptrs[i++];
+  A.mlp_norm = (const float*)ptrs[i++];
+  A.wg = (const float*)ptrs[i++];
+  A.wu = (const float*)ptrs[i++];
+  A.wd = (const float*)ptrs[i++];
+  A.kc = (float*)ptrs[i++];
+  A.vc = (float*)ptrs[i++];
+  A.kp = (float*)ptrs[i++];
+  A.vp = (float*)ptrs[i++];
+  A.h = (float*)ptrs[i++];
+  A.qd = (float*)ptrs[i++];
+  A.qp = (float*)ptrs[i++];
+  A.att = (float*)ptrs[i++];
+  A.attp = (float*)ptrs[i++];
+  A.logits = (float*)ptrs[i++];
+  A.xn = (float*)ptrs[i++];
+  A.sq = (float*)ptrs[i++];
+  A.sk = (float*)ptrs[i++];
+  A.sv = (float*)ptrs[i++];
+  A.sa = (float*)ptrs[i++];
+  A.sh2 = (float*)ptrs[i++];
+  A.sg = (float*)ptrs[i++];
+  A.su = (float*)ptrs[i++];
+  A.shm = (float*)ptrs[i++];
+  A.sm = (float*)ptrs[i++];
+  int j = 0;
+  A.B = dims[j++];
+  A.Lp = dims[j++];
+  A.L = dims[j++];
+  A.d = dims[j++];
+  A.H = dims[j++];
+  A.Hkv = dims[j++];
+  A.hd = dims[j++];
+  A.f = dims[j++];
+  A.V = dims[j++];
+  A.Vp = dims[j++];
+  A.cap = dims[j++];
+  A.bk_d = dims[j++];
+  A.bq_p = dims[j++];
+  A.bk_p = dims[j++];
+  A.nq_p = dims[j++];
+  A.Lp_pad = dims[j++];
+  A.n_flash_l = dims[j++];
+  A.dec_att_base = dims[j++];
+  A.pre_att_base = dims[j++];
+  A.eps = fdims[0];
+  A.theta = fdims[1];
+  A.res_scale = fdims[2];
+  A.scale = fdims[3];
+  void (*kern)(WSQueues, UArgs) = mode == 0 ? ws_unified_lockstep : ws_unified_free;
+  return ws_launch(kern, mode, Q, A, UTHREADS, unified_smem(A), (cudaStream_t)stream);
+}

@@ -1,5 +1,6 @@
 """Decoders of the port (``repro.models`` counterpart): GQA decoders, dense
-or MoE, served and trained; MLA+MoE decoders (deepseek-v2) trained."""
+or MoE, served and trained (dense fp32 ones also through the one-launch
+unified step); MLA+MoE decoders (deepseek-v2) trained."""
 
 from .attention import KVCache, flash_ref, gqa_decode, gqa_decode_ws, gqa_train, mla_train
 from .config import ModelConfig, ShapeConfig
@@ -17,11 +18,18 @@ from .model import (
 )
 from .moe import init_moe, moe_ffn, moe_ffn_dispatch, router_topk
 from .transformer import init_params, lm_hidden
+from .unified import (
+    UnifiedStepReport,
+    decode_step_unified,
+    plain_decode_step_unified,
+    unified_step_supported,
+)
 
 __all__ = [
-    "Caches", "KVCache", "ModelConfig", "ShapeConfig", "decode_hidden", "decode_hidden_ws",
-    "decode_step", "decode_step_ws", "flash_ref", "gqa_decode", "gqa_decode_ws", "gqa_train",
-    "init_caches", "init_moe", "init_params", "lm_hidden", "loss_fn", "mla_train", "moe_ffn",
-    "moe_ffn_dispatch", "prefill", "router_topk", "vocab_parallel_xent",
-    "ws_decode_supported",
+    "Caches", "KVCache", "ModelConfig", "ShapeConfig", "UnifiedStepReport", "decode_hidden",
+    "decode_hidden_ws", "decode_step", "decode_step_unified", "decode_step_ws", "flash_ref",
+    "gqa_decode", "gqa_decode_ws", "gqa_train", "init_caches", "init_moe", "init_params",
+    "lm_hidden", "loss_fn", "mla_train", "moe_ffn", "moe_ffn_dispatch",
+    "plain_decode_step_unified", "prefill", "router_topk", "unified_step_supported",
+    "vocab_parallel_xent", "ws_decode_supported",
 ]

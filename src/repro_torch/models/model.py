@@ -54,7 +54,7 @@ def loss_fn(params, cfg, batch, *, remat: bool = True, chunk: int = 1024,
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    positions = _positions(B, S, device=tokens.device)
     h, aux = tf.lm_hidden(params, cfg, x, positions, remat=remat, chunk=chunk)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
@@ -81,6 +81,21 @@ def init_caches(cfg, batch: int, capacity: int, dtype=None,
     shape = (cfg.n_layers, batch, capacity, cfg.eff_heads[1], cfg.hd)
     return Caches(kv=attn.KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
                                   v=torch.zeros(shape, dtype=dt, device=dev)))
+
+
+def _positions(B: int, S: int, offset: int = 0, device=None) -> torch.Tensor:
+    """[B, S] int64 positions ``offset .. offset + S - 1`` of every row."""
+    return (torch.arange(S, device=device) + offset).expand(B, S)
+
+
+def _pad_seq(k, cap: int):
+    """[B, S, ...] -> [B, cap, ...], the cache slots past S zero."""
+    S = k.shape[1]
+    if cap == S:
+        return k
+    out = k.new_zeros((k.shape[0], cap) + tuple(k.shape[2:]))
+    out[:, :S] = k
+    return out
 
 
 def _embed(params, cfg, tokens):
@@ -205,7 +220,7 @@ def prefill(params, cfg, batch, *, capacity: int | None = None, chunk: int = 102
     B, S = tokens.shape
     dev = tokens.device
     x = _embed(params, cfg, tokens)
-    positions = torch.arange(S, device=dev).expand(B, S)
+    positions = _positions(B, S, device=dev)
     dt = tf.torch_dtype(cfg.dtype)
     s = tf._res_scale(cfg)
     cap = capacity or S

@@ -16,7 +16,10 @@ statement by statement, for CPU tensors.  The expert family lives in
 
 ``mode="lockstep"`` is the reference's semantics (Pallas interpret order):
 one walker over ``(r, p)``, program innermost; integer arrays bit-equal to
-the reference; ``out`` accumulates ``tile × mult``.  ``mode="free"`` (the
+the reference; ``out`` accumulates ``tile × mult``.  ``stage_open`` (the
+stage-gated Put of :func:`~repro_torch.pallas_ws.queues.make_staged_queue_state`)
+hides queue ``q`` from every probe until round ``stage_open[q]``; it needs
+lockstep, since free CTAs have no rounds.  ``mode="free"`` (the
 default) is the paper's setting: on the card, P CTAs run concurrently until
 their views show every queue drained; ``out`` holds plain stores of whole
 normalised tiles and multiplicity is summed from per-program rows, so a
@@ -56,7 +59,7 @@ STATIC_COMPRESSED_ROUNDS = 2
 
 # Launches of each CUDA kernel in this process: the wrapper adds one where it
 # launches, and nowhere else.
-launches = {"ws_attention": 0, "ws_expert": 0, "ws_expert_grad": 0}
+launches = {"ws_attention": 0, "ws_expert": 0, "ws_expert_grad": 0, "ws_unified": 0}
 
 
 def reset_launches() -> None:
@@ -131,12 +134,14 @@ def default_rounds(state: QueueState, steal: bool,
 class _PlainWalk:
     """Python mirror of the scheduler in ``csrc/ws_sched.cuh``: the same
     functions over list copies of the int32 arrays, in the dense or the
-    shared-pool layout (``arrs["pool_off"]``).  A subclass supplies the tile
-    body ``execute(fq, fs, store=)``, as each CUDA kernel does, and reads
-    its record with :meth:`rec`."""
+    shared-pool layout (``arrs["pool_off"]``), optionally stage-gated
+    (``arrs["stage_open"]``).  A subclass supplies the tile body
+    ``execute(fq, fs, store=)``, as each CUDA kernel does, and reads its
+    record with :meth:`rec`."""
 
     def __init__(self, arrs, *, steal, policy):
         self.pool_off = arrs["pool_off"].tolist() if "pool_off" in arrs else None
+        self.stage_open = arrs["stage_open"].tolist() if "stage_open" in arrs else None
         self.tasks = arrs["tasks"].tolist()
         self.tail = arrs["tail"].tolist()
         self.head = arrs["head"].tolist()
@@ -179,12 +184,15 @@ class _PlainWalk:
         self.head[v] = h + 1
         self.local_head[p][v] = h + 1
 
-    def scan_extract(self, p):
+    def is_open(self, v, r):
+        return self.stage_open is None or self.stage_open[v] <= r
+
+    def scan_extract(self, p, r):
         found, fq, fs, nread = False, 0, 0, 0
         for j in range(self.n_queues if self.steal else 1):
             v = (p + j) % self.n_queues
             h = self.rmax_read(p, v)
-            op, issued = self.probe(v, h, not found)
+            op, issued = self.probe(v, h, not found and self.is_open(v, r))
             live = op != BOTTOM
             if not found and live:
                 self.claim_writes(p, v, h)
@@ -193,20 +201,22 @@ class _PlainWalk:
             nread += issued
         return found, fq, fs, nread
 
-    def cost_extract(self, p):
+    def cost_extract(self, p, r, lo, hi):
+        """``[lo, hi)`` holds every queue that can score: queues below
+        ``lo`` are drained for every view, those from ``hi`` on not open yet."""
         own = p % self.n_queues
         h0 = self.rmax_read(p, own)
-        op0, issued0 = self.probe(own, h0, True)
+        op0, issued0 = self.probe(own, h0, self.is_open(own, r))
         own_live = op0 != BOTTOM
         if own_live:
             self.claim_writes(p, own, h0)
         if not self.steal:
             return own_live, own, h0, issued0
         best_v, best, best_h = 0, 0, 0
-        for v in range(self.n_queues):
+        for v in range(lo, hi):
             h = self.rmax_read(p, v)
-            score = max(self.remaining[v], 1) if h < self.tail[v] else 0
-            if v == 0 or score > best:  # first-index argmax
+            score = max(self.remaining[v], 1) if h < self.tail[v] and self.is_open(v, r) else 0
+            if v == lo or score > best:  # first-index argmax
                 best_v, best, best_h = v, score, h
         can = (not own_live) and best > 0
         op, issued = self.probe(best_v, best_h, can)
@@ -216,8 +226,10 @@ class _PlainWalk:
         return (own_live or live, own if own_live else best_v,
                 h0 if own_live else best_h, issued0 + issued)
 
-    def extract(self, p):
-        return self.scan_extract(p) if self.policy == "scan" else self.cost_extract(p)
+    def extract(self, p, r=0, lo=0, hi=None):
+        if self.policy == "scan":
+            return self.scan_extract(p, r)
+        return self.cost_extract(p, r, lo, self.n_queues if hi is None else hi)
 
     def account(self, r, p, fq, fs, *, advisory, free):
         rec = self.rec(fq, fs)
@@ -242,14 +254,25 @@ class _PlainWalk:
 
     # -- the two walks ----------------------------------------------------------
     def lockstep(self, rounds, P, compress):
+        # The victim window [lo, hi): the single walker's heads only grow, so
+        # a queue with head >= tail stays drained for every view, and
+        # stage_open is nondecreasing, so queues from hi on are closed.
+        # Skipping them leaves the first-index argmax and every count as
+        # the full scan has them.
+        lo = 0
+        hi = 0 if self.stage_open is not None else self.n_queues
         for r in range(rounds):
+            while hi < self.n_queues and self.stage_open[hi] <= r:
+                hi += 1
             for p in range(P):
                 if compress:
                     self._drain_run(r, p)
                     continue
-                found, fq, fs, nread = (
-                    self.extract(p) if self.clock[p] <= r else (False, 0, 0, 0)
-                )
+                if self.clock[p] > r:
+                    continue
+                while lo < hi and self.head[lo] >= self.tail[lo]:
+                    lo += 1
+                found, fq, fs, nread = self.extract(p, r, lo, hi)
                 self.scanned[p] += nread
                 if found:
                     self.execute(fq, fs, store=False)
@@ -302,46 +325,52 @@ class _AttentionWalk(_PlainWalk):
         self.bq, self.bk, self.causal, self.scale, self.g = bq, bk, causal, scale, g
 
     def execute(self, fq, fs, *, store):
-        rec = self.rec(fq, fs)
-        b, h, qs, ql = rec[F_B], rec[F_H], rec[F_QS], rec[F_QL]
-        kv_end, cost = rec[F_KV], rec[F_COST]
-        q, k, v = self.q, self.k, self.v
-        bq, bk = self.bq, self.bk
-        kh = h // self.g
-        Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
-        dev = q.device
-        qt = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
-        n = max(0, min(bq, Sq - qs))
-        qt[:n] = q[b, h, qs:qs + n].float()
-        m = torch.full((bq,), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((bq,), dtype=torch.float32, device=dev)
-        acc = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
-        rows = torch.arange(bq, device=dev)[:, None]
-        for ki in range(cost):
-            k0 = ki * bk
-            nk = max(0, min(bk, Sk - k0))
-            kt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
-            vt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
-            kt[:nk] = k[b, kh, k0:k0 + nk].float()
-            vt[:nk] = v[b, kh, k0:k0 + nk].float()
-            s = (qt @ kt.T) * self.scale
-            kpos = k0 + torch.arange(bk, device=dev)[None, :]
-            valid = kpos < kv_end
-            if self.causal:
-                valid = valid & (kpos <= qs + rows)
-            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.max(dim=1).values)
-            pexp = torch.exp(s - m_new[:, None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + pexp.sum(dim=1)
-            acc = acc * corr[:, None] + pexp @ vt
-            m = m_new
-        tile = acc / torch.clamp(l, min=1e-30)[:, None]
-        tile[ql:] = 0.0
-        if store:
-            self.out[b, h, qs:qs + bq] = tile
-        else:
-            self.out[b, h, qs:qs + bq] += tile
+        attention_tile(self.rec(fq, fs), self.q, self.k, self.v, self.out, bq=self.bq,
+                       bk=self.bk, causal=self.causal, scale=self.scale, g=self.g,
+                       store=store)
+
+
+def attention_tile(rec, q, k, v, out, *, bq, bk, causal, scale, g, store) -> None:
+    """The plain attention tile body of record ``rec``: ``bq`` query rows of
+    ``(b, h)`` against kv head ``h // g`` of q [B, H, Sq, hd] and k, v
+    [B, Hkv, Sk, hd] (any strides), into ``out[b, h, qs:qs+bq]`` fp32."""
+    b, h, qs, ql = rec[F_B], rec[F_H], rec[F_QS], rec[F_QL]
+    kv_end, cost = rec[F_KV], rec[F_COST]
+    kh = h // g
+    Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
+    dev = q.device
+    qt = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
+    n = max(0, min(bq, Sq - qs))
+    qt[:n] = q[b, h, qs:qs + n].float()
+    m = torch.full((bq,), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((bq,), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bq, hd), dtype=torch.float32, device=dev)
+    rows = torch.arange(bq, device=dev)[:, None]
+    for ki in range(cost):
+        k0 = ki * bk
+        nk = max(0, min(bk, Sk - k0))
+        kt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
+        vt = torch.zeros((bk, hd), dtype=torch.float32, device=dev)
+        kt[:nk] = k[b, kh, k0:k0 + nk].float()
+        vt[:nk] = v[b, kh, k0:k0 + nk].float()
+        s = (qt @ kt.T) * scale
+        kpos = k0 + torch.arange(bk, device=dev)[None, :]
+        valid = kpos < kv_end
+        if causal:
+            valid = valid & (kpos <= qs + rows)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.max(dim=1).values)
+        pexp = torch.exp(s - m_new[:, None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + pexp.sum(dim=1)
+        acc = acc * corr[:, None] + pexp @ vt
+        m = m_new
+    tile = acc / torch.clamp(l, min=1e-30)[:, None]
+    tile[ql:] = 0.0
+    if store:
+        out[b, h, qs:qs + bq] = tile
+    else:
+        out[b, h, qs:qs + bq] += tile
 
 
 # ---------------------------------------------------------------------------
@@ -374,14 +403,15 @@ def scheduler_knobs(*, steal, steal_policy, steal_run_cap, mode, compress_runs,
                     trace_remote=False, fault_plan=None):
     """Check the scheduler's knobs (every family); returns ``(mode, compress)``.
     Knobs the port does not carry yet raise ``NotImplementedError``."""
+    if stage_open is not None and steal_run_cap > 1:
+        raise ValueError("steal_run_cap > 1 breaks the per-slot-claim assumption of "
+                         "stage_open's Graham windows")
     if steal_run_cap != 1:
         raise NotImplementedError("steal_run_cap > 1 (half-run steals) is not ported yet")
     if trace or trace_capacity is not None or trace_remote:
         raise NotImplementedError("trace rings are not ported yet")
     if fault_plan is not None:
         raise NotImplementedError("fault_plan is not ported yet")
-    if stage_open is not None:
-        raise NotImplementedError("stage_open is not ported yet")
     if steal_policy not in STEAL_POLICIES:
         raise ValueError(f"steal_policy must be one of {STEAL_POLICIES}: {steal_policy!r}")
     mode = "free" if mode is None else mode
@@ -390,17 +420,28 @@ def scheduler_knobs(*, steal, steal_policy, steal_run_cap, mode, compress_runs,
     compress = (not steal) if compress_runs is None else compress_runs
     if compress and steal:
         raise ValueError("compress_runs models the no-steal schedule only")
+    if stage_open is not None:
+        if compress:
+            raise ValueError("stage_open needs the per-round lockstep (compress_runs=False)")
+        if mode != "lockstep":
+            raise ValueError("stage_open gates queues by round; free mode has no rounds")
+        so = np.asarray(stage_open)
+        if so.ndim != 1 or (so.size > 1 and (np.diff(so) < 0).any()):
+            raise ValueError("stage_open must be a nondecreasing [n_queues] vector "
+                             "(the stage-major layout of make_staged_queue_state)")
     return mode, compress
 
 
 def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
-                compress: bool, steal: bool, steal_policy: str, rounds, mult) -> WSRunResult:
+                compress: bool, steal: bool, steal_policy: str, rounds, mult,
+                stage_open=None) -> WSRunResult:
     """The family-agnostic half of a launch: fresh copies of the mutable queue
     arrays on ``out``'s device, then the plain walk (``walk(host_arrays,
     steal=, policy=)`` returns a :class:`_PlainWalk`) or the CUDA kernel
     (``launch(arrays, mode=, rounds=, steal=, policy=, compress=, n_tasks=)``)
-    over them.  A shared-pool state adds ``arrays["pool_off"]``.  Free
-    mode's per-program multiplicity rows are summed here."""
+    over them.  A shared-pool state adds ``arrays["pool_off"]``, a
+    stage-gated launch ``arrays["stage_open"]``.  Free mode's per-program
+    multiplicity rows are summed here."""
     dev = out.device
     P = state.n_programs
     n_tasks = max(1, state.n_tasks)
@@ -424,6 +465,7 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
         "taken": i32(state.taken, True),
         "remaining": i32(remaining, True),
         **({"pool_off": i32(state.pool_off, False)} if state.pool else {}),
+        **({"stage_open": i32(stage_open, False)} if stage_open is not None else {}),
         "clock": torch.zeros(P, dtype=torch.int32, device=dev),
         "work": torch.zeros(P, dtype=torch.int32, device=dev),
         "steals": torch.zeros(P, dtype=torch.int32, device=dev),
@@ -496,7 +538,7 @@ def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
 
     return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
                        compress=compress, steal=steal, steal_policy=steal_policy,
-                       rounds=rounds, mult=mult)
+                       rounds=rounds, mult=mult, stage_open=stage_open)
 
 
 def _kernel_fn():
@@ -506,9 +548,9 @@ def _kernel_fn():
     fn = _build.load("ws_attention").ws_attention_launch
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        # mode, dtype; 11 int32 arrays; q, k, v, out; strides; 9 sizes and
-        # flags; 8 shape ints; scale; stream
-        fn.argtypes = ([i, i] + [ptr] * 11 + [ptr] * 4 + [ptr]
+        # mode, dtype; 12 int32 arrays (stage_open may be null); q, k, v,
+        # out; strides; 9 sizes and flags; 8 shape ints; scale; stream
+        fn.argtypes = ([i, i] + [ptr] * 12 + [ptr] * 4 + [ptr]
                        + [i] * 9 + [i] * 8 + [ctypes.c_float, ptr])
         fn.restype = i
     return fn
@@ -526,6 +568,7 @@ def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
     err = fn(
         MODES.index(mode), 1 if q.dtype == torch.bfloat16 else 0,
         *[arrs[n].data_ptr() for n in names],
+        arrs["stage_open"].data_ptr() if "stage_open" in arrs else None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p),
         *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),

@@ -1,6 +1,7 @@
 """Per-program task queues as flat int32 arrays (WS-WMULT Fig. 7), the
 host Puts — port of ``repro/pallas_ws/queues.py`` (the dense host Put
-:func:`make_queue_state` and the shared-pool Put
+:func:`make_queue_state`, the stage-gated Put
+:func:`make_staged_queue_state` and the shared-pool Put
 :func:`make_pool_queue_state`).
 
 ==========================  =====================================================
@@ -30,14 +31,14 @@ arrays, so the state itself is never consumed).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .tasks import BOTTOM, F_COST, F_OP, TASK_WIDTH, ExpertTask, TileTask
+from .tasks import BOTTOM, F_COST, F_OP, TASK_WIDTH, ExpertTask, StepGlueTask, TileTask
 
-Task = Union[TileTask, ExpertTask]
+Task = Union[TileTask, ExpertTask, StepGlueTask]
 
 
 @dataclass
@@ -104,7 +105,53 @@ def make_queue_state(
 ) -> QueueState:
     """Lay tasks out in the Fig. 7 format; slots past each tail stay ⊥."""
     n_queues = n_programs if n_queues is None else n_queues
-    buckets = partition_tasks(tasks, n_queues, partition)
+    return _dense_state(partition_tasks(tasks, n_queues, partition), n_programs,
+                        list(tasks))
+
+
+def make_staged_queue_state(
+    stages: Sequence[Sequence[Task]],
+    n_programs: int,
+    *,
+    n_queues_per_stage: Optional[int] = None,
+    partition: str = "owner",
+) -> Tuple[QueueState, np.ndarray, int]:
+    """The host Put of a stage-gated launch (the unified engine step).
+
+    ``stages[s]`` is stage ``s``'s task list (any family).  Each stage gets
+    its own block of queues, laid out stage-major, and queue ``q`` of stage
+    ``s`` opens to Take/Steal at round ``open[s]``: the prefix sums of each
+    stage's Graham bound
+
+        open[0] = 0;  open[s+1] = open[s] + ceil(W_s / P) + max_cost_s
+
+    (``W_s`` the stage's total cost).  An idle program claims whenever an
+    open queue is non-empty, so every stage-``s`` task has finished by
+    ``open[s+1]`` in a lockstep walk: the dependency between stages is a
+    pure input, with no waiting on the device.
+
+    Returns ``(state, stage_open, rounds)``: ``stage_open`` per queue
+    ([n_queues] int32, nondecreasing) and ``rounds = max(1, open[-1])``.
+    """
+    q_s = n_programs if n_queues_per_stage is None else n_queues_per_stage
+    buckets: List[List[Task]] = []
+    opens = [0]
+    task_list: List[Task] = []
+    for tasks in stages:
+        buckets += partition_tasks(tasks, q_s, partition)
+        task_list += list(tasks)
+        total = sum(t.cost for t in tasks)
+        mc = max((t.cost for t in tasks), default=0)
+        opens.append(opens[-1] + ((-(-total // n_programs) + mc) if tasks else 0))
+    state = _dense_state(buckets, n_programs, task_list)
+    stage_open = np.repeat(np.asarray(opens[:-1], dtype=np.int32), q_s)
+    return state, stage_open, max(1, opens[-1])
+
+
+def _dense_state(buckets: List[List[Task]], n_programs: int,
+                 task_list: List[Task]) -> QueueState:
+    """The dense Fig. 7 arrays of per-queue task lists."""
+    n_queues = len(buckets)
     cap = max(4, max((len(b) for b in buckets), default=0) + 2)
     arr = np.full((n_queues, cap, TASK_WIDTH), BOTTOM, dtype=np.int32)
     tail = np.zeros((n_queues,), dtype=np.int32)
@@ -120,7 +167,7 @@ def make_queue_state(
         tail=tail,
         local_head=np.zeros((n_programs, n_queues), dtype=np.int32),
         taken=np.full((n_queues, cap), -1, dtype=np.int32),
-        task_list=list(tasks),
+        task_list=task_list,
         remaining=remaining,
     )
 

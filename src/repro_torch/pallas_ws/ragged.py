@@ -58,6 +58,16 @@ class RaggedStats:
         )
 
 
+def _pad_to(x, axis: int, multiple: int):
+    """``x`` zero-padded along ``axis`` to a multiple of ``multiple``."""
+    pad = (-x.shape[axis]) % multiple
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
 def _check_drained(state, res: WSRunResult) -> None:
     if state.n_tasks and not bool((res.mult[: state.n_tasks] >= 1).all()):
         missing = int((res.mult[: state.n_tasks] == 0).sum())

@@ -1,5 +1,5 @@
 """Task records of the work-stealing tile scheduler (port of
-``repro/pallas_ws/tasks.py``, attention and expert families).
+``repro/pallas_ws/tasks.py``: the attention, expert and step-glue families).
 
 A task is one idempotent tile: a fixed-width int32 record in the Fig. 7
 ``tasks`` array, where ``tasks[i] = ⊥`` is "field 0 == BOTTOM".  Executing
@@ -34,9 +34,15 @@ F_E = 1       # expert id
 F_RS = 2      # first routed row of the tile
 F_RL = 3      # live routed rows (< bt on an expert's tail tile)
 
+# Step-glue family (fields 1-3; 4-5 unused, BOTTOM).
+F_PHASE = 1   # glue phase (models.unified.GLUE_* codes)
+F_LAYER = 2   # transformer layer the glue belongs to
+F_AUX = 3     # phase operand (BOTTOM if unused)
+
 OP_FLASH_TILE = 0
 OP_DECODE_TILE = 1
 OP_EXPERT_TILE = 2
+OP_STEP_GLUE = 3
 
 
 @dataclass(frozen=True)
@@ -89,6 +95,37 @@ class ExpertTask:
     def encode(self) -> np.ndarray:
         return np.array(
             [self.op, self.expert, self.row_start, self.row_len,
+             BOTTOM, BOTTOM, self.tid, self.cost],
+            dtype=np.int32,
+        )
+
+
+@dataclass(frozen=True)
+class StepGlueTask:
+    """Step-glue task: one inter-stage phase of the unified engine step.
+
+    Each glue stage holds one such task, and the stage windows serialise
+    the phases.  In lockstep one walker claims it exactly once on a fresh
+    launch; in free mode several CTAs can claim the same task, so a glue
+    body never updates a buffer in place: it reads the previous stage's
+    outputs and writes distinct ones, and a duplicate writes the same bits.
+    ``mult[tid]`` counts its executions like any task's.
+    """
+
+    phase: int
+    layer: int
+    aux: int
+    tid: int
+    cost: int
+    op: int = OP_STEP_GLUE
+
+    @property
+    def owner(self) -> int:
+        return self.layer
+
+    def encode(self) -> np.ndarray:
+        return np.array(
+            [self.op, self.phase, self.layer, self.aux,
              BOTTOM, BOTTOM, self.tid, self.cost],
             dtype=np.int32,
         )

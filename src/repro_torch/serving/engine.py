@@ -6,20 +6,26 @@
   into the slot; every engine step decodes all live slots in one decode
   step — by default :func:`decode_step_ws`, whose per-layer attention is one
   launch of the fence-free work-stealing megakernel over the slots' ragged
-  lengths; ``use_ws=False`` runs the dense :func:`decode_step`.
+  lengths; ``use_ws=False`` runs the dense :func:`decode_step`.  With
+  ``unified_step=True`` (fp32 dense configs) an engine step is ONE launch of
+  the unified megakernel (:func:`decode_step_unified`), and admission defers
+  a prompt's prefill into the next step's launch; the split path stays the
+  escape hatch when a unified step's logits come back non-finite.
 * WorkStealingFrontend — per-replica request queues implemented with the
   literal WS-WMULT algorithm (paper Fig. 7).  Each replica Takes from its
   own queue and Steals from the others when idle; a request admitted twice
   under weak multiplicity is deduplicated on completion.
 
-Not ported yet (they raise): the compiled ws step (``jit_ws``), the one-launch
-unified step, the watchdog, and crash plans.
+Not ported yet (they raise): the compiled ws step (``jit_ws``), the unified
+MoE step, the watchdog's deadline and fault-plan half (``step_deadline_s``,
+``fault_plan``), and crash plans.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -28,12 +34,15 @@ import torch
 
 from repro_torch.core import EMPTY, WSWMult
 from repro_torch.models import (
+    Caches,
     decode_step,
+    decode_step_unified,
     decode_step_ws,
     init_caches,
     prefill,
     ws_decode_supported,
 )
+from repro_torch.models.unified import check_ported
 from repro_torch.wstrace.metrics import SchedulerMetrics
 
 
@@ -65,10 +74,11 @@ class ContinuousBatcher:
     ):
         if jit_ws:
             raise NotImplementedError("jit_ws (compiled ws step) is not ported yet")
-        if unified_step:
-            raise NotImplementedError("unified_step is not ported yet")
         if step_deadline_s is not None or fault_plan is not None:
-            raise NotImplementedError("the unified-step watchdog is not ported yet")
+            raise NotImplementedError("the watchdog's step deadline and fault plans are not "
+                                      "ported yet (tracing and chaos slice)")
+        if unified_step:
+            check_ported(cfg)
         if attn_schedule not in ("ws", "static"):
             raise ValueError(f"attn_schedule must be 'ws' or 'static': {attn_schedule!r}")
         self.params, self.cfg = params, cfg
@@ -84,6 +94,14 @@ class ContinuousBatcher:
         self.attn_schedule = attn_schedule
         self.use_ws = bool(use_ws and ws_decode_supported(cfg))
         self.metrics = SchedulerMetrics(slots=slots)
+        # unified mode: admit() defers a prompt's prefill into the next step's
+        # launch; a step whose logits come back non-finite is redone on the
+        # split path (degradations records each such step)
+        self.unified = bool(unified_step)
+        self._pending = deque()          # (slot, Request) awaiting prefill
+        self._pending_slots: set = set()
+        self.degradations: List[dict] = []
+        self._step_idx = 0
 
     def _decode(self, tokens, pos):
         if self.use_ws:
@@ -117,27 +135,48 @@ class ContinuousBatcher:
         # splice needs len(tokens) rows plus one for the first generated token
         if not 0 < len(req.tokens) < self.cap:
             return False
-        free = [i for i, r in enumerate(self.live) if r is None]
+        free = [i for i, r in enumerate(self.live)
+                if r is None and i not in self._pending_slots]
         if not free:
             return False
         slot = free[0]
-        tokens = torch.as_tensor(np.asarray(req.tokens), dtype=torch.int64,
-                                 device=self.device)[None, :]
-        logits, c1 = prefill(self.params, self.cfg, {"tokens": tokens},
-                             capacity=self.cap)
-        self._splice_slot(slot, c1)
-        first = int(self._select(logits[:1])[0])
-        req.out.append(first)
+        if self.unified:
+            # the prefill rides the next step's launch beside the decode tiles
+            self.live[slot] = req
+            self._pending.append((slot, req))
+            self._pending_slots.add(slot)
+            self.pos[slot] = 0
+            self.budget[slot] = req.max_new
+            self.metrics.record_admission()
+            return True
+        self._prefill_into(slot, req)
         self.live[slot] = req
-        self.pos[slot] = len(req.tokens)
-        self.budget[slot] = req.max_new - 1
         self.metrics.record_admission()
         return True
+
+    def _prompt(self, req: Request):
+        return torch.as_tensor(np.asarray(req.tokens), dtype=torch.int64,
+                               device=self.device)[None, :]
+
+    def _prefill_into(self, slot: int, req: Request) -> None:
+        """Standalone batch-1 prefill of ``req`` spliced into ``slot``, and
+        its first token."""
+        logits, c1 = prefill(self.params, self.cfg, {"tokens": self._prompt(req)},
+                             capacity=self.cap)
+        self._first_token(slot, req, c1, logits)
+
+    def _first_token(self, slot: int, req: Request, c1, logits) -> None:
+        self._splice_slot(slot, c1)
+        req.out.append(int(self._select(logits[:1])[0]))
+        self.pos[slot] = len(req.tokens)
+        self.budget[slot] = req.max_new - 1
 
     # -- one engine iteration ---------------------------------------------------
     def step(self) -> List[Request]:
         if not any(r is not None for r in self.live):
             return []
+        if self.unified:
+            return self._step_unified()
         n_live = self.n_live
         t0 = time.perf_counter()
         tokens = np.zeros((self.B, 1), dtype=np.int64)
@@ -149,18 +188,101 @@ class ContinuousBatcher:
         )
         nxt = self._select(logits)  # syncs the device step
         self.metrics.record_step(time.perf_counter() - t0, n_live)
-        done = []
-        for i, r in enumerate(self.live):
-            if r is None:
-                continue
-            r.out.append(int(nxt[i]))
-            self.pos[i] += 1
-            self.budget[i] -= 1
-            if self.budget[i] <= 0 or self.pos[i] >= self.cap - 1:
-                done.append(r)
-                self.live[i] = None
+        done: List[Request] = []
+        self._advance([i for i, r in enumerate(self.live) if r is not None], nxt, done)
         if done:
             self.metrics.record_completion(len(done))
+        return done
+
+    def _advance(self, slots, nxt, done: List[Request]) -> None:
+        """Append each slot's next token; retire finished requests into ``done``."""
+        for i in slots:
+            self.live[i].out.append(int(nxt[i]))
+            self.pos[i] += 1
+            self.budget[i] -= 1
+            self._retire(i, done)
+
+    def _retire(self, slot: int, done: List[Request]) -> None:
+        if self.budget[slot] <= 0 or self.pos[slot] >= self.cap - 1:
+            done.append(self.live[slot])
+            self.live[slot] = None
+
+    def _degrade(self, step_idx: int, kind: str, detail: str) -> None:
+        self.degradations.append(dict(step=step_idx, kind=kind, detail=detail))
+        self.metrics.record_degradation(kind)
+
+    def _step_unified(self) -> List[Request]:
+        """One engine step = one unified launch: the live slots' decode
+        tiles plus at most one pending admission's prefill tiles.  A step
+        whose logits come back non-finite is discarded and redone on the
+        split path (standalone prefill + decode step), and recorded."""
+        fold = self._pending.popleft() if self._pending else None
+        n_live = self.n_live
+        t0 = time.perf_counter()
+        step_idx = self._step_idx
+        self._step_idx += 1
+        done = self._try_unified(fold, step_idx)
+        if done is None:
+            done = self._step_split_fallback(fold)
+        self.metrics.record_step(time.perf_counter() - t0, n_live)
+        if done:
+            self.metrics.record_completion(len(done))
+        return done
+
+    def _try_unified(self, fold, step_idx: int) -> Optional[List[Request]]:
+        """The unified launch and its bookkeeping; None (no token appended,
+        no prefill installed) when its logits are non-finite.  The new cache
+        rows it wrote are the rows the split redo writes again."""
+        tokens = np.zeros((self.B, 1), dtype=np.int64)
+        for i, r in enumerate(self.live):
+            if r is not None and r.out:
+                tokens[i, 0] = r.out[-1]
+        ptok = self._prompt(fold[1]) if fold is not None else None
+        logits, self.caches, rep = decode_step_unified(
+            self.params, self.cfg, self.caches, torch.from_numpy(tokens).to(self.device),
+            self.pos.copy(), prefill_tokens=ptok)
+        lg = logits.float().cpu().numpy()  # syncs the device step
+        plg = rep.prefill_logits.float().cpu().numpy() if fold is not None else None
+        if not np.isfinite(lg).all() or (plg is not None and not np.isfinite(plg).all()):
+            self._degrade(step_idx, "non-finite",
+                          "unified logits non-finite; redoing the step on the split path")
+            return None
+        done: List[Request] = []
+        folded_slot = -1
+        if fold is not None:
+            slot, req = fold
+            self._pending_slots.discard(slot)
+            folded_slot = slot
+            self._first_token(slot, req, Caches(kv=rep.prefill_kv), plg)
+            self._retire(slot, done)
+        # slots still awaiting their fold, and the slot folded this step,
+        # produced no decode token in this launch
+        self._advance([i for i, r in enumerate(self.live)
+                       if r is not None and i not in self._pending_slots and i != folded_slot],
+                      self._select(lg), done)
+        return done
+
+    def _step_split_fallback(self, fold) -> List[Request]:
+        """The same admission and decode work as split launches: the
+        standalone prefill, then the decode step of every decodable slot."""
+        done: List[Request] = []
+        folded_slot = -1
+        if fold is not None:
+            slot, req = fold
+            self._pending_slots.discard(slot)
+            folded_slot = slot
+            self._prefill_into(slot, req)
+            self._retire(slot, done)
+        decodable = [i for i, r in enumerate(self.live)
+                     if r is not None and r.out and i not in self._pending_slots
+                     and i != folded_slot]
+        if decodable:
+            tokens = np.zeros((self.B, 1), dtype=np.int64)
+            for i in decodable:
+                tokens[i, 0] = self.live[i].out[-1]
+            logits, self.caches = self._decode(torch.from_numpy(tokens).to(self.device),
+                                               self.pos.copy())
+            self._advance(decodable, self._select(logits), done)
         return done
 
     def stats(self) -> dict:

@@ -20,6 +20,8 @@ class SchedulerMetrics:
         self.step_live: list[int] = []
         self.admitted = 0
         self.completed = 0
+        # unified steps redone on the split path, by kind ("non-finite")
+        self.degradations: dict[str, int] = {}
 
     def record_step(self, latency_s: float, n_live: int) -> None:
         self.step_latency_s.append(float(latency_s))
@@ -31,6 +33,9 @@ class SchedulerMetrics:
     def record_completion(self, n: int = 1) -> None:
         self.completed += n
 
+    def record_degradation(self, kind: str) -> None:
+        self.degradations[kind] = self.degradations.get(kind, 0) + 1
+
     def snapshot(self) -> dict:
         lat = np.asarray(self.step_latency_s, np.float64) * 1e3
         live = np.asarray(self.step_live, np.float64)
@@ -41,6 +46,7 @@ class SchedulerMetrics:
             "latency_ms": None,
             "slot_utilization": None,
             "live_mean": float(live.mean()) if live.size else 0.0,
+            "degradations": dict(self.degradations),
         }
         if lat.size:
             out["latency_ms"] = {

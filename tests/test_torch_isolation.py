@@ -467,3 +467,108 @@ def test_expert_grad_kernel_launches_at_kimi_hidden_width(cuda_device):
                                 routed.gates, *[a.to(cuda_device) for a in w], bt=8)
     want = run_moe_grad_schedule(state, x, gy, routed.tok_idx, routed.gates, *w, bt=8)
     torch.testing.assert_close(got.out.cpu(), want.out, rtol=0, atol=1e-4)
+
+
+def _unified_inputs(fold):
+    """A 3-layer fp32 GQA decoder at d 256 (8 heads over 2), its caches after
+    a ragged prefill, the next tokens and (``fold``) a 31-token prompt."""
+    from repro_torch.configs.llama3_2_3b import SMOKE
+    from repro_torch.models import init_params, prefill
+
+    cfg = SMOKE.replace(d_model=256, n_heads=8, n_kv_heads=2, d_ff=512, vocab_size=1000,
+                        n_layers=3)
+    params = init_params(cfg, seed=0, device="cpu")
+    _, caches = prefill(params, cfg, {"tokens": torch.tensor([[5, 6, 7, 8, 9, 10, 11],
+                                                              [9, 8, 7, 6, 5, 4, 3]])},
+                        capacity=96)
+    kw = dict(prefill_tokens=torch.arange(11, 42).reshape(1, 31), bq=8, bk=16) if fold else {}
+    return cfg, params, caches, torch.tensor([[3], [4]]), np.array([7, 5]), kw
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_unified_kernel_wrapper_marshals_every_argument(monkeypatch):
+    """The unified kernel's wrapper, driven against a stand-in for its C entry
+    point on CPU tensors: every argument passes its ctypes type, the launch is
+    counted, and a CUDA error status raises."""
+    import ctypes
+    import types
+
+    from repro_torch import _build
+    from repro_torch.models.unified import plan_step, run_step
+    from repro_torch.pallas_ws import launches
+
+    class EntryPoint:
+        argtypes = None
+        restype = ctypes.c_int
+        status = 0
+
+        def __call__(self, *args):
+            assert len(args) == len(self.argtypes)
+            for t, a in zip(self.argtypes, args):
+                t.from_param(a)
+            return self.status
+
+    entry = EntryPoint()
+    monkeypatch.setattr(_build, "load",
+                        lambda name: types.SimpleNamespace(ws_unified_launch=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    cfg, params, caches, tok, pos, kw = _unified_inputs(fold=True)
+    plan = plan_step(params, cfg, caches, tok, pos, **kw)
+    run = dict(steal=True, steal_policy="cost", n_programs=8, plain=False)
+    before = launches["ws_unified"]
+    run_step(params, cfg, plan, mode="lockstep", **run)
+    _, n = run_step(params, cfg, plan, mode="free", **run)
+    assert launches["ws_unified"] == before + 1 + n and n == 2 + 3 * cfg.n_layers
+    entry.status = 2  # cudaErrorMemoryAllocation
+    with pytest.raises(RuntimeError, match="ws_unified"):
+        run_step(params, cfg, plan, mode="lockstep", **run)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["cost", "scan"])
+@pytest.mark.parametrize("fold", [False, True])
+def test_unified_kernel_lockstep_matches_plain_on_card(cuda_device, policy, fold):
+    from repro_torch.models import Caches, KVCache, decode_step_unified
+
+    cfg, params, caches, tok, pos, kw = _unified_inputs(fold)
+    p_dev = _to(params, cuda_device)
+    c_dev = Caches(kv=KVCache(caches.kv.k.to(cuda_device), caches.kv.v.to(cuda_device)))
+    got = decode_step_unified(p_dev, cfg, c_dev, tok.to(cuda_device), pos,
+                              steal_policy=policy, **kw)
+    want = decode_step_unified(params, cfg, caches, tok, pos, steal_policy=policy, **kw)
+    for f in ("head", "local_head", "taken", "remaining", "clock", "work", "steals",
+              "scanned", "mult"):
+        assert torch.equal(getattr(got[2].res, f).cpu(), getattr(want[2].res, f)), f
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1].kv.k.cpu(), want[1].kv.k, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1].kv.v.cpu(), want[1].kv.v, rtol=0, atol=1e-4)
+    if fold:
+        torch.testing.assert_close(got[2].prefill_logits.cpu(), want[2].prefill_logits,
+                                   rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[2].prefill_kv.k.cpu(), want[2].prefill_kv.k,
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_unified_kernel_free_mode_runs_every_task_on_card(cuda_device):
+    from repro_torch.models import Caches, KVCache, decode_step_unified
+    from repro_torch.pallas_ws import launches
+
+    cfg, params, caches, tok, pos, kw = _unified_inputs(fold=True)
+    p_dev = _to(params, cuda_device)
+    c_dev = Caches(kv=KVCache(caches.kv.k.to(cuda_device), caches.kv.v.to(cuda_device)))
+    before = launches["ws_unified"]
+    logits, _, rep = decode_step_unified(p_dev, cfg, c_dev, tok.to(cuda_device), pos,
+                                         mode="free", **kw)
+    assert launches["ws_unified"] - before == rep.launches == 2 + 3 * cfg.n_layers
+    assert bool((rep.res.mult[:rep.n_tasks] >= 1).all())
+    want = decode_step_unified(params, cfg, caches, tok, pos, **kw)
+    torch.testing.assert_close(logits.cpu(), want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(rep.prefill_logits.cpu(), want[2].prefill_logits, rtol=0,
+                               atol=1e-4)

@@ -77,6 +77,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ws_unified launch per step and no other kernel, and their
               greedy streams equal the split engine's (a difference passes
               only at a top-2 near-tie within the tolerance).
+11. unified_moe  kimi-k2-1t-a32b in fp32 at full width cut to 1 layer (77.69
+              GB of weights, the experts passed in place), after the llama
+              weights are freed, through the MoE half of the unified step
+              (router, pool Put, expert tiles, expert combine in ws_unified):
+              one lockstep decode step at 4 slots of lengths 1024, 658, 531,
+              288 and one with a folded 64-token prompt against the plain
+              version (integer arrays bit-equal, the routing buffers equal,
+              logits, caches and the prompt's k/v within UNIFIED_RTOL of their
+              scale; a row whose top-8 is a near-tie within the router's
+              rounding is reported and left out), against the split fp32 step
+              (ws_attention, ws_expert), free mode's 7 per-stage launches
+              (sum(mult)/tasks and the largest mult printed), times, bounds
+              from this run's routing and peak memory; then 2 replicas of
+              ContinuousBatcher(unified_step=True) serve 8 requests (prompts
+              8-64 tokens, 8 new tokens) with one ws_unified launch a step,
+              no other kernel and no degradation, against the split engine.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the ported kernels, and {"ok": true, "device": {...}}.
@@ -134,7 +150,7 @@ KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
 PHASES = ("build", "parity", "expert", "audit", "serving", "times", "moe", "grad", "train",
-          "unified")
+          "unified", "unified_moe")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -1620,6 +1636,294 @@ def phase_unified(dev):
                 library_ms=None, **times), serving
 
 
+# kimi-k2 in fp32 at full width, cut to 1 layer (77.69 GB of weights): 4
+# slots of 1024 positions at fixed ragged lengths, a 64-token fold, and
+# serving prompts of 8-64 tokens.
+UNIFIED_MOE = dict(B=4, cap=1024, lengths=(1024, 658, 531, 288), Lp=64, P=8, requests=8,
+                   prompt_lens=(8, 65), max_new=8)
+# A top-8 choice whose margin over the 9th probability is under this share
+# of the 8th is a near-tie: the kernel's and the plain version's router
+# logits, the same 7168-term fp32 products summed in another order, may
+# order it either way.
+NEAR_TIE = 1e-5
+
+
+def _moe_bound(params, cfg, lengths, R, n_logit_rows, Lp, experts):
+    """The least time of one MoE unified step: every weight but the routed
+    experts read once, the weights of the ``experts`` this step's tokens chose
+    read once, the live K/V rows read once, the new rows and the logits
+    written once (bytes); its products over the fp32 peak (operations)."""
+    d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    Hkv, hd, H, k = cfg.n_kv_heads, cfg.hd, cfg.n_heads, cfg.top_k
+    moe = params["layers"]["moe"]
+    expert = moe["we_g"][0, 0].numel() * 3
+    dense = sum(t.numel() for t in _leaves(params["layers"])) - expert * cfg.n_experts * L
+    unembed = params["unembed"].numel()
+    live = int(np.sum(lengths))
+    kv_row = 2 * Hkv * hd * 4 * L
+    by = ((dense + expert * experts + unembed + d) * 4 + R * d * 4 + live * kv_row
+          + R * kv_row + n_logit_rows * V * 4)
+    ops = (2 * dense * R + 2 * expert * R * k + 2 * unembed * n_logit_rows
+           + 4 * live * H * hd * L + 2 * Lp * Lp * H * hd * L)
+    byte_ms, ops_ms = by / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return max(byte_ms, ops_ms), ("bytes" if byte_ms >= ops_ms else "operations"), by, ops
+
+
+def _plain_routing(params, cfg, xf):
+    """The plain router on the rows of ``xf`` (layer 0): each row's top-k
+    experts in ascending order, and whether its top-k boundary is a
+    near-tie (the k-th probability within NEAR_TIE of the next)."""
+    from repro_torch.models.moe import router_topk
+
+    k = cfg.top_k
+    probs, _, idx, _ = router_topk(xf[None], {"router": params["layers"]["moe"]["router"][0]},
+                                   cfg)
+    top = torch.sort(probs[0], dim=-1, descending=True).values
+    tie = (top[:, k - 1] - top[:, k]) < NEAR_TIE * top[:, k - 1]
+    return torch.sort(idx[0], dim=-1).values.cpu(), tie.cpu()
+
+
+def phase_unified_moe(dev):
+    """kimi-k2 in fp32 at full width (1 layer) through the unified step: the
+    kernel against its plain version (decode and a 64-token fold, routing
+    buffers included), against the split fp32 step, free mode, times, then 2
+    replicas of the unified engine serving 8 requests."""
+    from repro_torch.configs.kimi_k2_1t_a32b import CONFIG
+    from repro_torch.models import Caches, KVCache, decode_step_unified, decode_step_ws, \
+        init_params, prefill
+    from repro_torch.models.unified import plan_step, run_step
+    from repro_torch.pallas_ws import launches, reset_launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = UNIFIED_MOE
+    cfg = CONFIG.replace(n_layers=1, dtype="float32", moe_dispatch="ws")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[unified_moe] {cfg.name} depth 1 (of {CONFIG.n_layers}) in fp32 at full width: "
+        f"{n_bytes / 1e9:.2f} GB of weights ({n_bytes / 2**30:.2f} GiB), initialised in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"in use of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
+
+    rng = np.random.default_rng(SEED)
+    lengths = np.asarray(c["lengths"])
+    pos = lengths - 1
+    V = cfg.vocab_size
+    tok = torch.from_numpy(rng.integers(0, V, (c["B"], 1))).to(dev)
+    ptok = torch.from_numpy(rng.integers(0, V, (1, c["Lp"]))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (cfg.n_layers, c["B"], c["cap"], cfg.n_kv_heads, cfg.hd)
+    k0 = torch.randn(shape, generator=gen, device=dev)
+    v0 = torch.randn(shape, generator=gen, device=dev)
+
+    def caches():
+        return Caches(kv=KVCache(k0.clone(), v0.clone()))
+
+    run = dict(steal=True, steal_policy="cost", n_programs=c["P"])
+    errs, out, flipped = [], {}, {}
+    for fold in (False, True):
+        kw = dict(prefill_tokens=ptok) if fold else {}
+        name = "fold" if fold else "decode"
+        plan_k = plan_step(params, cfg, caches(), tok, pos, **kw)
+        res_k, _ = run_step(params, cfg, plan_k, mode="lockstep", plain=False, **run)
+        plan_p = plan_step(params, cfg, caches(), tok, pos, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_p, _ = run_step(params, cfg, plan_p, mode="lockstep", plain=True, **run)
+        torch.cuda.synchronize()
+        out[f"plain_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        ik, ip = _ints(res_k), _ints(res_p)
+        for n in ik:
+            if not np.array_equal(ik[n], ip[n]):
+                raise AssertionError(f"unified_moe {name}: lockstep {n} differs from the plain "
+                                     "version")
+        bk, bp, g = plan_k.bufs, plan_p.bufs, plan_k.g
+        # routing: the kernel's top-8 sets against the plain version's
+        sel_p, ties = _plain_routing(params, cfg, bp["xf"])
+        differ = (torch.sort(bk["sidx"], dim=-1).values.cpu() != sel_p).any(-1)
+        if bool((differ & ~ties).any()):
+            raise AssertionError(f"unified_moe {name}: the kernel routes rows "
+                                 f"{torch.nonzero(differ & ~ties).flatten().tolist()} otherwise "
+                                 "than the plain version, with no near-tie")
+        flipped[name] = torch.nonzero(differ).flatten().tolist()
+        if not flipped[name]:
+            for n in ("tok", "e", "rl"):
+                if not torch.equal(bk[n], bp[n]):
+                    raise AssertionError(f"unified_moe {name}: routing buffer {n} differs")
+            gate_err = float((bk["gate"] - bp["gate"]).abs().max())
+            if not gate_err <= UNIFIED_RTOL:
+                raise AssertionError(f"unified_moe {name}: gates differ by {gate_err}")
+        keep = [r for r in range(g.B) if r not in flipped[name]]
+        e = {"logits": _rel(bk["logits"][keep], bp["logits"][keep]),
+             "kc": _rel(bk["kc"], bp["kc"]), "vc": _rel(bk["vc"], bp["vc"])}
+        if fold:
+            e.update(prefill_k=_rel(bk["kp"], bp["kp"]), prefill_v=_rel(bk["vp"], bp["vp"]))
+            if g.R - 1 not in flipped[name]:
+                e["prefill_logits"] = _rel(bk["logp"], bp["logp"])
+        abs_err = float((bk["logits"][keep] - bp["logits"][keep]).abs().max())
+        errs.append(abs_err)
+        if not (max(e.values()) <= UNIFIED_RTOL
+                and bool(torch.isfinite(bk["logits"][:, :V]).all())):
+            raise AssertionError(f"unified_moe {name} against the plain version: {e} > "
+                                 f"{UNIFIED_RTOL}")
+        live = int((bk["rl"] > 0).sum())
+        log(f"[unified_moe] {name} step (lengths {lengths.tolist()}"
+            + (f", prompt {c['Lp']} tokens" if fold else "") + f", {g.n_tasks} tasks, "
+            f"{plan_k.rounds} rounds, 1 launch; {live} live of {g.pool_dec + g.pool_pre} pool "
+            f"tiles): integer arrays bit-equal to the plain version; routing (tok, e, rl, gate) "
+            + ("equal" if not flipped[name] else f"differs at near-tie rows {flipped[name]}, "
+               "left out of the logit comparison")
+            + "; relative errors " + ", ".join(f"{n} {v:.3g}" for n, v in e.items())
+            + f" (<= {UNIFIED_RTOL}); logits max_abs_err {abs_err:.3g}")
+        out[f"experts_{name}"] = len(set(bk["e"][bk["rl"] > 0].tolist()))
+        if not fold:
+            lu = bk["logits"].clone()
+        del plan_k, plan_p, res_k, res_p, bk, bp
+    ls, _ = decode_step_ws(params, cfg, caches(), tok, pos)
+    keep = [r for r in range(c["B"]) if r not in flipped["decode"]]
+    split_err = _rel(lu[keep], ls[keep])
+    log(f"[unified_moe] against the split fp32 step (decode_step_ws: ws_attention, ws_expert): "
+        f"relative logit error {split_err:.3g} (<= {UNIFIED_RTOL}), argmax agree "
+        f"{int((lu[:, :V].argmax(-1) == ls[:, :V].argmax(-1)).sum())}/{c['B']}")
+    if not split_err <= UNIFIED_RTOL:
+        raise AssertionError("the unified MoE step strays from the split step")
+    lf, _, rf = decode_step_unified(params, cfg, caches(), tok, pos, mode="free")
+    torch.cuda.synchronize()
+    mult = rf.res.mult[:rf.n_tasks].cpu()
+    free_err = _rel(lf[keep], lu[keep])
+    log(f"[unified_moe] free mode: {rf.launches} per-stage launches, every task run (mult in "
+        f"[{int(mult.min())}, {int(mult.max())}], sum(mult)/tasks "
+        f"{float(mult.sum()) / rf.n_tasks:.3f}), logits within {free_err:.3g} of lockstep")
+    if rf.launches != 2 + 5 * cfg.n_layers or not bool((mult >= 1).all()) \
+            or not free_err <= UNIFIED_RTOL:
+        raise AssertionError("free-mode per-stage launches failed")
+
+    # times: the step's launches alone (plan built outside), the tile buffers
+    # zeroed before each lockstep launch (tiles accumulate there)
+    times = {}
+    for name, kw, mode, n in (("ms", {}, "lockstep", 3),
+                              ("fold_ms", dict(prefill_tokens=ptok), "lockstep", 2),
+                              ("free_ms", {}, "free", 3)):
+        plan = plan_step(params, cfg, caches(), tok, pos, **kw)
+
+        def step(_, plan=plan, mode=mode):
+            for b in ("att", "attp", "yr"):
+                if b in plan.bufs:
+                    plan.bufs[b].zero_()
+            run_step(params, cfg, plan, mode=mode, **run)
+
+        step(0)
+        torch.cuda.synchronize()
+        times[name] = _event_ms(step, n)
+        del plan
+    cs = caches()
+    decode_step_ws(params, cfg, cs, tok, pos)
+    torch.cuda.synchronize()
+    times["split_step_ms"] = _event_ms(lambda _: decode_step_ws(params, cfg, cs, tok, pos), 5)
+    del cs
+    experts_dec, experts_fold = out["experts_decode"], out["experts_fold"]
+    bound, bound_by, by, ops = _moe_bound(params, cfg, lengths, c["B"], c["B"], 0, experts_dec)
+    fbound, fbound_by, fby, fops = _moe_bound(params, cfg, lengths, c["B"] + c["Lp"],
+                                              c["B"] + 1, c["Lp"], experts_fold)
+    log(f"[times] ws_unified kimi-k2 fp32 lockstep decode step {times['ms']:.2f} ms (1 launch, "
+        f"{experts_dec} experts chosen), with a {c['Lp']}-token fold {times['fold_ms']:.2f} ms "
+        f"({experts_fold} experts), free mode {times['free_ms']:.2f} ms ({rf.launches} "
+        f"launches); bound {bound:.4f} ms ({bound_by}: {by} B, {ops} flops), fold bound "
+        f"{fbound:.4f} ms ({fbound_by}: {fby} B, {fops} flops); plain version "
+        f"{out['plain_decode_ms']:.1f} ms (fold {out['plain_fold_ms']:.1f} ms); split fp32 "
+        f"step (decode_step_ws) {times['split_step_ms']:.2f} ms; no single PyTorch call "
+        "computes an engine step, so there is no library time")
+
+    # serving: 2 replicas of the unified engine, then the split engine, on
+    # the same requests
+    lens = rng.integers(*c["prompt_lens"], size=c["requests"])
+    prompts = [rng.integers(0, V, size=int(n)).astype(np.int32) for n in lens]
+
+    def serve(unified):
+        front = WorkStealingFrontend(lambda: ContinuousBatcher(
+            params, cfg, slots=c["B"], capacity=c["cap"], unified_step=unified), n_replicas=2)
+        for rid, p in enumerate(prompts):
+            front.submit(0, Request(rid=rid, tokens=p, max_new=c["max_new"]))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = front.run(max_iters=1000)
+        torch.cuda.synchronize()
+        counts = {n: launches[n] for n in launches}
+        return front, done, time.perf_counter() - t0, counts
+
+    front, done, wall, counts = serve(True)
+    stats = front.stats()
+    steps = sum(s["steps"] for s in stats["batchers"])
+    if sorted(done) != list(range(len(prompts))) or front.rejected:
+        raise AssertionError(f"completed {sorted(done)}, rejected {sorted(front.rejected)}")
+    for r in done.values():
+        if len(r.out) != c["max_new"] or not all(0 <= t < V for t in r.out):
+            raise AssertionError(f"request {r.rid} produced {r.out}")
+    degr = [b.degradations for b in front.batchers]
+    if any(degr):
+        raise AssertionError(f"unified steps fell back to the split path: {degr}")
+    if counts != {"ws_attention": 0, "ws_expert": 0, "ws_expert_grad": 0, "ws_unified": steps} \
+            or steps == 0:
+        raise AssertionError(f"launches {counts}, want ws_unified == {steps} steps and no other")
+    lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
+    tokens = sum(len(r.out) for r in done.values())
+    serving = {
+        "model": f"{cfg.name} depth 1 fp32 unified", "requests": len(done),
+        "prompt_tokens": int(lens.sum()), "new_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "steps": steps, "launches_per_step": 1,
+        "step_ms_p50": float(np.percentile(lat, 50)),
+        "step_ms_p99": float(np.percentile(lat, 99)),
+        "stolen": stats["totals"]["stolen"], "launches": counts,
+    }
+    log(f"[unified_moe] serving: {len(done)} requests ({int(lens.sum())} prompt tokens), "
+        f"{tokens} new tokens in {wall:.2f} s ({tokens / wall:.2f} tokens/s incl. folded "
+        f"prefills); {steps} unified steps, 1 launch each (ws_unified {counts['ws_unified']}, "
+        f"no other kernel), step p50 {serving['step_ms_p50']:.2f} ms p99 "
+        f"{serving['step_ms_p99']:.2f} ms; stolen {serving['stolen']}; degradations none")
+    del front
+    _, done_s, wall_s, _ = serve(False)
+    differ = 0
+    for rid, r in sorted(done.items()):
+        want = done_s[rid].out
+        if r.out == want:
+            continue
+        differ += 1
+        j = next(i for i, (a, b) in enumerate(zip(r.out, want)) if a != b)
+        seq = np.concatenate([prompts[rid], np.asarray(want[:j], np.int32)])
+        lg, _ = prefill(params, cfg, {"tokens": torch.from_numpy(seq).to(dev)[None].long()},
+                        capacity=len(seq))
+        top = torch.topk(lg[0, :V], 2).values
+        gap, limit = float(top[0] - top[1]), 2 * UNIFIED_RTOL * max(1.0, float(lg.abs().max()))
+        log(f"[unified_moe] request {rid} differs from the split engine first at token {j}: "
+            f"top-2 logit gap {gap:.3g} (a near-tie flips when under {limit:.3g})")
+        if not gap < limit:
+            raise AssertionError(f"request {rid}: unified and split streams differ at token {j} "
+                                 f"with a top-2 gap of {gap} >= {limit}")
+    peak = torch.cuda.max_memory_allocated()
+    seconds = time.perf_counter() - t_phase
+    log(f"[unified_moe] greedy streams: {len(done) - differ}/{len(done)} equal to the split "
+        f"engine's ({wall_s:.2f} s); peak device memory {peak / 1e9:.2f} GB "
+        f"({peak / 2**30:.2f} GiB); phase {seconds:.1f} s")
+    serving.update(split_wall_s=wall_s, streams_equal=len(done) - differ,
+                   peak_memory_gb=peak / 1e9)
+    del params, k0, v0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs), split_rel_err=split_err, free_rel_err=free_err,
+                free_launches_per_step=rf.launches,
+                free_mult_per_task=float(mult.sum()) / rf.n_tasks, free_max_mult=int(mult.max()),
+                bound_ms=bound, bound_by=bound_by, fold_bound_ms=fbound,
+                fold_bound_by=fbound_by, plain_ms=out["plain_decode_ms"],
+                plain_fold_ms=out["plain_fold_ms"], near_tie_rows=flipped,
+                peak_memory_gb=peak / 1e9, seconds=seconds, **times), serving
+
+
 def _paths(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -1752,6 +2056,7 @@ def main(argv=None) -> int:
     grad = phase_grad(dev) if "grad" in phases else None
     training = phase_train(dev) if "train" in phases else None
     unified, userving = phase_unified(dev) if "unified" in phases else (None, None)
+    umoe, umserving = phase_unified_moe(dev) if "unified_moe" in phases else (None, None)
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed; a partial run prints no result")
         return 3
@@ -1764,7 +2069,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"llama3.2-3b": n_launches,
                              moe["model"]: moe["ws_attention_launches"],
                              training["model"]: training["launches"]["ws_attention"],
-                             userving["model"]: userving["launches"]["ws_attention"]},
+                             userving["model"]: userving["launches"]["ws_attention"],
+                             umserving["model"]: umserving["launches"]["ws_attention"]},
         "launches_per_train_step": training["launches_per_step"]["ws_attention"],
         "max_abs_err": max(max_err, expert["attn_err"]),
         **times,
@@ -1778,7 +2084,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_launches"],
                              moe["model"]: moe["ws_expert_launches"],
                              training["model"]: training["launches"]["ws_expert"],
-                             userving["model"]: userving["launches"]["ws_expert"]},
+                             userving["model"]: userving["launches"]["ws_expert"],
+                             umserving["model"]: umserving["launches"]["ws_expert"]},
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert"],
         "max_abs_err": expert["max_abs_err"],
@@ -1793,7 +2100,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_grad_launches"],
                              moe["model"]: moe["ws_expert_grad_launches"],
                              training["model"]: training["launches"]["ws_expert_grad"],
-                             userving["model"]: userving["launches"]["ws_expert_grad"]},
+                             userving["model"]: userving["launches"]["ws_expert_grad"],
+                             umserving["model"]: umserving["launches"]["ws_expert_grad"]},
         "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
         "max_abs_err": max(grad["max_abs_err"], training["launch_abs_err"]),
@@ -1809,9 +2117,13 @@ def main(argv=None) -> int:
         "launches_by_path": {"llama3.2-3b": serving["ws_unified_launches"],
                              moe["model"]: moe["ws_unified_launches"],
                              training["model"]: training["launches"]["ws_unified"],
-                             userving["model"]: userving["launches"]["ws_unified"]},
-        "launches_per_step": {"lockstep": 1, "free": unified["free_launches_per_step"]},
+                             userving["model"]: userving["launches"]["ws_unified"],
+                             umserving["model"]: umserving["launches"]["ws_unified"]},
+        "launches_per_step": {"lockstep": 1, "free": unified["free_launches_per_step"],
+                              "free_moe": umoe["free_launches_per_step"]},
         **unified,
+        "max_abs_err": max(unified["max_abs_err"], umoe["max_abs_err"]),
+        "moe_half": {"model": umserving["model"], "library_ms": None, **umoe},
     }
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     log("[serving] " + json.dumps(serving))
@@ -1819,6 +2131,7 @@ def main(argv=None) -> int:
     log("[grad] " + json.dumps(grad))
     log("[train] " + json.dumps({k: v for k, v in training.items() if k != "grad_times"}))
     log("[unified] " + json.dumps(userving))
+    log("[unified_moe] " + json.dumps(umserving))
     print(card_line())
     print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

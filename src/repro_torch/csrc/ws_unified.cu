@@ -1,12 +1,12 @@
 // The unified engine step on Hopper (sm_90a): one fence-free work-stealing
 // launch that runs a whole decode step (and optionally one folded prompt's
-// prefill) of a dense GQA decoder in fp32.
+// prefill) of a GQA decoder, dense or MoE, in fp32.
 //
 // Replaces the TPU kernel of repro/models/unified.py: the `execute` closure
 // of `decode_step_unified` (launched through `launch_ws_grid`, whose
-// `pallas_call` is repro/pallas_ws/kernel.py:805), dense half.  The
-// scheduler and its walks are ws_sched.cuh with the stage gate; the
-// attention tile is ws_attn_tile.cuh.
+// `pallas_call` is repro/pallas_ws/kernel.py:805).  The scheduler and its
+// walks are ws_sched.cuh with the stage gate; the attention tile is
+// ws_attn_tile.cuh and the expert tile ws_expert_tile.cuh.
 //
 // What it computes.  Each claimed record dispatches on F_OP:
 //  * OP_DECODE_TILE: one (b, h) query row against the layer's KV cache, read
@@ -14,6 +14,11 @@
 //    causal), into att[l] [B, H, hd];
 //  * OP_FLASH_TILE: a causal (h, q-block) tile of the folded prompt against
 //    its k/v rows in kp/vp [L, 1, cap, Hkv, hd], into attp[l];
+//  * OP_EXPERT_TILE (layer, seg, j): pool tile j of a segment (decode batch
+//    or prompt) of layer l, with expert e[j] and rl[j] live rows from the
+//    routing buffers GLUE_POST wrote: rows [j bt, j bt + rl) of xf gathered
+//    through tok, the expert's SwiGLU, into yr[l].  A tile with rl == 0
+//    returns at once (the reference's computes expert 0 and adds zeros);
 //  * OP_STEP_GLUE, by phase:
 //      GLUE_EMBED   embedding rows -> h[0] [R, d] (R = B decode rows, then
 //                   the prompt's Lp rows);
@@ -23,7 +28,15 @@
 //                   qd (decode) and qp [H, Lp_pad, hd] (prompt);
 //      GLUE_POST    the attention rows divided by their tiles' mult (lockstep
 //                   only: free-mode tiles store whole tiles), wo, residual,
-//                   rms_norm, SwiGLU MLP, residual -> h[(l + 1) % 2];
+//                   rms_norm; then the SwiGLU MLP and residual -> h[(l + 1)
+//                   % 2] (dense), or (MoE) the residual kept in sh2, the
+//                   norm in xf, the router (softmax, top-k with equal
+//                   probabilities taken lower expert first, gates over
+//                   max(sum, 1e-9)) and the shared-pool Put of each segment;
+//      GLUE_COMB    (MoE) per (token, column) the gather of its k routed rows
+//                   (divided by their tiles' mult in lockstep) weighted by
+//                   their gates, in ascending row order, plus the shared
+//                   experts, onto sh2 -> h[(l + 1) % 2];
 //      GLUE_LOGITS  final rms_norm of the decode rows and the prompt's last
 //                   row, unembed -> logits [B + 1, Vp], pad vocab -1e30.
 // Every product is computed here by hand (fp32 FMAs on CUDA cores); no
@@ -41,7 +54,10 @@
 //
 // No atomics and no fences: reductions are warp shuffles and shared-memory
 // sums, ordering inside the CTA is __syncthreads(), ordering between stages
-// is the rounds (lockstep) or the kernel boundaries (free).
+// is the rounds (lockstep) or the kernel boundaries (free).  The Put is a
+// counting sort in one CTA: per-expert counts and ranks by owner threads,
+// a prefix sum in shared memory, every output written by one thread; the
+// combine gathers through the Put's inverse instead of scattering.
 //
 // What bounds it on this card.  A decode step reads every weight once
 // (11.28 GB of layer weights and 1.58 GB of unembedding for llama3.2-3b in
@@ -49,23 +65,32 @@
 // through ONE SM, so the step is bound by what one SM can pull, far below
 // the card's 3.35 TB/s.  The products are GEMVs over 16-byte weight loads
 // with many in flight per thread; a folded prompt is a GEMM of 8 rows per
-// weight read, near one SM's fp32 FMA rate.  Spreading glue work over
-// the card is later work.
+// weight read, near one SM's fp32 FMA rate.  A MoE step reads the weights
+// of the experts its tokens chose once per tile (kimi-k2: 176 MB an expert
+// in fp32), the same way.  Spreading glue work over the card is later work.
 
 #include <cuda_runtime.h>
 
 #include "ws_attn_tile.cuh"
+#include "ws_expert_tile.cuh"
 
 #define OP_FLASH_TILE 0
 #define OP_DECODE_TILE 1
+#define OP_EXPERT_TILE 2
 #define OP_STEP_GLUE 3
 #define F_PHASE 1
 #define F_LAYER 2
+#define F_E 1   // an expert tile's layer
+#define F_RS 2  // its segment
+#define F_RL 3  // its pool tile
 #define GLUE_EMBED 0
 #define GLUE_PRE 1
 #define GLUE_POST 2
+#define GLUE_COMB 3
 #define GLUE_LOGITS 4
 #define UTHREADS 512
+#define EXPERT_RB 8   // expert rows a pass
+#define EXPERT_CPT 4  // expert columns a thread (one 16-byte fp32 load)
 
 struct UArgs {
   // inputs
@@ -81,9 +106,13 @@ struct UArgs {
   const float* wv;          // [L, d, Hkv * hd]
   const float* wo;          // [L, H * hd, d]
   const float* mlp_norm;    // [L, d]
-  const float* wg;          // [L, d, f]
-  const float* wu;          // [L, d, f]
+  const float* wg;          // [L, d, f]: the dense MLP, or the shared experts
+  const float* wu;          // [L, d, f]  (null on a MoE model without them)
   const float* wd;          // [L, f, d]
+  const float* router;      // [L, d, E] (MoE; null on a dense model)
+  const float* we_g;        // [L, E, d, fe]
+  const float* we_u;        // [L, E, d, fe]
+  const float* we_d;        // [L, E, fe, d]
   // outputs
   float* kc;                // [L, B, cap, Hkv, hd] (updated in place)
   float* vc;
@@ -95,6 +124,13 @@ struct UArgs {
   float* att;               // [L, B, H, hd]
   float* attp;              // [L, H, Lp_pad, hd]
   float* logits;            // [B + 1, Vp]: the decode rows, then the prompt's
+  // MoE routing, each the decode segment's then the prompt's
+  float* xf;                // [R, d] the MoE input
+  int* rtok;                // [n_rows] segment-local token of each pool row
+  float* gate;              // [n_rows]
+  int* e;                   // [pool_dec + pool_pre] expert of each pool tile
+  int* rl;                  // [pool_dec + pool_pre] its live rows
+  float* yr;                // [L, n_rows, d] the expert tiles' rows
   // scratch, one content each per phase
   float* xn;                // [R, d]
   float* sq;                // [R, H * hd]
@@ -106,8 +142,13 @@ struct UArgs {
   float* su;                // [R, f]
   float* shm;               // [R, f]
   float* sm;                // [R, d]
+  float* sr;                // [R, E] router logits
+  int* sidx;                // [R, k] chosen experts
+  float* sgv;               // [R, k] their gates
+  int* prow;                // [R, k] pool rows of each token's pairs, ascending
   int B, Lp, L, d, H, Hkv, hd, f, V, Vp, cap;
   int bk_d, bq_p, bk_p, nq_p, Lp_pad, n_flash_l, dec_att_base, pre_att_base;
+  int E, k, fe, bt, pool_dec, pool_pre, exp_dec_base, exp_pre_base;  // 0 on a dense model
   float eps, theta, res_scale, scale;
 };
 
@@ -246,6 +287,159 @@ __device__ __forceinline__ void rope_pair(const float* x, float* y, int i, int h
   y[i + half] = x1 * s + x2 * c;
 }
 
+// The layer's SwiGLU of X [R, d] into sm [R, d]: the dense MLP, or a MoE
+// layer's shared experts (wg/wu/wd, width f).
+__device__ void swiglu_rows(const UArgs& A, int l, const float* X, float* smem) {
+  const int R = A.B + A.Lp, d = A.d, f = A.f;
+  gemm_rows(X, d, R, A.wg + (long long)l * d * f, f, d, f, A.sg, f, smem);
+  gemm_rows(X, d, R, A.wu + (long long)l * d * f, f, d, f, A.su, f, smem);
+  for (long long e = threadIdx.x; e < (long long)R * f; e += blockDim.x) {
+    const float g = A.sg[e];
+    A.shm[e] = g / (1.f + expf(-g)) * A.su[e];
+  }
+  __syncthreads();
+  gemm_rows(A.shm, f, R, A.wd + (long long)l * f * d, d, f, d, A.sm, d, smem);
+}
+
+// The router of R rows, one warp a row: softmax of the logits sr[r] in the
+// warp's shared slice, then k rounds of an argmax that takes equal
+// probabilities lower expert first (the chosen one marked -1), and the
+// chosen probabilities over max(sum, 1e-9) -> sidx[r], sgv[r].  sr is only
+// read: a duplicate in free mode sees the same logits.
+__device__ void route_rows(const UArgs& A, int R, float* smem) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nw = blockDim.x / 32;
+  const int E = A.E, k = A.k;
+  float* p = smem + (long long)warp * (E + k);  // [E] probabilities, then [k] chosen
+  float* q = p + E;
+  for (int r = warp; r < R; r += nw) {
+    const float* lg = A.sr + (long long)r * E;
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int e = lane; e < E; e += 32) m = fmaxf(m, lg[e]);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float s = 0.f;
+    for (int e = lane; e < E; e += 32) {
+      const float v = expf(lg[e] - m);
+      p[e] = v;
+      s += v;
+    }
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    for (int e = lane; e < E; e += 32) p[e] = p[e] / s;
+    __syncwarp();
+    for (int j = 0; j < k; ++j) {
+      float best = -1.f;
+      int bi = E;
+      for (int e = lane; e < E; e += 32) {
+        const float v = p[e];
+        if (v > best) {  // a lane's experts ascend: ties keep the lower
+          best = v;
+          bi = e;
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ob > best || (ob == best && oi < bi)) {
+          best = ob;
+          bi = oi;
+        }
+      }
+      bi = min(bi, E - 1);  // only a NaN row finds nothing above -1
+      if (lane == 0) {
+        q[j] = best;
+        p[bi] = -1.f;
+        A.sidx[r * k + j] = bi;
+      }
+      __syncwarp();
+    }
+    float tot = 0.f;
+    for (int j = 0; j < k; ++j) tot += q[j];
+    const float den = fmaxf(tot, 1e-9f);
+    for (int j = lane; j < k; j += 32) A.sgv[r * k + j] = q[j] / den;
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
+// The shared-pool Put of one segment (tokens [r0, r0 + T) of the step's
+// rows, its pool tiles from tile0, its rows from row0): the reference's
+// route_to_tasks_pool_jax as a counting sort in one CTA with no atomics.
+// Expert e's pairs, in (token, choice) order, fill pool rows [toff[e] bt,
+// toff[e] bt + loads[e]) with toff the prefix sum of ceil(loads / bt); pool
+// tile j past toff[E] is dead (expert 0, 0 rows; its rows token 0, gate 0).
+// Owner threads count and rank their expert's pairs; every output element
+// has one writer.
+__device__ void pool_put(const UArgs& A, int r0, int T, int pool, int tile0, int row0,
+                         float* smem) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int E = A.E, k = A.k, bt = A.bt, Tk = T * k;
+  int* pe = (int*)smem;       // [Tk] expert of each pair
+  int* order = pe + Tk;       // [Tk] the pairs grouped by expert
+  int* rnk = order + Tk;      // [Tk] a pair's place among its expert's
+  int* loads = rnk + Tk;      // [E]
+  int* start = loads + E;     // [E] exclusive prefix of loads
+  int* toff = start + E;      // [E + 1] exclusive prefix of the tiles
+  int* eof = toff + E + 1;    // [pool] expert of each live tile
+  const int* sidx = A.sidx + (long long)r0 * k;
+  const float* sgv = A.sgv + (long long)r0 * k;
+  for (int i = tid; i < Tk; i += nt) pe[i] = sidx[i];
+  __syncthreads();
+  for (int e = tid; e < E; e += nt) {
+    int c = 0;
+    for (int i = 0; i < Tk; ++i) c += pe[i] == e;
+    loads[e] = c;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int s = 0, t = 0;
+    for (int e = 0; e < E; ++e) {
+      start[e] = s;
+      toff[e] = t;
+      s += loads[e];
+      t += (loads[e] + bt - 1) / bt;
+    }
+    toff[E] = t;
+  }
+  __syncthreads();
+  for (int e = tid; e < E; e += nt) {
+    int c = 0;
+    for (int i = 0; i < Tk; ++i)
+      if (pe[i] == e) {
+        order[start[e] + c] = i;
+        rnk[i] = c++;
+      }
+    for (int j = toff[e]; j < toff[e + 1]; ++j) eof[j] = e;
+  }
+  __syncthreads();
+  const int live_tiles = toff[E];
+  for (int r = tid; r < pool * bt; r += nt) {
+    const int j = r / bt;
+    const int e = j < live_tiles ? eof[j] : 0;
+    const int jr = r - toff[e] * bt;
+    const bool live = j < live_tiles && jr < loads[e];
+    const int pair = live ? order[start[e] + jr] : 0;
+    A.rtok[row0 + r] = live ? pair / k : 0;
+    A.gate[row0 + r] = live ? sgv[pair] : 0.f;
+  }
+  for (int j = tid; j < pool; j += nt) {
+    const bool live = j < live_tiles;
+    const int e = live ? eof[j] : 0;
+    A.e[tile0 + j] = e;
+    A.rl[tile0 + j] = live ? min(max(loads[e] - (j - toff[e]) * bt, 0), bt) : 0;
+  }
+  // the inverse for the combine: each token's k pool rows in ascending
+  // order, i.e. its pairs ordered by (expert, choice)
+  for (int i = tid; i < Tk; i += nt) {
+    const int t = i / k, c = i % k, e = pe[i];
+    int pos = 0;
+    for (int c2 = 0; c2 < k; ++c2) {
+      const int e2 = pe[t * k + c2];
+      pos += e2 < e || (e2 == e && c2 < c);
+    }
+    A.prow[(long long)(r0 + t) * k + pos] = toff[e] * bt + rnk[i];
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
 // glue phases
 
@@ -299,7 +493,7 @@ __device__ void glue_pre(const UArgs& A, int l, float* smem) {
 }
 
 __device__ void glue_post(const UArgs& A, int l, const int* mult, bool divide, float* smem) {
-  const int R = A.B + A.Lp, d = A.d, hd = A.hd, H = A.H, f = A.f;
+  const int R = A.B + A.Lp, d = A.d, hd = A.hd, H = A.H;
   const int nq = H * hd;
   const float* h = A.h + (long long)(l % 2) * R * d;
   float* h_out = A.h + (long long)((l + 1) % 2) * R * d;
@@ -322,16 +516,45 @@ __device__ void glue_post(const UArgs& A, int l, const int* mult, bool divide, f
   __syncthreads();
   gemm_rows(A.sq, nq, R, A.wo + (long long)l * nq * d, d, nq, d, A.sa, d, smem);
   axpy(h, A.sa, A.res_scale, A.sh2, (long long)R * d);
+  if (A.E) {
+    // MoE: the residual waits in sh2 for GLUE_COMB; route each segment
+    rms_rows(A.sh2, A.xf, R, d, A.mlp_norm + (long long)l * d, A.eps);
+    gemm_rows(A.xf, d, R, A.router + (long long)l * d * A.E, A.E, d, A.E, A.sr, A.E, smem);
+    route_rows(A, R, smem);
+    pool_put(A, 0, A.B, A.pool_dec, 0, 0, smem);
+    if (A.Lp) pool_put(A, A.B, A.Lp, A.pool_pre, A.pool_dec, A.pool_dec * A.bt, smem);
+    return;
+  }
   rms_rows(A.sh2, A.xn, R, d, A.mlp_norm + (long long)l * d, A.eps);
-  gemm_rows(A.xn, d, R, A.wg + (long long)l * d * f, f, d, f, A.sg, f, smem);
-  gemm_rows(A.xn, d, R, A.wu + (long long)l * d * f, f, d, f, A.su, f, smem);
-  for (long long e = threadIdx.x; e < (long long)R * f; e += blockDim.x) {
-    const float g = A.sg[e];
-    A.shm[e] = g / (1.f + expf(-g)) * A.su[e];
+  swiglu_rows(A, l, A.xn, smem);
+  axpy(A.sh2, A.sm, A.res_scale, h_out, (long long)R * d);
+}
+
+// The expert combine of both segments, the shared experts and the residual:
+// h[(l + 1) % 2] = sh2 + s * (sum over the token's pairs, in ascending pool
+// row, of gate * yr[row] / mult(row's tile) + shared(xf)).
+__device__ void glue_comb(const UArgs& A, int l, const int* mult, bool divide, float* smem) {
+  const int R = A.B + A.Lp, d = A.d, k = A.k;
+  const long long n_rows = (long long)(A.pool_dec + A.pool_pre) * A.bt;
+  const float* yr = A.yr + (long long)l * n_rows * d;
+  float* h_out = A.h + (long long)((l + 1) % 2) * R * d;
+  if (A.f) swiglu_rows(A, l, A.xf, smem);
+  for (long long i = threadIdx.x; i < (long long)R * d; i += blockDim.x) {
+    const int r = (int)(i / d), c = (int)(i % d);
+    const bool dec = r < A.B;
+    const long long row0 = dec ? 0 : (long long)A.pool_dec * A.bt;
+    const int tbase = dec ? A.exp_dec_base + l * A.pool_dec : A.exp_pre_base + l * A.pool_pre;
+    float y = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const int row = A.prow[r * k + j];
+      float v = yr[(row0 + row) * d + c];
+      if (divide) v = __fdiv_rn(v, (float)max(mult[tbase + row / A.bt], 1));
+      y = __fadd_rn(y, __fmul_rn(A.gate[row0 + row], v));
+    }
+    if (A.f) y = __fadd_rn(y, A.sm[i]);
+    h_out[i] = A.sh2[i] + A.res_scale * y;
   }
   __syncthreads();
-  gemm_rows(A.shm, f, R, A.wd + (long long)l * f * d, d, f, d, A.sm, d, smem);
-  axpy(A.sh2, A.sm, A.res_scale, h_out, (long long)R * d);
 }
 
 __device__ void glue_logits(const UArgs& A, float* smem) {
@@ -405,6 +628,20 @@ struct UnifiedTile {
       execute_tile<float>(a, smem, rec, store);
       return;
     }
+    if (op == OP_EXPERT_TILE) {
+      const int l = rec[F_E], dec = rec[F_RS] == 0, j = rec[F_RL];
+      const int tile = (dec ? 0 : A.pool_dec) + j;
+      const int rl = A.rl[tile];
+      if (rl == 0) return;  // dead pool tile: nothing to add
+      const long long row = (long long)(dec ? 0 : A.pool_dec) * A.bt + (long long)j * A.bt;
+      const long long n_rows = (long long)(A.pool_dec + A.pool_pre) * A.bt;
+      const long long w = ((long long)l * A.E + A.e[tile]) * A.d * A.fe;
+      expert_rows<float, EXPERT_RB, EXPERT_CPT>(
+          A.xf + (long long)(dec ? 0 : A.B) * A.d, A.rtok + row, A.we_g + w, A.we_u + w,
+          A.we_d + w, A.yr + ((long long)l * n_rows + row) * A.d, A.d, A.fe, rl, rl, store,
+          smem);
+      return;
+    }
     // OP_STEP_GLUE
     const int phase = rec[F_PHASE], l = rec[F_LAYER];
     if (phase == GLUE_EMBED) {
@@ -413,6 +650,8 @@ struct UnifiedTile {
       glue_pre(A, l, smem);
     } else if (phase == GLUE_POST) {
       glue_post(A, l, mult, !store, smem);
+    } else if (phase == GLUE_COMB) {
+      glue_comb(A, l, mult, !store, smem);
     } else {
       glue_logits(A, smem);
     }
@@ -447,10 +686,20 @@ static size_t unified_smem(const UArgs& A) {
                          : 0;
   size_t m = gemm > dec ? gemm : dec;
   m = m > fl ? m : fl;
+  if (A.E) {
+    const size_t tk = (size_t)(A.B > A.Lp ? A.B : A.Lp) * A.k;
+    const size_t pool = A.pool_dec > A.pool_pre ? A.pool_dec : A.pool_pre;
+    const size_t put = 3 * tk + 3 * (size_t)A.E + 1 + pool;
+    const size_t route = (size_t)(nt / 32) * (A.E + A.k);
+    const size_t tile = expert_tile_smem<EXPERT_RB>(A.fe) / sizeof(float) + 1;
+    m = m > put ? m : put;
+    m = m > route ? m : route;
+    m = m > tile ? m : tile;
+  }
   return m * sizeof(float);
 }
 
-// ptrs: the 35 pointers of UArgs in declaration order; dims: its 19 ints;
+// ptrs: the 49 pointers of UArgs in declaration order; dims: its 27 ints;
 // fdims: eps, theta, res_scale, scale.
 extern "C" int ws_unified_launch(
     int mode,
@@ -480,6 +729,10 @@ extern "C" int ws_unified_launch(
   A.wg = (const float*)ptrs[i++];
   A.wu = (const float*)ptrs[i++];
   A.wd = (const float*)ptrs[i++];
+  A.router = (const float*)ptrs[i++];
+  A.we_g = (const float*)ptrs[i++];
+  A.we_u = (const float*)ptrs[i++];
+  A.we_d = (const float*)ptrs[i++];
   A.kc = (float*)ptrs[i++];
   A.vc = (float*)ptrs[i++];
   A.kp = (float*)ptrs[i++];
@@ -490,6 +743,12 @@ extern "C" int ws_unified_launch(
   A.att = (float*)ptrs[i++];
   A.attp = (float*)ptrs[i++];
   A.logits = (float*)ptrs[i++];
+  A.xf = (float*)ptrs[i++];
+  A.rtok = (int*)ptrs[i++];
+  A.gate = (float*)ptrs[i++];
+  A.e = (int*)ptrs[i++];
+  A.rl = (int*)ptrs[i++];
+  A.yr = (float*)ptrs[i++];
   A.xn = (float*)ptrs[i++];
   A.sq = (float*)ptrs[i++];
   A.sk = (float*)ptrs[i++];
@@ -500,6 +759,10 @@ extern "C" int ws_unified_launch(
   A.su = (float*)ptrs[i++];
   A.shm = (float*)ptrs[i++];
   A.sm = (float*)ptrs[i++];
+  A.sr = (float*)ptrs[i++];
+  A.sidx = (int*)ptrs[i++];
+  A.sgv = (float*)ptrs[i++];
+  A.prow = (int*)ptrs[i++];
   int j = 0;
   A.B = dims[j++];
   A.Lp = dims[j++];
@@ -520,6 +783,14 @@ extern "C" int ws_unified_launch(
   A.n_flash_l = dims[j++];
   A.dec_att_base = dims[j++];
   A.pre_att_base = dims[j++];
+  A.E = dims[j++];
+  A.k = dims[j++];
+  A.fe = dims[j++];
+  A.bt = dims[j++];
+  A.pool_dec = dims[j++];
+  A.pool_pre = dims[j++];
+  A.exp_dec_base = dims[j++];
+  A.exp_pre_base = dims[j++];
   A.eps = fdims[0];
   A.theta = fdims[1];
   A.res_scale = fdims[2];

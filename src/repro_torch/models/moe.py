@@ -47,13 +47,14 @@ def _capacity(group_size: int, top_k: int, n_experts: int, cf: float) -> int:
 
 def router_topk(xg, p, cfg):
     """xg [G, g, d] -> (probs [G, g, E], normalised top-k gates [G, g, k],
-    idx [G, g, k], aux loss).  ``torch.topk`` orders equal probabilities
-    its own way; routing is only comparable with the reference's on inputs
-    without ties."""
+    idx [G, g, k], aux loss).  Equal probabilities are taken lower expert
+    index first, as ``jax.lax.top_k`` takes them (``torch.topk`` orders ties
+    its own way): a stable descending sort, cut to the first k."""
     E, k = cfg.n_experts, cfg.top_k
     logits = torch.einsum("gtd,de->gte", xg.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, idx = torch.topk(probs, k, dim=-1)
+    gate_vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, idx = gate_vals[..., :k].contiguous(), idx[..., :k].contiguous()
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     # aux load-balance loss: E * sum_e fraction_tokens_e * mean_prob_e
     onehot_any = F.one_hot(idx, E).float().sum(dim=2)  # [G, g, E]

@@ -1,18 +1,24 @@
-"""One engine step as one launch: the unified mixed-mode step, dense half
-(port of ``repro/models/unified.py``).
+"""One engine step as one launch: the unified mixed-mode step (port of
+``repro/models/unified.py``).
 
 An engine step — one decode token for every live slot and, optionally, one
 folded-in prompt's prefill — runs as ONE launch of the work-stealing
 megakernel over stage-gated queues (:func:`make_staged_queue_state`) that
-mix two task families:
+mix three task families:
 
 * attention — decode tiles (one ``(b, h)`` query row over its live kv
   range) and causal prefill flash tiles, the records ``emit_decode_tasks``
   and ``emit_flash_tasks`` build;
+* expert (MoE layers) — shared-pool expert-FFN tiles per layer and segment
+  (decode batch, folded prompt).  A record ``(OP_EXPERT_TILE, layer, seg,
+  j, ⊥, ⊥, tid, bt)`` names pool tile ``j``; its expert ``e[j]`` and live
+  rows ``rl[j]`` are read from the routing buffers the post-attention glue
+  wrote, and its rows are ``[j·bt, (j+1)·bt)`` of the segment's pool;
 * step glue — the phases between them (``GLUE_*`` below): embed; per layer
   norm, q/k/v, RoPE and the cache splice; the multiplicity-normalised
-  combine, ``wo``, the residual, norm, SwiGLU MLP and residual; the final
-  norm and unembedding.
+  combine, ``wo``, the residual and norm, then the SwiGLU MLP and residual
+  (dense) or the router and the shared-pool Put (MoE); the expert combine,
+  shared experts and residual (MoE); the final norm and unembedding.
 
 Stage ``s``'s queues open at round ``stage_open[s]``, the prefix sums of the
 stages' Graham bounds, so every task of a stage has finished before the next
@@ -30,17 +36,25 @@ Two modes.
   rounds, and free CTAs have none.  Making a consumer stage wait for its
   producer on the device would take acquire/release ordering, which the
   fence-free scheduler forbids.  So free mode runs one launch per stage (2
-  + 3L launches a step, 86 for llama3.2-3b) of the same kernel over only
-  that stage's queues; the kernel boundaries on the stream order the
-  stages, and each launch carries the summed ``mult`` of the ones before.
+  + 3L launches a step, 86 for llama3.2-3b; 2 + 5L on a MoE model) of
+  the same kernel over only that stage's queues; the kernel boundaries on
+  the stream order the stages, and each launch carries the summed
+  ``mult`` of the ones before.
   Tiles store whole tiles, so nothing is divided by ``mult``.
 
 Free CTAs can claim one glue task several times at once, so a glue phase
 never updates a buffer in place: the residual stream ping-pongs between
 ``h[0]`` and ``h[1]`` (layer ``l`` reads ``h[l % 2]`` and writes
-``h[(l + 1) % 2]``), each layer's attention tiles write their own
-``att[l]``, and every other write is a pure function of what earlier stages
+``h[(l + 1) % 2]``; a MoE layer's post-attention glue leaves its residual
+in ``h2``, which only it writes, and the expert combine adds to that), each
+layer's attention and expert tiles write their own ``att[l]`` and
+``yr[l]``, and every other write is a pure function of what earlier stages
 wrote.  A duplicate then writes the bits the first execution wrote.
+
+A pool tile with no live rows (``rl == 0``: the pool has ``ceil(T·k/bt) +
+E`` tiles for any routing, most of them dead at decode) returns at once.
+The reference's computes expert 0 and adds zeros: the same bits, without
+reading that expert's weights.
 
 The KV cache is read in place: decode tiles read the ``[L, B, cap, Hkv,
 hd]`` cache through strides (the reference copies it into padded transposed
@@ -48,20 +62,21 @@ buffers), and the splice writes only each slot's new row, in place, as the
 port's split decode step does.  A folded prompt's k/v land in the report's
 ``prefill_kv`` ``[L, 1, cap, Hkv, hd]``.
 
-Not ported here: the MoE half (the in-kernel router and pool Put, expert
-tiles, ``GLUE_COMB``), which the next slice takes, and ``trace=True``, which
-waits for the trace rings.
+Not ported here: ``trace=True``, which waits for the trace rings.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..moe_ws.dispatch import route_to_tasks_pool_torch
+from ..moe_ws.layer import _router, _shared_experts
 from ..pallas_ws.kernel import (
     MODES,
     WSRunResult,
@@ -74,11 +89,16 @@ from ..pallas_ws.queues import QueueState, make_staged_queue_state
 from ..pallas_ws.ragged import _pad_to
 from ..pallas_ws.tasks import (
     BOTTOM,
+    F_COST,
+    F_E,
     F_LAYER,
     F_OP,
     F_PHASE,
+    F_RL,
+    F_RS,
     F_TID,
     OP_DECODE_TILE,
+    OP_EXPERT_TILE,
     OP_FLASH_TILE,
     OP_STEP_GLUE,
     StepGlueTask,
@@ -101,14 +121,40 @@ from .model import (
 # (phase, layer) serves both segments: the decode batch and the folded prompt.
 GLUE_EMBED = 0    # token embedding -> residual stream
 GLUE_PRE = 1      # attn norm, q/k/v + RoPE, cache splice, tile inputs
-GLUE_POST = 2     # attention combine (mult-normalised), wo, residual, mlp norm, MLP
-GLUE_COMB = 3     # expert combine and shared experts (MoE half: not ported)
+GLUE_POST = 2     # attention combine (mult-normalised), wo, residual, mlp norm,
+                  # then the dense MLP or the MoE router Put
+GLUE_COMB = 3     # expert combine (mult-normalised), shared experts, residual
 GLUE_LOGITS = 4   # final norm + unembed -> logits
 
 GLUE_COST = 1  # glue phases are serial; the cost only sizes their stage window
 
 SEG_DECODE = 0
 SEG_PREFILL = 1
+
+
+@dataclass(frozen=True)
+class _UTask:
+    """A pre-encoded record (the unified expert tiles):
+    :func:`make_staged_queue_state` needs only ``.cost``, ``.owner`` and
+    ``.encode()``; the operands are read in the tile from the routing
+    buffers."""
+
+    fields: Tuple[int, ...]
+    owner: int
+
+    @property
+    def cost(self) -> int:
+        return int(self.fields[F_COST])
+
+    def encode(self) -> np.ndarray:
+        return np.asarray(self.fields, dtype=np.int32)
+
+
+def _expert_pool_tiles(n_tokens: int, top_k: int, n_experts: int, bt: int) -> int:
+    """The shared-pool tile count that holds any routing of ``n_tokens·top_k``
+    pairs (``route_to_tasks_pool_torch``): ``ceil(T·k / bt) + E``."""
+    return -(-(n_tokens * top_k) // bt) + n_experts
+
 
 # Stage-assembly memo: the host Put is pure in its geometry (the decode
 # length vector, the folded prompt's length, the tile and config knobs), so
@@ -145,13 +191,9 @@ def unified_step_supported(cfg) -> bool:
 
 
 def check_ported(cfg) -> None:
-    """Raise for a supported config whose unified step the port lacks."""
+    """Raise for a config the unified step does not cover."""
     if not unified_step_supported(cfg):
         raise ValueError(f"unified step unsupported for config {cfg.name!r}")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "the MoE half of the unified step (in-kernel router and pool Put, expert "
-            "tiles, GLUE_COMB) is not ported yet: it is the next slice of the port")
 
 
 @dataclass
@@ -188,7 +230,7 @@ class Geometry:
     Hkv: int
     hd: int
     d: int
-    f: int
+    f: int          # the dense MLP's width, or the shared experts' (0 if none)
     cap: int
     Vp: int
     vocab: int
@@ -205,6 +247,24 @@ class Geometry:
     eps: float
     theta: float
     res_scale: float
+    # the MoE half (all 0 on a dense model)
+    E: int = 0
+    top_k: int = 0
+    fe: int = 0          # an expert's hidden width
+    bt: int = 8
+    pool_dec: int = 0    # pool tiles of the decode segment
+    pool_pre: int = 0    # and of the folded prompt
+    exp_dec_base: int = 0
+    exp_pre_base: int = 0
+
+    @property
+    def n_rows_dec(self) -> int:
+        return self.pool_dec * self.bt
+
+    @property
+    def n_rows(self) -> int:
+        """Routed rows of both segments: the decode pool's, then the prompt's."""
+        return (self.pool_dec + self.pool_pre) * self.bt
 
     @property
     def R(self) -> int:
@@ -218,7 +278,8 @@ class Geometry:
         return (tid - self.pre_att_base) // self.n_flash_l
 
 
-def geometry(params, cfg, caches: Caches, B: int, Lp: int, *, bk: int, bq: int) -> Geometry:
+def geometry(params, cfg, caches: Caches, B: int, Lp: int, *, bk: int, bq: int,
+             bt: int = 8) -> Geometry:
     L = cfg.n_layers
     H, Hkv = cfg.eff_heads
     cap = caches.kv.k.shape[2]
@@ -230,35 +291,54 @@ def geometry(params, cfg, caches: Caches, B: int, Lp: int, *, bk: int, bq: int) 
         bq_p = bk_p = 1
         nq_p = 0
     n_flash_l = H * nq_p
-    n_glue = 2 + 2 * L
-    dec_att_base = n_glue
+    layers = params["layers"]
+    if cfg.is_moe:
+        E, k = cfg.n_experts, cfg.top_k
+        f = layers["moe"]["ws_g"].shape[-1] if "ws_g" in layers["moe"] else 0
+        fe = layers["moe"]["we_g"].shape[-1]
+        pool_dec = _expert_pool_tiles(B, k, E, bt)
+        pool_pre = _expert_pool_tiles(Lp, k, E, bt) if Lp else 0
+    else:
+        E = k = fe = pool_dec = pool_pre = 0
+        f = layers["mlp"]["wg"].shape[-1]
+    # tids: family-grouped blocks with a constant stride per layer
+    dec_att_base = 2 + L * (3 if E else 2)
     pre_att_base = dec_att_base + L * B * H
+    exp_dec_base = pre_att_base + L * n_flash_l
+    exp_pre_base = exp_dec_base + L * pool_dec
     return Geometry(
-        B=B, L=L, H=H, Hkv=Hkv, hd=cfg.hd, d=cfg.d_model,
-        f=params["layers"]["mlp"]["wg"].shape[-1], cap=cap,
+        B=B, L=L, H=H, Hkv=Hkv, hd=cfg.hd, d=cfg.d_model, f=f, cap=cap,
         Vp=_unembed_matrix(params, cfg).shape[-1], vocab=cfg.vocab_size,
         bk_d=bk_d, Lp=Lp, bq_p=bq_p, bk_p=bk_p, nq_p=nq_p, Lp_pad=nq_p * bq_p,
         n_flash_l=n_flash_l, dec_att_base=dec_att_base, pre_att_base=pre_att_base,
-        n_tasks=pre_att_base + L * n_flash_l, eps=cfg.norm_eps,
-        theta=cfg.rope_theta, res_scale=tf._res_scale(cfg))
+        n_tasks=exp_pre_base + L * pool_pre, eps=cfg.norm_eps,
+        theta=cfg.rope_theta, res_scale=tf._res_scale(cfg), E=E, top_k=k, fe=fe, bt=bt,
+        pool_dec=pool_dec, pool_pre=pool_pre, exp_dec_base=exp_dec_base,
+        exp_pre_base=exp_pre_base)
 
 
 def tid_bases(g: Geometry) -> Dict[str, int]:
     """The reference's tid layout (the expert blocks are empty on a dense model)."""
     return {"glue": 0, "dec_att": g.dec_att_base, "pre_att": g.pre_att_base,
-            "exp_dec": g.n_tasks, "exp_pre": g.n_tasks, "n_tasks": g.n_tasks}
+            "exp_dec": g.exp_dec_base, "exp_pre": g.exp_pre_base, "n_tasks": g.n_tasks}
 
 
 def build_stages(g: Geometry, lengths, n_programs: int):
     """The reference's stage list: embed; per layer pre-glue, the attention
-    tiles (decode, then the prompt's flash tiles), post-glue; logits.
-    Returns ``(state, stage_open, rounds)``."""
+    tiles (decode, then the prompt's flash tiles), post-glue and, on a MoE
+    model, the expert tiles (decode pool, then the prompt's) and the
+    combine glue; logits.  Returns ``(state, stage_open, rounds)``."""
     tid = [0]
 
     def glue(phase, layer):
         t = StepGlueTask(phase, layer, BOTTOM, tid[0], GLUE_COST)
         tid[0] += 1
         return t
+
+    def expert_tiles(lyr, seg, pool, base):
+        base += lyr * pool
+        return [_UTask((OP_EXPERT_TILE, lyr, seg, j, BOTTOM, BOTTOM, base + j, g.bt), owner=j)
+                for j in range(pool)]
 
     dec = emit_decode_tasks(lengths, g.H, g.bk_d)
     flash = emit_flash_tasks([g.Lp], g.H, g.bq_p, g.bk_p, causal=True) if g.Lp else []
@@ -271,15 +351,19 @@ def build_stages(g: Geometry, lengths, n_programs: int):
         att += [dataclasses.replace(t, tid=base + t.tid) for t in flash]
         stages.append(att)
         stages.append([glue(GLUE_POST, lyr)])
+        if g.E:
+            stages.append(expert_tiles(lyr, SEG_DECODE, g.pool_dec, g.exp_dec_base)
+                          + expert_tiles(lyr, SEG_PREFILL, g.pool_pre, g.exp_pre_base))
+            stages.append([glue(GLUE_COMB, lyr)])
     stages.append([glue(GLUE_LOGITS, 0)])
-    assert tid[0] == 2 + 2 * g.L, tid[0]
+    assert tid[0] == g.dec_att_base, tid[0]  # the glue tids come first
     return make_staged_queue_state(stages, n_programs, partition="owner")
 
 
 def staged_queues(g: Geometry, lengths, n_programs: int):
-    """:func:`build_stages`, memoised by the reference's key (its dense part)."""
+    """:func:`build_stages`, memoised by the reference's key."""
     key = (tuple(int(x) for x in lengths), g.Lp, g.B, g.L, g.H, g.bk_d, g.bq_p, g.bk_p,
-           n_programs)
+           g.bt, n_programs, g.E, g.top_k, g.pool_dec, g.pool_pre)
     cached = _STAGE_CACHE.get(key)
     if cached is None:
         cached = build_stages(g, lengths, n_programs)
@@ -304,11 +388,16 @@ def stage_state(state: QueueState, s: int, q_s: int, n_tasks: int) -> QueueState
 
 def alloc_buffers(g: Geometry, caches: Caches, dev) -> Dict[str, torch.Tensor]:
     """The step's buffers.  ``kc``/``vc`` are the caller's caches (updated
-    in place); the rest are fresh."""
+    in place); the rest are fresh.  A MoE model adds the routing buffers of
+    both segments, each the decode segment's then the prompt's: the MoE
+    input ``xf`` [R, d], the residual ``h2`` [R, d] the post-attention glue
+    leaves for the combine, the pool rows' segment-local token ``tok`` and
+    gate ``gate`` [n_rows], each pool tile's expert ``e`` and live rows
+    ``rl`` [pool], and the expert tiles' rows ``yr`` [L, n_rows, d]."""
     f32 = torch.float32
 
-    def z(*shape):
-        return torch.zeros(shape, dtype=f32, device=dev)
+    def z(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     logits = z(g.B + 1, g.Vp)  # the decode rows, then the prompt's last row
     bufs = {
@@ -325,6 +414,11 @@ def alloc_buffers(g: Geometry, caches: Caches, dev) -> Dict[str, torch.Tensor]:
             kp=z(g.L, 1, g.cap, g.Hkv, g.hd), vp=z(g.L, 1, g.cap, g.Hkv, g.hd),
             logp=logits[g.B:],
         )
+    if g.E:
+        pools = g.pool_dec + g.pool_pre
+        bufs.update(xf=z(g.R, g.d), h2=z(g.R, g.d), tok=z(g.n_rows, dtype=torch.int32),
+                    gate=z(g.n_rows), e=z(pools, dtype=torch.int32),
+                    rl=z(pools, dtype=torch.int32), yr=z(g.L, g.n_rows, g.d))
     return bufs
 
 
@@ -334,8 +428,11 @@ def alloc_buffers(g: Geometry, caches: Caches, dev) -> Dict[str, torch.Tensor]:
 
 class _UnifiedWalk(_PlainWalk):
     """The plain version of ``csrc/ws_unified.cu``: the shared scheduler walk
-    with the attention tile body (decode and flash) and the glue phases as
-    torch ops on the buffers' device, in the same buffers and walk order."""
+    with the attention tile body (decode and flash), the expert tile and the
+    glue phases as torch ops on the buffers' device, in the same buffers and
+    walk order.  Its MoE ops are the split step's (``moe_ffn_ws``: the same
+    router, expert tile, ``index_add_`` combine and shared experts), so on
+    the CPU the two steps agree bit for bit."""
 
     def __init__(self, arrs, params, cfg, g: Geometry, bufs, inputs, *, steal, policy):
         super().__init__(arrs, steal=steal, policy=policy)
@@ -356,6 +453,8 @@ class _UnifiedWalk(_PlainWalk):
                            b["vp"][lyr, :, :g.Lp].permute(0, 2, 1, 3), b["attp"][lyr],
                            bq=g.bq_p, bk=g.bk_p, causal=True, scale=scale,
                            g=g.H // g.Hkv, store=store)
+        elif op == OP_EXPERT_TILE:
+            self.expert_tile(rec[F_E], rec[F_RS], rec[F_RL], store=store)
         elif op == OP_STEP_GLUE:
             phase, lyr = rec[F_PHASE], rec[F_LAYER]
             if phase == GLUE_EMBED:
@@ -364,12 +463,81 @@ class _UnifiedWalk(_PlainWalk):
                 self.pre(lyr)
             elif phase == GLUE_POST:
                 self.post(lyr, divide=not store)
+            elif phase == GLUE_COMB:
+                self.comb(lyr, divide=not store)
             elif phase == GLUE_LOGITS:
                 self.logits()
             else:
-                raise ValueError(f"glue phase {phase} is not in the dense unified step")
+                raise ValueError(f"glue phase {phase} is not in this unified step")
         else:
-            raise ValueError(f"op {op} is not in the dense unified step")
+            raise ValueError(f"op {op} is not in the unified step")
+
+    # -- the MoE half: segment views, expert tile, Put and combine -------------
+    def segment(self, seg):
+        """``(token rows of xf/h, pool-tile slice, routed-row slice, tokens,
+        pool tiles, first tid of layer 0)`` of a segment."""
+        g = self.g
+        if seg == SEG_DECODE:
+            return (slice(0, g.B), slice(0, g.pool_dec), slice(0, g.n_rows_dec), g.B,
+                    g.pool_dec, g.exp_dec_base)
+        return (slice(g.B, g.R), slice(g.pool_dec, None), slice(g.n_rows_dec, None), g.Lp,
+                g.pool_pre, g.exp_pre_base)
+
+    def expert_tile(self, lyr, seg, j, *, store):
+        """Pool tile ``j`` of the segment: ``moe_ws``'s expert tile on rows
+        ``[j·bt, (j+1)·bt)`` with the expert and live rows the Put wrote.  A
+        tile with no live rows returns at once (it would add zeros)."""
+        g, b = self.g, self.b
+        toks, tiles, rows, *_ = self.segment(seg)
+        e, rl = int(b["e"][tiles][j]), int(b["rl"][tiles][j])
+        if rl == 0:
+            return
+        moe = self.params["layers"]["moe"]
+        rs = j * g.bt
+        xt = b["xf"][toks][b["tok"][rows][rs:rs + g.bt].long()]
+        h = F.silu(xt @ moe["we_g"][lyr, e].float()) * (xt @ moe["we_u"][lyr, e].float())
+        y = h @ moe["we_d"][lyr, e].float()
+        y[rl:] = 0.0
+        out = b["yr"][lyr, rows][rs:rs + g.bt]
+        if store:
+            out[:] = y
+        else:
+            out += y
+
+    def route_put(self, lyr, seg):
+        """The router and the shared-pool Put of the segment's ``xf`` rows
+        into its routing buffers (dead tiles get expert 0)."""
+        g, b = self.g, self.b
+        toks, tiles, rows, *_ = self.segment(seg)
+        p = tf.layer_params(self.params, lyr)["moe"]
+        _, gate_vals, idx, _ = _router(b["xf"][toks], p, self.cfg, 1024)
+        records, _, _, routed = route_to_tasks_pool_torch(idx, gate_vals, g.E, bt=g.bt)
+        b["tok"][rows] = routed.tok_idx
+        b["gate"][rows] = routed.gates
+        b["e"][tiles] = torch.clamp(records[:, F_E], 0, g.E - 1)
+        b["rl"][tiles] = records[:, F_RL]
+
+    def comb(self, lyr, *, divide):
+        """The expert combine of both segments (``combine_routed`` on the pool
+        layout: rows divided by their tile's mult in lockstep, then
+        ``gate × row`` added into the tokens), the shared experts, and the
+        residual onto ``h2`` -> ``h[(l + 1) % 2]``."""
+        g, b, s = self.g, self.b, self.g.res_scale
+        p = tf.layer_params(self.params, lyr)["moe"]
+        h_out = b["h"][(lyr + 1) % 2]
+        for seg in (SEG_DECODE, SEG_PREFILL) if g.Lp else (SEG_DECODE,):
+            toks, _, rows, T, pool, base = self.segment(seg)
+            yr = b["yr"][lyr, rows]
+            if divide:
+                base += lyr * pool
+                mult = torch.tensor(self.mult[base:base + pool], device=yr.device)
+                yr = yr / torch.repeat_interleave(torch.clamp(mult, min=1).float(),
+                                                  g.bt)[:, None]
+            y = torch.zeros((T, g.d), dtype=torch.float32, device=yr.device).index_add_(
+                0, b["tok"][rows].long(), b["gate"][rows][:, None] * yr)
+            if "ws_g" in p:
+                y = y + _shared_experts(b["xf"][toks], p).float()
+            h_out[toks] = b["h2"][toks] + s * y
 
     # -- glue phases: the reference's op sequence, read from the previous
     # stage's buffers, written to distinct ones -----------------------------
@@ -411,8 +579,13 @@ class _UnifiedWalk(_PlainWalk):
                          p["attn"]["wo"])
         h2 = h[:g.B].view(g.B, 1, g.d) + s * a
         hn2 = rms_norm(h2, p["mlp_norm"], g.eps)
-        m = swiglu(hn2, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
-        h_out[:g.B] = (h2 + s * m)[:, 0]
+        if g.E:
+            b["xf"][:g.B] = hn2[:, 0]
+            self.route_put(lyr, SEG_DECODE)
+            b["h2"][:g.B] = h2[:, 0]
+        else:
+            m = swiglu(hn2, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+            h_out[:g.B] = (h2 + s * m)[:, 0]
         if g.Lp:
             attp = b["attp"][lyr]
             if divide:
@@ -425,8 +598,13 @@ class _UnifiedWalk(_PlainWalk):
             ap = torch.einsum("bshe,hed->bsd", of, p["attn"]["wo"])
             hp2 = h[g.B:].view(1, g.Lp, g.d) + s * ap
             hnp2 = rms_norm(hp2, p["mlp_norm"], g.eps)
-            mp = swiglu(hnp2, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
-            h_out[g.B:] = (hp2 + s * mp)[0]
+            if g.E:
+                b["xf"][g.B:] = hnp2[0]
+                self.route_put(lyr, SEG_PREFILL)
+                b["h2"][g.B:] = hp2[0]
+            else:
+                mp = swiglu(hnp2, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+                h_out[g.B:] = (hp2 + s * mp)[0]
 
     def logits(self):
         g, b, cfg = self.g, self.b, self.cfg
@@ -472,7 +650,7 @@ class StepPlan:
 
 
 def plan_step(params, cfg, caches: Caches, tokens, pos, *, prefill_tokens=None, bk: int = 64,
-              bq: int = 32, n_programs: int = 8) -> StepPlan:
+              bq: int = 32, bt: int = 8, n_programs: int = 8) -> StepPlan:
     """Check one step's inputs and build its buffers and stage-gated Put."""
     check_ported(cfg)
     dev = caches.kv.k.device
@@ -486,7 +664,7 @@ def plan_step(params, cfg, caches: Caches, tokens, pos, *, prefill_tokens=None, 
             raise ValueError(f"prefill_tokens must be [1, Lp]: {tuple(ptok.shape)}")
         ptok = ptok[0].long()
     Lp = 0 if ptok is None else int(ptok.shape[0])
-    g = geometry(params, cfg, caches, B, Lp, bk=bk, bq=bq)
+    g = geometry(params, cfg, caches, B, Lp, bk=bk, bq=bq, bt=bt)
     if not 0 <= Lp <= g.cap or int(pos_h.max(initial=0)) >= g.cap:
         raise ValueError(f"prompt length {Lp} or positions {pos_h.tolist()} do not fit "
                          f"capacity {g.cap}")
@@ -511,8 +689,8 @@ def decode_step_unified(params, cfg, caches: Caches, tokens, pos, *, prefill_tok
     one prompt's prefill into the same step.  Returns ``(logits [B, Vp]
     fp32, caches, UnifiedStepReport)``; the caches are updated in place
     (the new row of every slot), and the report carries the prompt's
-    last-token logits and its ``[L, 1, cap, Hkv, hd]`` k/v.  ``bt`` sizes the
-    expert tiles of the MoE half and is unused here.
+    last-token logits and its ``[L, 1, cap, Hkv, hd]`` k/v.  ``bt`` is the
+    expert tiles' height (MoE models).
 
     CUDA tensors launch ``csrc/ws_unified.cu``; CPU tensors run the plain
     version.  There is no fallback between the two.
@@ -542,7 +720,7 @@ def _decode_step(params, cfg, caches, tokens, pos, *, prefill_tokens=None, bk=64
     scheduler_knobs(steal=steal, steal_policy=steal_policy, steal_run_cap=1, mode=mode,
                     compress_runs=False)
     plan = plan_step(params, cfg, caches, tokens, pos, prefill_tokens=prefill_tokens, bk=bk,
-                     bq=bq, n_programs=n_programs)
+                     bq=bq, bt=bt, n_programs=n_programs)
     res, launches = run_step(params, cfg, plan, mode=mode, steal=steal,
                              steal_policy=steal_policy, n_programs=n_programs, plain=plain)
     g, bufs = plan.g, plan.bufs

@@ -15,6 +15,7 @@ from .dispatch import (
     expert_rounds_bound,
     route_to_tasks,
     route_to_tasks_pool,
+    route_to_tasks_pool_torch,
     row_divisor,
 )
 from .expert_kernel import (
@@ -41,5 +42,6 @@ __all__ = [
     "divisor_from_tiles", "dsilu", "expert_ffn_nodrop_ref", "expert_rounds_bound",
     "grad_out_width", "launch_moe_grad_grid", "launch_moe_grid", "moe_ffn_nodrop_ref",
     "moe_ffn_ws", "plain_moe_grad_grid", "plain_moe_grid", "route_to_tasks",
-    "route_to_tasks_pool", "row_divisor", "run_moe_grad_schedule", "run_moe_schedule",
+    "route_to_tasks_pool", "route_to_tasks_pool_torch", "row_divisor",
+    "run_moe_grad_schedule", "run_moe_schedule",
 ]

@@ -17,18 +17,23 @@ No capacity anywhere: every routed pair gets a row and every row a task,
 so the dispatch is dropless.  Duplicated tile execution is normalised by
 :func:`row_divisor`.  Two Puts: the host Put :func:`route_to_tasks` (task
 objects, compact per-expert queues) and the shared-pool Put
-:func:`route_to_tasks_pool` (the reference's ``route_to_tasks_pool_jax``
-in numpy: flat records, one pool segment per expert), which the training
-path and the backward use.  The padded traced Put (``route_to_tasks_jax``)
-is not ported: the port is eager.
+:func:`route_to_tasks_pool_torch` (flat records, one pool segment per
+expert): the reference's traced ``route_to_tasks_pool_jax`` as torch ops on
+the routing's device with no host sync, the plain version of the Put that
+the unified step's post-attention glue runs in-kernel.
+:func:`route_to_tasks_pool` runs it on the host for the training path and
+the backward, whose queues are built there.  The padded traced Put
+(``route_to_tasks_jax``) is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.pallas_ws.kernel import STATIC_COMPRESSED_ROUNDS
 from repro_torch.pallas_ws.tasks import BOTTOM, OP_EXPERT_TILE, ExpertTask
@@ -121,29 +126,31 @@ def route_to_tasks(idx, gates, n_experts: int, bt: int = 8
     )
 
 
-def _group_by_expert(idx, gates, n_experts: int):
-    """Stable sort of the routed (token, choice) pairs by expert, with each
-    expert's segment bounds read off the sorted keys (``searchsorted``):
-    expert ``e``'s pairs are ``order[start[e] : start[e] + loads[e]]``."""
-    idx = np.asarray(idx, dtype=np.int32)
-    gates = np.asarray(gates, dtype=np.float32)
+def _group_by_expert_torch(idx, gates, n_experts: int):
+    """Stable sort of the routed (token, choice) pairs by expert (the
+    reference's ``_group_by_expert_jax``), as torch ops on ``idx``'s device:
+    expert ``e``'s pairs are ``order[start[e] : start[e] + loads[e]]``, the
+    segment bounds read off the sorted keys with ``searchsorted``."""
+    idx = torch.as_tensor(idx).to(torch.int32)
+    dev = idx.device
+    gates = torch.as_tensor(gates).to(device=dev, dtype=torch.float32)
     T, k = idx.shape
-    if gates.shape != (T, k):
-        raise ValueError(f"gates {gates.shape} do not match idx {(T, k)}")
+    if tuple(gates.shape) != (T, k):
+        raise ValueError(f"gates {tuple(gates.shape)} do not match idx {(T, k)}")
     flat_e = idx.reshape(-1)
-    flat_t = np.repeat(np.arange(T, dtype=np.int32), k)
+    flat_t = torch.arange(T, dtype=torch.int32, device=dev).repeat_interleave(k)
     flat_g = gates.reshape(-1)
-    order = np.argsort(flat_e, kind="stable").astype(np.int32)
-    sorted_e = flat_e[order]
-    e_ids = np.arange(n_experts, dtype=np.int32)
-    start = np.searchsorted(sorted_e, e_ids, side="left").astype(np.int32)
-    loads = np.searchsorted(sorted_e, e_ids, side="right").astype(np.int32) - start
+    order = torch.argsort(flat_e, stable=True).to(torch.int32)
+    sorted_e = flat_e[order.long()].contiguous()
+    e_ids = torch.arange(n_experts, dtype=torch.int32, device=dev)
+    start = torch.searchsorted(sorted_e, e_ids, side="left", out_int32=True)
+    loads = torch.searchsorted(sorted_e, e_ids, side="right", out_int32=True) - start
     return T, k, order, flat_t, flat_g, loads, start
 
 
-def route_to_tasks_pool(idx, gates, n_experts: int, bt: int = 8
-                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, RoutedSet]:
-    """The shared-pool Put (``route_to_tasks_pool_jax`` of the reference).
+def route_to_tasks_pool_torch(idx, gates, n_experts: int, bt: int = 8):
+    """The shared-pool Put (the reference's ``route_to_tasks_pool_jax``), as
+    torch ops on ``idx``'s device with no host sync.
 
     One flat pool of ``pool_tiles = ceil(T·k / bt) + E`` tiles holds every
     expert's tiles at the tile offset ``toff[e] = Σ_{e'<e} ceil(loads[e'] /
@@ -157,41 +164,62 @@ def route_to_tasks_pool(idx, gates, n_experts: int, bt: int = 8
 
     Needs per-expert queues (queue ``e`` is the segment ``[toff[e],
     toff[e+1])``).  Returns ``(records [pool_tiles, TASK_WIDTH], tail [E],
-    pool_off [E + 1], routed)`` for :func:`~repro_torch.pallas_ws.queues.make_pool_queue_state`.
-    """
+    pool_off [E + 1], routed)`` as int32/float32 tensors, ``routed``'s
+    arrays too (``expert_off = pool_off · bt``)."""
     E = n_experts
-    T, k, order, flat_t, flat_g, loads, start = _group_by_expert(idx, gates, E)
+    T, k, order, flat_t, flat_g, loads, start = _group_by_expert_torch(idx, gates, E)
+    dev = order.device
     Tk = T * k
     pool_tiles = _cdiv(Tk, bt) + E
     n_tiles = (loads + bt - 1) // bt
-    toff = np.concatenate([np.zeros(1, np.int32), np.cumsum(n_tiles).astype(np.int32)])
+    toff = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                      torch.cumsum(n_tiles, 0).to(torch.int32)])
     row_off = toff * bt
     n_rows = pool_tiles * bt
 
-    rows = np.arange(n_rows, dtype=np.int32)
+    def owner(tile):
+        """The expert whose segment [toff[e], toff[e+1]) holds each tile (an
+        empty expert's duplicate offset resolves to the next non-empty one)."""
+        return torch.clamp(torch.searchsorted(toff, tile, side="right", out_int32=True) - 1,
+                           0, E - 1).long()
+
+    rows = torch.arange(n_rows, dtype=torch.int32, device=dev)
     tile_row = rows // bt
-    e_row = np.clip(np.searchsorted(toff, tile_row, side="right") - 1, 0, E - 1)
+    e_row = owner(tile_row)
     j_row = rows - row_off[e_row]
     row_live = (tile_row < toff[E]) & (j_row < loads[e_row])
-    pair = order[np.minimum(start[e_row] + j_row, Tk - 1)]
-    tok_idx = np.where(row_live, flat_t[pair], 0).astype(np.int32)
-    gate_rows = np.where(row_live, flat_g[pair], np.float32(0)).astype(np.float32)
-    row_src = np.where(row_live, pair, Tk).astype(np.int32)
+    pair = order[torch.clamp(start[e_row] + j_row, max=Tk - 1).long()]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    tok_idx = torch.where(row_live, flat_t[pair.long()], zero)
+    gate_rows = torch.where(row_live, flat_g[pair.long()], torch.zeros((), device=dev))
+    row_src = torch.where(row_live, pair, zero + Tk)
 
-    # pool tile j belongs to the expert whose segment holds j (an empty
-    # expert's duplicate offset resolves to the next non-empty one)
-    j = np.arange(pool_tiles, dtype=np.int32)
-    e_of = np.clip(np.searchsorted(toff, j, side="right") - 1, 0, E - 1).astype(np.int32)
+    j = torch.arange(pool_tiles, dtype=torch.int32, device=dev)
+    e_of = owner(j)
     live = j < toff[E]
-    rl = np.where(live, np.clip(loads[e_of] - (j - toff[e_of]) * bt, 0, bt), 0)
-    bot = np.full((pool_tiles,), BOTTOM, np.int32)
-    records = np.stack([
-        np.where(live, OP_EXPERT_TILE, BOTTOM), np.where(live, e_of, BOTTOM),
-        j * bt, rl, bot, bot, j, rl,
-    ], axis=-1).astype(np.int32)
+    rl = torch.where(live, torch.clamp(loads[e_of] - (j - toff[e_of]) * bt, 0, bt), zero)
+    bot = zero + BOTTOM
+    records = torch.stack([
+        torch.where(live, zero + OP_EXPERT_TILE, bot), torch.where(live, e_of.int(), bot),
+        j * bt, rl, bot.expand(pool_tiles), bot.expand(pool_tiles), j, rl,
+    ], dim=-1)
     routed = RoutedSet(tok_idx=tok_idx, gates=gate_rows, expert_off=row_off, loads=loads,
                        n_rows=n_rows, n_routed=Tk, n_tokens=T, row_src=row_src)
-    return records, n_tiles.astype(np.int32), toff, routed
+    return records, n_tiles, toff, routed
+
+
+def route_to_tasks_pool(idx, gates, n_experts: int, bt: int = 8
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, RoutedSet]:
+    """:func:`route_to_tasks_pool_torch` on the host, its arrays as numpy:
+    the Put the training path and the backward feed to
+    :func:`~repro_torch.pallas_ws.queues.make_pool_queue_state`."""
+    records, tail, pool_off, routed = route_to_tasks_pool_torch(
+        torch.from_numpy(np.asarray(idx, dtype=np.int32)),
+        torch.from_numpy(np.asarray(gates, dtype=np.float32)), n_experts, bt=bt)
+    routed = dataclasses.replace(routed, **{
+        f: getattr(routed, f).numpy()
+        for f in ("tok_idx", "gates", "expert_off", "loads", "row_src")})
+    return records.numpy(), tail.numpy(), pool_off.numpy(), routed
 
 
 def expert_rounds_bound(n_routed: int, bt: int, n_queues: int, n_programs: int,

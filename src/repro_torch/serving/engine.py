@@ -7,8 +7,9 @@
   step — by default :func:`decode_step_ws`, whose per-layer attention is one
   launch of the fence-free work-stealing megakernel over the slots' ragged
   lengths; ``use_ws=False`` runs the dense :func:`decode_step`.  With
-  ``unified_step=True`` (fp32 dense configs) an engine step is ONE launch of
-  the unified megakernel (:func:`decode_step_unified`), and admission defers
+  ``unified_step=True`` (fp32 configs, dense or MoE with the ws dispatch) an
+  engine step is ONE launch of the unified megakernel
+  (:func:`decode_step_unified`), and admission defers
   a prompt's prefill into the next step's launch; the split path stays the
   escape hatch when a unified step's logits come back non-finite.
 * WorkStealingFrontend — per-replica request queues implemented with the
@@ -16,8 +17,8 @@
   own queue and Steals from the others when idle; a request admitted twice
   under weak multiplicity is deduplicated on completion.
 
-Not ported yet (they raise): the compiled ws step (``jit_ws``), the unified
-MoE step, the watchdog's deadline and fault-plan half (``step_deadline_s``,
+Not ported yet (they raise): the compiled ws step (``jit_ws``), the
+watchdog's deadline and fault-plan half (``step_deadline_s``,
 ``fault_plan``), and crash plans.
 """
 

@@ -572,3 +572,111 @@ def test_unified_kernel_free_mode_runs_every_task_on_card(cuda_device):
     torch.testing.assert_close(logits.cpu(), want[0], rtol=0, atol=1e-4)
     torch.testing.assert_close(rep.prefill_logits.cpu(), want[2].prefill_logits, rtol=0,
                                atol=1e-4)
+
+
+def _unified_moe_inputs(fold):
+    """A 2-layer fp32 MoE decoder at d 128 (4 heads over 2, 16 experts top-4,
+    one shared expert, ws dispatch), its caches after a ragged prefill, the
+    next tokens and (``fold``) a 13-token prompt."""
+    from repro_torch.configs.kimi_k2_1t_a32b import SMOKE
+    from repro_torch.models import init_params, prefill
+
+    cfg = SMOKE.replace(d_model=128, n_experts=16, top_k=4, moe_d_ff=64, d_ff=64,
+                        vocab_size=512, dtype="float32", moe_dispatch="ws")
+    params = init_params(cfg, seed=0, device="cpu")
+    _, caches = prefill(params, cfg, {"tokens": torch.tensor([[5, 6, 7, 8, 9, 10, 11],
+                                                              [9, 8, 7, 6, 5, 4, 3]])},
+                        capacity=48)
+    kw = dict(prefill_tokens=torch.arange(11, 24).reshape(1, 13), bq=8, bk=16) if fold else {}
+    return cfg, params, caches, torch.tensor([[3], [4]]), np.array([7, 5]), kw
+
+
+def test_unified_moe_kernel_wrapper_marshals_every_argument(monkeypatch):
+    """The unified kernel's wrapper on a MoE model, against a stand-in for its
+    C entry point: the expert weights go in place (their own pointers, no
+    copy), the routing buffers and the router's scratch are passed, and the
+    launches are counted (free mode: 2 + 5L)."""
+    import ctypes
+    import types
+
+    from repro_torch import _build
+    from repro_torch.models.unified import plan_step, run_step
+    from repro_torch.pallas_ws import launches
+
+    seen = {}
+
+    def entry(*args):
+        for t, a in zip(entry.argtypes, args):
+            t.from_param(a)
+        seen["ptrs"] = list(ctypes.cast(args[13], ctypes.POINTER(ctypes.c_void_p))[:49])
+        seen["dims"] = list(ctypes.cast(args[14], ctypes.POINTER(ctypes.c_int))[:27])
+        return 0
+
+    entry.argtypes = None
+    entry.restype = ctypes.c_int
+    monkeypatch.setattr(_build, "load",
+                        lambda name: types.SimpleNamespace(ws_unified_launch=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    cfg, params, caches, tok, pos, kw = _unified_moe_inputs(fold=True)
+    plan = plan_step(params, cfg, caches, tok, pos, **kw)
+    run = dict(steal=True, steal_policy="cost", n_programs=8, plain=False)
+    before = launches["ws_unified"]
+    run_step(params, cfg, plan, mode="lockstep", **run)
+    moe, g = params["layers"]["moe"], plan.g
+    # the 49 pointers: 6 inputs, 13 weights (the shared experts in the MLP's slots,
+    # then the router and the experts), 10 step buffers, 6 routing buffers, 14 scratch
+    assert seen["ptrs"][12:19] == [moe[n].data_ptr() for n in ("ws_g", "ws_u", "ws_d", "router",
+                                                                "we_g", "we_u", "we_d")]
+    assert seen["ptrs"][29:35] == [plan.bufs[n].data_ptr()
+                                   for n in ("xf", "tok", "gate", "e", "rl", "yr")]
+    assert all(seen["ptrs"][35:49])
+    assert seen["dims"][19:] == [16, 4, 64, g.bt, g.pool_dec, g.pool_pre, g.exp_dec_base,
+                                 g.exp_pre_base]
+    _, n = run_step(params, cfg, plan, mode="free", **run)
+    assert launches["ws_unified"] == before + 1 + n and n == 2 + 5 * cfg.n_layers
+
+
+def _moe_plans(cuda_device, fold, policy="cost", mode="lockstep"):
+    """The same MoE step planned on the card and on the CPU, and run: the
+    kernel there, the plain version here."""
+    from repro_torch.models import Caches, KVCache
+    from repro_torch.models.unified import plan_step, run_step
+
+    cfg, params, caches, tok, pos, kw = _unified_moe_inputs(fold)
+    p_dev = _to(params, cuda_device)
+    c_dev = Caches(kv=KVCache(caches.kv.k.to(cuda_device), caches.kv.v.to(cuda_device)))
+    run = dict(mode=mode, steal=True, steal_policy=policy, n_programs=8)
+    got = plan_step(p_dev, cfg, c_dev, tok.to(cuda_device), pos, **kw)
+    res_got, n = run_step(p_dev, cfg, got, **run)
+    want = plan_step(params, cfg, caches, tok, pos, **kw)
+    res_want, _ = run_step(params, cfg, want, **run)
+    return got, want, res_got, res_want, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["cost", "scan"])
+@pytest.mark.parametrize("fold", [False, True])
+def test_unified_moe_kernel_lockstep_matches_plain_on_card(cuda_device, policy, fold):
+    """The router, pool Put, expert tiles and combine in the kernel against
+    the plain version: integer arrays and routing bit for bit, outputs
+    within 1e-4 (the same fp32 math summed in another order)."""
+    got, want, res_got, res_want, _ = _moe_plans(cuda_device, fold, policy)
+    for f in ("head", "local_head", "taken", "remaining", "clock", "work", "steals",
+              "scanned", "mult"):
+        assert torch.equal(getattr(res_got, f).cpu(), getattr(res_want, f)), f
+    for name in ("tok", "e", "rl"):
+        assert torch.equal(got.bufs[name].cpu(), want.bufs[name]), name
+    torch.testing.assert_close(got.bufs["gate"].cpu(), want.bufs["gate"], rtol=0, atol=1e-5)
+    for name in ("logits", "kc", "vc", "yr") + (("logp", "kp", "vp") if fold else ()):
+        torch.testing.assert_close(got.bufs[name].cpu(), want.bufs[name], rtol=0, atol=1e-4,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_unified_moe_kernel_free_mode_runs_every_task_on_card(cuda_device):
+    got, want, res_got, _, n = _moe_plans(cuda_device, True, mode="free")
+    assert n == 2 + 5 * got.g.L
+    assert bool((res_got.mult[:got.g.n_tasks] >= 1).all())
+    for name in ("logits", "logp"):
+        torch.testing.assert_close(got.bufs[name].cpu(), want.bufs[name], rtol=0, atol=1e-4)

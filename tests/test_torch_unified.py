@@ -1,4 +1,4 @@
-"""The unified engine step of the port (dense half) against the JAX package:
+"""The unified engine step of the port (dense models) against the JAX package:
 the stage-gated Put, the one-launch step (decode and a folded prompt), its
 free-mode per-stage launches and their glue-duplication drill, the stage
 cache, the gate, and the serving engine's unified mode.  Smoke sizes; the
@@ -26,6 +26,7 @@ from repro_torch.models.unified import (
     GLUE_LOGITS,
     GLUE_POST,
     GLUE_PRE,
+    check_ported,
     clear_stage_cache,
     decode_step_unified,
     plan_step,
@@ -278,8 +279,10 @@ def test_unified_gate_and_unported_knobs(ref):
     with pytest.raises(ValueError):
         decode_step_unified(tp, SMOKE.replace(dtype="bfloat16"), _caches(caches),
                             torch.from_numpy(tok), pos)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        decode_step_unified(tp, kimi, _caches(caches), torch.from_numpy(tok), pos)
+    check_ported(kimi)  # the MoE half is ported; its own tests are test_torch_unified_moe
+    with pytest.raises(ValueError):  # the dense dispatch has no ws oracle
+        decode_step_unified(tp, kimi.replace(moe_dispatch="dense"), _caches(caches),
+                            torch.from_numpy(tok), pos)
     with pytest.raises(NotImplementedError, match="trace"):
         decode_step_unified(tp, SMOKE, _caches(caches), torch.from_numpy(tok), pos, trace=True)
     with pytest.raises(ValueError):

@@ -12,19 +12,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               (B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8, bf16, K/V read
               through the cache's transposed strides) and one causal flash
               launch (bq=16): lockstep integer arrays bit-equal and `out`
-              within ATOL; free mode with every task run, `out` within ATOL
-              of the plain version's normalised output, and a seeded rewind
-              drill with mult == 2.
+              within ATOL (once traced: the event rings bit-equal too); free
+              mode with every task run, `out` within ATOL of the plain
+              version's normalised output, and a seeded rewind drill with
+              mult == 2.
 3. expert     the expert kernel against its plain version on the card at
               kimi-k2's full width (d 7168, f 2048, 384 experts, top-8,
               bt 8, P 8, bf16 weights from seed 0), at a decode routing
               (T=4) and a prefill routing (T=64): lockstep integer arrays
               bit-equal (cost, scan, static), `out` within ATOL; free mode
               runs every tile and its combine equals the plain version's
-              normalised one; a rewind drill without thieves gives mult == 2.
+              normalised one; a rewind drill without thieves gives mult == 2;
+              a traced lockstep launch's rings equal the plain walk's.
               Then the attention kernel once at kimi's shape (H 64, Hkv 8,
-              hd 112), and the expert kernel's times at the decode routing.
-4. audit      0 atom/red/fence/membar in each kernel's SASS and PTX.
+              hd 112), and the expert kernel's times at the decode routing
+              (free mode untraced and traced).
+4. audit      0 atom/red/fence/membar in each kernel's SASS and PTX, in both
+              instantiations (untraced and traced) of every kernel function;
+              each untraced function's registers and SASS instructions
+              beside the build before the trace rings (BASELINE_FUNCTIONS).
+4b. chaos     repro_torch.chaos on free-mode launches: a traced fault-free
+              free launch of ws_attention (llama decode shape) and ws_expert
+              (kimi-k2 full width, decode routing, the expert phase's
+              weights) held to SafetyChecker's free-mode reading; then 2
+              seeded FaultPlans each through run_with_faults in lockstep
+              (kernel segments bit-equal to the plain walk's, checker clean)
+              and in free mode (checker clean).  ws_expert_grad's and
+              ws_unified's checks run in their phases (grad, unified,
+              unified_moe), which hold their data.
 5. serving    llama3.2-3b at full width (bf16, random weights from a seed),
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
@@ -51,7 +66,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               each column group of `out` within GRAD_RTOL of its scale; free
               mode runs every live tile and prints sum(mult)/tiles; the
               no-thief rewind drill gives mult == 2 with the rows unchanged;
-              the forward kernel on the same pool queues, bit-equal too.
+              the forward kernel on the same pool queues, bit-equal too.  The
+              cost case is traced (rings bit-equal); a traced free launch and
+              one seeded FaultPlan without launch faults (lockstep against
+              the plain walk, and free) go through SafetyChecker.
 9. train      deepseek-v2-236b at full width cut to 1 layer (5.02 B
               parameters, bf16, AdamW with fp32 states), moe_dispatch and
               moe_grad_dispatch "ws", 8 x 64 tokens, seed 0.  Before the
@@ -63,15 +81,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               times at that launch.  Then 3 steps through train() (its
               make_optimizer / make_train_step / make_batch), launches
               counted from 0 (2 and 1 a step), finite losses, step seconds
-              and peak device memory printed.
+              and peak device memory printed; the grad kernel's free time
+              untraced and traced.
 10. unified   llama3.2-3b in fp32 at full width (28 layers, 14.43 GB) through
               the unified step (ws_unified): one lockstep decode step at the
-              serving shape (4 slots x 1024 positions) and one with a folded
-              100-token prompt against the plain version (integer arrays
-              bit-equal, logits, caches and the prompt's k/v within
-              UNIFIED_RTOL of their scale), the lockstep step against the
-              split fp32 step, free mode's 86 per-stage launches (every task
-              run, within UNIFIED_RTOL of lockstep), times and bounds; then
+              serving shape (4 slots x 1024 positions), traced, and one with a
+              folded 100-token prompt against the plain version (integer
+              arrays and the decode step's rings bit-equal, logits, caches
+              and the prompt's k/v within UNIFIED_RTOL of their scale), the
+              lockstep step against the split fp32 step, free mode's 86
+              per-stage launches (traced, every task run, within UNIFIED_RTOL
+              of lockstep, clean under SafetyChecker's free-mode reading),
+              times (free untraced and traced) and bounds; then
               2 replicas of ContinuousBatcher(unified_step=True) serve 8
               requests (prompts 16-128 tokens) with no degradation and one
               ws_unified launch per step and no other kernel, and their
@@ -82,20 +103,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               weights are freed, through the MoE half of the unified step
               (router, pool Put, expert tiles, expert combine in ws_unified):
               one lockstep decode step at 4 slots of lengths 1024, 658, 531,
-              288 and one with a folded 64-token prompt against the plain
-              version (integer arrays bit-equal, the routing buffers equal,
+              288 (traced) and one with a folded 64-token prompt against the
+              plain version (integer arrays and the decode step's rings
+              bit-equal, the routing buffers equal,
               logits, caches and the prompt's k/v within UNIFIED_RTOL of their
               scale; a row whose top-8 is a near-tie within the router's
               rounding is reported and left out), against the split fp32 step
               (ws_attention, ws_expert), free mode's 7 per-stage launches
-              (sum(mult)/tasks and the largest mult printed), times, bounds
+              (traced; sum(mult)/tasks and the largest mult printed, clean
+              under SafetyChecker's free-mode reading), times, bounds
               from this run's routing and peak memory; then 2 replicas of
               ContinuousBatcher(unified_step=True) serve 8 requests (prompts
               8-64 tokens, 8 new tokens) with one ws_unified launch a step,
               no other kernel and no degradation, against the split engine.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
-object listing the ported kernels, and {"ok": true, "device": {...}}.
+object listing the ported kernels (each with its free-mode times untraced
+and traced and its checker reports), and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --phases build,audit,chaos       # the short check of the rings
+    python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
 """
 
 from __future__ import annotations
@@ -149,11 +176,21 @@ DECODE = dict(B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8)
 KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
-PHASES = ("build", "parity", "expert", "audit", "serving", "times", "moe", "grad", "train",
-          "unified", "unified_moe")
+PHASES = ("build", "parity", "expert", "audit", "chaos", "serving", "times", "moe", "grad",
+          "train", "unified", "unified_moe")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+# Seeded FaultPlans of the chaos checks (FaultPlan.from_seed, P 8): with
+# kills, storms, stalls and advisory garbage between them.
+CHAOS_SEEDS = (3, 5)
+GRAD_CHAOS_SEED = 6            # kills (2, 2) and a full storm, without launch faults
+
+# Checker reports and traced/untraced free-mode times of this run, by kernel
+# (the kernels line carries them), and data a later phase reuses.
+CHAOS = {}
+TRACED = {}
+HELD = {}
 
 
 def log(*a):
@@ -183,9 +220,93 @@ def phase_build():
 
 
 def _ints(res):
+    """The launch's integer arrays, with its event rings when it was traced."""
     names = ("head", "local_head", "taken", "remaining", "clock", "work",
              "steals", "scanned", "mult")
+    if res.events is not None:
+        names += ("events", "ev_cursor")
     return {n: getattr(res, n).cpu().numpy() for n in names}
+
+
+def _report(kernel, what, rep):
+    """Log one SafetyChecker report and keep it for the kernels line; a
+    violation fails the run."""
+    entry = dict(what=what, mode=rep.stats["mode"], ok=rep.ok, max_mult=rep.max_mult,
+                 mult_per_task=round(rep.stats["mult_per_task"], 4), n_tasks=rep.n_tasks,
+                 n_claims=rep.n_claims, dropped=rep.dropped,
+                 segments=[sg["kind"] for sg in rep.stats["segments"]],
+                 parity=rep.normalized_parity, clauses=rep.stats["clauses"])
+    CHAOS.setdefault(kernel, []).append(entry)
+    log(f"[chaos] {kernel} {what}: {json.dumps(entry)}")
+    if not rep.ok:
+        raise AssertionError(f"{kernel} {what}: {[str(v) for v in rep.violations]}")
+
+
+def _same_segments(name, ck, cp):
+    """Two lockstep fault runs, the kernel's and the plain walk's: the same
+    segments, start snapshots, streams and integer arrays."""
+    if [(sg.kind, sg.budget) for sg in ck.segments] != [(sg.kind, sg.budget) for sg in cp.segments]:
+        raise AssertionError(f"{name}: segment sequences differ")
+    for i, (a, b) in enumerate(zip(ck.segments, cp.segments)):
+        same = (np.array_equal(a.start_head, b.start_head)
+                and np.array_equal(a.start_local, b.start_local)
+                and np.array_equal(a.stream, b.stream) and a.dropped == b.dropped)
+        ia, ib = _ints(a.res), _ints(b.res)
+        bad = [n for n in ia if not np.array_equal(ia[n], ib[n])]
+        if not same or bad:
+            raise AssertionError(f"{name}: segment {i} ({a.kind}) differs from the plain walk's "
+                                 f"{bad or 'snapshot/stream'}")
+
+
+def _chaos_plans(kernel, what, state, launch, plain_launch, check, rounds, seeds,
+                 without_launch_faults=False):
+    """Each seeded FaultPlan through run_with_faults: in lockstep on the
+    kernel and on the plain walk (bit-equal segments, checker clean), and in
+    free mode on the kernel (checker clean).  ``launch(mode)`` and
+    ``plain_launch`` are run_with_faults launch callables; ``check(chaos)``
+    returns the checker's report."""
+    from repro_torch.chaos import FaultPlan, run_with_faults
+    from repro_torch.pallas_ws import copy_state
+
+    for seed in seeds:
+        plan = FaultPlan.from_seed(seed, n_programs=state.n_programs)
+        if without_launch_faults:
+            plan = plan.without_launch_faults()
+        name = f"{what} plan {seed} (stalls {list(plan.stalls)}, {plan.advisory} advisory, " \
+               f"kills {list(plan.kills)}, storms {plan.storms})"
+        ck = run_with_faults(copy_state(state), launch("lockstep"), plan, rounds=rounds)
+        torch.cuda.synchronize()
+        cp = run_with_faults(copy_state(state), plain_launch, plan, rounds=rounds)
+        _same_segments(f"{kernel} {name}", ck, cp)
+        _report(kernel, f"{name} lockstep (segments bit-equal to the plain walk)", check(ck))
+        cf = run_with_faults(copy_state(state), launch("free"), plan, rounds=rounds, mode="free")
+        torch.cuda.synchronize()
+        _report(kernel, f"{name} free", check(cf))
+
+
+def _rounds(mode, rounds):
+    """The rounds argument of a timed launch: the lockstep grid, and in free
+    mode 0, no budget (a traced free CTA reads a positive one as its budget)."""
+    return rounds if mode == "lockstep" else 0
+
+
+def _with_rings(arrs_list, cap, policy="cost"):
+    """Fresh event rings (and a zero carried mult) for launch-ready array
+    sets of free-mode launches; returns each set's ring arguments."""
+    from repro_torch.pallas_ws import kernel as K
+    from repro_torch.wstrace import EVENT_WIDTH
+
+    kind = K.KIND_STEAL_SCAN if policy == "scan" else K.KIND_STEAL_COST
+    rings = []
+    for a in arrs_list:
+        P, n_tasks = a["mult"].shape
+        dev = a["mult"].device
+        a["events"] = torch.full((P, cap, EVENT_WIDTH), -1, dtype=torch.int32, device=dev)
+        a["ev_cursor"] = torch.zeros(P, dtype=torch.int32, device=dev)
+        a["mult0"] = torch.zeros(n_tasks, dtype=torch.int32, device=dev)
+        rings.append((a["events"].data_ptr(), a["ev_cursor"].data_ptr(), a["mult0"].data_ptr(),
+                      cap, kind, K.FREE_STALL_NS))
+    return rings
 
 
 def decode_inputs(rng, dev, c=None):
@@ -284,6 +405,9 @@ def phase_parity(dev):
         res_p, err = _check_lockstep(f"decode steal={steal} {policy}", state, q4, k, v,
                                      steal=steal, steal_policy=policy, **kw)
         errs.append(err)
+    # the traced instantiation: its event rings too, bit for bit
+    errs.append(_check_lockstep("decode steal=True cost traced (rings)", state, q4, k, v,
+                                steal=True, steal_policy="cost", trace=True, **kw)[1])
     expect = normalized_out(res_p, tasks, (c["B"], c["H"], 1))
     errs.append(_check_free("decode", state, q4, k, v, expect, tasks, **kw))
     ref = ragged_decode_ref(q.cpu(), k.cpu(), v.cpu(), lengths).float()
@@ -489,17 +613,23 @@ def _expert_times(x, tasks, routed, ws, w):
     tok = torch.from_numpy(routed.tok_idx).to(dev)
     out = torch.zeros((routed.n_rows, c["d"]), dtype=torch.float32, device=dev)
     times = {}
-    for mode, n in (("free", 10), ("lockstep", 3)):
+    for mode, n, traced in (("free", 10, False), ("lockstep", 3, False), ("free", 10, True)):
         rounds = K.default_rounds(ws, True)
         arrs = _fresh_arrays(state, mode, n + 1)
+        rings = (_with_rings(arrs, int(np.asarray(ws.tail).sum())) if traced
+                 else [K.NO_RING] * (n + 1))
 
-        def launch(i, mode=mode, rounds=rounds):
-            X._launch_cuda(arrs[i], x, tok, *w, out, mode=mode, rounds=rounds, steal=True,
-                           policy="cost", compress=False, bt=c["bt"], n_tasks=ws.n_tasks)
+        def launch(i, mode=mode, rounds=rounds, rings=rings):
+            X._launch_cuda(arrs[i], x, tok, *w, out, mode=mode, rounds=_rounds(mode, rounds),
+                           steal=True,
+                           policy="cost", compress=False, bt=c["bt"], n_tasks=ws.n_tasks,
+                           ring=rings[i])
 
         launch(n)  # warm-up
         torch.cuda.synchronize()
-        times[mode] = _event_ms(launch, n)
+        times[mode + ("_traced" if traced else "")] = _event_ms(launch, n)
+    TRACED["ws_expert"] = dict(free_ms_untraced=times["free"], free_ms_traced=times["free_traced"],
+                               at="kimi-k2 decode routing", card=card_line())
     _moe(ws, x, routed, w, plain=True, mode="free")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -517,7 +647,8 @@ def _expert_times(x, tasks, routed, ws, w):
     bound_ms = max(byte_ms, ops_ms)
     bound_by = "bytes" if byte_ms >= ops_ms else "operations"
     log(f"[times] ws_expert decode routing T={T} ({rows} rows over {touched} experts, "
-        f"{ws.n_tasks} tiles): kernel free {times['free']:.4f} ms, lockstep "
+        f"{ws.n_tasks} tiles): kernel free {times['free']:.4f} ms (traced "
+        f"{times['free_traced']:.4f} ms), lockstep "
         f"{times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
         f"{w_bytes + io_bytes} B), plain version {plain_ms:.2f} ms; no single PyTorch "
         "call computes a gathered gated expert FFN, so there is no library time")
@@ -543,6 +674,21 @@ def phase_expert(dev):
         errs.append(_check_expert(f"{name} T={T}", x, tasks, routed, ws, static, w))
         if decode is None:
             decode = (x, tasks, routed, ws)
+    # the traced instantiation at the decode routing: its rings too
+    x, _, routed, ws = decode
+    kw = dict(mode="lockstep", steal=True, steal_policy="cost", trace=True)
+    res_k = _moe(ws, x, routed, w, **kw)
+    torch.cuda.synchronize()
+    res_p = _moe(ws, x, routed, w, plain=True, **kw)
+    ik, ip = _ints(res_k), _ints(res_p)
+    bad = [n for n in ik if not np.array_equal(ik[n], ip[n])]
+    err = float((res_k.out - res_p.out).abs().max())
+    if bad or not err <= ATOL:
+        raise AssertionError(f"expert decode traced lockstep: {bad} differ, out err {err}")
+    errs.append(err)
+    log(f"[expert] decode traced lockstep: integer arrays and event rings "
+        f"({int(res_k.ev_cursor.sum())} events) bit-equal to the plain walk's, out "
+        f"max_abs_err {err:.3g}")
 
     # the attention kernel once at kimi's shape (hd 112 is no multiple of 32)
     k_ = KIMI_DECODE
@@ -557,10 +703,67 @@ def phase_expert(dev):
     attn_err = max(err, _check_free("kimi decode", astate, q4, k, v, expect, atasks, **kw))
 
     times = _expert_times(*decode, w)
+    HELD["expert"] = (w, decode)  # the chaos phase's ws_expert checks reuse them
     del w, decode
-    gc.collect()
-    torch.cuda.empty_cache()
     return dict(max_abs_err=max(errs), attn_err=attn_err, **times)
+
+
+# Every kernel function of the last build without trace rings (the kernels
+# of commit d8d61f4, measured on an NVIDIA H100 80GB HBM3 (700.00 W; nvcc of
+# CUDA 12.8) by `python3 chip_smoke.py --audit-baseline DIR` with that tree
+# unpacked in DIR): ptxas registers and SASS instructions, by the
+# function's name (its untraced instantiation's, in _build.function_key).
+BASELINE_FUNCTIONS = {
+    "void ws_expert_free_kernel<__nv_bfloat16>(WSQueues, ExpertArgs)":
+        (255, 4240),
+    "void ws_expert_free_kernel<float>(WSQueues, ExpertArgs)":
+        (255, 4096),
+    "void ws_expert_grad_free_kernel<__nv_bfloat16>(WSQueues, GradArgs)":
+        (255, 6136),
+    "void ws_expert_grad_free_kernel<float>(WSQueues, GradArgs)":
+        (255, 6256),
+    "void ws_expert_grad_lockstep_kernel<__nv_bfloat16>(WSQueues, GradArgs)":
+        (232, 12360),
+    "void ws_expert_grad_lockstep_kernel<float>(WSQueues, GradArgs)":
+        (255, 12664),
+    "void ws_expert_lockstep_kernel<__nv_bfloat16>(WSQueues, ExpertArgs)":
+        (255, 8384),
+    "void ws_expert_lockstep_kernel<float>(WSQueues, ExpertArgs)":
+        (255, 8152),
+    "void ws_free_kernel<__nv_bfloat16>(WSQueues, AttnArgs)":
+        (56, 2680),
+    "void ws_free_kernel<float>(WSQueues, AttnArgs)":
+        (48, 3552),
+    "void ws_lockstep_kernel<__nv_bfloat16>(WSQueues, AttnArgs)":
+        (48, 3784),
+    "void ws_lockstep_kernel<float>(WSQueues, AttnArgs)":
+        (48, 4384),
+    "ws_unified_free(WSQueues, UArgs)":
+        (115, 29080),
+    "ws_unified_lockstep(WSQueues, UArgs)":
+        (128, 57520),
+}
+
+
+def _log_functions(tag, name, fns, baseline=None):
+    for f in sorted(fns, key=lambda f: (fns[f].get("traced", False), f)):
+        st = fns[f]
+        line = (f"[{tag}] {name} {'traced  ' if st.get('traced') else 'untraced'} {f}: "
+                f"{st['registers']} registers, {st['spill_stores']} B spill stores, "
+                f"{st.get('sass_instructions')} SASS instructions, forbidden SASS "
+                f"{st.get('forbidden_sass')}")
+        if baseline is not None and not st.get("traced"):
+            from repro_torch import _build
+
+            b = baseline.get(_build.function_key(f))
+            if b is None:
+                line += "; the build without rings: not recorded"
+            else:
+                same = b == (st["registers"], st.get("sass_instructions"))
+                line += (f"; the build without rings: {b[0]} registers, {b[1]} SASS "
+                         "instructions"
+                         + (" (the same)" if same else " (DIFFERS)"))
+        log(line)
 
 
 def phase_audit():
@@ -568,8 +771,9 @@ def phase_audit():
 
     from repro_torch import _build
 
-    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+    with ThreadPoolExecutor(2 * len(_build.KERNELS)) as pool:
         audits = dict(zip(_build.KERNELS, pool.map(_build.fence_audit, _build.KERNELS)))
+        stats = dict(zip(_build.KERNELS, pool.map(_build.function_stats, _build.KERNELS)))
     for name, audit in audits.items():
         log(f"[audit] {name}: kernels {audit['sass_kernels']}, {audit['sass_instructions']} "
             f"SASS instructions; forbidden SASS {audit['sass']}, forbidden PTX {audit['ptx']}")
@@ -577,6 +781,132 @@ def phase_audit():
             raise AssertionError(f"{name} is not fence-free")
         if not audit["sass_kernels"]:
             raise AssertionError(f"cuobjdump found no kernel in {name}")
+        fns = stats[name]
+        _log_functions("audit", name, fns, BASELINE_FUNCTIONS)
+        n_traced = sum(st["traced"] for st in fns.values())
+        if not n_traced or 2 * n_traced != len(fns):
+            raise AssertionError(f"{name}: want an untraced and a traced instantiation of "
+                                 f"every kernel function: {sorted(fns)}")
+        bad = {f: st["forbidden_sass"] for f, st in fns.items() if st["forbidden_sass"]}
+        if bad:
+            raise AssertionError(f"{name}: forbidden SASS in {bad}")
+    return stats
+
+
+def audit_baseline(root) -> None:
+    """Build another checkout's kernels (``root``: the repo's layout) into its
+    own build/ and print every kernel function's registers and SASS
+    instructions, keyed as BASELINE_FUNCTIONS is."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from repro_torch import _build
+
+    csrc = Path(root) / "src" / "repro_torch" / "csrc"
+    bdir = Path(root) / "build" / "repro_torch"
+    names = [n for n in _build.KERNELS if (csrc / f"{n}.cu").exists()]
+    with ThreadPoolExecutor(len(names)) as pool:
+        stats = dict(zip(names, pool.map(lambda n: _build.function_stats(n, csrc, bdir), names)))
+    table = {}
+    for name, fns in stats.items():
+        _log_functions("baseline", name, fns)
+        for f, st in fns.items():
+            table[_build.function_key(f)] = (st["registers"], st["sass_instructions"])
+    log("[baseline] " + json.dumps(table, sort_keys=True))
+
+
+def phase_chaos(dev):
+    """SafetyChecker on free-mode launches of ws_attention (llama3.2-3b's
+    decode shape) and ws_expert (kimi-k2's full width, decode routing), and
+    CHAOS_SEEDS' fault plans through both in lockstep and in free mode."""
+    from repro_torch.chaos import SafetyChecker, single_launch
+    from repro_torch.moe_ws import row_divisor, run_moe_schedule
+    from repro_torch.pallas_ws import (
+        copy_state, default_rounds, emit_decode_tasks, make_queue_state, multiplicity_divisor,
+        run_ws_schedule,
+    )
+
+    t_phase = time.perf_counter()
+    c = DECODE
+    lengths, q, k, v = decode_inputs(np.random.default_rng(SEED), dev)
+    tasks = emit_decode_tasks(lengths, c["H"], c["bk"])
+    state = make_queue_state(tasks, c["P"])
+    q4 = q[:, :, None, :]
+    akw = dict(causal=False, bq=1, bk=c["bk"], steal=True, steal_policy="cost")
+    shape = (c["B"], c["H"], 1)
+    base = run_ws_schedule(copy_state(state), q4, k, v, mode="lockstep", **akw)
+    clean = run_ws_schedule(copy_state(state), q4, k, v, mode="free", trace=True, **akw)
+    torch.cuda.synchronize()
+
+    def a_launch(mode):
+        def go(st, *, rounds, out, mult, fault_plan):
+            return run_ws_schedule(st, q4, k, v, mode=mode, rounds=rounds, out=out, mult=mult,
+                                   trace=True, fault_plan=fault_plan, **akw)
+        return go
+
+    def a_plain(st, **a):
+        with plain_versions():
+            return a_launch("lockstep")(st, **a)
+
+    def a_check(ch):
+        if ch.mode == "lockstep":  # one tile a row: the exact float replay
+            return SafetyChecker().check(
+                ch, n_tasks=state.n_tasks, oracle_accumulated=base.out,
+                row_mult=multiplicity_divisor(tasks, ch.res.mult.cpu().numpy(), shape))
+        return SafetyChecker().check(ch, n_tasks=state.n_tasks, normalized=ch.res.out,
+                                     oracle_normalized=clean.out, rtol=0, atol=ATOL)
+
+    _report("ws_attention", "fault-free free launch (llama3.2-3b decode shape)",
+            SafetyChecker().check(single_launch(state, clean), n_tasks=state.n_tasks,
+                                  normalized=clean.out, oracle_normalized=base.out,
+                                  rtol=0, atol=ATOL))
+    _chaos_plans("ws_attention", "llama3.2-3b decode shape", state, a_launch, a_plain, a_check,
+                 default_rounds(state, True), CHAOS_SEEDS)
+    del base, clean
+
+    if "expert" in HELD:
+        w, (x, etasks, routed, ws) = HELD.pop("expert")
+    else:
+        w = expert_weights(dev)
+        x, etasks, routed, ws, _ = expert_routing(np.random.default_rng(SEED), EXPERT_T["decode"])
+        x = torch.from_numpy(x).to(dev)
+    ekw = dict(bt=EXPERT["bt"], steal=True, steal_policy="cost")
+    ebase = run_moe_schedule(copy_state(ws), x, routed.tok_idx, *w, mode="lockstep", **ekw)
+    eclean = run_moe_schedule(copy_state(ws), x, routed.tok_idx, *w, mode="free", trace=True,
+                              **ekw)
+    torch.cuda.synchronize()
+
+    def e_launch(mode):
+        def go(st, *, rounds, out, mult, fault_plan):
+            return run_moe_schedule(st, x, routed.tok_idx, *w, mode=mode, rounds=rounds,
+                                    out=out, mult=mult, trace=True, fault_plan=fault_plan, **ekw)
+        return go
+
+    def e_plain(st, **a):
+        with plain_versions():
+            return e_launch("lockstep")(st, **a)
+
+    def e_check(ch):
+        if ch.mode == "lockstep":
+            return SafetyChecker().check(
+                ch, n_tasks=ws.n_tasks, oracle_accumulated=ebase.out,
+                row_mult=row_divisor(etasks, ch.res.mult.cpu().numpy(), routed.n_rows))
+        rep = SafetyChecker().check(ch, n_tasks=ws.n_tasks, normalized=ch.res.out,
+                                    oracle_normalized=eclean.out, rtol=0, atol=ATOL)
+        if rep.normalized_parity != "bitwise":  # the same tile's bits, stored again
+            raise AssertionError(f"ws_expert free chaos: parity {rep.normalized_parity}")
+        return rep
+
+    _report("ws_expert", "fault-free free launch (kimi-k2 decode routing)",
+            SafetyChecker().check(single_launch(ws, eclean), n_tasks=ws.n_tasks,
+                                  normalized=eclean.out, oracle_normalized=ebase.out,
+                                  rtol=0, atol=ATOL))
+    _chaos_plans("ws_expert", "kimi-k2 decode routing", ws, e_launch, e_plain, e_check,
+                 default_rounds(ws, True), CHAOS_SEEDS)
+    del w, x, ebase, eclean
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[chaos] phase {time.perf_counter() - t_phase:.1f} s; card {card_line()}")
 
 
 def phase_serving(dev):
@@ -1018,12 +1348,13 @@ def phase_grad(dev):
         f"pool of {records.shape[0]}, {int((routed.loads > 0).sum())} experts touched")
 
     abs_errs, rel_errs = [], []
-    cases = ((pool, routed, dict(steal=True, steal_policy="cost", rounds=rounds)),
+    # the cost case runs the traced instantiation: its rings are compared too
+    cases = ((pool, routed, dict(steal=True, steal_policy="cost", rounds=rounds, trace=True)),
              (pool, routed, dict(steal=True, steal_policy="scan", rounds=rounds)),
              (static, hrouted, dict(steal=False)))
     for state, rt, kw in cases:
         name = (f"{'pool' if state.pool else 'dense'} steal={kw['steal']} "
-                f"{kw.get('steal_policy', 'cost')}")
+                f"{kw.get('steal_policy', 'cost')}" + (" traced" if kw.get("trace") else ""))
         t0 = time.perf_counter()
         res_k = _grad_run(state, x, gy, rt, w, mode="lockstep", **kw)
         torch.cuda.synchronize()
@@ -1039,6 +1370,7 @@ def phase_grad(dev):
         rel_errs.append(r)
         if state.pool and kw["steal_policy"] == "cost":
             expect = _normalised(res_p, routed, None, c["bt"])
+            oracle = res_k.out  # the fault-free lockstep accumulation, every tile once
         if not state.pool:
             expect_static = _normalised(res_p, hrouted, tasks, c["bt"])
         log(f"[grad] ws_expert_grad {name} lockstep: integer arrays bit-equal, out max_abs_err "
@@ -1056,6 +1388,7 @@ def phase_grad(dev):
     duplication = int(mult.sum()) / n_live
     log(f"[grad] ws_expert_grad free (pool): mult in [{int(mult.min())}, {int(mult.max())}], "
         f"sum(mult)/tiles {duplication:.2f}, out max_abs_err {a:.3g}, group-relative {r:.3g}")
+    _grad_chaos(pool, x, gy, routed, w, rounds, n_live, oracle, res.out)
 
     # rewind drill without thieves: resume with every head at 0 and every
     # local bound wiped; each tile runs exactly once more (mult == 2) and its
@@ -1102,6 +1435,44 @@ def phase_grad(dev):
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(abs_errs), max_group_rel_err=max(rel_errs),
                 free_duplication=duplication, pool_fwd_err=fwd_err)
+
+
+def _grad_chaos(pool, x, gy, routed, w, rounds, n_live, oracle, free_out):
+    """SafetyChecker on a traced free launch of ws_expert_grad, then the
+    seeded plan GRAD_CHAOS_SEED without launch faults (the grad schedule
+    takes none) in lockstep against the plain walk and in free mode."""
+    from repro_torch.chaos import SafetyChecker, single_launch
+    from repro_torch.moe_ws import run_moe_grad_schedule
+    from repro_torch.moe_ws.layer import _row_divisor
+    from repro_torch.pallas_ws import copy_state
+
+    t0 = time.perf_counter()
+    kw = dict(bt=GRAD["bt"], steal=True, steal_policy="cost")
+
+    def launch(mode):
+        def go(st, *, rounds, out, mult, fault_plan):
+            return run_moe_grad_schedule(st, x, gy, routed.tok_idx, routed.gates, *w, mode=mode,
+                                         rounds=rounds, out=out, mult=mult, trace=True, **kw)
+        return go
+
+    def plain(st, **a):
+        with plain_versions():
+            return launch("lockstep")(st, **a)
+
+    def check(ch):
+        if ch.mode == "lockstep":
+            return SafetyChecker().check(ch, n_tasks=n_live, oracle_accumulated=oracle,
+                                         row_mult=_row_divisor(routed, None, ch.res, GRAD["bt"]))
+        return SafetyChecker().check(ch, n_tasks=n_live, normalized=ch.res.out,
+                                     oracle_normalized=free_out, rtol=GRAD_RTOL, atol=ATOL)
+
+    clean = launch("free")(copy_state(pool), rounds=None, out=None, mult=None, fault_plan=None)
+    torch.cuda.synchronize()
+    _report("ws_expert_grad", "fault-free free launch (deepseek-v2 train routing)",
+            check(single_launch(pool, clean)))
+    _chaos_plans("ws_expert_grad", "deepseek-v2 train routing", pool, launch, plain, check,
+                 rounds, (GRAD_CHAOS_SEED,), without_launch_faults=True)
+    log(f"[grad] chaos checks {time.perf_counter() - t0:.1f} s")
 
 
 def _moe_pool(state, x, routed, w, rounds):
@@ -1186,6 +1557,7 @@ def _grad_times(state, args, kw):
     of the train step, its bound, and the plain version's time."""
     from repro_torch.moe_ws import expert_kernel as X
     from repro_torch.moe_ws import run_moe_grad_schedule
+    from repro_torch.pallas_ws import kernel as K
     from repro_torch.pallas_ws import to_device
 
     x_in, gy, tok_idx, gate_rows, wg, wu, wd = args
@@ -1199,18 +1571,24 @@ def _grad_times(state, args, kw):
     out = torch.zeros((tok.shape[0], W), dtype=torch.float32, device=dev)
     ds = to_device(state, dev)
     times = {}
-    for mode, n in (("free", 3), ("lockstep", 1)):
+    for mode, n, traced in (("free", 3, False), ("lockstep", 1, False), ("free", 2, True)):
         arrs = _fresh_arrays(ds, mode, n + 1)
+        rings = (_with_rings(arrs, int(np.asarray(state.tail).sum())) if traced
+                 else [K.NO_RING] * (n + 1))
 
-        def launch(i, mode=mode):
+        def launch(i, mode=mode, rings=rings):
             X._launch_grad_cuda(arrs[i], x, gy, tok, gr, wg, wu, wd, out, mode=mode,
-                                rounds=kw["rounds"], steal=True, policy="cost",
-                                compress=False, bt=kw["bt"], n_tasks=state.n_tasks)
+                                rounds=_rounds(mode, kw["rounds"]), steal=True, policy="cost",
+                                compress=False, bt=kw["bt"], n_tasks=state.n_tasks,
+                                ring=rings[i])
 
-        if mode == "free":
+        if mode == "free" and not traced:
             launch(n)  # warm-up
             torch.cuda.synchronize()
-        times[mode] = _event_ms(launch, n)
+        times[mode + ("_traced" if traced else "")] = _event_ms(launch, n)
+    TRACED["ws_expert_grad"] = dict(free_ms_untraced=times["free"],
+                                    free_ms_traced=times["free_traced"],
+                                    at="deepseek-v2 train step routing", card=card_line())
     # the forward kernel at the same routing, for the step's breakdown
     fwd_out = torch.zeros((tok.shape[0], d), dtype=torch.float32, device=dev)
     arrs = _fresh_arrays(ds, "free", 3)
@@ -1241,7 +1619,7 @@ def _grad_times(state, args, kw):
     bound_by = "bytes" if byte_ms >= ops_ms else "operations"
     log(f"[times] ws_expert_grad at the train step's routing ({rows} rows over {touched} "
         f"experts, {int(np.asarray(state.tail).sum())} tiles): kernel free {times['free']:.4f} "
-        f"ms, lockstep {times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"ms (traced {times['free_traced']:.4f} ms), lockstep {times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
         f"{w_bytes + io_bytes} B; operations {ops_ms:.5f} ms), plain version {plain_ms:.2f} ms; "
         "no single PyTorch call computes the gathered expert FFN's transpose, so there is "
         f"no library time; ws_expert free at the same routing {fwd_ms:.4f} ms")
@@ -1432,6 +1810,35 @@ def _unified_bound(params, cfg, lengths, R, n_logit_rows, Lp):
     return max(byte_ms, ops_ms), ("bytes" if byte_ms >= ops_ms else "operations"), by, ops
 
 
+def _families(rep, state=None):
+    """Extractions and their tile-slot costs per task family of a traced
+    unified launch (a report, or a result and its state)."""
+    from repro_torch.pallas_ws.tasks import family_of
+    from repro_torch.wstrace import EV_COST, EV_OP, WSTrace
+
+    res, state = (rep.res, rep.state) if state is None else (rep, state)
+    ev = WSTrace.from_run(state, res).events
+    out = {}
+    for op in np.unique(ev[:, EV_OP]):
+        mine = ev[ev[:, EV_OP] == op]
+        n, cost = out.get(family_of(int(op)).name, (0, 0))
+        out[family_of(int(op)).name] = (n + len(mine), cost + int(mine[:, EV_COST].sum()))
+    return {f: f"{n} events, {cost} tile-slots" for f, (n, cost) in sorted(out.items())}
+
+
+def _check_unified_free(model, rep, logits, lockstep_logits):
+    """A traced free step (one launch a stage) under SafetyChecker's
+    free-mode reading, its logits against lockstep's."""
+    from repro_torch.chaos import SafetyChecker, single_launch
+
+    scale = max(1.0, float(lockstep_logits.abs().max()))
+    report = SafetyChecker().check(single_launch(rep.state, rep.res), n_tasks=rep.n_tasks,
+                                   normalized=logits, oracle_normalized=lockstep_logits,
+                                   rtol=0, atol=UNIFIED_RTOL * scale)
+    _report("ws_unified", f"fault-free free step ({model}, {rep.launches} launches, "
+            f"{len(rep.trace_stream)} events: {_families(rep)})", report)
+
+
 def phase_unified(dev):
     """llama3.2-3b in fp32 at full width through the unified step: kernel
     against plain version (decode and a folded prompt), against the split
@@ -1475,7 +1882,8 @@ def phase_unified(dev):
     V = cfg.vocab_size
     errs, out = [], {}
     for fold in (False, True):
-        kw = dict(prefill_tokens=ptok) if fold else {}
+        # the decode step runs traced: its one ring stream is compared too
+        kw = dict(prefill_tokens=ptok) if fold else dict(trace=True)
         name = "fold" if fold else "decode"
         lk, ck, rk = decode_step_unified(params, cfg, caches(), tok, pos, **kw)
         torch.cuda.synchronize()
@@ -1498,8 +1906,11 @@ def phase_unified(dev):
             raise AssertionError(f"unified {name} against the plain version: {e} > {UNIFIED_RTOL}")
         log(f"[unified] {name} step (lengths {lengths.tolist()}"
             + (f", prompt {c['Lp']} tokens" if fold else "") + f", {rk.n_tasks} tasks, "
-            f"{rk.rounds} rounds, {rk.launches} launch): integer arrays bit-equal to the plain "
-            f"version; relative errors " + ", ".join(f"{n} {v:.3g}" for n, v in e.items())
+            f"{rk.rounds} rounds, {rk.launches} launch): integer arrays "
+            + ("" if fold else f"and the traced ring ({len(rk.trace_stream)} events: "
+               f"{_families(rk)}) ")
+            + "bit-equal to the plain version; relative errors "
+            + ", ".join(f"{n} {v:.3g}" for n, v in e.items())
             + f" (<= {UNIFIED_RTOL}); logits max_abs_err {abs_err:.3g}")
         del ck, cp, rk, rp
     ls, _ = decode_step_ws(params, cfg, caches(), tok, pos)
@@ -1510,10 +1921,11 @@ def phase_unified(dev):
         f"{int((lu[:, :V].argmax(-1) == ls[:, :V].argmax(-1)).sum())}/{c['B']}")
     if not split_err <= UNIFIED_RTOL:
         raise AssertionError("the unified step strays from the split step")
-    lf, _, rf = decode_step_unified(params, cfg, caches(), tok, pos, mode="free")
+    lf, _, rf = decode_step_unified(params, cfg, caches(), tok, pos, mode="free", trace=True)
     torch.cuda.synchronize()
     mult = rf.res.mult[:rf.n_tasks].cpu()
     free_err = _rel(lf, lu)
+    _check_unified_free("llama3.2-3b fp32", rf, lf[:, :V], lu[:, :V])
     log(f"[unified] free mode: {rf.launches} per-stage launches, every task run (mult in "
         f"[{int(mult.min())}, {int(mult.max())}], sum(mult)/tasks "
         f"{float(mult.sum()) / rf.n_tasks:.3f}), logits within {free_err:.3g} of lockstep")
@@ -1527,14 +1939,14 @@ def phase_unified(dev):
     times = {}
     for name, kw, mode, n in (("ms", {}, "lockstep", 3), ("fold_ms", dict(prefill_tokens=ptok),
                                                           "lockstep", 2),
-                              ("free_ms", {}, "free", 3)):
+                              ("free_ms", {}, "free", 3), ("free_traced_ms", {}, "free", 3)):
         plan = plan_step(params, cfg, caches(), tok, pos, **kw)
 
-        def step(_, plan=plan, mode=mode):
+        def step(_, plan=plan, mode=mode, traced=name == "free_traced_ms"):
             plan.bufs["att"].zero_()
             if "attp" in plan.bufs:
                 plan.bufs["attp"].zero_()
-            run_step(params, cfg, plan, mode=mode, **run)
+            run_step(params, cfg, plan, mode=mode, trace=traced, **run)
 
         step(0)
         torch.cuda.synchronize()
@@ -1548,9 +1960,13 @@ def phase_unified(dev):
     bound, bound_by, by, ops = _unified_bound(params, cfg, lengths, c["B"], c["B"], 0)
     fbound, fbound_by, fby, fops = _unified_bound(params, cfg, lengths, c["B"] + c["Lp"],
                                                   c["B"] + 1, c["Lp"])
+    TRACED.setdefault("ws_unified", {})["llama3.2-3b fp32"] = dict(
+        free_ms_untraced=times["free_ms"], free_ms_traced=times["free_traced_ms"],
+        at="a free step, 86 launches, the traced one with its rings merged on the host",
+        card=card_line())
     log(f"[times] ws_unified lockstep decode step {times['ms']:.2f} ms (1 launch), with a "
         f"{c['Lp']}-token fold {times['fold_ms']:.2f} ms, free mode {times['free_ms']:.2f} ms "
-        f"({rf.launches} launches); bound {bound:.4f} ms ({bound_by}: {by} B, {ops} flops), "
+        f"(traced {times['free_traced_ms']:.2f} ms) ({rf.launches} launches); bound {bound:.4f} ms ({bound_by}: {by} B, {ops} flops), "
         f"fold bound {fbound:.4f} ms ({fbound_by}: {fby} B, {fops} flops); plain version "
         f"{out['plain_decode_ms']:.1f} ms (fold {out['plain_fold_ms']:.1f} ms); split fp32 "
         f"step (decode_step_ws) {times['split_step_ms']:.2f} ms; no single PyTorch call "
@@ -1729,12 +2145,15 @@ def phase_unified_moe(dev):
     for fold in (False, True):
         kw = dict(prefill_tokens=ptok) if fold else {}
         name = "fold" if fold else "decode"
+        traced = not fold  # the decode step's ring stream is compared too
         plan_k = plan_step(params, cfg, caches(), tok, pos, **kw)
-        res_k, _ = run_step(params, cfg, plan_k, mode="lockstep", plain=False, **run)
+        res_k, _ = run_step(params, cfg, plan_k, mode="lockstep", plain=False, trace=traced,
+                            **run)
         plan_p = plan_step(params, cfg, caches(), tok, pos, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res_p, _ = run_step(params, cfg, plan_p, mode="lockstep", plain=True, **run)
+        res_p, _ = run_step(params, cfg, plan_p, mode="lockstep", plain=True, trace=traced,
+                            **run)
         torch.cuda.synchronize()
         out[f"plain_{name}_ms"] = (time.perf_counter() - t0) * 1e3
         ik, ip = _ints(res_k), _ints(res_p)
@@ -1775,7 +2194,10 @@ def phase_unified_moe(dev):
         log(f"[unified_moe] {name} step (lengths {lengths.tolist()}"
             + (f", prompt {c['Lp']} tokens" if fold else "") + f", {g.n_tasks} tasks, "
             f"{plan_k.rounds} rounds, 1 launch; {live} live of {g.pool_dec + g.pool_pre} pool "
-            f"tiles): integer arrays bit-equal to the plain version; routing (tok, e, rl, gate) "
+            f"tiles): integer arrays "
+            + (f"and the traced ring ({int(res_k.ev_cursor.sum())} events: "
+               f"{_families(res_k, plan_k.state)}) " if traced else "")
+            + "bit-equal to the plain version; routing (tok, e, rl, gate) "
             + ("equal" if not flipped[name] else f"differs at near-tie rows {flipped[name]}, "
                "left out of the logit comparison")
             + "; relative errors " + ", ".join(f"{n} {v:.3g}" for n, v in e.items())
@@ -1792,10 +2214,11 @@ def phase_unified_moe(dev):
         f"{int((lu[:, :V].argmax(-1) == ls[:, :V].argmax(-1)).sum())}/{c['B']}")
     if not split_err <= UNIFIED_RTOL:
         raise AssertionError("the unified MoE step strays from the split step")
-    lf, _, rf = decode_step_unified(params, cfg, caches(), tok, pos, mode="free")
+    lf, _, rf = decode_step_unified(params, cfg, caches(), tok, pos, mode="free", trace=True)
     torch.cuda.synchronize()
     mult = rf.res.mult[:rf.n_tasks].cpu()
     free_err = _rel(lf[keep], lu[keep])
+    _check_unified_free("kimi-k2 fp32 depth 1", rf, lf[keep, :V], lu[keep, :V])
     log(f"[unified_moe] free mode: {rf.launches} per-stage launches, every task run (mult in "
         f"[{int(mult.min())}, {int(mult.max())}], sum(mult)/tasks "
         f"{float(mult.sum()) / rf.n_tasks:.3f}), logits within {free_err:.3g} of lockstep")
@@ -1808,14 +2231,14 @@ def phase_unified_moe(dev):
     times = {}
     for name, kw, mode, n in (("ms", {}, "lockstep", 3),
                               ("fold_ms", dict(prefill_tokens=ptok), "lockstep", 2),
-                              ("free_ms", {}, "free", 3)):
+                              ("free_ms", {}, "free", 3), ("free_traced_ms", {}, "free", 3)):
         plan = plan_step(params, cfg, caches(), tok, pos, **kw)
 
-        def step(_, plan=plan, mode=mode):
+        def step(_, plan=plan, mode=mode, traced=name == "free_traced_ms"):
             for b in ("att", "attp", "yr"):
                 if b in plan.bufs:
                     plan.bufs[b].zero_()
-            run_step(params, cfg, plan, mode=mode, **run)
+            run_step(params, cfg, plan, mode=mode, trace=traced, **run)
 
         step(0)
         torch.cuda.synchronize()
@@ -1826,13 +2249,18 @@ def phase_unified_moe(dev):
     torch.cuda.synchronize()
     times["split_step_ms"] = _event_ms(lambda _: decode_step_ws(params, cfg, cs, tok, pos), 5)
     del cs
+    TRACED.setdefault("ws_unified", {})["kimi-k2 fp32 depth 1"] = dict(
+        free_ms_untraced=times["free_ms"], free_ms_traced=times["free_traced_ms"],
+        at="a free step, 7 launches, the traced one with its rings merged on the host",
+        card=card_line())
     experts_dec, experts_fold = out["experts_decode"], out["experts_fold"]
     bound, bound_by, by, ops = _moe_bound(params, cfg, lengths, c["B"], c["B"], 0, experts_dec)
     fbound, fbound_by, fby, fops = _moe_bound(params, cfg, lengths, c["B"] + c["Lp"],
                                               c["B"] + 1, c["Lp"], experts_fold)
     log(f"[times] ws_unified kimi-k2 fp32 lockstep decode step {times['ms']:.2f} ms (1 launch, "
         f"{experts_dec} experts chosen), with a {c['Lp']}-token fold {times['fold_ms']:.2f} ms "
-        f"({experts_fold} experts), free mode {times['free_ms']:.2f} ms ({rf.launches} "
+        f"({experts_fold} experts), free mode {times['free_ms']:.2f} ms (traced "
+        f"{times['free_traced_ms']:.2f} ms) ({rf.launches} "
         f"launches); bound {bound:.4f} ms ({bound_by}: {by} B, {ops} flops), fold bound "
         f"{fbound:.4f} ms ({fbound_by}: {fby} B, {fops} flops); plain version "
         f"{out['plain_decode_ms']:.1f} ms (fold {out['plain_fold_ms']:.1f} ms); split fp32 "
@@ -1972,21 +2400,28 @@ def phase_times(dev):
     out = torch.zeros((c["B"], c["H"], 1, c["hd"]), dtype=torch.float32, device=dev)
     n_tasks = state.n_tasks
     times = {}
-    for mode in ("free", "lockstep"):
+    for mode, traced in (("free", False), ("lockstep", False), ("free", True)):
         rounds = K.default_rounds(decode_queue_state(lengths, c["H"], c["S"],
                                                      n_programs=c["P"], bk=c["bk"]), True)
         n = 20 if mode == "free" else 3
         arrs = _fresh_arrays(state, mode, n + 2)
+        rings = (_with_rings(arrs, int(state.tail.sum())) if traced
+                 else [K.NO_RING] * (n + 2))
 
-        def launch(i, mode=mode, rounds=rounds):
-            K._launch_cuda(arrs[i], q4, k, v, out, mode=mode, rounds=rounds, steal=True,
+        def launch(i, mode=mode, rounds=rounds, rings=rings):
+            K._launch_cuda(arrs[i], q4, k, v, out, mode=mode, rounds=_rounds(mode, rounds),
+                           steal=True,
                            policy="cost", compress=False, causal=False, bq=1, bk=c["bk"],
-                           scale=c["hd"] ** -0.5, g=c["H"] // c["Hkv"], n_tasks=n_tasks)
+                           scale=c["hd"] ** -0.5, g=c["H"] // c["Hkv"], n_tasks=n_tasks,
+                           ring=rings[i])
 
         launch(n)      # warm-up
         launch(n + 1)
         torch.cuda.synchronize()
-        times[mode] = _event_ms(launch, n)
+        times[mode + ("_traced" if traced else "")] = _event_ms(launch, n)
+    TRACED["ws_attention"] = dict(free_ms_untraced=times["free"],
+                                  free_ms_traced=times["free_traced"],
+                                  at="llama3.2-3b decode shape", card=card_line())
 
     def plain(_):
         plain_ws_grid(state, q4, k, v, torch.zeros_like(out), bq=1, bk=c["bk"],
@@ -2019,8 +2454,8 @@ def phase_times(dev):
     ops_ms = 4 * live * c["H"] * c["hd"] / BF16_FLOPS * 1e3
     bound_ms = max(byte_ms, ops_ms)
     log(f"[times] decode B={c['B']} H={c['H']} S={c['S']} lengths {list(map(int, lengths))}: "
-        f"kernel free {times['free']:.4f} ms, lockstep {times['lockstep']:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({'bytes' if byte_ms >= ops_ms else 'operations'}: "
+        f"kernel free {times['free']:.4f} ms (traced {times['free_traced']:.4f} ms), lockstep "
+        f"{times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({'bytes' if byte_ms >= ops_ms else 'operations'}: "
         f"{kv_bytes + io_bytes + task_bytes} B), plain version {plain_ms:.2f} ms, "
         f"SDPA yardstick {library_ms:.4f} ms")
     return dict(ms=times["free"], lockstep_ms=times["lockstep"], plain_ms=plain_ms,
@@ -2034,7 +2469,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of the phases (all by default)")
-    phases = set(ap.parse_args(argv).phases.split(","))
+    ap.add_argument("--audit-baseline", metavar="DIR",
+                    help="only build the kernels of the checkout in DIR and print every "
+                         "kernel function's registers and SASS instructions")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
               file=sys.stderr)
@@ -2044,12 +2483,20 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    if args.audit_baseline:
+        audit_baseline(args.audit_baseline)
+        return 3
     t_all = time.perf_counter()
     phase_build()
     max_err = phase_parity(dev) if "parity" in phases else None
     expert = phase_expert(dev) if "expert" in phases else {}
     if "audit" in phases:
         phase_audit()
+    if "chaos" in phases:
+        phase_chaos(dev)
+    HELD.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     serving, n_launches = phase_serving(dev) if "serving" in phases else (None, None)
     times = phase_times(dev) if "times" in phases else {}
     moe = phase_moe(dev) if "moe" in phases else None
@@ -2058,7 +2505,8 @@ def main(argv=None) -> int:
     unified, userving = phase_unified(dev) if "unified" in phases else (None, None)
     umoe, umserving = phase_unified_moe(dev) if "unified_moe" in phases else (None, None)
     if phases != set(PHASES):
-        log(f"[done] phases {sorted(phases)} passed; a partial run prints no result")
+        log(f"[done] phases {sorted(phases)} passed in {time.perf_counter() - t_all:.1f} s; "
+            "a partial run prints no result")
         return 3
     attention = {
         "name": "ws_attention",
@@ -2074,6 +2522,8 @@ def main(argv=None) -> int:
         "launches_per_train_step": training["launches_per_step"]["ws_attention"],
         "max_abs_err": max(max_err, expert["attn_err"]),
         **times,
+        **TRACED["ws_attention"],
+        "chaos": CHAOS["ws_attention"],
     }
     expert_line = {
         "name": "ws_expert",
@@ -2090,6 +2540,8 @@ def main(argv=None) -> int:
         "launches_per_train_step": training["launches_per_step"]["ws_expert"],
         "max_abs_err": expert["max_abs_err"],
         **{k: v for k, v in expert.items() if k not in ("max_abs_err", "attn_err")},
+        **TRACED["ws_expert"],
+        "chaos": CHAOS["ws_expert"],
     }
     grad_line = {
         "name": "ws_expert_grad",
@@ -2107,6 +2559,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(grad["max_abs_err"], training["launch_abs_err"]),
         "max_group_rel_err": max(grad["max_group_rel_err"], training["launch_rel_err"]),
         **training["grad_times"],
+        **TRACED["ws_expert_grad"],
+        "chaos": CHAOS["ws_expert_grad"],
     }
     unified_line = {
         "name": "ws_unified",
@@ -2124,6 +2578,8 @@ def main(argv=None) -> int:
         **unified,
         "max_abs_err": max(unified["max_abs_err"], umoe["max_abs_err"]),
         "moe_half": {"model": umserving["model"], "library_ms": None, **umoe},
+        "free_ms_traced_untraced": TRACED["ws_unified"],
+        "chaos": CHAOS["ws_unified"],
     }
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     log("[serving] " + json.dumps(serving))

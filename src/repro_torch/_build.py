@@ -71,21 +71,25 @@ def source_key(name: str, csrc: Optional[Path] = None) -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}_{source_key(name)}.so"
+def _lib_path(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    return build_dir / f"{name}_{source_key(name, csrc)}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, csrc: Optional[Path] = None, build_dir: Optional[Path] = None) -> Path:
     """Compile ``csrc/<name>.cu`` unless the keyed library exists; returns its path.
     The compiler's output (ptxas registers, shared memory, spills) is kept
-    beside the library as ``<lib>.log``."""
-    lib = _lib_path(name)
+    beside the library as ``<lib>.log``.  ``csrc``/``build_dir`` build
+    another checkout's sources elsewhere (the audit's comparison with an
+    earlier build)."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    build_dir = BUILD_DIR if build_dir is None else Path(build_dir)
+    lib = _lib_path(name, csrc, build_dir)
     if lib.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_SECONDS[name] = time.perf_counter() - t0
@@ -113,6 +117,75 @@ def load(name: str) -> ctypes.CDLL:
 
 _FORBIDDEN_SASS = re.compile(r"\b(ATOM|ATOMS|ATOMG|RED|MEMBAR|FENCE)\b")
 _FORBIDDEN_PTX = re.compile(r"\b(atom|red|fence|membar)\.")
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_REGS = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores")
+
+
+def _demangle(names: List[str]) -> Dict[str, str]:
+    """Mangled -> demangled names (cu++filt or c++filt; unchanged without)."""
+    cuda_bin = Path(nvcc_path()).parent
+    for tool in (str(cuda_bin / "cu++filt"), shutil.which("cu++filt"), shutil.which("c++filt")):
+        if tool and os.path.exists(tool):
+            out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                                 text=True).stdout.splitlines()
+            if len(out) == len(names):
+                return dict(zip(names, out))
+    return {n: n for n in names}
+
+
+_UNTRACED = re.compile(r"(, |<)(false|\(bool\)0)>")
+
+
+def is_traced(demangled: str) -> bool:
+    """Whether a kernel function is the traced instantiation (its last
+    template argument true, spelled ``true`` or ``(bool)1`` by the demangler)."""
+    return bool(re.search(r"(, |<)(true|\(bool\)1)>", demangled.split("(W")[0]))
+
+
+def function_key(demangled: str) -> str:
+    """The untraced instantiation's name as an earlier, untemplated build
+    spelled it (``<float, false>`` -> ``<float>``; ``<false>`` and a
+    template's ``void `` dropped), so the two can be set side by side."""
+    key = _UNTRACED.sub(lambda m: ">" if m.group(1) == ", " else "", demangled)
+    if "<" not in key.split("(")[0]:
+        key = key.replace("void ", "", 1)
+    return key
+
+
+def function_stats(name: str, csrc: Optional[Path] = None,
+                   build_dir: Optional[Path] = None) -> Dict[str, Dict[str, object]]:
+    """Per kernel function of the built library, by demangled name: ptxas'
+    registers and spill stores (from the build log), SASS instructions and
+    forbidden SASS opcodes (``cuobjdump -sass``), and whether it is a traced
+    instantiation (:func:`is_traced`)."""
+    lib = build(name, csrc, build_dir)
+    stats: Dict[str, Dict[str, object]] = {}
+    fn = None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            fn = m.group(1)
+            stats[fn] = {"registers": None, "spill_stores": 0}
+        elif fn is not None and _SPILL.search(line):
+            stats[fn]["spill_stores"] = int(_SPILL.search(line).group(1))
+        elif fn is not None and _REGS.search(line):
+            stats[fn]["registers"] = int(_REGS.search(line).group(1))
+    cuda_bin = Path(nvcc_path()).parent
+    cuobjdump = shutil.which("cuobjdump") or str(cuda_bin / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        fn, body = part.split("\n", 1)
+        fn = fn.strip()
+        hits: Dict[str, int] = {}
+        for m in _FORBIDDEN_SASS.finditer(body):
+            hits[m.group(1)] = hits.get(m.group(1), 0) + 1
+        stats.setdefault(fn, {"registers": None, "spill_stores": 0})
+        stats[fn].update(sass_instructions=len(re.findall(r"/\*[0-9a-f]{4,}\*/", body)),
+                         forbidden_sass=hits)
+    names = _demangle(sorted(stats))
+    return {names[fn]: dict(st, traced=is_traced(names[fn])) for fn, st in stats.items()}
 
 
 def fence_audit(name: str) -> Dict[str, object]:

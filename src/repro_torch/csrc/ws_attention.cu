@@ -44,25 +44,27 @@ struct AttentionTile {
 // ---------------------------------------------------------------------------
 // kernels
 
-template <typename T>
+template <typename T, bool TRACE>
 __global__ void __launch_bounds__(NTHREADS) ws_lockstep_kernel(WSQueues Q, AttnArgs A) {
   extern __shared__ float smem[];
   __shared__ WSShared sh;
-  ws_lockstep(Q, sh, AttentionTile<T>{A, smem});
+  ws_lockstep<TRACE>(Q, sh, AttentionTile<T>{A, smem});
 }
 
-template <typename T>
+template <typename T, bool TRACE>
 __global__ void __launch_bounds__(NTHREADS) ws_free_kernel(WSQueues Q, AttnArgs A) {
   extern __shared__ float smem[];
   __shared__ WSShared sh;
-  ws_free(Q, sh, AttentionTile<T>{A, smem});
+  ws_free<TRACE>(Q, sh, AttentionTile<T>{A, smem});
 }
 
 template <typename T>
 static int launch(const WSQueues& Q, const AttnArgs& A, int mode, size_t smem,
                   cudaStream_t stream) {
-  void (*kern)(WSQueues, AttnArgs) = mode == 0 ? ws_lockstep_kernel<T> : ws_free_kernel<T>;
-  return ws_launch(kern, mode, Q, A, NTHREADS, smem, stream);
+  static void (*const kerns[4])(WSQueues, AttnArgs) = {
+      ws_lockstep_kernel<T, false>, ws_free_kernel<T, false>,
+      ws_lockstep_kernel<T, true>, ws_free_kernel<T, true>};
+  return ws_launch(kerns, mode, Q, A, NTHREADS, smem, stream);
 }
 
 extern "C" int ws_attention_launch(
@@ -74,11 +76,13 @@ extern "C" int ws_attention_launch(
     int n_queues, int capacity, int n_programs, int n_tasks, int rounds,
     int steal, int policy, int compress, int causal,
     int H, int Sq, int Sq_out, int Sk, int hd, int g, int bq, int bk,
-    float scale, void* stream) {
+    float scale, int* ev, int* ev_cursor, const int* ev_mult0, int ev_cap, int steal_kind,
+    int stall_ns, void* stream) {
   WSQueues Q = ws_queues(tasks, nullptr, tail, head, local_head, taken, remaining, clock, work,
                          steals, scanned, mult, n_queues, capacity, n_programs,
                          n_tasks, rounds, steal, policy, compress);
   Q.stage_open = stage_open;
+  ws_set_ring(Q, ev, ev_cursor, ev_mult0, ev_cap, steal_kind, stall_ns);
   AttnArgs A;
   A.q = q;
   A.k = k;

@@ -50,6 +50,27 @@
 // A tile body is a callable `body(const int* rec, bool store)` run by every
 // thread of the CTA with the claimed record in shared memory; `store` is
 // true in free mode.  It must end with __syncthreads() before it returns.
+//
+// Event rings (the reference's `trace_append`).  Both walks and `account`
+// take a compile-time TRACE flag; every kernel instantiates both and its
+// entry point picks one by whether the rings are given.  TRACE = false is
+// the untraced code and never reads the ring fields of WSQueues.  TRACE =
+// true: after `account`, thread 0 of the claiming CTA writes one 11-field
+// record (wstrace/ring.py) to row [p, cursor] of its ring with volatile
+// stores, guarded by cursor < ev_cap, then bumps the cursor with a plain
+// store, so it keeps counting past capacity and the host knows the drops.
+// Each program writes its own row only; there is no atomic and no fence.
+//  * lockstep: EV_ROUND = max(clock[p], r) before the bump, EV_MULT =
+//    mult[tid] after it, as the reference; compressed drains trace every
+//    claim of the run.
+//  * free (no rounds): EV_ROUND = clock[p] before the bump, the tile-slots
+//    the program ran so far plus its stall, so [round, round + cost) is its
+//    busy interval on its own clock; EV_MULT = the carried ev_mult0[tid]
+//    plus this program's row (the other rows cannot be read without a
+//    race).  The traced free walk also models the fault plans: a CTA whose
+//    initial clock is a stall of k tile-slots sleeps k * stall_ns before its
+//    first probe, and a positive `rounds` is a budget: a CTA stops once its
+//    clock reaches it (the kill segments of chaos/inject.py).
 
 #pragma once
 
@@ -60,6 +81,11 @@
 #define F_OP 0
 #define F_TID 6
 #define F_COST 7
+
+// wstrace/ring.py
+#define EVENT_WIDTH 11
+#define KIND_TAKE 0
+#define KIND_STEAL_REMOTE 3
 
 struct WSQueues {
   const int* tasks;          // dense [n_queues, capacity, TASK_WIDTH]; pool [capacity, TASK_WIDTH]
@@ -77,6 +103,11 @@ struct WSQueues {
   int* mult;                 // lockstep [n_tasks]; free [n_programs, n_tasks]
   int n_queues, capacity, n_programs, n_tasks, rounds;
   int steal, policy, compress;
+  // event rings (read by the traced instantiation only)
+  volatile int* ev;          // [n_programs, ev_cap, EVENT_WIDTH]
+  volatile int* ev_cursor;   // [n_programs] appends attempted
+  const int* ev_mult0;       // free mode: the carried mult [n_tasks]; else null
+  int ev_cap, steal_kind, stall_ns;
 };
 
 // The scheduler's hand-off to the CTA's threads (one per CTA, in shared memory).
@@ -184,9 +215,33 @@ __device__ __forceinline__ Claim extract(const WSQueues& Q, int p, int r, int lo
   return Q.policy == 1 ? scan_extract(Q, p, r) : cost_extract(Q, p, r, lo, hi);
 }
 
+// One record into program p's ring row (trace_append).
+__device__ __forceinline__ void trace_append(const WSQueues& Q, int p, int fq, int fs,
+                                             const int* rec, int t0, int m) {
+  const bool is_steal = fq != p % Q.n_queues;
+  const int kind = Q.steal_kind == KIND_STEAL_REMOTE ? KIND_STEAL_REMOTE
+                   : (is_steal ? Q.steal_kind : KIND_TAKE);
+  const int c = Q.ev_cursor[p];
+  if (c < Q.ev_cap) {
+    volatile int* e = Q.ev + ((long long)p * Q.ev_cap + c) * EVENT_WIDTH;
+    e[0] = t0;                                             // EV_ROUND
+    e[1] = p;                                              // EV_PROG
+    e[2] = fq;                                             // EV_QUEUE
+    e[3] = fs;                                             // EV_SLOT
+    e[4] = rec[F_TID];                                     // EV_TID
+    e[5] = rec[F_COST];                                    // EV_COST
+    e[6] = kind;                                           // EV_KIND
+    e[7] = (is_steal && fq < Q.n_programs) ? fq : -1;      // EV_VICTIM
+    e[8] = m;                                              // EV_MULT
+    e[9] = rec[F_OP];                                      // EV_OP
+    e[10] = 1;                                             // EV_RUN
+  }
+  Q.ev_cursor[p] = c + 1;
+}
+
 // Bookkeeping after an execution (ws_account).  Returns the task's cost.
-__device__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
-                       bool advisory, bool free_mode) {
+__device__ int ws_account(const WSQueues& Q, int r, int p, int fq, int fs,
+                          bool advisory, bool free_mode) {
   const long long slot = slot_index(Q, fq, fs);
   const int* rec = Q.tasks + slot * TASK_WIDTH;
   int tid = rec[F_TID];
@@ -212,6 +267,27 @@ __device__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
   return cost;
 }
 
+// ws_account, then the ring append when TRACE (the reference's account).
+// The untraced instantiation is the call to ws_account alone.
+template <bool TRACE>
+__device__ __forceinline__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
+                                       bool advisory, bool free_mode) {
+  if constexpr (!TRACE) {
+    return ws_account(Q, r, p, fq, fs, advisory, free_mode);
+  } else {
+    const int c = Q.clock[p];
+    const int t0 = free_mode ? c : (c > r ? c : r);  // the start, before the bump
+    const int cost = ws_account(Q, r, p, fq, fs, advisory, free_mode);
+    const int* rec = Q.tasks + slot_index(Q, fq, fs) * TASK_WIDTH;
+    const int tid = rec[F_TID];
+    const int m = free_mode ? (Q.ev_mult0 ? Q.ev_mult0[tid] : 0) +
+                                  Q.mult[(long long)p * Q.n_tasks + tid]
+                            : Q.mult[tid];
+    trace_append(Q, p, fq, fs, rec, t0, m);
+    return cost;
+  }
+}
+
 __device__ __forceinline__ void load_record(const WSQueues& Q, int fq, int fs, int* s_rec) {
   const int* rec = Q.tasks + slot_index(Q, fq, fs) * TASK_WIDTH;
   for (int f = 0; f < TASK_WIDTH; ++f) s_rec[f] = rec[f];
@@ -220,7 +296,7 @@ __device__ __forceinline__ void load_record(const WSQueues& Q, int fq, int fs, i
 // ---------------------------------------------------------------------------
 // walks (all threads)
 
-template <class Body>
+template <bool TRACE, class Body>
 __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
   const bool t0 = threadIdx.x == 0;
   int lo = 0, hi = Q.stage_open ? 0 : Q.n_queues;  // thread 0's victim window
@@ -254,7 +330,7 @@ __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
           if (t0) claim_writes(Q, p, own, sh.fs);
           body(sh.rec, false);
           if (t0) {
-            total += account(Q, r, p, own, sh.fs, false, false);
+            total += account<TRACE>(Q, r, p, own, sh.fs, false, false);
             int h = rmax_read(Q, p, own);
             int probed;
             int op = probe(Q, own, h, true, &probed);
@@ -286,7 +362,7 @@ __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
         __syncthreads();
         if (sh.found) {
           body(sh.rec, false);
-          if (t0) account(Q, r, p, sh.fq, sh.fs, true, false);
+          if (t0) account<TRACE>(Q, r, p, sh.fq, sh.fs, true, false);
         }
         __syncthreads();
       }
@@ -294,13 +370,28 @@ __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
   }
 }
 
-template <class Body>
+template <bool TRACE, class Body>
 __device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
   const int p = blockIdx.x;
   const bool t0 = threadIdx.x == 0;
+  if constexpr (TRACE) {
+    // a stalled program: hold this CTA back before its first probe
+    if (t0) {
+      for (long long ns = (long long)Q.clock[p] * Q.stall_ns; ns > 0; ns -= 1000000) {
+        __nanosleep(ns < 1000000 ? (unsigned)ns : 1000000u);
+      }
+    }
+  }
   while (true) {
     if (t0) {
-      Claim c = extract(Q, p, 0, 0, Q.n_queues);
+      Claim c;
+      if constexpr (TRACE) {
+        // a positive rounds is this program's budget in tile-slots
+        Claim none = {0, 0, 0, 0};
+        c = (Q.rounds <= 0 || Q.clock[p] < Q.rounds) ? extract(Q, p, 0, 0, Q.n_queues) : none;
+      } else {
+        c = extract(Q, p, 0, 0, Q.n_queues);
+      }
       Q.scanned[p] += c.nread;
       sh.found = c.found;
       sh.fq = c.fq;
@@ -310,7 +401,7 @@ __device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
     __syncthreads();
     if (!sh.found) break;  // this program's view: every queue drained
     body(sh.rec, true);
-    if (t0) account(Q, 0, p, sh.fq, sh.fs, true, true);
+    if (t0) account<TRACE>(Q, 0, p, sh.fq, sh.fs, true, true);
     __syncthreads();
   }
 }
@@ -344,14 +435,34 @@ static inline WSQueues ws_queues(
   Q.steal = steal;
   Q.policy = policy;
   Q.compress = compress;
+  Q.ev = nullptr;
+  Q.ev_cursor = nullptr;
+  Q.ev_mult0 = nullptr;
+  Q.ev_cap = 0;
+  Q.steal_kind = 0;
+  Q.stall_ns = 0;
   return Q;
 }
 
+// The ring half of every C entry point's arguments (null ev: untraced).
+static inline void ws_set_ring(WSQueues& Q, int* ev, int* ev_cursor, const int* ev_mult0,
+                               int ev_cap, int steal_kind, int stall_ns) {
+  Q.ev = ev;
+  Q.ev_cursor = ev_cursor;
+  Q.ev_mult0 = ev_mult0;
+  Q.ev_cap = ev_cap;
+  Q.steal_kind = steal_kind;
+  Q.stall_ns = stall_ns;
+}
+
 // Launch a scheduler kernel `kern(Q, tile_args)`: one CTA in lockstep mode,
-// P CTAs in free mode.  Returns the CUDA error of the launch (0 on success).
+// P CTAs in free mode.  `kerns` holds the untraced lockstep, untraced free,
+// traced lockstep and traced free instantiations; the rings pick the pair.
+// Returns the CUDA error of the launch (0 on success).
 template <class TileArgs>
-static int ws_launch(void (*kern)(WSQueues, TileArgs), int mode, const WSQueues& Q,
+static int ws_launch(void (*const kerns[4])(WSQueues, TileArgs), int mode, const WSQueues& Q,
                      const TileArgs& a, int threads, size_t smem, cudaStream_t stream) {
+  void (*kern)(WSQueues, TileArgs) = kerns[(Q.ev ? 2 : 0) + (mode == 0 ? 0 : 1)];
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -661,16 +661,18 @@ struct UnifiedTile {
 // ---------------------------------------------------------------------------
 // kernels
 
+template <bool TRACE>
 __global__ void __launch_bounds__(UTHREADS, 1) ws_unified_lockstep(WSQueues Q, UArgs A) {
   extern __shared__ float smem[];
   __shared__ WSShared sh;
-  ws_lockstep(Q, sh, UnifiedTile{A, Q.mult, smem});
+  ws_lockstep<TRACE>(Q, sh, UnifiedTile{A, Q.mult, smem});
 }
 
+template <bool TRACE>
 __global__ void __launch_bounds__(UTHREADS, 1) ws_unified_free(WSQueues Q, UArgs A) {
   extern __shared__ float smem[];
   __shared__ WSShared sh;
-  ws_free(Q, sh, UnifiedTile{A, Q.mult, smem});
+  ws_free<TRACE>(Q, sh, UnifiedTile{A, Q.mult, smem});
 }
 
 // Dynamic shared memory of the largest body: a gemm row block or a tile.
@@ -700,18 +702,20 @@ static size_t unified_smem(const UArgs& A) {
 }
 
 // ptrs: the 49 pointers of UArgs in declaration order; dims: its 27 ints;
-// fdims: eps, theta, res_scale, scale.
+// fdims: eps, theta, res_scale, scale; then the ring (null ev: untraced).
 extern "C" int ws_unified_launch(
     int mode,
     const int* tasks, const int* tail, int* head, int* local_head, int* taken,
     int* remaining, int* clock, int* work, int* steals, int* scanned, int* mult,
     const int* stage_open, void* const* ptrs, const int* dims, const float* fdims,
     int n_queues, int capacity, int n_programs, int n_tasks, int rounds,
-    int steal, int policy, void* stream) {
+    int steal, int policy, int* ev, int* ev_cursor, const int* ev_mult0, int ev_cap,
+    int steal_kind, int stall_ns, void* stream) {
   WSQueues Q = ws_queues(tasks, nullptr, tail, head, local_head, taken, remaining, clock, work,
                          steals, scanned, mult, n_queues, capacity, n_programs, n_tasks, rounds,
                          steal, policy, 0);
   Q.stage_open = stage_open;
+  ws_set_ring(Q, ev, ev_cursor, ev_mult0, ev_cap, steal_kind, stall_ns);
   UArgs A;
   int i = 0;
   A.tok = (const int*)ptrs[i++];
@@ -795,6 +799,8 @@ extern "C" int ws_unified_launch(
   A.theta = fdims[1];
   A.res_scale = fdims[2];
   A.scale = fdims[3];
-  void (*kern)(WSQueues, UArgs) = mode == 0 ? ws_unified_lockstep : ws_unified_free;
-  return ws_launch(kern, mode, Q, A, UTHREADS, unified_smem(A), (cudaStream_t)stream);
+  static void (*const kerns[4])(WSQueues, UArgs) = {
+      ws_unified_lockstep<false>, ws_unified_free<false>, ws_unified_lockstep<true>,
+      ws_unified_free<true>};
+  return ws_launch(kerns, mode, Q, A, UTHREADS, unified_smem(A), (cudaStream_t)stream);
 }

@@ -62,7 +62,13 @@ buffers), and the splice writes only each slot's new row, in place, as the
 port's split decode step does.  A folded prompt's k/v land in the report's
 ``prefill_kv`` ``[L, 1, cap, Hkv, hd]``.
 
-Not ported here: ``trace=True``, which waits for the trace rings.
+``trace=True`` records the event rings of the step.  In lockstep that is
+one launch's rings, one stream holding every family's ops (the reference's
+launch-count witness).  In free mode each stage launch has its rings, and
+``res.events`` holds each program's records of every stage, its queues
+numbered as in the step's Put and its rounds continued across stages on the
+program's own clock.  The report's ``trace_stream`` is the decoded stream,
+in free mode stage by stage.
 """
 
 from __future__ import annotations
@@ -87,6 +93,7 @@ from ..pallas_ws.kernel import (
 )
 from ..pallas_ws.queues import QueueState, make_staged_queue_state
 from ..pallas_ws.ragged import _pad_to
+from ..wstrace.ring import EV_QUEUE, EV_ROUND, EVENT_WIDTH, decode_rings
 from ..pallas_ws.tasks import (
     BOTTOM,
     F_COST,
@@ -209,6 +216,9 @@ class UnifiedStepReport:
     prefill_kv: Optional[attn.KVCache] = None       # [L, 1, cap, Hkv, hd]
     tid_bases: Optional[Dict[str, int]] = None
     launches: int = 1                               # kernel launches of the step
+    # trace=True: the step's event stream (free mode: the stage launches'
+    # streams in stage order), [n_events, EVENT_WIDTH] int32
+    trace_stream: Optional[np.ndarray] = None
 
 
 def _check_drained(n_tasks: int, res: WSRunResult) -> None:
@@ -711,9 +721,6 @@ def plain_decode_step_unified(params, cfg, caches: Caches, tokens, pos, **kw):
 def _decode_step(params, cfg, caches, tokens, pos, *, prefill_tokens=None, bk=64, bq=32,
                  bt=8, n_programs=8, steal=True, steal_policy="cost", trace=False, check=True,
                  mode=None, plain: bool):
-    if trace:
-        raise NotImplementedError("trace=True needs the trace rings, which are not ported "
-                                  "yet (tracing and chaos slice)")
     mode = "lockstep" if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}: {mode!r}")
@@ -722,7 +729,8 @@ def _decode_step(params, cfg, caches, tokens, pos, *, prefill_tokens=None, bk=64
     plan = plan_step(params, cfg, caches, tokens, pos, prefill_tokens=prefill_tokens, bk=bk,
                      bq=bq, bt=bt, n_programs=n_programs)
     res, launches = run_step(params, cfg, plan, mode=mode, steal=steal,
-                             steal_policy=steal_policy, n_programs=n_programs, plain=plain)
+                             steal_policy=steal_policy, n_programs=n_programs, plain=plain,
+                             trace=trace)
     g, bufs = plan.g, plan.bufs
     if check:
         _check_drained(g.n_tasks, res)
@@ -730,17 +738,28 @@ def _decode_step(params, cfg, caches, tokens, pos, *, prefill_tokens=None, bk=64
         res=res, state=plan.state, stage_open=plan.stage_open, rounds=plan.rounds,
         n_tasks=g.n_tasks, prefill_logits=bufs.get("logp"),
         prefill_kv=attn.KVCache(bufs["kp"], bufs["vp"]) if g.Lp else None,
-        tid_bases=tid_bases(g), launches=launches)
+        tid_bases=tid_bases(g), launches=launches,
+        trace_stream=_step_stream(res, n_programs) if trace else None)
     return bufs["logits"], caches, report
 
 
+def _step_stream(res: WSRunResult, n_programs: int) -> np.ndarray:
+    """A traced step's decoded stream; in free mode the stages' events in
+    stage order (stage ``s`` holds queues ``[s P, (s + 1) P)``)."""
+    stream = decode_rings(res.events, res.ev_cursor)[0]
+    if res.mode == "free":
+        stream = stream[np.argsort(stream[:, EV_QUEUE] // n_programs, kind="stable")]
+    return stream
+
+
 def run_step(params, cfg, plan: StepPlan, *, mode, steal, steal_policy, n_programs,
-             stages=None, mult=None, plain=None):
+             stages=None, mult=None, plain=None, trace=False):
     """Launch a planned step: one stage-gated launch in lockstep, one launch
     per stage in free mode (``stages`` picks which, ``mult`` is carried in;
     each launch copies the Put afresh, so relaunching a stage rewinds it).
     The kernel for CUDA buffers, the plain version for CPU buffers (or on
-    any device with ``plain=True``).  Returns ``(WSRunResult, launches)``."""
+    any device with ``plain=True``).  ``trace`` records every launch's
+    rings (module docstring).  Returns ``(WSRunResult, launches)``."""
     g, bufs = plan.g, plan.bufs
     out = bufs["logits"]
     plain = out.device.type == "cpu" if plain is None else plain
@@ -754,19 +773,23 @@ def run_step(params, cfg, plan: StepPlan, *, mode, steal, steal_policy, n_progra
         unified_kernel.launch_cuda(arrs, params, g, bufs, plan.inputs, **kw)
 
     kw = dict(walk=walk, launch=launch, plain=plain, compress=False, steal=steal,
-              steal_policy=steal_policy)
+              steal_policy=steal_policy, trace=trace)
     if mode == "lockstep":
         res = launch_grid(plan.state, out, mode="lockstep", rounds=plan.rounds, mult=mult,
                           stage_open=plan.stage_open, **kw)
         return res, 1
     n_stages = plan.state.n_queues // n_programs
     runs = []
-    for s in range(n_stages) if stages is None else stages:
+    stage_ids = range(n_stages) if stages is None else stages
+    for s in stage_ids:
         r = launch_grid(stage_state(plan.state, s, n_programs, g.n_tasks), out, mode="free",
                         rounds=None, mult=mult, **kw)
         mult = r.mult
         runs.append(r)
-    return _merge(runs, out), len(runs)
+    res = _merge(runs, out)
+    if trace:
+        _merge_rings(res, runs, [s * n_programs for s in stage_ids])
+    return res, len(runs)
 
 
 def _merge(runs, out) -> WSRunResult:
@@ -782,3 +805,32 @@ def _merge(runs, out) -> WSRunResult:
                        taken=cat("taken"), remaining=cat("remaining"), clock=add("clock"),
                        work=add("work"), steals=add("steals"), scanned=add("scanned"),
                        mult=runs[-1].mult, mode="free")
+
+
+def _merge_rings(res: WSRunResult, runs, queue_base) -> None:
+    """The rings of per-stage free launches as one result's: each stage's
+    queues renumbered from its first queue in the step's Put, and each
+    program's records in stage order with their rounds continued from its
+    clock at the end of the stage before (so ``[round, round + cost)``
+    stays within its merged clock).  The default ring capacity never drops
+    a record, so every stage's rows are whole."""
+    P = res.clock.shape[0]
+    rows = [[] for _ in range(P)]
+    start = np.zeros(P, dtype=np.int64)
+    for r, base in zip(runs, queue_base):
+        ev, cur = r.events.cpu().numpy().copy(), r.ev_cursor.cpu().numpy()
+        ev[..., EV_QUEUE] += base
+        for p in range(P):
+            n = min(int(cur[p]), ev.shape[1])
+            mine = ev[p, :n].copy()
+            mine[:, EV_ROUND] += start[p]
+            rows[p].append(mine)
+        start += r.clock.cpu().numpy()
+    rows = [np.concatenate(x) if x else np.zeros((0, EVENT_WIDTH), np.int32) for x in rows]
+    cap = max(1, max(len(x) for x in rows))
+    events = np.full((P, cap, EVENT_WIDTH), -1, dtype=np.int32)
+    for p, x in enumerate(rows):
+        events[p, :len(x)] = x
+    dev = res.clock.device
+    res.events = torch.from_numpy(events).to(dev)
+    res.ev_cursor = torch.tensor([len(x) for x in rows], dtype=torch.int32, device=dev)

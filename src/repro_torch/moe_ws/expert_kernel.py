@@ -44,6 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.pallas_ws.kernel import (
     MODES,
+    NO_RING,
+    RING_ARGTYPES,
     STEAL_POLICIES,
     WSRunResult,
     _PlainWalk,
@@ -148,8 +150,7 @@ def _run(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt, plain: bool,
          fault_plan=None) -> WSRunResult:
     mode, compress = scheduler_knobs(
         steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap, mode=mode,
-        compress_runs=compress_runs, trace=trace, trace_capacity=trace_capacity,
-        fault_plan=fault_plan)
+        compress_runs=compress_runs)
     d, _, n_rows = _check_inputs(state, x, tok_idx, wg, wu, wd, bt=bt, plain=plain)
     _check_out(out, (n_rows, d), x.device)
 
@@ -161,7 +162,8 @@ def _run(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt, plain: bool,
 
     return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
                        compress=compress, steal=steal, steal_policy=steal_policy,
-                       rounds=rounds, mult=mult)
+                       rounds=rounds, mult=mult, trace=trace, trace_capacity=trace_capacity,
+                       fault_plan=fault_plan)
 
 
 def _kernel_fn():
@@ -172,8 +174,9 @@ def _kernel_fn():
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         # mode, dtype; 12 int32 arrays (pool_off null on the dense layout);
-        # x, tok_idx, wg, wu, wd, out; 8 sizes and flags; d, f, bt; stream
-        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 6 + [i] * 8 + [i] * 3 + [ptr]
+        # x, tok_idx, wg, wu, wd, out; 8 sizes and flags; d, f, bt; the
+        # ring; stream
+        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 6 + [i] * 8 + [i] * 3 + RING_ARGTYPES + [ptr]
         fn.restype = i
     return fn
 
@@ -189,7 +192,7 @@ def _queue_args(arrs):
 
 
 def _launch_cuda(arrs, x, tok_idx, wg, wu, wd, out, *, mode, rounds, steal, policy,
-                 compress, bt, n_tasks) -> None:
+                 compress, bt, n_tasks, ring=NO_RING) -> None:
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
@@ -198,7 +201,7 @@ def _launch_cuda(arrs, x, tok_idx, wg, wu, wd, out, *, mode, rounds, steal, poli
         x.data_ptr(), tok_idx.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
         out.data_ptr(),
         *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy),
-        int(compress), x.shape[1], wg.shape[2], bt, stream,
+        int(compress), x.shape[1], wg.shape[2], bt, *ring, stream,
     )
     launches["ws_expert"] += 1
     if err != 0:
@@ -239,7 +242,9 @@ def run_moe_schedule(state: QueueState, x, tok_idx, wg, wu, wd, *, bt: int,
     routed row → token map (``RoutedSet.tok_idx``, numpy or a tensor);
     ``wg``/``wu``: [E, d, f]; ``wd``: [E, f, d], fp32 or bf16.  ``out`` is
     the routed-row output [n_rows, d] fp32, carried over on relaunch for the
-    multiplicity drills, as is ``mult``.
+    multiplicity drills, as is ``mult``.  ``trace`` records the event rings
+    and ``fault_plan`` injects a plan's launch faults
+    (``pallas_ws.kernel.launch_grid``).
     """
     x, tok_idx, out = _prepare(x, tok_idx, out, x.shape[1])
     return launch_moe_grid(state, x, tok_idx, wg, wu, wd, out, bt=bt, steal=steal,
@@ -331,7 +336,7 @@ def _run_grad(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, 
               trace_capacity=None) -> WSRunResult:
     mode, compress = scheduler_knobs(
         steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap, mode=mode,
-        compress_runs=compress_runs, trace=trace, trace_capacity=trace_capacity)
+        compress_runs=compress_runs)
     d, f, n_rows = _check_inputs(state, x, tok_idx, wg, wu, wd, bt=bt, plain=plain)
     dev = x.device
     if (gy.device != dev or gy.dtype != torch.float32 or not gy.is_contiguous()
@@ -351,7 +356,7 @@ def _run_grad(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, 
 
     return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
                        compress=compress, steal=steal, steal_policy=steal_policy,
-                       rounds=rounds, mult=mult)
+                       rounds=rounds, mult=mult, trace=trace, trace_capacity=trace_capacity)
 
 
 def _grad_kernel_fn():
@@ -362,14 +367,14 @@ def _grad_kernel_fn():
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         # mode, dtype; 12 int32 arrays; x, gy, tok_idx, gate_rows, wg, wu, wd,
-        # out; 8 sizes and flags; d, f, bt; stream
-        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 8 + [i] * 8 + [i] * 3 + [ptr]
+        # out; 8 sizes and flags; d, f, bt; the ring; stream
+        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 8 + [i] * 8 + [i] * 3 + RING_ARGTYPES + [ptr]
         fn.restype = i
     return fn
 
 
 def _launch_grad_cuda(arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, mode, rounds,
-                      steal, policy, compress, bt, n_tasks) -> None:
+                      steal, policy, compress, bt, n_tasks, ring=NO_RING) -> None:
     fn = _grad_kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
@@ -378,7 +383,7 @@ def _launch_grad_cuda(arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, mode,
         x.data_ptr(), gy.data_ptr(), tok_idx.data_ptr(), gate_rows.data_ptr(),
         wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), out.data_ptr(),
         *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy),
-        int(compress), x.shape[1], wg.shape[2], bt, stream,
+        int(compress), x.shape[1], wg.shape[2], bt, *ring, stream,
     )
     launches["ws_expert_grad"] += 1
     if err != 0:
@@ -420,7 +425,9 @@ def run_moe_grad_schedule(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, 
     :func:`run_moe_schedule`.  ``res.out`` is the per-row VJP block
     ``[n_rows, grad_out_width(d, f)]`` (lockstep: tile x mult, divide by the
     tile divisor before use; free: already normalised), carried over on
-    relaunch for the multiplicity drills, as is ``mult``.
+    relaunch for the multiplicity drills, as is ``mult``.  ``trace`` records
+    the event rings; as in the reference there is no ``fault_plan`` here
+    (chaos drives this kernel with plans without launch faults).
     """
     x, tok_idx, out = _prepare(x, tok_idx, out, grad_out_width(x.shape[1], wg.shape[2]))
     gy = gy.to(device=x.device, dtype=torch.float32).contiguous()

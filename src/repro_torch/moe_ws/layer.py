@@ -35,8 +35,7 @@ step) and the host Put eagerly.  The port is eager everywhere, so
 ``queue_layout=None`` takes autograd recording the call as the sign of the
 train step: the pool layout then, the host Put otherwise (serving).
 
-Not ported yet, and raising ``NotImplementedError``: ``steal_run_cap > 1``
-and trace rings.
+Not ported yet, and raising ``NotImplementedError``: ``steal_run_cap > 1``.
 """
 
 from __future__ import annotations
@@ -171,9 +170,10 @@ def _pool_put(idx, gate_vals, n_experts: int, n_programs: int, bt: int):
     return state, routed, expert_rounds_bound(T * k, bt, n_experts, n_programs, True)
 
 
-def _dispatch_and_run(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd):
+def _dispatch_and_run(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd,
+                      trace: bool = False):
     """Put + megakernel launch + combine.  Returns ``(y [T, d] f32, state,
-    res)``."""
+    res)``; ``trace`` records the launch's event rings."""
     E, bt, P = wg.shape[0], static.bt, static.n_programs
     # With stealing every expert gets its own queue; the static baseline
     # needs every queue owned by a program, so experts are placed
@@ -187,8 +187,11 @@ def _dispatch_and_run(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd):
                                        gate_vals.detach().float().cpu().numpy(), E, bt=bt)
         state = make_queue_state(tasks, P, n_queues=E if steal else P, partition="owner")
         rounds = None
+    # rounds is a lockstep bound; a traced free launch would read it as a budget
+    free = static.mode in (None, "free")
     res = run_moe_schedule(state, x_flat, routed.tok_idx, wg, wu, wd, bt=bt, steal=steal,
-                           steal_policy=static.steal_policy, rounds=rounds, mode=static.mode)
+                           steal_policy=static.steal_policy, rounds=None if free else rounds,
+                           mode=static.mode, trace=trace)
     _check_drained(state, res)
     return combine_routed(routed, tasks, res, bt=bt), state, res
 
@@ -325,7 +328,7 @@ class _MoECore(torch.autograd.Function):
         return dx.to(x_flat.dtype), dgates.to(gate_vals.dtype), dwg, dwu, dwd, None, None
 
 
-def _check_knobs(schedule, steal_run_cap, queue_layout, grad_dispatch, trace):
+def _check_knobs(schedule, steal_run_cap, queue_layout, grad_dispatch, trace, return_stats):
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}: {schedule!r}")
     if queue_layout not in (None,) + QUEUE_LAYOUTS:
@@ -337,8 +340,9 @@ def _check_knobs(schedule, steal_run_cap, queue_layout, grad_dispatch, trace):
         raise ValueError(f"grad_dispatch must be one of {GRAD_DISPATCHES}")
     if steal_run_cap != 1:
         raise NotImplementedError("steal_run_cap > 1 is not ported yet")
-    if trace:
-        raise NotImplementedError("trace rings are not ported yet")
+    if trace and not return_stats:
+        raise ValueError("trace=True attaches the WSTrace to the stats; pass "
+                         "return_stats=True as well")
 
 
 def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
@@ -359,9 +363,11 @@ def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
     the schedule steals.  ``grad_dispatch`` names the backward's evaluation:
     ``"dense"`` or ``"ws"`` (the grad megakernel).  ``return_stats``
     appends the forward launch's :class:`DispatchStats`; it has no backward,
-    so a call that autograd records raises ``ValueError``.
+    so a call that autograd records raises ``ValueError``.  ``trace=True``
+    (with ``return_stats``) records the launch's event rings and attaches
+    the decoded :class:`~repro_torch.wstrace.WSTrace` to the stats.
     """
-    _check_knobs(schedule, steal_run_cap, queue_layout, grad_dispatch, trace)
+    _check_knobs(schedule, steal_run_cap, queue_layout, grad_dispatch, trace, return_stats)
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
     _, gate_vals, idx, aux = _router(x_flat, p, cfg, group_size)
@@ -378,7 +384,8 @@ def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
                          n_programs=n_programs, bt=bt, mode=mode)
     if return_stats:
         with torch.no_grad():
-            y, state, res = _dispatch_and_run(static, x_flat, idx, gate_vals, wg, wu, wd)
+            y, state, res = _dispatch_and_run(static, x_flat, idx, gate_vals, wg, wu, wd,
+                                              trace=trace)
     else:
         y = _MoECore.apply(x_flat, gate_vals, wg, wu, wd, idx, static)
     if cfg.n_shared_experts:

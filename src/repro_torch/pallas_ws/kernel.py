@@ -25,6 +25,16 @@ their views show every queue drained; ``out`` holds plain stores of whole
 normalised tiles and multiplicity is summed from per-program rows, so a
 free-mode ``out`` is never divided by ``mult``.  The plain version of free
 mode serialises the programs round-robin, one extraction each.
+
+``trace=True`` records every extraction in per-program event rings
+(``WSRunResult.events``/``ev_cursor``, schema in
+:mod:`repro_torch.wstrace.ring`) with plain stores: the kernels' traced
+instantiation, and the same append in :class:`_PlainWalk`.  ``fault_plan``
+(a :class:`repro_torch.chaos.FaultPlan`) injects its launch-time faults as
+initial values: stalls in ``clock``, advisory corruption in ``remaining``.
+A traced free launch also reads ``rounds`` as a per-program budget in
+tile-slots (a CTA stops once its clock reaches it) and holds a stalled CTA
+back before its first probe; the untraced free walk ignores both.
 """
 
 from __future__ import annotations
@@ -36,7 +46,25 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .queues import QueueState, queue_costs
+from ..wstrace.ring import (
+    EV_COST,
+    EV_KIND,
+    EV_MULT,
+    EV_OP,
+    EV_PROG,
+    EV_QUEUE,
+    EV_ROUND,
+    EV_RUN,
+    EV_SLOT,
+    EV_TID,
+    EV_VICTIM,
+    EVENT_WIDTH,
+    KIND_STEAL_COST,
+    KIND_STEAL_REMOTE,
+    KIND_STEAL_SCAN,
+    KIND_TAKE,
+)
+from .queues import QueueState, host_array, queue_costs
 from .tasks import (
     BOTTOM,
     F_B,
@@ -56,6 +84,14 @@ MODES = ("lockstep", "free")
 
 # Rounds the compressed no-steal drain needs (one slack round, as the reference).
 STATIC_COMPRESSED_ROUNDS = 2
+
+# A traced free launch holds a CTA with a stall of k tile-slots back for
+# k * FREE_STALL_NS nanoseconds before its first probe.
+FREE_STALL_NS = 100_000
+
+# The trace arguments of every C entry point when a launch is not traced:
+# null rings select the untraced instantiation.
+NO_RING = (None, None, None, 0, 0, 0)
 
 # Launches of each CUDA kernel in this process: the wrapper adds one where it
 # launches, and nowhere else.
@@ -82,6 +118,10 @@ class WSRunResult:
     scanned: torch.Tensor     # [n_programs]
     mult: torch.Tensor        # [n_tasks] executions per task (free: summed rows)
     mode: str = "free"
+    # event rings of a traced launch (None otherwise): [n_programs, cap,
+    # EVENT_WIDTH] int32, -1 where unwritten, and the appends attempted
+    events: Optional[torch.Tensor] = None
+    ev_cursor: Optional[torch.Tensor] = None
 
     @property
     def makespan(self) -> int:
@@ -137,7 +177,8 @@ class _PlainWalk:
     shared-pool layout (``arrs["pool_off"]``), optionally stage-gated
     (``arrs["stage_open"]``).  A subclass supplies the tile body
     ``execute(fq, fs, store=)``, as each CUDA kernel does, and reads its
-    record with :meth:`rec`."""
+    record with :meth:`rec`.  :meth:`enable_trace` turns on the event ring
+    (the kernels' traced instantiation)."""
 
     def __init__(self, arrs, *, steal, policy):
         self.pool_off = arrs["pool_off"].tolist() if "pool_off" in arrs else None
@@ -156,6 +197,15 @@ class _PlainWalk:
         self.n_queues = len(self.head)
         self.capacity = len(self.tasks) if self.pool_off is not None else len(self.tasks[0])
         self.steal, self.policy = steal, policy
+        self.events = None
+
+    def enable_trace(self, events, ev_cursor, steal_kind, mult0=None):
+        """Record every extraction into ``events`` [P, cap, EVENT_WIDTH]
+        (numpy, written in place) and count appends in ``ev_cursor``;
+        ``mult0`` is free mode's carried multiplicity."""
+        self.events, self.ev_cursor = events, ev_cursor.tolist()
+        self.steal_kind = steal_kind
+        self.mult0 = None if mult0 is None else mult0.tolist()
 
     def slot(self, v, s):
         """Flat pool index of slot (v, s) (pool layout only)."""
@@ -168,7 +218,11 @@ class _PlainWalk:
     def arrays(self):
         names = ("head", "local_head", "taken", "remaining", "clock", "work",
                  "steals", "scanned", "mult")
-        return {n: np.asarray(getattr(self, n), dtype=np.int32) for n in names}
+        out = {n: np.asarray(getattr(self, n), dtype=np.int32) for n in names}
+        if self.events is not None:
+            out["events"] = self.events
+            out["ev_cursor"] = np.asarray(self.ev_cursor, dtype=np.int32)
+        return out
 
     # -- scheduler ------------------------------------------------------------
     def rmax_read(self, p, v):
@@ -234,6 +288,8 @@ class _PlainWalk:
     def account(self, r, p, fq, fs, *, advisory, free):
         rec = self.rec(fq, fs)
         tid, cost = rec[F_TID], rec[F_COST]
+        # the execution's start, read before the clock bump
+        t0 = self.clock[p] if free else max(self.clock[p], r)
         if free:
             self.mult[p][tid] += 1
         else:
@@ -247,7 +303,27 @@ class _PlainWalk:
         self.work[p] += cost
         self.steals[p] += int(fq != p % self.n_queues)
         self.clock[p] = self.clock[p] + cost if free else max(self.clock[p], r) + cost
+        if self.events is not None:
+            m = self.mult0[tid] + self.mult[p][tid] if free else self.mult[tid]
+            self.trace_append(p, fq, rec, fs, t0, m)
         return cost
+
+    def trace_append(self, p, fq, rec, fs, t0, m):
+        """One record into program p's ring row (dropped past capacity; the
+        cursor keeps counting)."""
+        is_steal = fq != p % self.n_queues
+        if self.steal_kind == KIND_STEAL_REMOTE:
+            kind = KIND_STEAL_REMOTE
+        else:
+            kind = self.steal_kind if is_steal else KIND_TAKE
+        c = self.ev_cursor[p]
+        if c < self.events.shape[1]:
+            ev = self.events[p, c]
+            ev[EV_ROUND], ev[EV_PROG], ev[EV_QUEUE], ev[EV_SLOT] = t0, p, fq, fs
+            ev[EV_TID], ev[EV_COST], ev[EV_KIND] = rec[F_TID], rec[F_COST], kind
+            ev[EV_VICTIM] = fq if is_steal and fq < len(self.clock) else -1
+            ev[EV_MULT], ev[EV_OP], ev[EV_RUN] = m, rec[F_OP], 1
+        self.ev_cursor[p] = c + 1
 
     def execute(self, fq, fs, *, store):
         raise NotImplementedError
@@ -299,11 +375,24 @@ class _PlainWalk:
         if total > 0:
             self.remaining[own] = max(self.remaining[own] - total, 0)
 
-    def free(self, P):
+    def free(self, P, budget=0):
+        """Round-robin over the programs, one extraction a turn, until every
+        view shows the queues drained.  Traced (as the kernel's traced
+        instantiation): a program with an initial clock of k (a stall) sits
+        out its first k turns, and stops once its clock reaches a positive
+        ``budget``."""
         active = [True] * P
+        traced = self.events is not None
+        wait = list(self.clock) if traced else [0] * P
         while any(active):
             for p in range(P):
                 if not active[p]:
+                    continue
+                if wait[p] > 0:
+                    wait[p] -= 1
+                    continue
+                if traced and budget > 0 and self.clock[p] >= budget:
+                    active[p] = False
                     continue
                 found, fq, fs, nread = self.extract(p)
                 self.scanned[p] += nread
@@ -399,19 +488,15 @@ def queue_dims(arrs):
 
 
 def scheduler_knobs(*, steal, steal_policy, steal_run_cap, mode, compress_runs,
-                    stage_open=None, trace=False, trace_capacity=None,
-                    trace_remote=False, fault_plan=None):
+                    stage_open=None):
     """Check the scheduler's knobs (every family); returns ``(mode, compress)``.
-    Knobs the port does not carry yet raise ``NotImplementedError``."""
+    ``steal_run_cap > 1`` (half-run steals), which the port does not carry
+    yet, raises ``NotImplementedError``."""
     if stage_open is not None and steal_run_cap > 1:
         raise ValueError("steal_run_cap > 1 breaks the per-slot-claim assumption of "
                          "stage_open's Graham windows")
     if steal_run_cap != 1:
         raise NotImplementedError("steal_run_cap > 1 (half-run steals) is not ported yet")
-    if trace or trace_capacity is not None or trace_remote:
-        raise NotImplementedError("trace rings are not ported yet")
-    if fault_plan is not None:
-        raise NotImplementedError("fault_plan is not ported yet")
     if steal_policy not in STEAL_POLICIES:
         raise ValueError(f"steal_policy must be one of {STEAL_POLICIES}: {steal_policy!r}")
     mode = "free" if mode is None else mode
@@ -434,24 +519,46 @@ def scheduler_knobs(*, steal, steal_policy, steal_run_cap, mode, compress_runs,
 
 def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
                 compress: bool, steal: bool, steal_policy: str, rounds, mult,
-                stage_open=None) -> WSRunResult:
+                stage_open=None, trace: bool = False, trace_capacity=None,
+                trace_remote: bool = False, fault_plan=None) -> WSRunResult:
     """The family-agnostic half of a launch: fresh copies of the mutable queue
     arrays on ``out``'s device, then the plain walk (``walk(host_arrays,
     steal=, policy=)`` returns a :class:`_PlainWalk`) or the CUDA kernel
-    (``launch(arrays, mode=, rounds=, steal=, policy=, compress=, n_tasks=)``)
-    over them.  A shared-pool state adds ``arrays["pool_off"]``, a
+    (``launch(arrays, mode=, rounds=, steal=, policy=, compress=, n_tasks=,
+    ring=)``) over them.  A shared-pool state adds ``arrays["pool_off"]``, a
     stage-gated launch ``arrays["stage_open"]``.  Free mode's per-program
-    multiplicity rows are summed here."""
+    multiplicity rows are summed here.
+
+    ``trace`` allocates the event rings (``arrays["events"]``,
+    ``["ev_cursor"]``; ``ring`` is then the entry points' six trace
+    arguments, else :data:`NO_RING`).  Their default capacity is the
+    per-program claim bound: ``rounds`` in lockstep (one claim a round), the
+    queue capacity for compressed drains, and in free mode the live slots
+    Σtail (a program claims each slot at most once a launch).
+    ``trace_remote`` tags every event ``steal-remote``.  ``fault_plan``
+    applies its launch faults as initial values, as the reference does: the
+    plan's ``remaining`` and stall clocks, with ``rounds`` (when not given)
+    extended by the largest stall."""
     dev = out.device
     P = state.n_programs
     n_tasks = max(1, state.n_tasks)
     if mult is not None and tuple(mult.shape) != (n_tasks,):
         raise ValueError(f"carried mult has shape {tuple(mult.shape)}, expected ({n_tasks},)")
+    rounds_given = rounds is not None
     if mode == "lockstep" and rounds is None:
         rounds = default_rounds(state, steal, compress_runs=compress)
     remaining = state.remaining
     if remaining is None:
         remaining = queue_costs(state)
+    clock0 = np.zeros(P, dtype=np.int32)
+    if fault_plan is not None:
+        # chaos injection is data: a stalled program is a nonzero initial
+        # clock, a stale advisory a different initial value
+        remaining = fault_plan.launch_remaining(host_array(remaining))
+        if fault_plan.max_stall:
+            clock0 = fault_plan.stall_vector(P)
+            if not rounds_given and mode == "lockstep":
+                rounds += fault_plan.max_stall
 
     def i32(a, fresh):
         t = torch.as_tensor(a, dtype=torch.int32, device=dev)
@@ -466,7 +573,7 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
         "remaining": i32(remaining, True),
         **({"pool_off": i32(state.pool_off, False)} if state.pool else {}),
         **({"stage_open": i32(stage_open, False)} if stage_open is not None else {}),
-        "clock": torch.zeros(P, dtype=torch.int32, device=dev),
+        "clock": i32(clock0, True),
         "work": torch.zeros(P, dtype=torch.int32, device=dev),
         "steals": torch.zeros(P, dtype=torch.int32, device=dev),
         "scanned": torch.zeros(P, dtype=torch.int32, device=dev),
@@ -475,24 +582,42 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
              else i32(mult, True))
     arrs["mult"] = (mult0 if mode == "lockstep"
                     else torch.zeros((P, n_tasks), dtype=torch.int32, device=dev))
+    ring = NO_RING
+    if trace:
+        if trace_capacity is None:
+            trace_capacity = (state.capacity if compress else rounds if mode == "lockstep"
+                              else max(1, int(host_array(state.tail).sum())))
+        steal_kind = (KIND_STEAL_REMOTE if trace_remote else
+                      KIND_STEAL_SCAN if steal_policy == "scan" else KIND_STEAL_COST)
+        arrs["events"] = torch.full((P, trace_capacity, EVENT_WIDTH), -1, dtype=torch.int32,
+                                    device=dev)
+        arrs["ev_cursor"] = torch.zeros(P, dtype=torch.int32, device=dev)
+        free_mult0 = mode == "free"
+        ring = (arrs["events"].data_ptr(), arrs["ev_cursor"].data_ptr(),
+                mult0.data_ptr() if free_mult0 else None, trace_capacity, steal_kind,
+                FREE_STALL_NS)
     if plain:
-        w = walk({n: a.cpu().numpy() for n, a in arrs.items()}, steal=steal,
-                 policy=steal_policy)
+        w = walk({n: a.cpu().numpy() for n, a in arrs.items() if n not in ("events", "ev_cursor")},
+                 steal=steal, policy=steal_policy)
+        if trace:
+            w.enable_trace(arrs["events"].cpu().numpy(), arrs["ev_cursor"].cpu().numpy(),
+                           steal_kind, mult0.cpu().numpy() if free_mult0 else None)
         if mode == "lockstep":
             w.lockstep(rounds, P, compress)
         else:
-            w.free(P)
+            w.free(P, budget=rounds or 0)
         for n, a in w.arrays().items():
             arrs[n].copy_(torch.from_numpy(a))
     else:
         launch(arrs, mode=mode, rounds=rounds or 0, steal=steal, policy=steal_policy,
-               compress=compress, n_tasks=n_tasks)
+               compress=compress, n_tasks=n_tasks, ring=ring)
     total_mult = arrs["mult"] if mode == "lockstep" else mult0 + arrs["mult"].sum(0, dtype=torch.int32)
     return WSRunResult(
         out=out, head=arrs["head"], local_head=arrs["local_head"],
         taken=arrs["taken"], remaining=arrs["remaining"], clock=arrs["clock"],
         work=arrs["work"], steals=arrs["steals"], scanned=arrs["scanned"],
-        mult=total_mult, mode=mode,
+        mult=total_mult, mode=mode, events=arrs.get("events"),
+        ev_cursor=arrs.get("ev_cursor"),
     )
 
 
@@ -503,8 +628,7 @@ def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
          fault_plan=None) -> WSRunResult:
     mode, compress = scheduler_knobs(
         steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap, mode=mode,
-        compress_runs=compress_runs, stage_open=stage_open, trace=trace,
-        trace_capacity=trace_capacity, trace_remote=trace_remote, fault_plan=fault_plan)
+        compress_runs=compress_runs, stage_open=stage_open)
     dev = q.device
     if state.pool:
         raise NotImplementedError("the attention family runs on the dense layout; the "
@@ -538,7 +662,14 @@ def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
 
     return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
                        compress=compress, steal=steal, steal_policy=steal_policy,
-                       rounds=rounds, mult=mult, stage_open=stage_open)
+                       rounds=rounds, mult=mult, stage_open=stage_open, trace=trace,
+                       trace_capacity=trace_capacity, trace_remote=trace_remote,
+                       fault_plan=fault_plan)
+
+
+# The six trace arguments every C entry point takes before its stream:
+# events, ev_cursor, free mode's carried mult, capacity, steal kind, stall ns.
+RING_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 
 
 def _kernel_fn():
@@ -549,15 +680,16 @@ def _kernel_fn():
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         # mode, dtype; 12 int32 arrays (stage_open may be null); q, k, v,
-        # out; strides; 9 sizes and flags; 8 shape ints; scale; stream
+        # out; strides; 9 sizes and flags; 8 shape ints; scale; the ring;
+        # stream
         fn.argtypes = ([i, i] + [ptr] * 12 + [ptr] * 4 + [ptr]
-                       + [i] * 9 + [i] * 8 + [ctypes.c_float, ptr])
+                       + [i] * 9 + [i] * 8 + [ctypes.c_float] + RING_ARGTYPES + [ptr])
         fn.restype = i
     return fn
 
 
 def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
-                 causal, bq, bk, scale, g, n_tasks) -> None:
+                 causal, bq, bk, scale, g, n_tasks, ring=NO_RING) -> None:
     fn = _kernel_fn()
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
@@ -573,7 +705,7 @@ def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
         ctypes.cast(strides, ctypes.c_void_p),
         *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),
         int(causal),
-        H, Sq, out.shape[2], Sk, hd, g, bq, bk, float(scale), stream,
+        H, Sq, out.shape[2], Sk, hd, g, bq, bk, float(scale), *ring, stream,
     )
     launches["ws_attention"] += 1
     if err != 0:
@@ -593,7 +725,9 @@ def launch_ws_grid(state: QueueState, q, k, v, out, *, bq: int, bk: int,
     written in place: lockstep accumulates into it, free mode stores.
 
     CUDA tensors launch ``csrc/ws_attention.cu``; CPU tensors run the plain
-    version.  There is no fallback between the two.
+    version.  There is no fallback between the two.  ``trace`` records the
+    event rings, ``fault_plan`` injects a plan's launch faults (module
+    docstring).
     """
     return _run(state, q, k, v, out, bq=bq, bk=bk, causal=causal, scale=scale,
                 steal=steal, steal_policy=steal_policy, steal_run_cap=steal_run_cap,

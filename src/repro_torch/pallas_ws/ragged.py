@@ -38,10 +38,16 @@ class RaggedStats:
     extractions: int
     scan_per_extraction: float
     queue_loads: list
+    trace: object = None  # WSTrace when the launch recorded event rings
 
     @classmethod
     def from_run(cls, schedule, state, res: WSRunResult,
                  steal_policy: str = "cost") -> "RaggedStats":
+        trace = None
+        if res.events is not None:
+            from ..wstrace.trace import WSTrace
+
+            trace = WSTrace.from_run(state, res)
         return cls(
             schedule=schedule,
             steal_policy=steal_policy,
@@ -55,6 +61,7 @@ class RaggedStats:
             extractions=res.extractions,
             scan_per_extraction=round(res.scan_per_extraction, 3),
             queue_loads=[int(c) for c in queue_costs(state)],
+            trace=trace,
         )
 
 
@@ -119,13 +126,13 @@ def ragged_decode_attention(
     return 0.  ``state`` may carry a Put already built for these lengths
     (:func:`decode_queue_state`, possibly on the device); each launch
     clones its mutable arrays, so one Put serves every layer of a step.
+    ``trace=True`` records the launch's event rings and attaches the
+    decoded :class:`~repro_torch.wstrace.WSTrace` to the returned stats.
     """
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}: {schedule!r}")
     if steal_run_cap != 1:
         raise NotImplementedError("steal_run_cap > 1 is not ported yet")
-    if trace:
-        raise NotImplementedError("trace rings are not ported yet")
     B, H, hd = q.shape
     S = k.shape[2]
     bk = min(bk, max(1, S))
@@ -137,7 +144,7 @@ def ragged_decode_attention(
                                    partition=partition, bk=bk)
     res = run_ws_schedule(
         state, q[:, :, None, :], k, v, causal=False, bq=1, bk=bk,
-        steal=schedule == "ws", steal_policy=steal_policy, mode=mode,
+        steal=schedule == "ws", steal_policy=steal_policy, mode=mode, trace=trace,
     )
     _check_drained(state, res)
     out = normalized_out(res, state.task_list, (B, H, 1))[:, :, 0].to(q.dtype)

@@ -11,6 +11,7 @@ out (lockstep accumulate) or are harmless (free-mode plain store).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -43,6 +44,53 @@ OP_FLASH_TILE = 0
 OP_DECODE_TILE = 1
 OP_EXPERT_TILE = 2
 OP_STEP_GLUE = 3
+
+
+@dataclass(frozen=True)
+class TaskFamily:
+    """One workload on the shared queue/kernel/clock machinery.
+
+    ``ops``: the op codes the family owns; ``operands``: record fields 1-5 by
+    name; ``cost_unit``: what one tile-slot of :data:`F_COST` measures, so
+    makespans compare only within a family.
+    """
+
+    name: str
+    ops: Tuple[int, ...]
+    operands: Tuple[str, ...]
+    cost_unit: str
+
+
+TASK_FAMILIES: Dict[str, TaskFamily] = {}
+_OP_TO_FAMILY: Dict[int, TaskFamily] = {}
+
+
+def register_family(family: TaskFamily) -> TaskFamily:
+    """Register a task family; op codes must be globally unique."""
+    for op in family.ops:
+        prev = _OP_TO_FAMILY.get(op)
+        if prev is not None and prev.name != family.name:
+            raise ValueError(f"op {op} already owned by family {prev.name!r}")
+        _OP_TO_FAMILY[op] = family
+    TASK_FAMILIES[family.name] = family
+    return family
+
+
+def family_of(op: int) -> TaskFamily:
+    return _OP_TO_FAMILY[op]
+
+
+ATTENTION_FAMILY = register_family(TaskFamily(
+    name="attention", ops=(OP_FLASH_TILE, OP_DECODE_TILE),
+    operands=("b", "h", "q_start", "q_len", "kv_end"), cost_unit="kv blocks"))
+EXPERT_FAMILY = register_family(TaskFamily(
+    name="expert", ops=(OP_EXPERT_TILE,), operands=("expert", "row_start", "row_len"),
+    cost_unit="routed token rows"))
+# The unified step's inter-stage glue: one task per (phase, layer), whose
+# cost is the whole phase's work.
+STEP_FAMILY = register_family(TaskFamily(
+    name="step-glue", ops=(OP_STEP_GLUE,), operands=("phase", "layer", "aux"),
+    cost_unit="glue phases"))
 
 
 @dataclass(frozen=True)

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from .kernel import MODES, STEAL_POLICIES, launches, queue_dims
+from .kernel import MODES, NO_RING, RING_ARGTYPES, STEAL_POLICIES, launches, queue_dims
 
 _QUEUE_ARRAYS = ("tasks", "tail", "head", "local_head", "taken", "remaining", "clock",
                  "work", "steals", "scanned", "mult", "stage_open")
@@ -38,8 +38,8 @@ def _kernel_fn():
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         # mode; 12 int32 queue arrays (stage_open null in free mode); the
-        # pointer, int and float tables; 7 sizes and flags; stream
-        fn.argtypes = [i] + [ptr] * 12 + [ptr] * 3 + [i] * 7 + [ptr]
+        # pointer, int and float tables; 7 sizes and flags; the ring; stream
+        fn.argtypes = [i] + [ptr] * 12 + [ptr] * 3 + [i] * 7 + RING_ARGTYPES + [ptr]
         fn.restype = i
     return fn
 
@@ -73,7 +73,7 @@ def _unembed(params):
 
 
 def launch_cuda(arrs, params, g, bufs, inputs, *, mode, rounds, steal, policy, compress,
-                n_tasks) -> None:
+                n_tasks, ring=NO_RING) -> None:
     """Launch ``ws_unified`` over ``arrs`` (the launch's queue arrays) for the
     step of geometry ``g`` into ``bufs``."""
     assert not compress, "the unified step walks every round"
@@ -128,7 +128,8 @@ def launch_cuda(arrs, params, g, bufs, inputs, *, mode, rounds, steal, policy, c
         *[arrs[n].data_ptr() if n in arrs else None for n in _QUEUE_ARRAYS],
         ctypes.cast(ptr_tab, ctypes.c_void_p), ctypes.cast(dim_tab, ctypes.c_void_p),
         ctypes.cast(f_tab, ctypes.c_void_p),
-        *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), stream,
+        *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), *ring,
+        stream,
     )
     launches["ws_unified"] += 1
     if err != 0:

@@ -76,8 +76,8 @@ class ContinuousBatcher:
         if jit_ws:
             raise NotImplementedError("jit_ws (compiled ws step) is not ported yet")
         if step_deadline_s is not None or fault_plan is not None:
-            raise NotImplementedError("the watchdog's step deadline and fault plans are not "
-                                      "ported yet (tracing and chaos slice)")
+            raise NotImplementedError("the watchdog's step deadline and the serving fault "
+                                      "plans (EngineFaultPlan) are not ported yet")
         if unified_step:
             check_ported(cfg)
         if attn_schedule not in ("ws", "static"):

@@ -57,6 +57,30 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+TRACE_AND_CHAOS = ("repro_torch.wstrace.ring", "repro_torch.wstrace.trace",
+                   "repro_torch.wstrace.perfetto", "repro_torch.chaos.plan",
+                   "repro_torch.chaos.inject", "repro_torch.chaos.checker")
+
+
+@pytest.mark.parametrize("module", TRACE_AND_CHAOS)
+def test_trace_and_chaos_modules_pull_in_no_jax(module):
+    """The ported trace and chaos modules (the reference's are numpy-only
+    too, but live in ``repro``) load neither jax nor any ``repro`` module,
+    even where both are installed; nor does chip_smoke.py."""
+    assert module in MODULES
+    code = (
+        "import sys, importlib, runpy\n"
+        f"importlib.import_module({module!r})\n"
+        "runpy.run_path(sys.argv[1], run_name='not_main')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.configs.llama3_2_3b import SMOKE
@@ -89,10 +113,17 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     assert (res.mult == 1).all() and res.mode == "free"
 
 
-@pytest.mark.parametrize("kw", [dict(steal_run_cap=2), dict(trace=True),
-                                dict(fault_plan=object())])
+@pytest.mark.parametrize("kw", [dict(steal_run_cap=2), dict(steal_run_cap=2, trace=True),
+                                dict(steal_run_cap=4, fault_plan="FaultPlan")])
 def test_unported_knobs_raise(kw):
+    """Half-run steals are not ported and raise, traced or under a fault
+    plan (trace rings and fault plans are ported: test_torch_wstrace.py,
+    test_torch_chaos.py)."""
+    from repro_torch.chaos import FaultPlan
     from repro_torch.pallas_ws import emit_decode_tasks, make_queue_state, run_ws_schedule
+
+    if kw.get("fault_plan") == "FaultPlan":
+        kw = dict(kw, fault_plan=FaultPlan(seed=1, stalls=(1,)))
 
     q = torch.zeros((1, 1, 1, 8))
     k = torch.zeros((1, 1, 8, 8))
@@ -162,7 +193,7 @@ def test_expert_kernel_wrapper_marshals_every_argument(monkeypatch):
         status = 0
 
         def __call__(self, *args):
-            assert len(args) == len(self.argtypes) == 32
+            assert len(args) == len(self.argtypes) == 38
             for t, a in zip(self.argtypes, args):
                 t.from_param(a)
             return self.status
@@ -217,7 +248,7 @@ def test_expert_grad_kernel_wrapper_marshals_every_argument(monkeypatch):
         pool_off = None
 
         def __call__(self, *args):
-            assert len(args) == len(self.argtypes) == 34
+            assert len(args) == len(self.argtypes) == 40
             for t, a in zip(self.argtypes, args):
                 t.from_param(a)
             self.pool_off = args[3]
@@ -680,3 +711,44 @@ def test_unified_moe_kernel_free_mode_runs_every_task_on_card(cuda_device):
     assert bool((res_got.mult[:got.g.n_tasks] >= 1).all())
     for name in ("logits", "logp"):
         torch.testing.assert_close(got.bufs[name].cpu(), want.bufs[name], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["cost", "scan"])
+def test_traced_lockstep_rings_match_plain_on_card(cuda_device, policy):
+    """The traced instantiation: rings and arrays bit-equal to the plain walk."""
+    from repro_torch.moe_ws import run_moe_schedule
+    from repro_torch.pallas_ws import to_device
+
+    _, _, x, w, _, routed, state = _expert_inputs(10)
+    kw = dict(bt=8, steal_policy=policy, mode="lockstep", trace=True)
+    got = run_moe_schedule(to_device(state, cuda_device), x.to(cuda_device), routed.tok_idx,
+                           *[a.to(cuda_device) for a in w], **kw)
+    want = run_moe_schedule(state, x, routed.tok_idx, *w, **kw)
+    for f in ("head", "local_head", "taken", "remaining", "clock", "work", "steals",
+              "scanned", "mult", "events", "ev_cursor"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_traced_free_launch_is_clean_on_card(cuda_device):
+    """A traced free launch under a stall-and-kill plan: every task runs,
+    and the free-mode reading of the contract holds."""
+    from repro_torch.chaos import FaultPlan, SafetyChecker, run_with_faults
+    from repro_torch.moe_ws import run_moe_schedule
+    from repro_torch.pallas_ws import default_rounds
+
+    _, _, x, w, _, routed, state = _expert_inputs(11)
+    xd, wd_ = x.to(cuda_device), [a.to(cuda_device) for a in w]
+
+    def launch(st, *, rounds, out, mult, fault_plan):
+        return run_moe_schedule(st, xd, routed.tok_idx, *wd_, bt=8, rounds=rounds, out=out,
+                                mult=mult, trace=True, fault_plan=fault_plan, mode="free")
+
+    clean = launch(state, rounds=0, out=None, mult=None, fault_plan=None)
+    plan = FaultPlan(seed=2, stalls=(0, 3, 1), kills=(2,), storms=1, full_first_storm=True)
+    chaos = run_with_faults(state, launch, plan, rounds=default_rounds(state, True),
+                            mode="free")
+    rep = SafetyChecker().check(chaos, n_tasks=state.n_tasks, normalized=chaos.res.out,
+                                oracle_normalized=clean.out)
+    assert rep.ok and rep.normalized_parity == "bitwise", rep.summary()

@@ -234,15 +234,23 @@ def _layer_grads(fn, params, x, names):
 @pytest.mark.parametrize("kw", [dict(queue_layout="pool"), dict(grad_dispatch="ws"),
                                 dict(trace=True), dict(steal_run_cap=2)])
 def test_unported_knobs_raise(layer_inputs, kw):
-    """Trace rings and ``steal_run_cap > 1`` are not ported and raise.  The
-    shared-pool layout and the ws backward are ported now, so their cases
+    """``steal_run_cap > 1`` is not ported and raises.  The shared-pool
+    layout, the ws backward and trace rings are ported now, so their cases
     hold the port to the reference instead: the pool layout's forward
-    (lockstep, with its launch telemetry), and the gradients of the layer
-    with ``grad_dispatch="ws"``."""
+    (lockstep, with its launch telemetry), the gradients of the layer with
+    ``grad_dispatch="ws"``, and the traced launch's stats and trace."""
     jp, tp, x = layer_inputs
-    if "trace" in kw or "steal_run_cap" in kw:
+    if "steal_run_cap" in kw:
         with pytest.raises(NotImplementedError):
             moe_ffn_ws(torch.from_numpy(x), tp, SMOKE, **kw)
+        return
+    if "trace" in kw:
+        _, _, jst = j_moe_ffn_ws(jnp.asarray(x), jp, J_SMOKE, return_stats=True, **kw)
+        with torch.no_grad():
+            _, _, tst = moe_ffn_ws(torch.from_numpy(x), tp, SMOKE, mode="lockstep",
+                                   return_stats=True, **kw)
+        assert tst.trace.summary() == jst.trace.summary()
+        np.testing.assert_array_equal(tst.trace.events, np.asarray(jst.trace.events))
         return
     if "queue_layout" in kw:
         jy, jaux, jst = j_moe_ffn_ws(jnp.asarray(x), jp, J_SMOKE, return_stats=True, **kw)

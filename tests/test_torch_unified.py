@@ -283,8 +283,10 @@ def test_unified_gate_and_unported_knobs(ref):
     with pytest.raises(ValueError):  # the dense dispatch has no ws oracle
         decode_step_unified(tp, kimi.replace(moe_dispatch="dense"), _caches(caches),
                             torch.from_numpy(tok), pos)
-    with pytest.raises(NotImplementedError, match="trace"):
-        decode_step_unified(tp, SMOKE, _caches(caches), torch.from_numpy(tok), pos, trace=True)
+    # trace rings are ported: one ring stream with every task of the step
+    _, _, rep = decode_step_unified(tp, SMOKE, _caches(caches), torch.from_numpy(tok), pos,
+                                    trace=True)
+    assert len(rep.trace_stream) == rep.n_tasks == int(rep.res.ev_cursor.sum())
     with pytest.raises(ValueError):
         ContinuousBatcher(tp, SMOKE.replace(dtype="bfloat16"), slots=2, capacity=16,
                           unified_step=True)

@@ -27,10 +27,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               Then the attention kernel once at kimi's shape (H 64, Hkv 8,
               hd 112), and the expert kernel's times at the decode routing
               (free mode untraced and traced).
-4. audit      0 atom/red/fence/membar in each kernel's SASS and PTX, in both
-              instantiations (untraced and traced) of every kernel function;
-              each untraced function's registers and SASS instructions
-              beside the build before the trace rings (BASELINE_FUNCTIONS).
+4. audit      0 atom/red/fence/membar in each kernel's SASS and PTX, in every
+              instantiation (untraced and traced, per-slot and half-run) of
+              every kernel function; each per-slot function's registers and
+              SASS instructions must equal the build before half-run steals
+              (BASELINE_FUNCTIONS), and ws_unified has no half-run walk.
 4b. chaos     repro_torch.chaos on free-mode launches: a traced fault-free
               free launch of ws_attention (llama decode shape) and ws_expert
               (kimi-k2 full width, decode routing, the expert phase's
@@ -40,6 +41,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               and in free mode (checker clean).  ws_expert_grad's and
               ws_unified's checks run in their phases (grad, unified,
               unified_moe), which hold their data.
+4c. halfrun   half-run Steal (steal_run_cap 2 and 4): ws_attention at the
+              parity phase's decode shape and ws_expert at kimi-k2's full
+              width (decode and prefill routings, dense and pool layouts):
+              traced lockstep bit-equal to the plain walk (rings and EV_RUN
+              included), `out` within ATOL; a traced free launch runs every
+              task, its output within ATOL of the plain version's normalised
+              one, clean under SafetyChecker; HALFRUN_PLAN (a kill, then a
+              full head-rewind storm) at cap 4 through both in lockstep
+              (segments bit-equal to the plain walk) and free mode; free
+              untraced launches at cap 1, 2 and 4 (ms, sum(mult)/tasks,
+              max mult, slots scanned per extraction) for the kernels line.
+              Then ragged_flash_attention at llama3.2-3b's widths (H 24,
+              Hkv 8, hd 128, causal, bq = bk = 32, lengths 1024, 658, 531,
+              288, bf16): static, ws and ws cap 4 against
+              ragged_attention_ref, their kernel times and a masked
+              F.scaled_dot_product_attention yardstick.  ws_expert_grad's
+              half-run checks run in the grad phase (which holds its data).
 5. serving    llama3.2-3b at full width (bf16, random weights from a seed),
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
@@ -69,7 +87,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               the forward kernel on the same pool queues, bit-equal too.  The
               cost case is traced (rings bit-equal); a traced free launch and
               one seeded FaultPlan without launch faults (lockstep against
-              the plain walk, and free) go through SafetyChecker.
+              the plain walk, and free) go through SafetyChecker.  With the
+              halfrun phase: the kernel at cap 2 and 4 (lockstep bit-equal
+              to the plain walk, a traced free launch checker-clean),
+              HALFRUN_PLAN at cap 4, and its cap 1, 2, 4 statistics.
 9. train      deepseek-v2-236b at full width cut to 1 layer (5.02 B
               parameters, bf16, AdamW with fp32 states), moe_dispatch and
               moe_grad_dispatch "ws", 8 x 64 tokens, seed 0.  Before the
@@ -119,9 +140,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the ported kernels (each with its free-mode times untraced
-and traced and its checker reports), and {"ok": true, "device": {...}}.
+and traced, its checker reports and, but for ws_unified, its half-run
+statistics; ws_attention's also the ragged prefill), and {"ok": true,
+"device": {...}}.
 
     python3 chip_smoke.py --phases build,audit,chaos       # the short check of the rings
+    python3 chip_smoke.py --phases build,audit,halfrun,grad   # the short check of half-run
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
 """
 
@@ -176,8 +200,8 @@ DECODE = dict(B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8)
 KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
-PHASES = ("build", "parity", "expert", "audit", "chaos", "serving", "times", "moe", "grad",
-          "train", "unified", "unified_moe")
+PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "serving", "times", "moe",
+          "grad", "train", "unified", "unified_moe")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -186,10 +210,22 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 CHAOS_SEEDS = (3, 5)
 GRAD_CHAOS_SEED = 6            # kills (2, 2) and a full storm, without launch faults
 
-# Checker reports and traced/untraced free-mode times of this run, by kernel
-# (the kernels line carries them), and data a later phase reuses.
+# Half-run Steal: the caps held to the plain walks, the fault plan run at
+# cap 4 (a kill, then a full head-rewind storm; no launch faults, so the
+# grad kernel takes it too), and the caps of the free-launch statistics.
+HALFRUN_CAPS = (2, 4)
+HALFRUN_PLAN = dict(seed=3, kills=(1,), storms=1, full_first_storm=True)
+HALFRUN_STATS_CAPS = (1, 2, 4)
+HALFRUN_STATS_N = 10           # timed launches a cap (ws_expert_grad: 2 of ~3 s, no warm-up)
+# The ragged prefill at llama3.2-3b's widths: one causal bf16 batch.
+RAGGED = dict(H=24, Hkv=8, hd=128, S=1024, lengths=(1024, 658, 531, 288), bq=32, bk=32, P=8)
+
+# Checker reports, traced/untraced free-mode times and half-run statistics of
+# this run, by kernel (the kernels line carries them), and data a later phase
+# reuses.
 CHAOS = {}
 TRACED = {}
+HALFRUN = {}
 HELD = {}
 
 
@@ -259,27 +295,32 @@ def _same_segments(name, ck, cp):
 
 
 def _chaos_plans(kernel, what, state, launch, plain_launch, check, rounds, seeds,
-                 without_launch_faults=False):
-    """Each seeded FaultPlan through run_with_faults: in lockstep on the
-    kernel and on the plain walk (bit-equal segments, checker clean), and in
-    free mode on the kernel (checker clean).  ``launch(mode)`` and
-    ``plain_launch`` are run_with_faults launch callables; ``check(chaos)``
-    returns the checker's report."""
+                 without_launch_faults=False, steal_run_cap=1):
+    """Each seeded FaultPlan (or each FaultPlan given in ``seeds``) through
+    run_with_faults: in lockstep on the kernel and on the plain walk
+    (bit-equal segments, checker clean), and in free mode on the kernel
+    (checker clean).  ``launch(mode)`` and ``plain_launch`` are
+    run_with_faults launch callables taking ``steal_run_cap``;
+    ``check(chaos)`` returns the checker's report."""
     from repro_torch.chaos import FaultPlan, run_with_faults
     from repro_torch.pallas_ws import copy_state
 
+    kw = dict(rounds=rounds, steal_run_cap=steal_run_cap)
     for seed in seeds:
-        plan = FaultPlan.from_seed(seed, n_programs=state.n_programs)
+        plan = (seed if isinstance(seed, FaultPlan)
+                else FaultPlan.from_seed(seed, n_programs=state.n_programs))
         if without_launch_faults:
             plan = plan.without_launch_faults()
-        name = f"{what} plan {seed} (stalls {list(plan.stalls)}, {plan.advisory} advisory, " \
-               f"kills {list(plan.kills)}, storms {plan.storms})"
-        ck = run_with_faults(copy_state(state), launch("lockstep"), plan, rounds=rounds)
+        name = f"{what} plan {plan.seed} (stalls {list(plan.stalls)}, {plan.advisory} " \
+               f"advisory, kills {list(plan.kills)}, storms {plan.storms}" \
+               + (", a full storm" if plan.full_first_storm else "") \
+               + (f", steal_run_cap {steal_run_cap})" if steal_run_cap > 1 else ")")
+        ck = run_with_faults(copy_state(state), launch("lockstep"), plan, **kw)
         torch.cuda.synchronize()
-        cp = run_with_faults(copy_state(state), plain_launch, plan, rounds=rounds)
+        cp = run_with_faults(copy_state(state), plain_launch, plan, **kw)
         _same_segments(f"{kernel} {name}", ck, cp)
         _report(kernel, f"{name} lockstep (segments bit-equal to the plain walk)", check(ck))
-        cf = run_with_faults(copy_state(state), launch("free"), plan, rounds=rounds, mode="free")
+        cf = run_with_faults(copy_state(state), launch("free"), plan, mode="free", **kw)
         torch.cuda.synchronize()
         _report(kernel, f"{name} free", check(cf))
 
@@ -497,6 +538,16 @@ def expert_weights(dev, c=None):
             dense_init_slabs(c["f"], (c["E"], c["f"], c["d"]), torch.bfloat16, **kw))
 
 
+def routing_draw(rng, T):
+    """Top-k routing of T tokens at kimi-k2's widths (k distinct experts each,
+    normalised gates) and their fp32 activations: ``(idx, gates, x)``."""
+    c = EXPERT
+    idx = np.stack([rng.choice(c["E"], c["k"], replace=False) for _ in range(T)])
+    gates = rng.uniform(0.1, 1.0, (T, c["k"])).astype(np.float32)
+    gates /= gates.sum(1, keepdims=True)
+    return idx, gates, rng.standard_normal((T, c["d"])).astype(np.float32)
+
+
 def expert_routing(rng, T):
     """Top-k routing of T tokens (k distinct experts each, normalised gates)
     and their fp32 activations, as the host Put lays them out."""
@@ -504,10 +555,7 @@ def expert_routing(rng, T):
     from repro_torch.pallas_ws import make_queue_state
 
     c = EXPERT
-    idx = np.stack([rng.choice(c["E"], c["k"], replace=False) for _ in range(T)])
-    gates = rng.uniform(0.1, 1.0, (T, c["k"])).astype(np.float32)
-    gates /= gates.sum(1, keepdims=True)
-    x = rng.standard_normal((T, c["d"])).astype(np.float32)
+    idx, gates, x = routing_draw(rng, T)
     tasks, routed = route_to_tasks(idx, gates, c["E"], bt=c["bt"])
     ws = make_queue_state(tasks, c["P"], n_queues=c["E"], partition="owner")
     static = make_queue_state(tasks, c["P"], n_queues=c["P"], partition="owner")
@@ -708,62 +756,96 @@ def phase_expert(dev):
     return dict(max_abs_err=max(errs), attn_err=attn_err, **times)
 
 
-# Every kernel function of the last build without trace rings (the kernels
-# of commit d8d61f4, measured on an NVIDIA H100 80GB HBM3 (700.00 W; nvcc of
-# CUDA 12.8) by `python3 chip_smoke.py --audit-baseline DIR` with that tree
-# unpacked in DIR): ptxas registers and SASS instructions, by the
-# function's name (its untraced instantiation's, in _build.function_key).
+# Every kernel function of the build before half-run steals (the kernels of
+# commit 5fee79a, measured on an NVIDIA H100 80GB HBM3 (700.00 W; nvcc of
+# CUDA 12.8) by this script's audit on that tree; `python3 chip_smoke.py
+# --audit-baseline DIR` with the tree unpacked in DIR prints the same table):
+# ptxas registers and SASS instructions, by _build.function_key of the
+# function's name.  The per-slot (cap 1) instantiations must keep them.
 BASELINE_FUNCTIONS = {
+    "void ws_expert_free_kernel<__nv_bfloat16, true>(WSQueues, ExpertArgs)":
+        (255, 4440),
     "void ws_expert_free_kernel<__nv_bfloat16>(WSQueues, ExpertArgs)":
         (255, 4240),
+    "void ws_expert_free_kernel<float, true>(WSQueues, ExpertArgs)":
+        (255, 4304),
     "void ws_expert_free_kernel<float>(WSQueues, ExpertArgs)":
         (255, 4096),
+    "void ws_expert_grad_free_kernel<__nv_bfloat16, true>(WSQueues, GradArgs)":
+        (255, 6336),
     "void ws_expert_grad_free_kernel<__nv_bfloat16>(WSQueues, GradArgs)":
         (255, 6136),
+    "void ws_expert_grad_free_kernel<float, true>(WSQueues, GradArgs)":
+        (255, 6464),
     "void ws_expert_grad_free_kernel<float>(WSQueues, GradArgs)":
         (255, 6256),
+    "void ws_expert_grad_lockstep_kernel<__nv_bfloat16, true>(WSQueues, GradArgs)":
+        (234, 12552),
     "void ws_expert_grad_lockstep_kernel<__nv_bfloat16>(WSQueues, GradArgs)":
         (232, 12360),
+    "void ws_expert_grad_lockstep_kernel<float, true>(WSQueues, GradArgs)":
+        (255, 12808),
     "void ws_expert_grad_lockstep_kernel<float>(WSQueues, GradArgs)":
         (255, 12664),
+    "void ws_expert_lockstep_kernel<__nv_bfloat16, true>(WSQueues, ExpertArgs)":
+        (255, 8544),
     "void ws_expert_lockstep_kernel<__nv_bfloat16>(WSQueues, ExpertArgs)":
         (255, 8384),
+    "void ws_expert_lockstep_kernel<float, true>(WSQueues, ExpertArgs)":
+        (255, 8304),
     "void ws_expert_lockstep_kernel<float>(WSQueues, ExpertArgs)":
         (255, 8152),
+    "void ws_free_kernel<__nv_bfloat16, true>(WSQueues, AttnArgs)":
+        (64, 2832),
     "void ws_free_kernel<__nv_bfloat16>(WSQueues, AttnArgs)":
         (56, 2680),
+    "void ws_free_kernel<float, true>(WSQueues, AttnArgs)":
+        (64, 3152),
     "void ws_free_kernel<float>(WSQueues, AttnArgs)":
         (48, 3552),
+    "void ws_lockstep_kernel<__nv_bfloat16, true>(WSQueues, AttnArgs)":
+        (48, 3888),
     "void ws_lockstep_kernel<__nv_bfloat16>(WSQueues, AttnArgs)":
         (48, 3784),
+    "void ws_lockstep_kernel<float, true>(WSQueues, AttnArgs)":
+        (56, 4464),
     "void ws_lockstep_kernel<float>(WSQueues, AttnArgs)":
         (48, 4384),
+    "void ws_unified_free<true>(WSQueues, UArgs)":
+        (115, 29288),
+    "void ws_unified_lockstep<true>(WSQueues, UArgs)":
+        (128, 57512),
     "ws_unified_free(WSQueues, UArgs)":
         (115, 29080),
     "ws_unified_lockstep(WSQueues, UArgs)":
-        (128, 57520),
+        (128, 57328),
 }
 
 
 def _log_functions(tag, name, fns, baseline=None):
+    """Log each kernel function's registers and SASS instructions, beside
+    ``baseline``'s where given; returns the recorded functions that differ."""
+    from repro_torch import _build
+
+    differ = []
     for f in sorted(fns, key=lambda f: (fns[f].get("traced", False), f)):
         st = fns[f]
         line = (f"[{tag}] {name} {'traced  ' if st.get('traced') else 'untraced'} {f}: "
                 f"{st['registers']} registers, {st['spill_stores']} B spill stores, "
                 f"{st.get('sass_instructions')} SASS instructions, forbidden SASS "
                 f"{st.get('forbidden_sass')}")
-        if baseline is not None and not st.get("traced"):
-            from repro_torch import _build
-
+        if baseline is not None:
             b = baseline.get(_build.function_key(f))
             if b is None:
-                line += "; the build without rings: not recorded"
+                line += "; the build before half-run steals: not there"
             else:
                 same = b == (st["registers"], st.get("sass_instructions"))
-                line += (f"; the build without rings: {b[0]} registers, {b[1]} SASS "
-                         "instructions"
-                         + (" (the same)" if same else " (DIFFERS)"))
+                line += (f"; the build before half-run steals: {b[0]} registers, {b[1]} SASS "
+                         "instructions" + (" (the same)" if same else " (DIFFERS)"))
+                if not same:
+                    differ.append(f)
         log(line)
+    return differ
 
 
 def phase_audit():
@@ -782,7 +864,10 @@ def phase_audit():
         if not audit["sass_kernels"]:
             raise AssertionError(f"cuobjdump found no kernel in {name}")
         fns = stats[name]
-        _log_functions("audit", name, fns, BASELINE_FUNCTIONS)
+        differ = _log_functions("audit", name, fns, BASELINE_FUNCTIONS)
+        if differ:
+            raise AssertionError(f"{name}: the per-slot functions {differ} changed registers "
+                                 "or SASS instructions")
         n_traced = sum(st["traced"] for st in fns.values())
         if not n_traced or 2 * n_traced != len(fns):
             raise AssertionError(f"{name}: want an untraced and a traced instantiation of "
@@ -790,6 +875,14 @@ def phase_audit():
         bad = {f: st["forbidden_sass"] for f, st in fns.items() if st["forbidden_sass"]}
         if bad:
             raise AssertionError(f"{name}: forbidden SASS in {bad}")
+        n_run = sum("_run_kernel" in f for f in fns)
+        if n_run != (0 if name == "ws_unified" else len(fns) // 2):
+            raise AssertionError(f"{name}: want a half-run instantiation beside each per-slot "
+                                 f"one (none in ws_unified): {sorted(fns)}")
+    keys = {_build.function_key(f) for fns in stats.values() for f in fns}
+    missing = sorted(set(BASELINE_FUNCTIONS) - keys)
+    if missing:
+        raise AssertionError(f"the build lacks the per-slot functions {missing}")
     return stats
 
 
@@ -815,18 +908,18 @@ def audit_baseline(root) -> None:
     log("[baseline] " + json.dumps(table, sort_keys=True))
 
 
-def phase_chaos(dev):
-    """SafetyChecker on free-mode launches of ws_attention (llama3.2-3b's
-    decode shape) and ws_expert (kimi-k2's full width, decode routing), and
-    CHAOS_SEEDS' fault plans through both in lockstep and in free mode."""
-    from repro_torch.chaos import SafetyChecker, single_launch
-    from repro_torch.moe_ws import row_divisor, run_moe_schedule
+def _attention_kit(dev):
+    """ws_attention at llama3.2-3b's decode shape for the checker: the state,
+    inputs, a cap-1 lockstep launch (every tile once: the exact replay's
+    oracle), a fault-free traced free launch, run_with_faults launch
+    callables and the checker."""
+    from types import SimpleNamespace
+
+    from repro_torch.chaos import SafetyChecker
     from repro_torch.pallas_ws import (
-        copy_state, default_rounds, emit_decode_tasks, make_queue_state, multiplicity_divisor,
-        run_ws_schedule,
+        copy_state, emit_decode_tasks, make_queue_state, multiplicity_divisor, run_ws_schedule,
     )
 
-    t_phase = time.perf_counter()
     c = DECODE
     lengths, q, k, v = decode_inputs(np.random.default_rng(SEED), dev)
     tasks = emit_decode_tasks(lengths, c["H"], c["bk"])
@@ -838,17 +931,18 @@ def phase_chaos(dev):
     clean = run_ws_schedule(copy_state(state), q4, k, v, mode="free", trace=True, **akw)
     torch.cuda.synchronize()
 
-    def a_launch(mode):
-        def go(st, *, rounds, out, mult, fault_plan):
+    def launch(mode):
+        def go(st, *, rounds, out, mult, fault_plan, steal_run_cap=1):
             return run_ws_schedule(st, q4, k, v, mode=mode, rounds=rounds, out=out, mult=mult,
-                                   trace=True, fault_plan=fault_plan, **akw)
+                                   trace=True, fault_plan=fault_plan,
+                                   steal_run_cap=steal_run_cap, **akw)
         return go
 
-    def a_plain(st, **a):
+    def plain(st, **a):
         with plain_versions():
-            return a_launch("lockstep")(st, **a)
+            return launch("lockstep")(st, **a)
 
-    def a_check(ch):
+    def check(ch):
         if ch.mode == "lockstep":  # one tile a row: the exact float replay
             return SafetyChecker().check(
                 ch, n_tasks=state.n_tasks, oracle_accumulated=base.out,
@@ -856,57 +950,386 @@ def phase_chaos(dev):
         return SafetyChecker().check(ch, n_tasks=state.n_tasks, normalized=ch.res.out,
                                      oracle_normalized=clean.out, rtol=0, atol=ATOL)
 
-    _report("ws_attention", "fault-free free launch (llama3.2-3b decode shape)",
-            SafetyChecker().check(single_launch(state, clean), n_tasks=state.n_tasks,
-                                  normalized=clean.out, oracle_normalized=base.out,
-                                  rtol=0, atol=ATOL))
-    _chaos_plans("ws_attention", "llama3.2-3b decode shape", state, a_launch, a_plain, a_check,
-                 default_rounds(state, True), CHAOS_SEEDS)
-    del base, clean
+    return SimpleNamespace(state=state, tasks=tasks, lengths=lengths, q4=q4, k=k, v=v,
+                           base=base, clean=clean, launch=launch, plain=plain, check=check,
+                           what="llama3.2-3b decode shape")
 
-    if "expert" in HELD:
-        w, (x, etasks, routed, ws) = HELD.pop("expert")
-    else:
+
+def _expert_kit(dev):
+    """ws_expert at kimi-k2's full width, decode routing, for the checker (the
+    expert phase's weights and routing when it ran): as _attention_kit."""
+    from types import SimpleNamespace
+
+    from repro_torch.chaos import SafetyChecker
+    from repro_torch.moe_ws import row_divisor, run_moe_schedule
+    from repro_torch.pallas_ws import copy_state
+
+    if "expert" not in HELD:
         w = expert_weights(dev)
         x, etasks, routed, ws, _ = expert_routing(np.random.default_rng(SEED), EXPERT_T["decode"])
-        x = torch.from_numpy(x).to(dev)
+        HELD["expert"] = (w, (torch.from_numpy(x).to(dev), etasks, routed, ws))
+    w, (x, etasks, routed, ws) = HELD["expert"]
     ekw = dict(bt=EXPERT["bt"], steal=True, steal_policy="cost")
-    ebase = run_moe_schedule(copy_state(ws), x, routed.tok_idx, *w, mode="lockstep", **ekw)
-    eclean = run_moe_schedule(copy_state(ws), x, routed.tok_idx, *w, mode="free", trace=True,
-                              **ekw)
+    base = run_moe_schedule(copy_state(ws), x, routed.tok_idx, *w, mode="lockstep", **ekw)
+    clean = run_moe_schedule(copy_state(ws), x, routed.tok_idx, *w, mode="free", trace=True,
+                             **ekw)
     torch.cuda.synchronize()
 
-    def e_launch(mode):
-        def go(st, *, rounds, out, mult, fault_plan):
+    def launch(mode):
+        def go(st, *, rounds, out, mult, fault_plan, steal_run_cap=1):
             return run_moe_schedule(st, x, routed.tok_idx, *w, mode=mode, rounds=rounds,
-                                    out=out, mult=mult, trace=True, fault_plan=fault_plan, **ekw)
+                                    out=out, mult=mult, trace=True, fault_plan=fault_plan,
+                                    steal_run_cap=steal_run_cap, **ekw)
         return go
 
-    def e_plain(st, **a):
+    def plain(st, **a):
         with plain_versions():
-            return e_launch("lockstep")(st, **a)
+            return launch("lockstep")(st, **a)
 
-    def e_check(ch):
+    def check(ch):
         if ch.mode == "lockstep":
             return SafetyChecker().check(
-                ch, n_tasks=ws.n_tasks, oracle_accumulated=ebase.out,
+                ch, n_tasks=ws.n_tasks, oracle_accumulated=base.out,
                 row_mult=row_divisor(etasks, ch.res.mult.cpu().numpy(), routed.n_rows))
         rep = SafetyChecker().check(ch, n_tasks=ws.n_tasks, normalized=ch.res.out,
-                                    oracle_normalized=eclean.out, rtol=0, atol=ATOL)
+                                    oracle_normalized=clean.out, rtol=0, atol=ATOL)
         if rep.normalized_parity != "bitwise":  # the same tile's bits, stored again
             raise AssertionError(f"ws_expert free chaos: parity {rep.normalized_parity}")
         return rep
 
-    _report("ws_expert", "fault-free free launch (kimi-k2 decode routing)",
-            SafetyChecker().check(single_launch(ws, eclean), n_tasks=ws.n_tasks,
-                                  normalized=eclean.out, oracle_normalized=ebase.out,
-                                  rtol=0, atol=ATOL))
-    _chaos_plans("ws_expert", "kimi-k2 decode routing", ws, e_launch, e_plain, e_check,
-                 default_rounds(ws, True), CHAOS_SEEDS)
-    del w, x, ebase, eclean
+    return SimpleNamespace(state=ws, tasks=etasks, routed=routed, x=x, w=w, base=base,
+                           clean=clean, launch=launch, plain=plain, check=check,
+                           what="kimi-k2 decode routing")
+
+
+def phase_chaos(dev):
+    """SafetyChecker on free-mode launches of ws_attention (llama3.2-3b's
+    decode shape) and ws_expert (kimi-k2's full width, decode routing), and
+    CHAOS_SEEDS' fault plans through both in lockstep and in free mode."""
+    from repro_torch.chaos import SafetyChecker, single_launch
+    from repro_torch.pallas_ws import default_rounds
+
+    t_phase = time.perf_counter()
+    for kernel, kit in (("ws_attention", _attention_kit(dev)), ("ws_expert", _expert_kit(dev))):
+        _report(kernel, f"fault-free free launch ({kit.what})",
+                SafetyChecker().check(single_launch(kit.state, kit.clean),
+                                      n_tasks=kit.state.n_tasks, normalized=kit.clean.out,
+                                      oracle_normalized=kit.base.out, rtol=0, atol=ATOL))
+        _chaos_plans(kernel, kit.what, kit.state, kit.launch, kit.plain, kit.check,
+                     default_rounds(kit.state, True), CHAOS_SEEDS)
+        del kit
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[chaos] phase {time.perf_counter() - t_phase:.1f} s; card {card_line()}")
+
+
+# ---------------------------------------------------------------------------
+# half-run Steal (steal_run_cap > 1)
+
+
+def _halfrun_stats(kernel, ds, n_live, launch, at, n=HALFRUN_STATS_N, warm=True):
+    """Free untraced launches of one kernel at each of HALFRUN_STATS_CAPS
+    (free mode has no rounds budget; every cap gets the same none): ``n``
+    timed launches (after a warm-up, with ``warm``), and from those launches' arrays
+    Σmult/tasks (mean), the largest mult, and slots scanned per extraction
+    (mean).  ``launch(arrs, cap)`` launches over launch-ready arrays of the
+    device state ``ds``; ``n_live`` tasks are live."""
+    row = {"at": at, "card": card_line(), "launches_per_cap": n}
+    for cap in HALFRUN_STATS_CAPS:
+        arrs = _fresh_arrays(ds, "free", n + 1)
+        if warm:
+            launch(arrs[n], cap)
+            torch.cuda.synchronize()
+        ms = _event_ms(lambda i, cap=cap: launch(arrs[i], cap), n)
+        mult = torch.stack([a["mult"].sum(0)[:n_live] for a in arrs[:n]]).double()
+        scanned = torch.stack([a["scanned"].sum() for a in arrs[:n]]).double()
+        if not bool((mult >= 1).all()):
+            raise AssertionError(f"{kernel} cap={cap}: a free launch left a task unexecuted")
+        row[f"cap{cap}"] = dict(
+            free_ms_untraced=ms, mult_per_task=float(mult.sum(1).mean()) / n_live,
+            max_mult=int(mult.max()),
+            scanned_per_extraction=float((scanned / mult.sum(1)).mean()))
+        log(f"[halfrun] {kernel} free untraced cap={cap} ({at}, {n_live} tasks, {n} launches): "
+            f"{ms:.4f} ms, " + ", ".join(f"{k} {v}" for k, v in row[f"cap{cap}"].items()
+                                         if k != "free_ms_untraced"))
+    return row
+
+
+def _ragged_prefill(dev):
+    """ragged_flash_attention at llama3.2-3b's widths (RAGGED): the static,
+    ws and ws cap-4 arms against ragged_attention_ref, their kernel times,
+    the bound, and one masked F.scaled_dot_product_attention as a yardstick
+    (the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.pallas_ws import (
+        emit_flash_tasks, make_queue_state, normalized_out, ragged_attention_ref,
+        ragged_flash_attention, run_ws_schedule, to_device,
+    )
+    from repro_torch.pallas_ws import kernel as K
+
+    r = RAGGED
+    lengths = np.array(r["lengths"])
+    B, S, H, Hkv, hd = len(lengths), r["S"], r["H"], r["Hkv"], r["hd"]
+    rng = np.random.default_rng(SEED)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(torch.bfloat16).to(dev)
+               for shape in ((B, H, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
+    ref32 = ragged_attention_ref(q.float(), k.float(), v.float(), lengths)  # the same bf16 values
+    ref16 = ragged_attention_ref(q, k, v, lengths)
+    # both round fp32 results that differ in the last bits to bf16: a flip
+    # costs one bf16 ulp of |out|
+    ulp16 = float(ref32.abs().max()) * 2.0 ** -8
+    tasks = emit_flash_tasks(lengths, H, r["bq"], r["bk"], causal=True)
+    state = make_queue_state(tasks, r["P"])
+    ds = to_device(state, dev)
+    sq_out = -(-S // r["bq"]) * r["bq"]
+    out = torch.zeros((B, H, sq_out, hd), dtype=torch.float32, device=dev)
+    arms = {}
+    for name, schedule, cap in (("static", "static", 1), ("ws", "ws", 1), ("ws_cap4", "ws", 4)):
+        steal = schedule == "ws"
+        kw = dict(causal=True, bq=r["bq"], bk=r["bk"], steal=steal, steal_run_cap=cap)
+        res = run_ws_schedule(to_device(state, dev), q, k, v, **kw)  # the bf16 instantiation
+        got = normalized_out(res, tasks, (B, H, sq_out))[:, :, :S]
+        err = float((got - ref32).abs().max())
+        o16 = ragged_flash_attention(q, k, v, lengths, schedule=schedule, steal_run_cap=cap,
+                                     n_programs=r["P"], bq=r["bq"], bk=r["bk"])
+        err16 = float((o16.float() - ref16.float()).abs().max())
+        torch.cuda.synchronize()
+        if not (err <= ATOL and err16 <= ulp16):
+            raise AssertionError(f"ragged prefill {name}: fp32 out err {err} (> {ATOL}?), "
+                                 f"entry point bf16 err {err16} (> {ulp16}?)")
+        n = 3
+        arrs = _fresh_arrays(ds, "free", n + 1)
+
+        def launch(i, steal=steal, cap=cap):
+            K._launch_cuda(arrs[i], q, k, v, out, mode="free", rounds=0, steal=steal,
+                           policy="cost", compress=not steal, causal=True, bq=r["bq"],
+                           bk=r["bk"], scale=hd ** -0.5, g=H // Hkv, n_tasks=state.n_tasks,
+                           run_cap=cap)
+
+        launch(n)  # warm-up
+        torch.cuda.synchronize()
+        ms = _event_ms(launch, n)
+        mult = arrs[0]["mult"].sum(0)
+        arms[name] = dict(ms=ms, max_abs_err=err, entry_point_bf16_err=err16,
+                          mult_per_task=int(mult.sum()) / state.n_tasks)
+        log(f"[halfrun] ragged prefill {name}: kernel {ms:.3f} ms (free), fp32 out max_abs_err "
+            f"{err:.3g} (<= {ATOL}), ragged_flash_attention (bf16) vs bf16 oracle {err16:.3g} "
+            f"(<= one bf16 ulp {ulp16:.3g}), sum(mult)/tasks {arms[name]['mult_per_task']:.3f}")
+
+    kpos = torch.arange(S, device=dev)
+    ln = torch.as_tensor(lengths, device=dev)[:, None, None, None]
+    mask = (kpos[None, :] <= kpos[:, None]) & (kpos[None, :] < ln) & (kpos[:, None] < ln)
+    k_rep, v_rep = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+
+    def sdpa(_):
+        F.scaled_dot_product_attention(q, k_rep, v_rep, attn_mask=mask)
+
+    sdpa(0)
+    torch.cuda.synchronize()
+    library_ms = _event_ms(sdpa, 5)
+    live = int(lengths.sum())
+    pairs = int(sum(ln_ * (ln_ + 1) // 2 for ln_ in lengths.tolist()))  # causal (q, k) pairs
+    nbytes = (live * H * hd * 2 + 2 * live * Hkv * hd * 2   # q, k, v live rows, bf16, once
+              + live * H * hd * 4 + state.n_tasks * 8 * 4)  # out rows fp32, task records
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * pairs * H * hd / BF16_FLOPS * 1e3
+    row = dict(lengths=list(map(int, lengths)), H=H, Hkv=Hkv, hd=hd, bq=r["bq"], bk=r["bk"],
+               n_tasks=state.n_tasks, arms=arms, bound_ms=max(byte_ms, ops_ms),
+               bound_by="bytes" if byte_ms >= ops_ms else "operations", library_ms=library_ms,
+               card=card_line())
+    log(f"[halfrun] ragged prefill bound {row['bound_ms']:.5f} ms ({row['bound_by']}: {nbytes} B, "
+        f"{4 * pairs * H * hd} operations), masked SDPA yardstick {library_ms:.3f} ms")
+    return row
+
+
+def phase_halfrun(dev):
+    """Half-run Steal on the card: ws_attention (llama3.2-3b decode shape)
+    and ws_expert (kimi-k2 full width, decode and prefill routings, dense
+    and pool layouts) at HALFRUN_CAPS, lockstep bit-equal to the plain walk
+    (rings included) and free mode clean under SafetyChecker; HALFRUN_PLAN
+    through both at cap 4; the free launches' statistics at cap 1, 2, 4;
+    and the ragged prefill.  ws_expert_grad's checks run in the grad phase."""
+    from repro_torch.chaos import FaultPlan, SafetyChecker, single_launch
+    from repro_torch.moe_ws import (
+        combine_routed, expert_rounds_bound, route_to_tasks, route_to_tasks_pool,
+    )
+    from repro_torch.moe_ws import expert_kernel as X
+    from repro_torch.moe_ws.layer import _normalised
+    from repro_torch.pallas_ws import (
+        default_rounds, make_pool_queue_state, make_queue_state, normalized_out, run_ws_schedule,
+        to_device,
+    )
+    from repro_torch.pallas_ws import kernel as K
+    from repro_torch.wstrace import EV_RUN
+
+    t_phase = time.perf_counter()
+    plan = FaultPlan(**HALFRUN_PLAN)
+    c = DECODE
+    errs = {"ws_attention": [], "ws_expert": []}
+    kit = _attention_kit(dev)
+    kw = dict(causal=False, bq=1, bk=c["bk"])
+    n_tasks = kit.state.n_tasks
+    for cap in HALFRUN_CAPS:
+        res_p, err = _check_lockstep(f"half-run cap={cap} decode traced", kit.state, kit.q4,
+                                     kit.k, kit.v, steal=True, steal_policy="cost",
+                                     steal_run_cap=cap, trace=True, **kw)
+        in_runs = int((res_p.events[..., EV_RUN] > 1).sum())
+        expect = normalized_out(res_p, kit.tasks, (c["B"], c["H"], 1)).to(dev)
+        free = run_ws_schedule(to_device(kit.state, dev), kit.q4, kit.k, kit.v, mode="free",
+                               trace=True, steal_run_cap=cap, **kw)
+        torch.cuda.synchronize()
+        err_f = float((free.out - expect).abs().max())
+        if not (bool((free.mult[:n_tasks] >= 1).all()) and err_f <= ATOL):
+            raise AssertionError(f"ws_attention half-run cap={cap} free: err {err_f}")
+        errs["ws_attention"] += [err, err_f]
+        _report("ws_attention", f"half-run cap={cap} free launch ({kit.what}; lockstep: "
+                f"{in_runs} of {n_tasks} events in runs)",
+                SafetyChecker().check(single_launch(kit.state, free), n_tasks=n_tasks,
+                                      normalized=free.out, oracle_normalized=expect,
+                                      rtol=0, atol=ATOL))
+    _chaos_plans("ws_attention", kit.what, kit.state, kit.launch, kit.plain, kit.check,
+                 default_rounds(kit.state, True, steal_run_cap=4), (plan,), steal_run_cap=4)
+    ds = to_device(kit.state, dev)
+    aout = torch.zeros((c["B"], c["H"], 1, c["hd"]), dtype=torch.float32, device=dev)
+
+    def a_go(arrs, cap):
+        K._launch_cuda(arrs, kit.q4, kit.k, kit.v, aout, mode="free", rounds=0, steal=True,
+                       policy="cost", compress=False, causal=False, bq=1, bk=c["bk"],
+                       scale=c["hd"] ** -0.5, g=c["H"] // c["Hkv"], n_tasks=n_tasks, run_cap=cap)
+
+    HALFRUN["ws_attention"] = _halfrun_stats("ws_attention", ds, n_tasks, a_go, kit.what)
+    del kit, ds, aout
+    HALFRUN["ragged_prefill"] = _ragged_prefill(dev)
+
+    ek = _expert_kit(dev)
+    e = EXPERT
+    rng = np.random.default_rng(SEED)  # the expert phase's routings, in its order
+    for name, T in EXPERT_T.items():
+        idx, gates, xh = routing_draw(rng, T)
+        x = torch.from_numpy(xh).to(dev)
+        tasks, routed = route_to_tasks(idx, gates, e["E"], bt=e["bt"])
+        ws = make_queue_state(tasks, e["P"], n_queues=e["E"], partition="owner")
+        records, tail, pool_off, prouted = route_to_tasks_pool(idx, gates, e["E"], bt=e["bt"])
+        pool = make_pool_queue_state(records, tail, pool_off, prouted.loads, e["P"],
+                                     n_tasks=records.shape[0])
+        for layout, st, rt, tl in (("dense", ws, routed, tasks), ("pool", pool, prouted, None)):
+            n_live = int(np.asarray(st.tail).sum()) if st.pool else st.n_tasks
+            for cap in HALFRUN_CAPS:
+                what = f"{name} T={T} {layout} cap={cap}"
+                rounds = (expert_rounds_bound(idx.size, e["bt"], e["E"], e["P"], True,
+                                              steal_run_cap=cap) if st.pool else None)
+                kwl = dict(mode="lockstep", steal=True, steal_policy="cost", steal_run_cap=cap,
+                           rounds=rounds, trace=True)
+                res_k = _moe(st, x, rt, ek.w, **kwl)
+                torch.cuda.synchronize()
+                res_p = _moe(st, x, rt, ek.w, plain=True, **kwl)
+                ik, ip = _ints(res_k), _ints(res_p)
+                bad = [n for n in ik if not np.array_equal(ik[n], ip[n])]
+                err = float((res_k.out - res_p.out).abs().max())
+                if bad or not err <= ATOL:
+                    raise AssertionError(f"ws_expert half-run {what} lockstep: {bad} differ, "
+                                         f"out err {err}")
+                in_runs = int((res_p.events[..., EV_RUN] > 1).sum())
+                expect = _normalised(res_p, rt, tl, e["bt"])
+                free = _moe(st, x, rt, ek.w, mode="free", steal_run_cap=cap, trace=True)
+                torch.cuda.synchronize()
+                mult = free.mult.cpu()
+                err_f = float((combine_routed(rt, tl, free, bt=e["bt"])
+                               - combine_routed(rt, tl, res_p, bt=e["bt"])).abs().max())
+                if not (bool((mult[:n_live] >= 1).all()) and bool((mult[n_live:] == 0).all())
+                        and err_f <= ATOL):
+                    raise AssertionError(f"ws_expert half-run {what} free: combine err {err_f}")
+                errs["ws_expert"] += [err, err_f]
+                log(f"[halfrun] ws_expert {what} lockstep: integer arrays and rings bit-equal "
+                    f"({in_runs} events in runs), out max_abs_err {err:.3g}; free combine "
+                    f"max_abs_err {err_f:.3g}")
+                _report("ws_expert", f"half-run {what} free launch ({ek.what.split()[0]})",
+                        SafetyChecker().check(single_launch(st, free), n_tasks=n_live,
+                                              normalized=free.out, oracle_normalized=expect,
+                                              rtol=0, atol=ATOL))
+    _chaos_plans("ws_expert", ek.what, ek.state, ek.launch, ek.plain, ek.check,
+                 default_rounds(ek.state, True, steal_run_cap=4), (plan,), steal_run_cap=4)
+    ds = to_device(ek.state, dev)
+    tok = torch.from_numpy(ek.routed.tok_idx).to(dev)
+    eout = torch.zeros((ek.routed.n_rows, e["d"]), dtype=torch.float32, device=dev)
+
+    def e_go(arrs, cap):
+        X._launch_cuda(arrs, ek.x, tok, *ek.w, eout, mode="free", rounds=0, steal=True,
+                       policy="cost", compress=False, bt=e["bt"], n_tasks=ek.state.n_tasks,
+                       run_cap=cap)
+
+    HALFRUN["ws_expert"] = _halfrun_stats("ws_expert", ds, ek.state.n_tasks, e_go, ek.what)
+    del ek, ds, eout
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {k: max(v) for k, v in errs.items()}
+    log(f"[halfrun] phase {time.perf_counter() - t_phase:.1f} s, max_abs_err {errs}; "
+        f"card {card_line()}")
+    return errs
+
+
+def _grad_halfrun(pool, x, gy, routed, w, n_live, expect, free_out):
+    """ws_expert_grad at HALFRUN_CAPS on the grad phase's pool queues:
+    lockstep bit-equal to the plain walk (rings included), a traced free
+    launch within GRAD_RTOL of the plain version's normalised block
+    (``expect``) and clean under SafetyChecker against the per-slot free
+    launch's block (``free_out``: the same tile math), and the free
+    launches' statistics at cap 1, 2, 4."""
+    from repro_torch.chaos import SafetyChecker, single_launch
+    from repro_torch.moe_ws import expert_rounds_bound
+    from repro_torch.moe_ws import expert_kernel as X
+    from repro_torch.pallas_ws import to_device
+    from repro_torch.wstrace import EV_RUN
+
+    c = GRAD
+    d, f = c["d"], c["f"]
+    t0 = time.perf_counter()
+    errs = []
+    for cap in HALFRUN_CAPS:
+        rounds = expert_rounds_bound(c["T"] * c["k"], c["bt"], c["E"], c["P"], True,
+                                     steal_run_cap=cap)
+        kw = dict(steal=True, steal_policy="cost", rounds=rounds, trace=True, steal_run_cap=cap)
+        res_k = _grad_run(pool, x, gy, routed, w, mode="lockstep", **kw)
+        torch.cuda.synchronize()
+        res_p = _grad_run(pool, x, gy, routed, w, mode="lockstep", plain=True, **kw)
+        ik, ip = _ints(res_k), _ints(res_p)
+        bad = [n for n in ik if not np.array_equal(ik[n], ip[n])]
+        if bad:
+            raise AssertionError(f"ws_expert_grad half-run cap={cap} lockstep: {bad} differ")
+        a, r = _check_grad_block(f"ws_expert_grad half-run cap={cap} lockstep", res_k.out,
+                                 res_p.out, d, f)
+        free = _grad_run(pool, x, gy, routed, w, mode="free", steal_run_cap=cap, trace=True)
+        torch.cuda.synchronize()
+        mult = free.mult.cpu()
+        if not (bool((mult[:n_live] >= 1).all()) and bool((mult[n_live:] == 0).all())):
+            raise AssertionError(f"ws_expert_grad half-run cap={cap} free left a tile")
+        af, rf = _check_grad_block(f"ws_expert_grad half-run cap={cap} free", free.out, expect,
+                                   d, f)
+        errs += [a, af]
+        in_runs = int((res_p.events[..., EV_RUN] > 1).sum())
+        log(f"[halfrun] ws_expert_grad cap={cap} lockstep: integer arrays and rings bit-equal "
+            f"({in_runs} events in runs), out max_abs_err {a:.3g} (group-relative {r:.3g}); "
+            f"free max_abs_err {af:.3g} (group-relative {rf:.3g})")
+        _report("ws_expert_grad", f"half-run cap={cap} free launch (deepseek-v2 train routing)",
+                SafetyChecker().check(single_launch(pool, free), n_tasks=n_live,
+                                      normalized=free.out, oracle_normalized=free_out,
+                                      rtol=GRAD_RTOL, atol=ATOL))
+    dev = x.device
+    ds = to_device(pool, dev)
+    tok = torch.from_numpy(np.asarray(routed.tok_idx, dtype=np.int32)).to(dev)
+    gr = torch.from_numpy(np.asarray(routed.gates, dtype=np.float32)).to(dev)
+    out = torch.zeros((tok.shape[0], X.grad_out_width(d, f)), dtype=torch.float32, device=dev)
+
+    def g_go(arrs, cap):
+        X._launch_grad_cuda(arrs, x, gy, tok, gr, *w, out, mode="free", rounds=0, steal=True,
+                            policy="cost", compress=False, bt=c["bt"], n_tasks=pool.n_tasks,
+                            run_cap=cap)
+
+    HALFRUN["ws_expert_grad"] = _halfrun_stats("ws_expert_grad", ds, n_live, g_go,
+                                               "deepseek-v2 train routing", n=2, warm=False)
+    log(f"[halfrun] ws_expert_grad checks {time.perf_counter() - t0:.1f} s")
+    return max(errs)
 
 
 def phase_serving(dev):
@@ -1313,10 +1736,11 @@ def _grad_run(state, x, gy, routed, w, *, plain=False, **kw):
                                  routed.gates, *w, bt=GRAD["bt"], **kw)
 
 
-def phase_grad(dev):
+def phase_grad(dev, halfrun=False):
     """ws_expert_grad against its plain version at deepseek-v2 full width:
     lockstep on the pool layout (cost, scan) and on dense static queues,
-    free mode, the no-thief rewind drill; then ws_expert on pool queues."""
+    free mode, the no-thief rewind drill; then ws_expert on pool queues.
+    ``halfrun``: the kernel's half-run checks and statistics too."""
     from repro_torch.moe_ws import expert_rounds_bound, route_to_tasks, route_to_tasks_pool
     from repro_torch.moe_ws.layer import _normalised
     from repro_torch.pallas_ws import copy_state, make_pool_queue_state, make_queue_state
@@ -1388,7 +1812,9 @@ def phase_grad(dev):
     duplication = int(mult.sum()) / n_live
     log(f"[grad] ws_expert_grad free (pool): mult in [{int(mult.min())}, {int(mult.max())}], "
         f"sum(mult)/tiles {duplication:.2f}, out max_abs_err {a:.3g}, group-relative {r:.3g}")
-    _grad_chaos(pool, x, gy, routed, w, rounds, n_live, oracle, res.out)
+    _grad_chaos(pool, x, gy, routed, w, rounds, n_live, oracle, res.out, halfrun)
+    halfrun_err = (_grad_halfrun(pool, x, gy, routed, w, n_live, expect, res.out) if halfrun
+                   else None)
 
     # rewind drill without thieves: resume with every head at 0 and every
     # local bound wiped; each tile runs exactly once more (mult == 2) and its
@@ -1434,15 +1860,17 @@ def phase_grad(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(abs_errs), max_group_rel_err=max(rel_errs),
-                free_duplication=duplication, pool_fwd_err=fwd_err)
+                free_duplication=duplication, pool_fwd_err=fwd_err,
+                halfrun_max_abs_err=halfrun_err)
 
 
-def _grad_chaos(pool, x, gy, routed, w, rounds, n_live, oracle, free_out):
+def _grad_chaos(pool, x, gy, routed, w, rounds, n_live, oracle, free_out, halfrun=False):
     """SafetyChecker on a traced free launch of ws_expert_grad, then the
     seeded plan GRAD_CHAOS_SEED without launch faults (the grad schedule
-    takes none) in lockstep against the plain walk and in free mode."""
-    from repro_torch.chaos import SafetyChecker, single_launch
-    from repro_torch.moe_ws import run_moe_grad_schedule
+    takes none) in lockstep against the plain walk and in free mode; with
+    ``halfrun``, HALFRUN_PLAN at cap 4 the same way."""
+    from repro_torch.chaos import FaultPlan, SafetyChecker, single_launch
+    from repro_torch.moe_ws import expert_rounds_bound, run_moe_grad_schedule
     from repro_torch.moe_ws.layer import _row_divisor
     from repro_torch.pallas_ws import copy_state
 
@@ -1450,9 +1878,10 @@ def _grad_chaos(pool, x, gy, routed, w, rounds, n_live, oracle, free_out):
     kw = dict(bt=GRAD["bt"], steal=True, steal_policy="cost")
 
     def launch(mode):
-        def go(st, *, rounds, out, mult, fault_plan):
+        def go(st, *, rounds, out, mult, fault_plan, steal_run_cap=1):
             return run_moe_grad_schedule(st, x, gy, routed.tok_idx, routed.gates, *w, mode=mode,
-                                         rounds=rounds, out=out, mult=mult, trace=True, **kw)
+                                         rounds=rounds, out=out, mult=mult, trace=True,
+                                         steal_run_cap=steal_run_cap, **kw)
         return go
 
     def plain(st, **a):
@@ -1472,6 +1901,12 @@ def _grad_chaos(pool, x, gy, routed, w, rounds, n_live, oracle, free_out):
             check(single_launch(pool, clean)))
     _chaos_plans("ws_expert_grad", "deepseek-v2 train routing", pool, launch, plain, check,
                  rounds, (GRAD_CHAOS_SEED,), without_launch_faults=True)
+    if halfrun:
+        c = GRAD
+        _chaos_plans("ws_expert_grad", "deepseek-v2 train routing", pool, launch, plain, check,
+                     expert_rounds_bound(c["T"] * c["k"], c["bt"], c["E"], c["P"], True,
+                                         steal_run_cap=4),
+                     (FaultPlan(**HALFRUN_PLAN),), without_launch_faults=True, steal_run_cap=4)
     log(f"[grad] chaos checks {time.perf_counter() - t0:.1f} s")
 
 
@@ -2494,13 +2929,14 @@ def main(argv=None) -> int:
         phase_audit()
     if "chaos" in phases:
         phase_chaos(dev)
+    halfrun_err = phase_halfrun(dev) if "halfrun" in phases else None
     HELD.clear()
     gc.collect()
     torch.cuda.empty_cache()
     serving, n_launches = phase_serving(dev) if "serving" in phases else (None, None)
     times = phase_times(dev) if "times" in phases else {}
     moe = phase_moe(dev) if "moe" in phases else None
-    grad = phase_grad(dev) if "grad" in phases else None
+    grad = phase_grad(dev, halfrun="halfrun" in phases) if "grad" in phases else None
     training = phase_train(dev) if "train" in phases else None
     unified, userving = phase_unified(dev) if "unified" in phases else (None, None)
     umoe, umserving = phase_unified_moe(dev) if "unified_moe" in phases else (None, None)
@@ -2520,10 +2956,12 @@ def main(argv=None) -> int:
                              userving["model"]: userving["launches"]["ws_attention"],
                              umserving["model"]: umserving["launches"]["ws_attention"]},
         "launches_per_train_step": training["launches_per_step"]["ws_attention"],
-        "max_abs_err": max(max_err, expert["attn_err"]),
+        "max_abs_err": max(max_err, expert["attn_err"], halfrun_err["ws_attention"]),
         **times,
         **TRACED["ws_attention"],
         "chaos": CHAOS["ws_attention"],
+        "halfrun": HALFRUN["ws_attention"],
+        "ragged_prefill": HALFRUN["ragged_prefill"],
     }
     expert_line = {
         "name": "ws_expert",
@@ -2538,10 +2976,11 @@ def main(argv=None) -> int:
                              umserving["model"]: umserving["launches"]["ws_expert"]},
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert"],
-        "max_abs_err": expert["max_abs_err"],
+        "max_abs_err": max(expert["max_abs_err"], halfrun_err["ws_expert"]),
         **{k: v for k, v in expert.items() if k not in ("max_abs_err", "attn_err")},
         **TRACED["ws_expert"],
         "chaos": CHAOS["ws_expert"],
+        "halfrun": HALFRUN["ws_expert"],
     }
     grad_line = {
         "name": "ws_expert_grad",
@@ -2556,11 +2995,13 @@ def main(argv=None) -> int:
                              umserving["model"]: umserving["launches"]["ws_expert_grad"]},
         "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
-        "max_abs_err": max(grad["max_abs_err"], training["launch_abs_err"]),
+        "max_abs_err": max(grad["max_abs_err"], training["launch_abs_err"],
+                           grad["halfrun_max_abs_err"]),
         "max_group_rel_err": max(grad["max_group_rel_err"], training["launch_rel_err"]),
         **training["grad_times"],
         **TRACED["ws_expert_grad"],
         "chaos": CHAOS["ws_expert_grad"],
+        "halfrun": HALFRUN["ws_expert_grad"],
     }
     unified_line = {
         "name": "ws_unified",

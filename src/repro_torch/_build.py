@@ -144,13 +144,15 @@ def is_traced(demangled: str) -> bool:
 
 
 def function_key(demangled: str) -> str:
-    """The untraced instantiation's name as an earlier, untemplated build
-    spelled it (``<float, false>`` -> ``<float>``; ``<false>`` and a
-    template's ``void `` dropped), so the two can be set side by side."""
+    """A kernel function's name as an earlier build spelled it, so the two can
+    be set side by side: the untraced instantiation as the untemplated build
+    did (``<float, false>`` -> ``<float>``; ``<false>`` and a template's
+    ``void `` dropped), and the traced one with its flag spelled ``true``
+    whichever demangler printed it."""
     key = _UNTRACED.sub(lambda m: ">" if m.group(1) == ", " else "", demangled)
     if "<" not in key.split("(")[0]:
         key = key.replace("void ", "", 1)
-    return key
+    return key.replace("(bool)1", "true")
 
 
 def function_stats(name: str, csrc: Optional[Path] = None,

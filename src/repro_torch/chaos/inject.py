@@ -95,15 +95,19 @@ def _clamped(spec: RewindSpec, head: np.ndarray) -> RewindSpec:
 
 
 def run_with_faults(state, launch: Callable, plan: Optional[FaultPlan], *,
-                    rounds: int, mode: str = "lockstep") -> ChaosRunResult:
+                    rounds: int, mode: str = "lockstep",
+                    steal_run_cap: Optional[int] = None) -> ChaosRunResult:
     """Drive ``launch`` through the plan's segment sequence.
 
     ``launch(state, *, rounds, out, mult, fault_plan)`` must run the
     schedule with ``trace=True`` in ``mode`` and return a ``WSRunResult``
     (e.g. a one-line wrapper around ``run_moe_schedule`` /
-    ``run_ws_schedule``).  ``rounds`` is the fault-free Graham budget;
+    ``run_ws_schedule``).  ``rounds`` is the fault-free Graham budget
+    (with half-run steals, the bound of that cap);
     segment 0 gets ``plan.max_stall`` extra so stalled programs still meet
-    the bound.  ``state`` is a host-built ``QueueState``.
+    the bound.  ``state`` is a host-built ``QueueState``.  A given
+    ``steal_run_cap`` is passed to every segment's launch as
+    ``launch(..., steal_run_cap=cap)``, so one callable serves every cap.
     """
     if mode not in ("lockstep", "free"):
         raise ValueError(f"mode must be 'lockstep' or 'free': {mode!r}")
@@ -119,6 +123,7 @@ def run_with_faults(state, launch: Callable, plan: Optional[FaultPlan], *,
 
     segments: List[Segment] = []
     out = mult = None
+    cap = {} if steal_run_cap is None else {"steal_run_cap": steal_run_cap}
     for i, (kind, budget, spec) in enumerate(seq):
         if i > 0:
             resume_state(state, segments[-1].res)
@@ -130,7 +135,7 @@ def run_with_faults(state, launch: Callable, plan: Optional[FaultPlan], *,
         start_head = np.array(host(state.head))
         start_local = np.array(host(state.local_head))
         res = launch(state, rounds=budget, out=out, mult=mult,
-                     fault_plan=seg_plan)
+                     fault_plan=seg_plan, **cap)
         stream, dropped = decode_rings(res.events, res.ev_cursor)
         segments.append(Segment(kind=kind, budget=budget,
                                 start_head=start_head,

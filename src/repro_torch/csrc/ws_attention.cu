@@ -58,12 +58,29 @@ __global__ void __launch_bounds__(NTHREADS) ws_free_kernel(WSQueues Q, AttnArgs 
   ws_free<TRACE>(Q, sh, AttentionTile<T>{A, smem});
 }
 
+// The half-run walks (steal_run_cap > 1).
+template <typename T, bool TRACE>
+__global__ void __launch_bounds__(NTHREADS) ws_lockstep_run_kernel(WSQueues Q, AttnArgs A) {
+  extern __shared__ float smem[];
+  __shared__ WSShared sh;
+  ws_lockstep<TRACE, true>(Q, sh, AttentionTile<T>{A, smem});
+}
+
+template <typename T, bool TRACE>
+__global__ void __launch_bounds__(NTHREADS) ws_free_run_kernel(WSQueues Q, AttnArgs A) {
+  extern __shared__ float smem[];
+  __shared__ WSShared sh;
+  ws_free<TRACE, true>(Q, sh, AttentionTile<T>{A, smem});
+}
+
 template <typename T>
 static int launch(const WSQueues& Q, const AttnArgs& A, int mode, size_t smem,
                   cudaStream_t stream) {
-  static void (*const kerns[4])(WSQueues, AttnArgs) = {
+  static void (*const kerns[8])(WSQueues, AttnArgs) = {
       ws_lockstep_kernel<T, false>, ws_free_kernel<T, false>,
-      ws_lockstep_kernel<T, true>, ws_free_kernel<T, true>};
+      ws_lockstep_kernel<T, true>, ws_free_kernel<T, true>,
+      ws_lockstep_run_kernel<T, false>, ws_free_run_kernel<T, false>,
+      ws_lockstep_run_kernel<T, true>, ws_free_run_kernel<T, true>};
   return ws_launch(kerns, mode, Q, A, NTHREADS, smem, stream);
 }
 
@@ -74,7 +91,7 @@ extern "C" int ws_attention_launch(
     const int* stage_open, const void* q, const void* k, const void* v, float* out,
     const long long* strides,
     int n_queues, int capacity, int n_programs, int n_tasks, int rounds,
-    int steal, int policy, int compress, int causal,
+    int steal, int policy, int compress, int run_cap, int causal,
     int H, int Sq, int Sq_out, int Sk, int hd, int g, int bq, int bk,
     float scale, int* ev, int* ev_cursor, const int* ev_mult0, int ev_cap, int steal_kind,
     int stall_ns, void* stream) {
@@ -82,6 +99,7 @@ extern "C" int ws_attention_launch(
                          steals, scanned, mult, n_queues, capacity, n_programs,
                          n_tasks, rounds, steal, policy, compress);
   Q.stage_open = stage_open;
+  Q.run_cap = run_cap;
   ws_set_ring(Q, ev, ev_cursor, ev_mult0, ev_cap, steal_kind, stall_ns);
   AttnArgs A;
   A.q = q;

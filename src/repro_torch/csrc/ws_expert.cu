@@ -87,12 +87,30 @@ __global__ void __launch_bounds__(NTHREADS) ws_expert_free_kernel(WSQueues Q, Ex
   ws_free<TRACE>(Q, sh, ExpertTile<T>{A, smem});
 }
 
+// The half-run walks (steal_run_cap > 1).
+template <typename T, bool TRACE>
+__global__ void __launch_bounds__(NTHREADS) ws_expert_lockstep_run_kernel(WSQueues Q,
+                                                                          ExpertArgs A) {
+  extern __shared__ float smem[];
+  __shared__ WSShared sh;
+  ws_lockstep<TRACE, true>(Q, sh, ExpertTile<T>{A, smem});
+}
+
+template <typename T, bool TRACE>
+__global__ void __launch_bounds__(NTHREADS) ws_expert_free_run_kernel(WSQueues Q, ExpertArgs A) {
+  extern __shared__ float smem[];
+  __shared__ WSShared sh;
+  ws_free<TRACE, true>(Q, sh, ExpertTile<T>{A, smem});
+}
+
 template <typename T>
 static int launch(const WSQueues& Q, const ExpertArgs& A, int mode, size_t smem,
                   cudaStream_t stream) {
-  static void (*const kerns[4])(WSQueues, ExpertArgs) = {
+  static void (*const kerns[8])(WSQueues, ExpertArgs) = {
       ws_expert_lockstep_kernel<T, false>, ws_expert_free_kernel<T, false>,
-      ws_expert_lockstep_kernel<T, true>, ws_expert_free_kernel<T, true>};
+      ws_expert_lockstep_kernel<T, true>, ws_expert_free_kernel<T, true>,
+      ws_expert_lockstep_run_kernel<T, false>, ws_expert_free_run_kernel<T, false>,
+      ws_expert_lockstep_run_kernel<T, true>, ws_expert_free_run_kernel<T, true>};
   return ws_launch(kerns, mode, Q, A, NTHREADS, smem, stream);
 }
 
@@ -103,12 +121,13 @@ extern "C" int ws_expert_launch(
     const float* x, const int* tok_idx, const void* wg, const void* wu,
     const void* wd, float* out,
     int n_queues, int capacity, int n_programs, int n_tasks, int rounds,
-    int steal, int policy, int compress,
+    int steal, int policy, int compress, int run_cap,
     int d, int f, int bt, int* ev, int* ev_cursor, const int* ev_mult0, int ev_cap,
     int steal_kind, int stall_ns, void* stream) {
   WSQueues Q = ws_queues(tasks, pool_off, tail, head, local_head, taken, remaining, clock, work,
                          steals, scanned, mult, n_queues, capacity, n_programs,
                          n_tasks, rounds, steal, policy, compress);
+  Q.run_cap = run_cap;
   ws_set_ring(Q, ev, ev_cursor, ev_mult0, ev_cap, steal_kind, stall_ns);
   ExpertArgs A;
   A.x = x;

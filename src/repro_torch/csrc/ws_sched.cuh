@@ -71,8 +71,30 @@
 //    initial clock is a stall of k tile-slots sleeps k * stall_ns before its
 //    first probe, and a positive `rounds` is a budget: a CTA stops once its
 //    clock reaches it (the kill segments of chaos/inject.py).
+//
+// Half-run Steal (the reference's `steal_run_cap > 1`, `_execute_run`).  Both
+// walks and the cost policy's claim take a compile-time HALFRUN flag; the
+// three kernels whose reference entry points admit the cap instantiate both,
+// and the entry point picks by run_cap > 1 (ws_unified never instantiates
+// the half-run walk: the reference refuses it with stage_open).  HALFRUN =
+// false is the per-slot code and never reads run_cap.  HALFRUN = true: when
+// the own-queue probe misses and the argmax victim v at view h is live, the
+// thief claims take = clip((tail[v] - h + 1) / 2, 1, run_cap) contiguous
+// slots [h, h + take) with one plain store to each bound (head[v] and
+// local_head[p, v] = h + take).  The single probe of slot h certifies the
+// whole run: every slot below tail[v] holds a live record.  The claiming CTA
+// then runs the run's slots back to back, each accounted on its own
+// (mult, taken, work, clock, steals and its own ring record, EV_RUN = take)
+// with no advisory write, and after the run makes one clamped write
+// remaining[fq] = max(remaining[fq] - total, 0).  Takes keep run = 1.  In free
+// mode a traced budget is checked per extraction, so a run may overshoot it
+// by run_cap - 1 slots.  A stale head now re-arms up to run_cap slots per
+// collision; each program still claims a slot at most once per launch (its
+// local_head row only grows, now by take).
 
 #pragma once
+
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -108,17 +130,30 @@ struct WSQueues {
   volatile int* ev_cursor;   // [n_programs] appends attempted
   const int* ev_mult0;       // free mode: the carried mult [n_tasks]; else null
   int ev_cap, steal_kind, stall_ns;
+  int run_cap;               // half-run cap (read by the HALFRUN instantiation only)
 };
 
 // The scheduler's hand-off to the CTA's threads (one per CTA, in shared memory).
 struct WSShared {
   int found, fq, fs;
   int rec[TASK_WIDTH];
+  int run;                   // slots of the claimed run (HALFRUN walks)
 };
 
 struct Claim {
   int found, fq, fs, nread;
 };
+
+// The HALFRUN walks' claim: the run's length too (1 for Takes).  A type of
+// its own, so the per-slot walks keep their Claim: a fifth field in Claim
+// alone moved a per-slot kernel's SASS (ws_lockstep_kernel<bf16>, 8 fewer
+// instructions), even in a file without the half-run kernels.
+struct RunClaim : Claim {
+  int run;
+};
+
+template <bool HALFRUN>
+using ClaimT = typename std::conditional<HALFRUN, RunClaim, Claim>::type;
 
 // ---------------------------------------------------------------------------
 // scheduler (thread 0 only)
@@ -143,9 +178,10 @@ __device__ __forceinline__ int probe(const WSQueues& Q, int v, int h, bool want,
   return fire ? Q.tasks[slot_index(Q, v, h) * TASK_WIDTH + F_OP] : BOTTOM;
 }
 
-__device__ __forceinline__ void claim_writes(const WSQueues& Q, int p, int v, int h) {
-  Q.head[v] = h + 1;                        // plain write, no CAS
-  Q.local_head[p * Q.n_queues + v] = h + 1; // persistent local bound
+__device__ __forceinline__ void claim_writes(const WSQueues& Q, int p, int v, int h,
+                                             int take = 1) {
+  Q.head[v] = h + take;                        // plain write, no CAS
+  Q.local_head[p * Q.n_queues + v] = h + take; // persistent local bound
 }
 
 __device__ __forceinline__ bool is_open(const WSQueues& Q, int v, int r) {
@@ -175,8 +211,9 @@ __device__ Claim scan_extract(const WSQueues& Q, int p, int r) {
 
 // "cost" policy: own-queue probe, then the first-index argmax of
 // max(remaining, 1) over open queues of [lo, hi) whose head view is below
-// their tail.
-__device__ Claim cost_extract(const WSQueues& Q, int p, int r, int lo, int hi) {
+// their tail.  HALFRUN: a steal claims the half-run of the victim.
+template <bool HALFRUN>
+__device__ ClaimT<HALFRUN> cost_extract(const WSQueues& Q, int p, int r, int lo, int hi) {
   int own = p % Q.n_queues;
   int h0 = rmax_read(Q, p, own);
   int probed0;
@@ -184,7 +221,12 @@ __device__ Claim cost_extract(const WSQueues& Q, int p, int r, int lo, int hi) {
   bool own_live = op0 != BOTTOM;
   if (own_live) claim_writes(Q, p, own, h0);
   if (!Q.steal) {
-    Claim c = {own_live ? 1 : 0, own, h0, probed0};
+    ClaimT<HALFRUN> c{};
+    c.found = own_live ? 1 : 0;
+    c.fq = own;
+    c.fs = h0;
+    c.nread = probed0;
+    if constexpr (HALFRUN) c.run = 1;
     return c;
   }
   int best_v = 0, best = 0, best_h = 0;
@@ -202,22 +244,38 @@ __device__ Claim cost_extract(const WSQueues& Q, int p, int r, int lo, int hi) {
   int probed;
   int op = probe(Q, best_v, best_h, can, &probed);
   bool live = can && op != BOTTOM;
-  if (live) claim_writes(Q, p, best_v, best_h);
-  Claim c;
+  int take = 1;
+  if constexpr (HALFRUN) {
+    if (live) {
+      // rem >= 1: the victim passed the view < tail test
+      const int half = (Q.tail[best_v] - best_h + 1) / 2;
+      take = half < 1 ? 1 : (half > Q.run_cap ? Q.run_cap : half);
+    }
+  }
+  if (live) claim_writes(Q, p, best_v, best_h, take);
+  ClaimT<HALFRUN> c;
   c.found = (own_live || live) ? 1 : 0;
   c.fq = own_live ? own : best_v;
   c.fs = own_live ? h0 : best_h;
   c.nread = probed0 + probed;
+  if constexpr (HALFRUN) c.run = live ? take : 1;
   return c;
 }
 
-__device__ __forceinline__ Claim extract(const WSQueues& Q, int p, int r, int lo, int hi) {
-  return Q.policy == 1 ? scan_extract(Q, p, r) : cost_extract(Q, p, r, lo, hi);
+// The half-run walks take the cost policy only (ws_launch refuses the rest).
+template <bool HALFRUN>
+__device__ __forceinline__ ClaimT<HALFRUN> extract(const WSQueues& Q, int p, int r, int lo,
+                                                   int hi) {
+  if constexpr (HALFRUN) {
+    return cost_extract<true>(Q, p, r, lo, hi);
+  } else {
+    return Q.policy == 1 ? scan_extract(Q, p, r) : cost_extract<false>(Q, p, r, lo, hi);
+  }
 }
 
 // One record into program p's ring row (trace_append).
 __device__ __forceinline__ void trace_append(const WSQueues& Q, int p, int fq, int fs,
-                                             const int* rec, int t0, int m) {
+                                             const int* rec, int t0, int m, int run) {
   const bool is_steal = fq != p % Q.n_queues;
   const int kind = Q.steal_kind == KIND_STEAL_REMOTE ? KIND_STEAL_REMOTE
                    : (is_steal ? Q.steal_kind : KIND_TAKE);
@@ -234,7 +292,7 @@ __device__ __forceinline__ void trace_append(const WSQueues& Q, int p, int fq, i
     e[7] = (is_steal && fq < Q.n_programs) ? fq : -1;      // EV_VICTIM
     e[8] = m;                                              // EV_MULT
     e[9] = rec[F_OP];                                      // EV_OP
-    e[10] = 1;                                             // EV_RUN
+    e[10] = run;                                           // EV_RUN
   }
   Q.ev_cursor[p] = c + 1;
 }
@@ -267,11 +325,12 @@ __device__ int ws_account(const WSQueues& Q, int r, int p, int fq, int fs,
   return cost;
 }
 
-// ws_account, then the ring append when TRACE (the reference's account).
-// The untraced instantiation is the call to ws_account alone.
+// ws_account, then the ring append when TRACE (the reference's account);
+// `run` is the claimed run's length, the record's EV_RUN.  The untraced
+// instantiation is the call to ws_account alone.
 template <bool TRACE>
 __device__ __forceinline__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
-                                       bool advisory, bool free_mode) {
+                                       bool advisory, bool free_mode, int run = 1) {
   if constexpr (!TRACE) {
     return ws_account(Q, r, p, fq, fs, advisory, free_mode);
   } else {
@@ -283,7 +342,7 @@ __device__ __forceinline__ int account(const WSQueues& Q, int r, int p, int fq, 
     const int m = free_mode ? (Q.ev_mult0 ? Q.ev_mult0[tid] : 0) +
                                   Q.mult[(long long)p * Q.n_tasks + tid]
                             : Q.mult[tid];
-    trace_append(Q, p, fq, fs, rec, t0, m);
+    trace_append(Q, p, fq, fs, rec, t0, m, run);
     return cost;
   }
 }
@@ -296,7 +355,31 @@ __device__ __forceinline__ void load_record(const WSQueues& Q, int fq, int fs, i
 // ---------------------------------------------------------------------------
 // walks (all threads)
 
+// The claimed run's slots (sh.fq, sh.fs + i), i < sh.run, back to back in this
+// CTA (the reference's `_execute_run`): each accounted on its own without the
+// advisory write, then one clamped advisory write for the run.  Entered with
+// the first slot's record in sh.rec; every thread reads sh.run, which no one
+// writes during the run.
 template <bool TRACE, class Body>
+__device__ __forceinline__ void run_slots(const WSQueues& Q, WSShared& sh, const Body& body,
+                                          int r, int p, bool free_mode) {
+  const bool t0 = threadIdx.x == 0;
+  int total = 0;
+  for (int i = 0; i < sh.run; ++i) {
+    if (i > 0) {
+      if (t0) load_record(Q, sh.fq, sh.fs + i, sh.rec);
+      __syncthreads();
+    }
+    body(sh.rec, free_mode);
+    if (t0) total += account<TRACE>(Q, r, p, sh.fq, sh.fs + i, false, free_mode, sh.run);
+  }
+  if (t0) {
+    int rem = Q.remaining[sh.fq] - total;  // plain read + plain write
+    Q.remaining[sh.fq] = rem > 0 ? rem : 0;
+  }
+}
+
+template <bool TRACE, bool HALFRUN = false, class Body>
 __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
   const bool t0 = threadIdx.x == 0;
   int lo = 0, hi = Q.stage_open ? 0 : Q.n_queues;  // thread 0's victim window
@@ -348,21 +431,29 @@ __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
         __syncthreads();
       } else {
         if (t0) {
-          Claim c = {0, 0, 0, 0};
+          ClaimT<HALFRUN> c{};
+          if constexpr (HALFRUN) c.run = 1;
           if (Q.clock[p] <= r) {
+            // a run claim moves head[v] at most to tail[v], so this window
+            // holds as it does for per-slot claims
             while (lo < hi && Q.head[lo] >= Q.tail[lo]) ++lo;
-            c = extract(Q, p, r, lo, hi);
+            c = extract<HALFRUN>(Q, p, r, lo, hi);
           }
           Q.scanned[p] += c.nread;
           sh.found = c.found;
           sh.fq = c.fq;
           sh.fs = c.fs;
+          if constexpr (HALFRUN) sh.run = c.run;
           if (c.found) load_record(Q, c.fq, c.fs, sh.rec);
         }
         __syncthreads();
         if (sh.found) {
-          body(sh.rec, false);
-          if (t0) account<TRACE>(Q, r, p, sh.fq, sh.fs, true, false);
+          if constexpr (HALFRUN) {
+            run_slots<TRACE>(Q, sh, body, r, p, false);
+          } else {
+            body(sh.rec, false);
+            if (t0) account<TRACE>(Q, r, p, sh.fq, sh.fs, true, false);
+          }
         }
         __syncthreads();
       }
@@ -370,7 +461,7 @@ __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
   }
 }
 
-template <bool TRACE, class Body>
+template <bool TRACE, bool HALFRUN = false, class Body>
 __device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
   const int p = blockIdx.x;
   const bool t0 = threadIdx.x == 0;
@@ -384,24 +475,32 @@ __device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
   }
   while (true) {
     if (t0) {
-      Claim c;
+      ClaimT<HALFRUN> c;
       if constexpr (TRACE) {
         // a positive rounds is this program's budget in tile-slots
-        Claim none = {0, 0, 0, 0};
-        c = (Q.rounds <= 0 || Q.clock[p] < Q.rounds) ? extract(Q, p, 0, 0, Q.n_queues) : none;
+        // (checked per extraction: a run may overshoot it by run_cap - 1)
+        ClaimT<HALFRUN> none{};
+        if constexpr (HALFRUN) none.run = 1;
+        c = (Q.rounds <= 0 || Q.clock[p] < Q.rounds) ? extract<HALFRUN>(Q, p, 0, 0, Q.n_queues)
+                                                     : none;
       } else {
-        c = extract(Q, p, 0, 0, Q.n_queues);
+        c = extract<HALFRUN>(Q, p, 0, 0, Q.n_queues);
       }
       Q.scanned[p] += c.nread;
       sh.found = c.found;
       sh.fq = c.fq;
       sh.fs = c.fs;
+      if constexpr (HALFRUN) sh.run = c.run;
       if (c.found) load_record(Q, c.fq, c.fs, sh.rec);
     }
     __syncthreads();
     if (!sh.found) break;  // this program's view: every queue drained
-    body(sh.rec, true);
-    if (t0) account<TRACE>(Q, 0, p, sh.fq, sh.fs, true, true);
+    if constexpr (HALFRUN) {
+      run_slots<TRACE>(Q, sh, body, 0, p, true);
+    } else {
+      body(sh.rec, true);
+      if (t0) account<TRACE>(Q, 0, p, sh.fq, sh.fs, true, true);
+    }
     __syncthreads();
   }
 }
@@ -441,6 +540,7 @@ static inline WSQueues ws_queues(
   Q.ev_cap = 0;
   Q.steal_kind = 0;
   Q.stall_ns = 0;
+  Q.run_cap = 1;
   return Q;
 }
 
@@ -457,12 +557,19 @@ static inline void ws_set_ring(WSQueues& Q, int* ev, int* ev_cursor, const int* 
 
 // Launch a scheduler kernel `kern(Q, tile_args)`: one CTA in lockstep mode,
 // P CTAs in free mode.  `kerns` holds the untraced lockstep, untraced free,
-// traced lockstep and traced free instantiations; the rings pick the pair.
+// traced lockstep and traced free instantiations, then (N = 8) the same four
+// of the HALFRUN walks; the rings pick the pair and run_cap > 1 the half.
 // Returns the CUDA error of the launch (0 on success).
-template <class TileArgs>
-static int ws_launch(void (*const kerns[4])(WSQueues, TileArgs), int mode, const WSQueues& Q,
+template <class TileArgs, int N>
+static int ws_launch(void (*const (&kerns)[N])(WSQueues, TileArgs), int mode, const WSQueues& Q,
                      const TileArgs& a, int threads, size_t smem, cudaStream_t stream) {
-  void (*kern)(WSQueues, TileArgs) = kerns[(Q.ev ? 2 : 0) + (mode == 0 ? 0 : 1)];
+  static_assert(N == 4 || N == 8, "4 per-slot instantiations, then 4 HALFRUN ones");
+  const int half = Q.run_cap > 1 ? 4 : 0;
+  // the reference's refusals: half-runs amortise cost-policy steals and
+  // break stage_open's per-slot Graham windows; ws_unified has no half-run
+  if (half && (half >= N || !Q.steal || Q.policy != 0 || Q.stage_open || Q.compress))
+    return (int)cudaErrorInvalidValue;
+  void (*kern)(WSQueues, TileArgs) = kerns[half + (Q.ev ? 2 : 0) + (mode == 0 ? 0 : 1)];
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -163,7 +163,7 @@ def _run(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt, plain: bool,
     return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
                        compress=compress, steal=steal, steal_policy=steal_policy,
                        rounds=rounds, mult=mult, trace=trace, trace_capacity=trace_capacity,
-                       fault_plan=fault_plan)
+                       fault_plan=fault_plan, steal_run_cap=steal_run_cap)
 
 
 def _kernel_fn():
@@ -174,9 +174,9 @@ def _kernel_fn():
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         # mode, dtype; 12 int32 arrays (pool_off null on the dense layout);
-        # x, tok_idx, wg, wu, wd, out; 8 sizes and flags; d, f, bt; the
-        # ring; stream
-        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 6 + [i] * 8 + [i] * 3 + RING_ARGTYPES + [ptr]
+        # x, tok_idx, wg, wu, wd, out; 9 sizes and flags (run_cap last);
+        # d, f, bt; the ring; stream
+        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 6 + [i] * 9 + [i] * 3 + RING_ARGTYPES + [ptr]
         fn.restype = i
     return fn
 
@@ -192,7 +192,7 @@ def _queue_args(arrs):
 
 
 def _launch_cuda(arrs, x, tok_idx, wg, wu, wd, out, *, mode, rounds, steal, policy,
-                 compress, bt, n_tasks, ring=NO_RING) -> None:
+                 compress, bt, n_tasks, ring=NO_RING, run_cap=1) -> None:
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
@@ -201,7 +201,7 @@ def _launch_cuda(arrs, x, tok_idx, wg, wu, wd, out, *, mode, rounds, steal, poli
         x.data_ptr(), tok_idx.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
         out.data_ptr(),
         *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy),
-        int(compress), x.shape[1], wg.shape[2], bt, *ring, stream,
+        int(compress), run_cap, x.shape[1], wg.shape[2], bt, *ring, stream,
     )
     launches["ws_expert"] += 1
     if err != 0:
@@ -356,7 +356,8 @@ def _run_grad(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, 
 
     return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
                        compress=compress, steal=steal, steal_policy=steal_policy,
-                       rounds=rounds, mult=mult, trace=trace, trace_capacity=trace_capacity)
+                       rounds=rounds, mult=mult, trace=trace, trace_capacity=trace_capacity,
+                       steal_run_cap=steal_run_cap)
 
 
 def _grad_kernel_fn():
@@ -367,14 +368,14 @@ def _grad_kernel_fn():
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         # mode, dtype; 12 int32 arrays; x, gy, tok_idx, gate_rows, wg, wu, wd,
-        # out; 8 sizes and flags; d, f, bt; the ring; stream
-        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 8 + [i] * 8 + [i] * 3 + RING_ARGTYPES + [ptr]
+        # out; 9 sizes and flags (run_cap last); d, f, bt; the ring; stream
+        fn.argtypes = [i, i] + [ptr] * 12 + [ptr] * 8 + [i] * 9 + [i] * 3 + RING_ARGTYPES + [ptr]
         fn.restype = i
     return fn
 
 
 def _launch_grad_cuda(arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, mode, rounds,
-                      steal, policy, compress, bt, n_tasks, ring=NO_RING) -> None:
+                      steal, policy, compress, bt, n_tasks, ring=NO_RING, run_cap=1) -> None:
     fn = _grad_kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
@@ -383,7 +384,7 @@ def _launch_grad_cuda(arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, mode,
         x.data_ptr(), gy.data_ptr(), tok_idx.data_ptr(), gate_rows.data_ptr(),
         wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), out.data_ptr(),
         *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy),
-        int(compress), x.shape[1], wg.shape[2], bt, *ring, stream,
+        int(compress), run_cap, x.shape[1], wg.shape[2], bt, *ring, stream,
     )
     launches["ws_expert_grad"] += 1
     if err != 0:

@@ -35,7 +35,10 @@ step) and the host Put eagerly.  The port is eager everywhere, so
 ``queue_layout=None`` takes autograd recording the call as the sign of the
 train step: the pool layout then, the host Put otherwise (serving).
 
-Not ported yet, and raising ``NotImplementedError``: ``steal_run_cap > 1``.
+``steal_run_cap > 1`` (half-run steals, cost policy) reaches the forward
+launch on both layouts and the ws backward's launch, with the rounds bound's
+``cap · bt`` tail; the static schedule has no thieves and ignores it, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -153,6 +156,7 @@ class _CoreStatic(NamedTuple):
 
     schedule: str
     steal_policy: str
+    steal_run_cap: int      # half-run cap of the stealing launches
     queue_layout: str       # resolved: "pool" or "padded"
     grad_dispatch: str
     n_programs: int
@@ -160,14 +164,16 @@ class _CoreStatic(NamedTuple):
     mode: Optional[str]
 
 
-def _pool_put(idx, gate_vals, n_experts: int, n_programs: int, bt: int):
+def _pool_put(idx, gate_vals, n_experts: int, n_programs: int, bt: int,
+              steal_run_cap: int = 1):
     """The shared-pool Put of a routing and its lockstep rounds bound."""
     T, k = idx.shape
     records, tail, pool_off, routed = route_to_tasks_pool(
         idx.cpu().numpy(), gate_vals.detach().float().cpu().numpy(), n_experts, bt=bt)
     state = make_pool_queue_state(records, tail, pool_off, routed.loads, n_programs,
                                   n_tasks=records.shape[0])
-    return state, routed, expert_rounds_bound(T * k, bt, n_experts, n_programs, True)
+    return state, routed, expert_rounds_bound(T * k, bt, n_experts, n_programs, True,
+                                              steal_run_cap=steal_run_cap)
 
 
 def _dispatch_and_run(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd,
@@ -179,8 +185,9 @@ def _dispatch_and_run(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd,
     # needs every queue owned by a program, so experts are placed
     # round-robin over programs (classic expert parallelism).
     steal = static.schedule == "ws"
+    cap = static.steal_run_cap if steal else 1
     if static.queue_layout == "pool":
-        state, routed, rounds = _pool_put(idx, gate_vals, E, P, bt)
+        state, routed, rounds = _pool_put(idx, gate_vals, E, P, bt, cap)
         tasks = None
     else:
         tasks, routed = route_to_tasks(idx.cpu().numpy(),
@@ -190,8 +197,8 @@ def _dispatch_and_run(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd,
     # rounds is a lockstep bound; a traced free launch would read it as a budget
     free = static.mode in (None, "free")
     res = run_moe_schedule(state, x_flat, routed.tok_idx, wg, wu, wd, bt=bt, steal=steal,
-                           steal_policy=static.steal_policy, rounds=None if free else rounds,
-                           mode=static.mode, trace=trace)
+                           steal_policy=static.steal_policy, steal_run_cap=cap,
+                           rounds=None if free else rounds, mode=static.mode, trace=trace)
     _check_drained(state, res)
     return combine_routed(routed, tasks, res, bt=bt), state, res
 
@@ -267,10 +274,11 @@ def _grad_ws(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd, gy):
     the normalised rows.  The routing is re-derived from ``(idx,
     gate_vals)`` by the pool Put."""
     E, bt, P = wg.shape[0], static.bt, static.n_programs
-    state, routed, rounds = _pool_put(idx, gate_vals, E, P, bt)
+    state, routed, rounds = _pool_put(idx, gate_vals, E, P, bt, static.steal_run_cap)
     res = run_moe_grad_schedule(state, x_flat, gy, routed.tok_idx, routed.gates, wg, wu,
                                 wd, bt=bt, steal=True, steal_policy=static.steal_policy,
-                                rounds=rounds, mode=static.mode)
+                                steal_run_cap=static.steal_run_cap, rounds=rounds,
+                                mode=static.mode)
     # an unexecuted grad tile would give exactly-zero gradients (the
     # divisor clamps at 1), so under-provisioning raises as in the forward
     _check_drained(state, res)
@@ -328,7 +336,7 @@ class _MoECore(torch.autograd.Function):
         return dx.to(x_flat.dtype), dgates.to(gate_vals.dtype), dwg, dwu, dwd, None, None
 
 
-def _check_knobs(schedule, steal_run_cap, queue_layout, grad_dispatch, trace, return_stats):
+def _check_knobs(schedule, queue_layout, grad_dispatch, trace, return_stats):
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}: {schedule!r}")
     if queue_layout not in (None,) + QUEUE_LAYOUTS:
@@ -338,8 +346,6 @@ def _check_knobs(schedule, steal_run_cap, queue_layout, grad_dispatch, trace, re
                          "the static baseline regroups experts onto program queues")
     if grad_dispatch not in GRAD_DISPATCHES:
         raise ValueError(f"grad_dispatch must be one of {GRAD_DISPATCHES}")
-    if steal_run_cap != 1:
-        raise NotImplementedError("steal_run_cap > 1 is not ported yet")
     if trace and not return_stats:
         raise ValueError("trace=True attaches the WSTrace to the stats; pass "
                          "return_stats=True as well")
@@ -356,18 +362,20 @@ def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
     ``schedule="ws"`` steals over per-expert queues; ``"static"`` drains
     owner queues only (experts round-robin over programs, same kernel).
     ``steal_policy`` is ``"cost"`` (own queue, then the argmax of the
-    advisory) or ``"scan"``.  ``bt`` is the tile height, ``n_programs`` the
-    program count, ``mode`` the kernels' (``"free"`` by default, or
-    ``"lockstep"``).  ``queue_layout`` is ``"pool"`` or ``"padded"`` (the
-    host Put); ``None`` picks the pool when autograd records the call and
-    the schedule steals.  ``grad_dispatch`` names the backward's evaluation:
-    ``"dense"`` or ``"ws"`` (the grad megakernel).  ``return_stats``
+    advisory) or ``"scan"``; ``steal_run_cap > 1`` (cost policy) lets one
+    steal claim the victim's half-run of up to that many tiles.  ``bt`` is
+    the tile height, ``n_programs`` the program count, ``mode`` the
+    kernels' (``"free"`` by default, or ``"lockstep"``).  ``queue_layout``
+    is ``"pool"`` or ``"padded"`` (the host Put); ``None`` picks the pool
+    when autograd records the call and the schedule steals.
+    ``grad_dispatch`` names the backward's evaluation: ``"dense"`` or
+    ``"ws"`` (the grad megakernel).  ``return_stats``
     appends the forward launch's :class:`DispatchStats`; it has no backward,
     so a call that autograd records raises ``ValueError``.  ``trace=True``
     (with ``return_stats``) records the launch's event rings and attaches
     the decoded :class:`~repro_torch.wstrace.WSTrace` to the stats.
     """
-    _check_knobs(schedule, steal_run_cap, queue_layout, grad_dispatch, trace, return_stats)
+    _check_knobs(schedule, queue_layout, grad_dispatch, trace, return_stats)
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
     _, gate_vals, idx, aux = _router(x_flat, p, cfg, group_size)
@@ -380,8 +388,8 @@ def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
     if queue_layout is None:
         queue_layout = "pool" if (recording and schedule == "ws") else "padded"
     static = _CoreStatic(schedule=schedule, steal_policy=steal_policy,
-                         queue_layout=queue_layout, grad_dispatch=grad_dispatch,
-                         n_programs=n_programs, bt=bt, mode=mode)
+                         steal_run_cap=int(steal_run_cap), queue_layout=queue_layout,
+                         grad_dispatch=grad_dispatch, n_programs=n_programs, bt=bt, mode=mode)
     if return_stats:
         with torch.no_grad():
             y, state, res = _dispatch_and_run(static, x_flat, idx, gate_vals, wg, wu, wd,

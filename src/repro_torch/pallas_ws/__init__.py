@@ -23,9 +23,12 @@ from .queues import (
 from .ragged import (
     RaggedStats,
     decode_queue_state,
+    decode_rounds_bound,
     normalized_out,
+    ragged_attention_ref,
     ragged_decode_attention,
     ragged_decode_ref,
+    ragged_flash_attention,
 )
 from .tasks import (
     BOTTOM,
@@ -41,9 +44,11 @@ from .tasks import (
 __all__ = [
     "BOTTOM", "MODES", "OP_EXPERT_TILE", "STEAL_POLICIES", "TASK_WIDTH", "ExpertTask",
     "QueueState", "RaggedStats",
-    "TileTask", "WSRunResult", "copy_state", "decode_queue_state", "default_rounds",
+    "TileTask", "WSRunResult", "copy_state", "decode_queue_state", "decode_rounds_bound",
+    "default_rounds",
     "emit_decode_tasks", "emit_flash_tasks", "launch_ws_grid", "launches",
     "make_pool_queue_state", "make_queue_state", "multiplicity_divisor", "normalized_out", "partition_tasks",
-    "plain_ws_grid", "queue_costs", "ragged_decode_attention", "ragged_decode_ref",
+    "plain_ws_grid", "queue_costs", "ragged_attention_ref", "ragged_decode_attention",
+    "ragged_decode_ref", "ragged_flash_attention",
     "reset_launches", "run_ws_schedule", "to_device",
 ]

@@ -35,6 +35,14 @@ initial values: stalls in ``clock``, advisory corruption in ``remaining``.
 A traced free launch also reads ``rounds`` as a per-program budget in
 tile-slots (a CTA stops once its clock reaches it) and holds a stalled CTA
 back before its first probe; the untraced free walk ignores both.
+
+``steal_run_cap > 1`` (cost policy, stealing, no ``stage_open``) is the
+reference's half-run Steal: a steal claims ``min(ceil(rem/2), cap)``
+contiguous victim slots with one plain write to each bound and runs them back
+to back, each accounted (and traced, ``EV_RUN`` = the run's length) on its
+own, with one clamped advisory write for the run.  The kernels' ``HALFRUN``
+instantiations and :class:`_PlainWalk` carry it; ``cap == 1`` is the
+per-slot claim.
 """
 
 from __future__ import annotations
@@ -178,7 +186,10 @@ class _PlainWalk:
     (``arrs["stage_open"]``).  A subclass supplies the tile body
     ``execute(fq, fs, store=)``, as each CUDA kernel does, and reads its
     record with :meth:`rec`.  :meth:`enable_trace` turns on the event ring
-    (the kernels' traced instantiation)."""
+    (the kernels' traced instantiation); ``run_cap > 1`` is the half-run
+    Steal (the kernels' ``HALFRUN`` instantiation)."""
+
+    run_cap = 1
 
     def __init__(self, arrs, *, steal, policy):
         self.pool_off = arrs["pool_off"].tolist() if "pool_off" in arrs else None
@@ -234,9 +245,9 @@ class _PlainWalk:
         issue = want and h < bound
         return (self.rec(v, h)[F_OP] if issue else BOTTOM), int(issue)
 
-    def claim_writes(self, p, v, h):
-        self.head[v] = h + 1
-        self.local_head[p][v] = h + 1
+    def claim_writes(self, p, v, h, take=1):
+        self.head[v] = h + take
+        self.local_head[p][v] = h + take
 
     def is_open(self, v, r):
         return self.stage_open is None or self.stage_open[v] <= r
@@ -253,11 +264,15 @@ class _PlainWalk:
                 fq, fs = v, h
             found = found or live
             nread += issued
-        return found, fq, fs, nread
+        return found, fq, fs, nread, 1
 
     def cost_extract(self, p, r, lo, hi):
         """``[lo, hi)`` holds every queue that can score: queues below
-        ``lo`` are drained for every view, those from ``hi`` on not open yet."""
+        ``lo`` are drained for every view, those from ``hi`` on not open yet.
+        With ``run_cap > 1`` a steal claims the victim's half-run
+        ``[h, h + take)``, ``take = clip((tail - h + 1) // 2, 1, run_cap)``:
+        the probe of slot ``h`` certifies it, since every slot below the
+        tail is live.  Returns ``(found, queue, slot, nread, run)``."""
         own = p % self.n_queues
         h0 = self.rmax_read(p, own)
         op0, issued0 = self.probe(own, h0, self.is_open(own, r))
@@ -265,7 +280,7 @@ class _PlainWalk:
         if own_live:
             self.claim_writes(p, own, h0)
         if not self.steal:
-            return own_live, own, h0, issued0
+            return own_live, own, h0, issued0, 1
         best_v, best, best_h = 0, 0, 0
         for v in range(lo, hi):
             h = self.rmax_read(p, v)
@@ -275,17 +290,20 @@ class _PlainWalk:
         can = (not own_live) and best > 0
         op, issued = self.probe(best_v, best_h, can)
         live = can and op != BOTTOM
+        take = 1
+        if live and self.run_cap > 1:
+            take = min(max((self.tail[best_v] - best_h + 1) // 2, 1), self.run_cap)
         if live:
-            self.claim_writes(p, best_v, best_h)
+            self.claim_writes(p, best_v, best_h, take)
         return (own_live or live, own if own_live else best_v,
-                h0 if own_live else best_h, issued0 + issued)
+                h0 if own_live else best_h, issued0 + issued, take if live else 1)
 
     def extract(self, p, r=0, lo=0, hi=None):
         if self.policy == "scan":
             return self.scan_extract(p, r)
         return self.cost_extract(p, r, lo, self.n_queues if hi is None else hi)
 
-    def account(self, r, p, fq, fs, *, advisory, free):
+    def account(self, r, p, fq, fs, *, advisory, free, run=1):
         rec = self.rec(fq, fs)
         tid, cost = rec[F_TID], rec[F_COST]
         # the execution's start, read before the clock bump
@@ -305,10 +323,10 @@ class _PlainWalk:
         self.clock[p] = self.clock[p] + cost if free else max(self.clock[p], r) + cost
         if self.events is not None:
             m = self.mult0[tid] + self.mult[p][tid] if free else self.mult[tid]
-            self.trace_append(p, fq, rec, fs, t0, m)
+            self.trace_append(p, fq, rec, fs, t0, m, run)
         return cost
 
-    def trace_append(self, p, fq, rec, fs, t0, m):
+    def trace_append(self, p, fq, rec, fs, t0, m, run=1):
         """One record into program p's ring row (dropped past capacity; the
         cursor keeps counting)."""
         is_steal = fq != p % self.n_queues
@@ -322,11 +340,26 @@ class _PlainWalk:
             ev[EV_ROUND], ev[EV_PROG], ev[EV_QUEUE], ev[EV_SLOT] = t0, p, fq, fs
             ev[EV_TID], ev[EV_COST], ev[EV_KIND] = rec[F_TID], rec[F_COST], kind
             ev[EV_VICTIM] = fq if is_steal and fq < len(self.clock) else -1
-            ev[EV_MULT], ev[EV_OP], ev[EV_RUN] = m, rec[F_OP], 1
+            ev[EV_MULT], ev[EV_OP], ev[EV_RUN] = m, rec[F_OP], run
         self.ev_cursor[p] = c + 1
 
     def execute(self, fq, fs, *, store):
         raise NotImplementedError
+
+    def execute_claim(self, r, p, fq, fs, run, *, free):
+        """Run and account one claim.  Per-slot (``run_cap == 1``): the
+        slot with its own advisory write.  Half-run: the run's slots back to
+        back, each accounted without the advisory write, then one clamped
+        write for the run (the reference's ``_execute_run``)."""
+        if self.run_cap == 1:
+            self.execute(fq, fs, store=free)
+            self.account(r, p, fq, fs, advisory=True, free=free)
+            return
+        total = 0
+        for i in range(run):
+            self.execute(fq, fs + i, store=free)
+            total += self.account(r, p, fq, fs + i, advisory=False, free=free, run=run)
+        self.remaining[fq] = max(self.remaining[fq] - total, 0)
 
     # -- the two walks ----------------------------------------------------------
     def lockstep(self, rounds, P, compress):
@@ -346,13 +379,13 @@ class _PlainWalk:
                     continue
                 if self.clock[p] > r:
                     continue
+                # a run claim moves head[v] at most to tail[v]: the window holds
                 while lo < hi and self.head[lo] >= self.tail[lo]:
                     lo += 1
-                found, fq, fs, nread = self.extract(p, r, lo, hi)
+                found, fq, fs, nread, run = self.extract(p, r, lo, hi)
                 self.scanned[p] += nread
                 if found:
-                    self.execute(fq, fs, store=False)
-                    self.account(r, p, fq, fs, advisory=True, free=False)
+                    self.execute_claim(r, p, fq, fs, run, free=False)
 
     def _drain_run(self, r, p):
         if self.clock[p] > r:
@@ -380,7 +413,7 @@ class _PlainWalk:
         view shows the queues drained.  Traced (as the kernel's traced
         instantiation): a program with an initial clock of k (a stall) sits
         out its first k turns, and stops once its clock reaches a positive
-        ``budget``."""
+        ``budget`` (checked per extraction: a run may overshoot it)."""
         active = [True] * P
         traced = self.events is not None
         wait = list(self.clock) if traced else [0] * P
@@ -394,13 +427,12 @@ class _PlainWalk:
                 if traced and budget > 0 and self.clock[p] >= budget:
                     active[p] = False
                     continue
-                found, fq, fs, nread = self.extract(p)
+                found, fq, fs, nread, run = self.extract(p)
                 self.scanned[p] += nread
                 if not found:
                     active[p] = False
                     continue
-                self.execute(fq, fs, store=True)
-                self.account(0, p, fq, fs, advisory=True, free=True)
+                self.execute_claim(0, p, fq, fs, run, free=True)
 
 
 class _AttentionWalk(_PlainWalk):
@@ -490,13 +522,17 @@ def queue_dims(arrs):
 def scheduler_knobs(*, steal, steal_policy, steal_run_cap, mode, compress_runs,
                     stage_open=None):
     """Check the scheduler's knobs (every family); returns ``(mode, compress)``.
-    ``steal_run_cap > 1`` (half-run steals), which the port does not carry
-    yet, raises ``NotImplementedError``."""
-    if stage_open is not None and steal_run_cap > 1:
-        raise ValueError("steal_run_cap > 1 breaks the per-slot-claim assumption of "
-                         "stage_open's Graham windows")
-    if steal_run_cap != 1:
-        raise NotImplementedError("steal_run_cap > 1 (half-run steals) is not ported yet")
+    ``steal_run_cap > 1`` (half-run steals) needs stealing under the cost
+    policy and no ``stage_open``, as in the reference."""
+    if steal_run_cap < 1:
+        raise ValueError(f"steal_run_cap must be >= 1, got {steal_run_cap}")
+    if steal_run_cap > 1:
+        if not steal or steal_policy != "cost":
+            raise ValueError("steal_run_cap > 1 amortizes cost-policy steals: needs "
+                             "steal=True, steal_policy='cost'")
+        if stage_open is not None:
+            raise ValueError("steal_run_cap > 1 breaks the per-slot-claim assumption of "
+                             "stage_open's Graham windows")
     if steal_policy not in STEAL_POLICIES:
         raise ValueError(f"steal_policy must be one of {STEAL_POLICIES}: {steal_policy!r}")
     mode = "free" if mode is None else mode
@@ -520,21 +556,24 @@ def scheduler_knobs(*, steal, steal_policy, steal_run_cap, mode, compress_runs,
 def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
                 compress: bool, steal: bool, steal_policy: str, rounds, mult,
                 stage_open=None, trace: bool = False, trace_capacity=None,
-                trace_remote: bool = False, fault_plan=None) -> WSRunResult:
+                trace_remote: bool = False, fault_plan=None,
+                steal_run_cap: int = 1) -> WSRunResult:
     """The family-agnostic half of a launch: fresh copies of the mutable queue
     arrays on ``out``'s device, then the plain walk (``walk(host_arrays,
     steal=, policy=)`` returns a :class:`_PlainWalk`) or the CUDA kernel
     (``launch(arrays, mode=, rounds=, steal=, policy=, compress=, n_tasks=,
-    ring=)``) over them.  A shared-pool state adds ``arrays["pool_off"]``, a
+    ring=, run_cap=)``) over them.  A shared-pool state adds ``arrays["pool_off"]``, a
     stage-gated launch ``arrays["stage_open"]``.  Free mode's per-program
     multiplicity rows are summed here.
 
     ``trace`` allocates the event rings (``arrays["events"]``,
     ``["ev_cursor"]``; ``ring`` is then the entry points' six trace
     arguments, else :data:`NO_RING`).  Their default capacity is the
-    per-program claim bound: ``rounds`` in lockstep (one claim a round), the
-    queue capacity for compressed drains, and in free mode the live slots
-    Σtail (a program claims each slot at most once a launch).
+    per-program claim bound: ``rounds + steal_run_cap - 1`` in lockstep (one
+    claim a round, and a run of n slots keeps its program busy n rounds, so
+    only the last run can overshoot), the queue capacity for compressed
+    drains, and in free mode the live slots Σtail (a program claims each slot
+    at most once a launch, runs included: its local bound only grows).
     ``trace_remote`` tags every event ``steal-remote``.  ``fault_plan``
     applies its launch faults as initial values, as the reference does: the
     plan's ``remaining`` and stall clocks, with ``rounds`` (when not given)
@@ -546,7 +585,8 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
         raise ValueError(f"carried mult has shape {tuple(mult.shape)}, expected ({n_tasks},)")
     rounds_given = rounds is not None
     if mode == "lockstep" and rounds is None:
-        rounds = default_rounds(state, steal, compress_runs=compress)
+        rounds = default_rounds(state, steal, compress_runs=compress,
+                                steal_run_cap=steal_run_cap)
     remaining = state.remaining
     if remaining is None:
         remaining = queue_costs(state)
@@ -585,7 +625,8 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
     ring = NO_RING
     if trace:
         if trace_capacity is None:
-            trace_capacity = (state.capacity if compress else rounds if mode == "lockstep"
+            trace_capacity = (state.capacity if compress
+                              else rounds + steal_run_cap - 1 if mode == "lockstep"
                               else max(1, int(host_array(state.tail).sum())))
         steal_kind = (KIND_STEAL_REMOTE if trace_remote else
                       KIND_STEAL_SCAN if steal_policy == "scan" else KIND_STEAL_COST)
@@ -599,6 +640,7 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
     if plain:
         w = walk({n: a.cpu().numpy() for n, a in arrs.items() if n not in ("events", "ev_cursor")},
                  steal=steal, policy=steal_policy)
+        w.run_cap = steal_run_cap
         if trace:
             w.enable_trace(arrs["events"].cpu().numpy(), arrs["ev_cursor"].cpu().numpy(),
                            steal_kind, mult0.cpu().numpy() if free_mult0 else None)
@@ -610,7 +652,7 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
             arrs[n].copy_(torch.from_numpy(a))
     else:
         launch(arrs, mode=mode, rounds=rounds or 0, steal=steal, policy=steal_policy,
-               compress=compress, n_tasks=n_tasks, ring=ring)
+               compress=compress, n_tasks=n_tasks, ring=ring, run_cap=steal_run_cap)
     total_mult = arrs["mult"] if mode == "lockstep" else mult0 + arrs["mult"].sum(0, dtype=torch.int32)
     return WSRunResult(
         out=out, head=arrs["head"], local_head=arrs["local_head"],
@@ -664,7 +706,7 @@ def _run(state: QueueState, q, k, v, out, *, bq, bk, causal, scale, plain: bool,
                        compress=compress, steal=steal, steal_policy=steal_policy,
                        rounds=rounds, mult=mult, stage_open=stage_open, trace=trace,
                        trace_capacity=trace_capacity, trace_remote=trace_remote,
-                       fault_plan=fault_plan)
+                       fault_plan=fault_plan, steal_run_cap=steal_run_cap)
 
 
 # The six trace arguments every C entry point takes before its stream:
@@ -680,16 +722,16 @@ def _kernel_fn():
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         # mode, dtype; 12 int32 arrays (stage_open may be null); q, k, v,
-        # out; strides; 9 sizes and flags; 8 shape ints; scale; the ring;
-        # stream
+        # out; strides; 10 sizes and flags (run_cap among them); 8 shape
+        # ints; scale; the ring; stream
         fn.argtypes = ([i, i] + [ptr] * 12 + [ptr] * 4 + [ptr]
-                       + [i] * 9 + [i] * 8 + [ctypes.c_float] + RING_ARGTYPES + [ptr])
+                       + [i] * 10 + [i] * 8 + [ctypes.c_float] + RING_ARGTYPES + [ptr])
         fn.restype = i
     return fn
 
 
 def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
-                 causal, bq, bk, scale, g, n_tasks, ring=NO_RING) -> None:
+                 causal, bq, bk, scale, g, n_tasks, ring=NO_RING, run_cap=1) -> None:
     fn = _kernel_fn()
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
@@ -704,7 +746,7 @@ def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p),
         *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),
-        int(causal),
+        run_cap, int(causal),
         H, Sq, out.shape[2], Sk, hd, g, bq, bk, float(scale), *ring, stream,
     )
     launches["ws_attention"] += 1

@@ -73,10 +73,11 @@ def _unembed(params):
 
 
 def launch_cuda(arrs, params, g, bufs, inputs, *, mode, rounds, steal, policy, compress,
-                n_tasks, ring=NO_RING) -> None:
+                n_tasks, ring=NO_RING, run_cap=1) -> None:
     """Launch ``ws_unified`` over ``arrs`` (the launch's queue arrays) for the
     step of geometry ``g`` into ``bufs``."""
     assert not compress, "the unified step walks every round"
+    assert run_cap == 1, "the stage-gated step has no half-run walk"
     dev = bufs["logits"].device
     w = _layer_weights(params)
     un = inputs.get("unembed")

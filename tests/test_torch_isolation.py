@@ -116,20 +116,41 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
 @pytest.mark.parametrize("kw", [dict(steal_run_cap=2), dict(steal_run_cap=2, trace=True),
                                 dict(steal_run_cap=4, fault_plan="FaultPlan")])
 def test_unported_knobs_raise(kw):
-    """Half-run steals are not ported and raise, traced or under a fault
-    plan (trace rings and fault plans are ported: test_torch_wstrace.py,
-    test_torch_chaos.py)."""
+    """Half-run steals (once refused here as not ported) now hold the port's
+    lockstep decode launch to the reference's, plain, traced and under a
+    fault plan: integer arrays and event rings bit-equal, ``out`` within
+    1e-5 (fp32 sums in another order).  The reference needs JAX; where it
+    is not installed the cases skip."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.chaos import FaultPlan as JFaultPlan
+    from repro.pallas_ws import emit_decode_tasks as j_emit
+    from repro.pallas_ws import make_queue_state as j_state
+    from repro.pallas_ws import run_ws_schedule as j_run
     from repro_torch.chaos import FaultPlan
     from repro_torch.pallas_ws import emit_decode_tasks, make_queue_state, run_ws_schedule
 
+    jkw = dict(kw)
     if kw.get("fault_plan") == "FaultPlan":
         kw = dict(kw, fault_plan=FaultPlan(seed=1, stalls=(1,)))
-
-    q = torch.zeros((1, 1, 1, 8))
-    k = torch.zeros((1, 1, 8, 8))
-    with pytest.raises(NotImplementedError):
-        run_ws_schedule(make_queue_state(emit_decode_tasks([8], 1, 8), 1), q, k, k,
-                        causal=False, bq=1, bk=8, **kw)
+        jkw = dict(jkw, fault_plan=JFaultPlan(seed=1, stalls=(1,)))
+    lengths, H, P = [40, 8, 0, 24, 64], 2, 4   # one long row: the thieves' victim
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((5, H, 1, 8)).astype(np.float32)
+    k = rng.standard_normal((5, 1, 64, 8)).astype(np.float32)
+    v = rng.standard_normal((5, 1, 64, 8)).astype(np.float32)
+    rt = run_ws_schedule(make_queue_state(emit_decode_tasks(lengths, H, 8), P),
+                         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                         causal=False, bq=1, bk=8, mode="lockstep", **kw)
+    rj = j_run(j_state(j_emit(lengths, H, 8), P), jnp.asarray(q), jnp.asarray(k),
+               jnp.asarray(v), causal=False, bq=1, bk=8, **jkw)
+    names = ("head", "local_head", "taken", "remaining", "clock", "work", "steals",
+             "scanned", "mult") + (("events", "ev_cursor") if kw.get("trace") else ())
+    for n in names:
+        np.testing.assert_array_equal(getattr(rt, n).numpy(), np.asarray(getattr(rj, n)),
+                                      err_msg=n)
+    np.testing.assert_allclose(rt.out.numpy(), np.asarray(rj.out), rtol=0, atol=1e-5)
 
 
 def test_kernel_wrapper_marshals_every_argument(monkeypatch):
@@ -193,7 +214,7 @@ def test_expert_kernel_wrapper_marshals_every_argument(monkeypatch):
         status = 0
 
         def __call__(self, *args):
-            assert len(args) == len(self.argtypes) == 38
+            assert len(args) == len(self.argtypes) == 39
             for t, a in zip(self.argtypes, args):
                 t.from_param(a)
             return self.status
@@ -248,7 +269,7 @@ def test_expert_grad_kernel_wrapper_marshals_every_argument(monkeypatch):
         pool_off = None
 
         def __call__(self, *args):
-            assert len(args) == len(self.argtypes) == 40
+            assert len(args) == len(self.argtypes) == 41
             for t, a in zip(self.argtypes, args):
                 t.from_param(a)
             self.pool_off = args[3]

@@ -234,16 +234,13 @@ def _layer_grads(fn, params, x, names):
 @pytest.mark.parametrize("kw", [dict(queue_layout="pool"), dict(grad_dispatch="ws"),
                                 dict(trace=True), dict(steal_run_cap=2)])
 def test_unported_knobs_raise(layer_inputs, kw):
-    """``steal_run_cap > 1`` is not ported and raises.  The shared-pool
-    layout, the ws backward and trace rings are ported now, so their cases
-    hold the port to the reference instead: the pool layout's forward
-    (lockstep, with its launch telemetry), the gradients of the layer with
-    ``grad_dispatch="ws"``, and the traced launch's stats and trace."""
+    """Every knob these cases once refused is ported, so each holds the port
+    to the reference: the pool layout's forward (lockstep, with its launch
+    telemetry), the gradients of the layer with ``grad_dispatch="ws"``, the
+    traced launch's stats and trace, and half-run steals
+    (``steal_run_cap=2``): the host Put's forward with its telemetry, then
+    the gradients through the ws backward at the same cap."""
     jp, tp, x = layer_inputs
-    if "steal_run_cap" in kw:
-        with pytest.raises(NotImplementedError):
-            moe_ffn_ws(torch.from_numpy(x), tp, SMOKE, **kw)
-        return
     if "trace" in kw:
         _, _, jst = j_moe_ffn_ws(jnp.asarray(x), jp, J_SMOKE, return_stats=True, **kw)
         with torch.no_grad():
@@ -252,7 +249,7 @@ def test_unported_knobs_raise(layer_inputs, kw):
         assert tst.trace.summary() == jst.trace.summary()
         np.testing.assert_array_equal(tst.trace.events, np.asarray(jst.trace.events))
         return
-    if "queue_layout" in kw:
+    if "queue_layout" in kw or "steal_run_cap" in kw:
         jy, jaux, jst = j_moe_ffn_ws(jnp.asarray(x), jp, J_SMOKE, return_stats=True, **kw)
         ty, taux, tst = moe_ffn_ws(torch.from_numpy(x), tp, SMOKE, mode="lockstep",
                                    return_stats=True, **kw)
@@ -261,7 +258,9 @@ def test_unported_knobs_raise(layer_inputs, kw):
         for f in ("n_tasks", "makespan", "total_work", "steals", "mult_max",
                   "slots_scanned", "queue_loads"):
             assert getattr(tst, f) == getattr(jst, f), f
-        return
+        if "queue_layout" in kw:
+            return
+        kw = dict(kw, grad_dispatch="ws")
     names = sorted(tp)
     tpg = {n: t.clone().requires_grad_() for n, t in tp.items()}
     want = _layer_grads(lambda xx, p: j_moe_ffn_ws(xx, p, J_SMOKE, **kw), jp, x, names)

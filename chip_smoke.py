@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build      nvcc builds csrc/ws_attention.cu, csrc/ws_expert.cu,
-              csrc/ws_expert_grad.cu and csrc/ws_unified.cu for sm_90a from
-              the checkout, one nvcc each, started together.
+              csrc/ws_expert_grad.cu, csrc/ws_unified.cu and the standalone
+              csrc/flash_fwd.cu, csrc/decode_attention.cu and csrc/ssd_scan.cu
+              for sm_90a from the checkout, one nvcc each, started together.
 2. parity     the attention kernel against its plain PyTorch version on
               CPU copies of the same inputs, at the decode shapes of the main path
               (B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8, bf16, K/V read
@@ -31,7 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               instantiation (untraced and traced, per-slot and half-run) of
               every kernel function; each per-slot function's registers and
               SASS instructions must equal the build before half-run steals
-              (BASELINE_FUNCTIONS), and ws_unified has no half-run walk.
+              (BASELINE_FUNCTIONS), and ws_unified has no half-run walk.  The
+              standalone kernels' functions (registers, spills, SASS
+              instructions) are logged and must be free of those opcodes too.
 4b. chaos     repro_torch.chaos on free-mode launches: a traced fault-free
               free launch of ws_attention (llama decode shape) and ws_expert
               (kimi-k2 full width, decode routing, the expert phase's
@@ -58,6 +61,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ragged_attention_ref, their kernel times and a masked
               F.scaled_dot_product_attention yardstick.  ws_expert_grad's
               half-run checks run in the grad phase (which holds its data).
+4d. kernels   the standalone kernels of repro_torch.kernels at full width in
+              bf16, each entry point driven once a case with its launch count
+              from 0: flash_attention_fwd at gemma3-12b's widths (H 16 over 8,
+              hd 256, S 4096, causal, window 1024 and 0) and llama3.2-3b's (H 24
+              over 8, hd 128, S 4096), and the flash_attention autograd
+              Function at gemma's widths with S 1024; decode_attention at
+              gemma's (B 4, S 8192, bk 512, pos 8191 and 4000 on the card,
+              window 1024 and 0) and llama's serving cache (S 1024, pos 1000);
+              ssd_scan at mamba2-2.7b's (b 2, S 2048, H 80, P 64, N 128,
+              chunk 128) and its autograd Function at b 1, S 1024.  Every
+              output (flash lse and the final SSD state included) and the
+              flash gradients within KULPS bf16 ulps (lse: LSE_ATOL; state:
+              STATE_RTOL) of the plain version, flash and decode also of a
+              dense fp32 one; each fault of KCONTROLS and SSD_CONTROLS (a kv
+              block of 16 dropped, a mask edge off by one, a scale 2 % off,
+              one step of x dropped) must break those limits.  Kernel, plain
+              and masked F.scaled_dot_product_attention times (the SSD scan
+              has no library call) and the bound.  No other phase may launch
+              them.
 5. serving    llama3.2-3b at full width (bf16, random weights from a seed),
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
@@ -139,13 +161,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               no other kernel and no degradation, against the split engine.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
-object listing the ported kernels (each with its free-mode times untraced
-and traced, its checker reports and, but for ws_unified, its half-run
-statistics; ws_attention's also the ragged prefill), and {"ok": true,
+object listing the 7 ported kernels (the megakernels each with its
+free-mode times untraced and traced, its checker reports and, but for
+ws_unified, its half-run statistics; ws_attention's also the ragged
+prefill; the standalone kernels each with its cases), and {"ok": true,
 "device": {...}}.
 
     python3 chip_smoke.py --phases build,audit,chaos       # the short check of the rings
     python3 chip_smoke.py --phases build,audit,halfrun,grad   # the short check of half-run
+    python3 chip_smoke.py --phases build,audit,kernels     # the standalone kernels
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
 """
 
@@ -200,8 +224,8 @@ DECODE = dict(B=4, H=24, Hkv=8, hd=128, S=1024, bk=64, P=8)
 KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
-PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "serving", "times", "moe",
-          "grad", "train", "unified", "unified_moe")
+PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "kernels", "serving", "times",
+          "moe", "grad", "train", "unified", "unified_moe")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -864,6 +888,13 @@ def phase_audit():
         if not audit["sass_kernels"]:
             raise AssertionError(f"cuobjdump found no kernel in {name}")
         fns = stats[name]
+        if name not in _build.WS_KERNELS:  # a standalone kernel: no scheduler, no ring
+            _log_functions("audit", name, fns)
+            bad = {f: st["forbidden_sass"] for f, st in fns.items() if st["forbidden_sass"]}
+            if bad or any(st["traced"] for st in fns.values()):
+                raise AssertionError(f"{name}: forbidden SASS {bad} or a traced function in "
+                                     f"{sorted(fns)}")
+            continue
         differ = _log_functions("audit", name, fns, BASELINE_FUNCTIONS)
         if differ:
             raise AssertionError(f"{name}: the per-slot functions {differ} changed registers "
@@ -2898,6 +2929,377 @@ def phase_times(dev):
                 library_ms=library_ms)
 
 
+# ---------------------------------------------------------------------------
+# the standalone kernels (repro_torch.kernels)
+
+# Full-width shapes of the kernels phase, bf16.  gemma3-12b: 16 heads over 8,
+# head dim 256, a 1024 window on 5 of every 6 layers (local) and none on the
+# sixth (global); llama3.2-3b: 24 heads over 8, head dim 128; mamba2-2.7b:
+# 80 heads of P 64, state N 128, chunk 128.
+KFLASH = (
+    dict(at="gemma3-12b local", B=1, H=16, Hkv=8, hd=256, S=4096, bq=128, bk=128, window=1024),
+    dict(at="gemma3-12b global", B=1, H=16, Hkv=8, hd=256, S=4096, bq=128, bk=128, window=0),
+    dict(at="llama3.2-3b", B=1, H=24, Hkv=8, hd=128, S=4096, bq=128, bk=128, window=0),
+)
+KFLASH_GRAD = dict(at="gemma3-12b global, backward", B=1, H=16, Hkv=8, hd=256, S=1024, bq=128,
+                   bk=128, window=0)
+KDECODE = (
+    dict(at="gemma3-12b local", B=4, H=16, Hkv=8, hd=256, S=8192, bk=512, pos=8191, window=1024),
+    dict(at="gemma3-12b global", B=4, H=16, Hkv=8, hd=256, S=8192, bk=512, pos=8191, window=0),
+    dict(at="gemma3-12b local", B=4, H=16, Hkv=8, hd=256, S=8192, bk=512, pos=4000, window=1024),
+    dict(at="gemma3-12b global", B=4, H=16, Hkv=8, hd=256, S=8192, bk=512, pos=4000, window=0),
+    dict(at="llama3.2-3b serving cache", B=4, H=24, Hkv=8, hd=128, S=1024, bk=512, pos=1000,
+         window=0),
+)
+KSSD = dict(at="mamba2-2.7b", b=2, S=2048, H=80, P=64, N=128, chunk=128)
+KSSD_GRAD = dict(KSSD, at="mamba2-2.7b, backward", b=1, S=1024)
+# Limits of the kernels phase.  A bf16 output (out, y, a gradient) is fp32
+# arithmetic summed in another order than the plain version's, then rounded
+# once: each element may differ from the plain value by KULPS bf16 ulps of
+# that value, plus KATOL x max|plain| for elements that fp32 rounding moves
+# near zero.  lse is fp32: LSE_ATOL abs.  The final SSD state is fp32:
+# STATE_RTOL x |want| plus KATOL x max|want|.  Each limit sits above the
+# card's readings and below the faults of KCONTROLS, which must fail it.
+KULPS = 2
+KATOL = 1e-4
+LSE_ATOL = 1e-4
+STATE_RTOL = 1e-3
+KTIMED = 10                     # timed launches a kernel (median of CUDA-event pairs)
+
+
+def _median_ms(fn, n=KTIMED, warm=2):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(n)]
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
+def _limit(want, kind):
+    """Per-element limit on |got - want| (``kind``: "bf16", "lse", "state")."""
+    if kind == "lse":
+        return torch.full_like(want, LSE_ATOL)
+    floor = KATOL * float(want.abs().max())
+    if kind == "state":
+        return STATE_RTOL * want.abs() + floor
+    _, e = torch.frexp(want)                     # |want| in [2^(e-1), 2^e): ulp 2^(e-8)
+    ulp = torch.where(want == 0, torch.zeros_like(want), torch.exp2((e - 8).float()))
+    return KULPS * ulp + floor
+
+
+def _reading(got, want, kind):
+    """(max |got - want|, max over elements of |got - want| / limit)."""
+    got, want = got.detach().float(), want.detach().float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        return float("inf"), float("inf")
+    err = (got - want).abs()
+    return float(err.max()), float((err / _limit(want, kind)).max())
+
+
+class _Checks:
+    """The kernels phase's comparisons: every disagreement and every control
+    that passes is gathered, and :meth:`verdict` raises on any of them."""
+
+    def __init__(self):
+        self.faults = []
+
+    def held(self, name, got, want, kind="bf16"):
+        """max |got - want|; a fault unless every element is within its limit."""
+        err, ratio = _reading(got, want, kind)
+        log(f"[kernels] {name}: max |err| {err:.3g}, {ratio:.3g} of the {kind} limit")
+        if not ratio <= 1:
+            self.faults.append(f"{name}: max |err| {err:.3g} is {ratio:.3g} x the {kind} limit")
+        return err
+
+    def control(self, name, pairs):
+        """A wrong version of the plain one: over its (got, wrong, kind)
+        pairs the kernel must break a limit.  Returns the largest err/limit."""
+        ratio = max(_reading(g, w, kind)[1] for g, w, kind in pairs)
+        log(f"[kernels] control {name}: {ratio:.3g} x the limit (must exceed 1)")
+        if not ratio > 1:
+            self.faults.append(f"control {name} passed: {ratio:.3g} x the limit")
+        return ratio
+
+    def verdict(self):
+        if self.faults:
+            raise AssertionError("kernels phase: " + "; ".join(self.faults))
+
+
+def _dense_attention(q, k, v, valid, scale):
+    """Softmax attention in fp32 over a visibility mask ``valid`` that
+    broadcasts to [.., Sq, Sk], the kv heads repeated for GQA: (out, lse).
+    The controls' wrong versions (and a second, independent reference)."""
+    G = q.shape[1] // k.shape[1]
+    kf, vf = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    s = s.masked_fill(~valid, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.exp(s - lse[..., None]), vf)
+    return out, lse
+
+
+def _visible(qpos, kpos, window, edge=0, drop=None):
+    """[Sq, Sk] mask: key <= query + ``edge``, within ``window`` (0: none),
+    keys ``drop`` = (start, stop) hidden."""
+    d = qpos[:, None] - kpos[None, :]
+    valid = d >= -edge
+    if window > 0:
+        valid &= d < window
+    if drop is not None:
+        valid &= (kpos[None, :] < drop[0]) | (kpos[None, :] >= drop[1])
+    return valid
+
+
+# Faults the limits must see, each the plain version made wrong in one way:
+# one kv block of 16 keys dropped, the window's (or, with none, the causal)
+# edge moved by one key, the softmax scale 2 % off; for the SSD scan A 2 %
+# off and one step of x dropped.
+KCONTROLS = ("kv block of 16 dropped", "mask edge off by one", "softmax scale 2% off")
+SSD_CONTROLS = ("A 2% off", "one step of x dropped")
+
+
+def _bound(nbytes, ops):
+    byte_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+    return max(byte_ms, ops_ms), "bytes" if byte_ms >= ops_ms else "operations"
+
+
+def _randn(gen, shape, dev, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+
+def _causal_pairs(S, window):
+    """(q, k) pairs a causal mask with ``window`` (0: none) leaves visible:
+    the products this run needs."""
+    qpos = np.arange(S)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else 0
+    return int((qpos - lo + 1).sum())
+
+
+def phase_kernels(dev):
+    """The three standalone kernels of repro_torch.kernels at full width in
+    bf16.  First every entry point is driven once a case with the launch
+    counts from 0 (the phase is their only path: no model calls them); then
+    every output is held to the plain version and to a dense fp32 one, each
+    fault of KCONTROLS / SSD_CONTROLS must break the same limits, and the
+    kernel, the plain version and the SDPA yardstick are timed (CUDA events,
+    median of KTIMED) beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention, reset_launches, ssd_scan
+    from repro_torch.kernels import launches as klaunches
+    from repro_torch.kernels.decode_attention.kernel import plain_decode_attention
+    from repro_torch.kernels.decode_attention.kernel import smem_bytes as decode_smem
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, \
+        plain_flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import smem_bytes as flash_smem
+    from repro_torch.kernels.flash_attention.ops import plain_flash_attention
+    from repro_torch.kernels.ssd_scan.kernel import plain_ssd_scan
+    from repro_torch.kernels.ssd_scan.kernel import smem_bytes as ssd_smem
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan as ssd_fwd
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    checks = _Checks()
+
+    def drive(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    def with_grads(fn, xs, cot, **kw):
+        xs = [t.clone().requires_grad_(True) for t in xs]
+        out = fn(*xs, **kw)
+        return (out, *torch.autograd.grad(out, xs, cot))
+
+    def ssd_inputs(c):
+        b, S, H, P, N = c["b"], c["S"], c["H"], c["P"], c["N"]
+        dt = F.softplus(_randn(gen, (b, S, H), dev, torch.float32)).to(torch.bfloat16)
+        A = -torch.exp(_randn(gen, (H,), dev, torch.float32))
+        return (_randn(gen, (b, S, H, P), dev), dt, A, _randn(gen, (b, S, N), dev),
+                _randn(gen, (b, S, N), dev))
+
+    # -- every entry point once a case, launches counted from 0
+    reset_launches()
+    flash = []
+    for c in KFLASH:
+        q, k, v = (_randn(gen, (c["B"], h, c["S"], c["hd"]), dev)
+                   for h in (c["H"], c["Hkv"], c["Hkv"]))
+        kw = dict(causal=True, window=c["window"], bq=c["bq"], bk=c["bk"])
+        flash.append((c, (q, k, v), kw, drive(lambda: flash_attention_fwd(q, k, v, **kw))))
+    g = KFLASH_GRAD
+    fg_in = [_randn(gen, (g["B"], h, g["S"], g["hd"]), dev) for h in (g["H"], g["Hkv"], g["Hkv"])]
+    fg_do = _randn(gen, (g["B"], g["H"], g["S"], g["hd"]), dev)
+    fg_kw = dict(causal=True, window=g["window"], bq=g["bq"], bk=g["bk"])
+    fg = drive(lambda: with_grads(flash_attention, fg_in, fg_do, **fg_kw))
+    decode = []
+    for c in KDECODE:
+        q = _randn(gen, (c["B"], c["H"], c["hd"]), dev)
+        k, v = (_randn(gen, (c["B"], c["Hkv"], c["S"], c["hd"]), dev) for _ in range(2))
+        pos = torch.tensor([c["pos"]], dtype=torch.int32, device=dev)  # stays on the card
+        kw = dict(window=c["window"], bk=c["bk"])
+        decode.append((c, (q, k, v, pos), kw, drive(lambda: decode_attention(q, k, v, pos, **kw))))
+    sx = ssd_inputs(KSSD)
+    s_out = drive(lambda: ssd_fwd(*sx, chunk=KSSD["chunk"]))
+    sg_in = ssd_inputs(KSSD_GRAD)
+    sg_dy = _randn(gen, tuple(sg_in[0].shape), dev)
+    sg = drive(lambda: with_grads(ssd_scan, sg_in, sg_dy, chunk=KSSD_GRAD["chunk"]))
+    counts = dict(klaunches)
+    want = {"flash_fwd": len(KFLASH) + 1, "decode_attention": len(KDECODE), "ssd_scan": 2}
+    if counts != want:
+        raise AssertionError(f"kernels phase launches {counts}, want {want}")
+    log(f"[kernels] entry points driven once a case: launches {counts}")
+
+    # -- held to the plain versions, timed, bounded
+    def case(name, c, shape, err, fn, plain, lib, nbytes, ops, smem, want_lib=None):
+        bound_ms, bound_by = _bound(nbytes, ops)
+        row = dict(at=c["at"], shape=shape, max_abs_err=err, ms=_median_ms(fn),
+                   plain_ms=_median_ms(plain, n=3, warm=1), bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes, operations=ops,
+                   library_ms=None if lib is None else _median_ms(lib), smem_bytes=smem)
+        if lib is not None:  # the yardstick computes the same function (recorded, not held)
+            row["library_max_abs_err"] = float((lib().float().reshape(want_lib.shape)
+                                                - want_lib.float()).abs().max())
+        log(f"[kernels] {name} {c['at']} {shape}: max |err| {err:.3g} vs plain; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, library "
+            + ("none" if lib is None else f"{row['library_ms']:.4f} ms")
+            + f", bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} operations); "
+            f"{smem} B shared memory a CTA")
+        return row
+
+    def controls(at, got, scale, dense, edge_kw, mid):
+        """KCONTROLS on one attention case; ``dense(**mask_kw, scale=)`` is
+        the case's dense fp32 version."""
+        out = {}
+        for name, kw in zip(KCONTROLS, (dict(drop=(mid, mid + 16)), edge_kw, {})):
+            wrong = dense(**kw, scale=scale * (1.02 if name.startswith("softmax") else 1))
+            out[name] = checks.control(f"{at}: {name}", [(g_, w_, kd) for g_, w_, kd in
+                                                         zip(got, wrong, ("bf16", "lse"))])
+            del wrong
+        return out
+
+    entries = {}
+    rows = []
+    for c, (q, k, v), kw, (out, lse) in flash:
+        B, H, Hkv, hd, S, w = c["B"], c["H"], c["Hkv"], c["hd"], c["S"], c["window"]
+        at = f"flash {c['at']}"
+        pout, plse = plain_flash_attention_fwd(q, k, v, **kw)
+        err = checks.held(f"{at} out", out, pout)
+        lse_err = checks.held(f"{at} lse", lse, plse, "lse")
+        del pout, plse
+        p_ = torch.arange(S, device=dev)
+
+        def dense(scale, window=w, **mask_kw):
+            return _dense_attention(q, k, v, _visible(p_, p_, window, **mask_kw), scale)
+
+        dout, dlse = dense(hd ** -0.5)
+        dense_err = max(checks.held(f"{at} out vs dense fp32", out, dout),
+                        checks.held(f"{at} lse vs dense fp32", lse, dlse, "lse"))
+        del dout, dlse
+        ctl = controls(at, (out, lse), hd ** -0.5, dense,
+                       dict(window=w + 1) if w > 0 else dict(edge=1), S // 2)
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        if w > 0:
+            mask = _visible(p_, p_, w)
+            lib = lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)  # noqa: E731
+        else:
+            lib = lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True)  # noqa: E731
+        rows.append(case(
+            "flash_fwd", c, dict(B=B, H=H, Hkv=Hkv, hd=hd, S=S, causal=True, window=w,
+                                 bq=c["bq"], bk=c["bk"]),
+            err, lambda: flash_attention_fwd(q, k, v, **kw),
+            lambda: plain_flash_attention_fwd(q, k, v, **kw), lib,
+            2 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd) + 4 * B * H * S,
+            4 * B * H * hd * _causal_pairs(S, w), flash_smem(hd), out))
+        rows[-1].update(lse_max_abs_err=lse_err, dense_max_abs_err=dense_err, controls=ctl)
+    want_g = with_grads(plain_flash_attention, fg_in, fg_do, **fg_kw)
+    gerr = max(checks.held(f"flash backward {n}", a, b)
+               for n, a, b in zip(("out", "dq", "dk", "dv"), fg, want_g))
+    log(f"[kernels] flash_attention autograd at {KFLASH_GRAD}: out, dq, dk, dv max |err| "
+        f"{gerr:.3g} vs the same Function over the plain forward")
+    entries["flash_fwd"] = dict(rows[0], cases=rows, grad_max_abs_err=gerr,
+                                max_abs_err=max(r["max_abs_err"] for r in rows),
+                                lse_max_abs_err=max(r["lse_max_abs_err"] for r in rows))
+
+    rows = []
+    for c, (q, k, v, pos), kw, out in decode:
+        B, H, Hkv, hd, S, w, P_ = c["B"], c["H"], c["Hkv"], c["hd"], c["S"], c["window"], c["pos"]
+        at = f"decode {c['at']} pos {P_}"
+        pout = plain_decode_attention(q, k, v, pos, **kw)
+        err = checks.held(at, out, pout)
+        kpos = torch.arange(S, device=dev)
+        qpos = torch.tensor([P_], device=dev)
+
+        def dense(scale, window=w, **mask_kw):
+            o, _ = _dense_attention(q[:, :, None], k, v,
+                                    _visible(qpos, kpos, window, **mask_kw), scale)
+            return (o[:, :, 0],)
+
+        dense_err = checks.held(f"{at} vs dense fp32", out, dense(hd ** -0.5)[0])
+        lo = max(0, P_ - w + 1) if w > 0 else 0
+        ctl = controls(at, (out,), hd ** -0.5, dense,
+                       dict(window=w + 1) if w > 0 else dict(edge=-1), (lo + P_) // 2)
+        mask = _visible(qpos, kpos, w)[None, None]
+        live = int(mask.sum())
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        q4 = q[:, :, None, :]
+        rows.append(case(
+            "decode_attention", c, dict(B=B, H=H, Hkv=Hkv, hd=hd, S=S, bk=c["bk"], pos=P_,
+                                        window=w),
+            err, lambda: decode_attention(q, k, v, pos, **kw),
+            lambda: plain_decode_attention(q, k, v, pos, **kw),
+            lambda: F.scaled_dot_product_attention(q4, kr, vr, attn_mask=mask),
+            2 * (2 * B * H * hd + 2 * B * Hkv * live * hd) + 4, 4 * B * H * hd * live,
+            decode_smem(hd, c["bk"]), pout))
+        rows[-1].update(dense_max_abs_err=dense_err, controls=ctl)
+    entries["decode_attention"] = dict(rows[0], cases=rows,
+                                       max_abs_err=max(r["max_abs_err"] for r in rows))
+
+    c = KSSD
+    b, S, H, P, N, Q = c["b"], c["S"], c["H"], c["P"], c["N"], c["chunk"]
+    y, fin = s_out
+    py, pfin = plain_ssd_scan(*sx, chunk=Q)
+    err = checks.held("ssd y", y, py)
+    state_err = checks.held("ssd final state", fin, pfin, "state")
+    log(f"[kernels] ssd_scan max |state| {float(pfin.abs().max()):.3g}, max |y| "
+        f"{float(py.float().abs().max()):.3g}")
+    del py, pfin
+    x32, dt32, A32, B32, C32 = (t.float() for t in sx)
+    x_drop = x32.clone()
+    x_drop[:, S // 2 + 5] = 0
+    ssd_ctl = {}
+    for name, args in zip(SSD_CONTROLS, ((x32, dt32, A32 * 1.02, B32, C32),
+                                         (x_drop, dt32, A32, B32, C32))):
+        wy, wfin = plain_ssd_scan(*args, chunk=Q)
+        ssd_ctl[name] = checks.control(f"ssd {name}", [(y, wy, "bf16"), (fin, wfin, "state")])
+    del x32, dt32, B32, C32, x_drop, wy, wfin
+    tri = Q * (Q + 1) // 2
+    row = case("ssd_scan", c, dict(b=b, S=S, H=H, P=P, N=N, chunk=Q), err,
+               lambda: ssd_fwd(*sx, chunk=Q), lambda: plain_ssd_scan(*sx, chunk=Q), None,
+               2 * (2 * b * S * H * P + b * S * H + 2 * b * S * N) + 4 * H + 4 * b * H * P * N,
+               2 * (tri * N + tri * P + 2 * Q * P * N) * b * H * (S // Q), ssd_smem(Q, P, N, 2))
+    # the Function's backward recomputes ssd_chunked in torch ops and runs no
+    # kernel: its y is held, its gradients only checked for shape and finiteness
+    gy = checks.held("ssd autograd y", sg[0], plain_ssd_scan(*sg_in, chunk=KSSD_GRAD["chunk"])[0])
+    for n, gr, x_ in zip(("dx", "ddt", "dA", "dB", "dC"), sg[1:], sg_in):
+        if gr.shape != x_.shape or not torch.isfinite(gr).all():
+            checks.faults.append(f"ssd autograd {n}: shape {tuple(gr.shape)} or non-finite")
+    entries["ssd_scan"] = dict(row, state_max_abs_err=state_err, autograd_y_max_abs_err=gy,
+                               controls=ssd_ctl)
+    checks.verdict()
+    for name, e in entries.items():
+        e["launches"] = counts[name]
+    log(f"[kernels] limits: {KULPS} bf16 ulps + {KATOL} x max|want|; lse {LSE_ATOL} abs; "
+        f"state {STATE_RTOL} x |want| + {KATOL} x max|want|")
+    log(f"[kernels] phase {time.perf_counter() - t_phase:.1f} s; card: {card_line()}")
+    return entries
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2921,6 +3323,8 @@ def main(argv=None) -> int:
     if args.audit_baseline:
         audit_baseline(args.audit_baseline)
         return 3
+    from repro_torch.kernels import launches as klaunches
+
     t_all = time.perf_counter()
     phase_build()
     max_err = phase_parity(dev) if "parity" in phases else None
@@ -2933,14 +3337,33 @@ def main(argv=None) -> int:
     HELD.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    serving, n_launches = phase_serving(dev) if "serving" in phases else (None, None)
-    times = phase_times(dev) if "times" in phases else {}
-    moe = phase_moe(dev) if "moe" in phases else None
-    grad = phase_grad(dev, halfrun="halfrun" in phases) if "grad" in phases else None
-    training = phase_train(dev) if "train" in phases else None
-    unified, userving = phase_unified(dev) if "unified" in phases else (None, None)
-    umoe, umserving = phase_unified_moe(dev) if "unified_moe" in phases else (None, None)
+    standalone = phase_kernels(dev) if "kernels" in phases else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the standalone kernels' launches on each model path (none wires them in)
+    on_path = {}
+
+    def model_path(phase, fn, *a, **kw):
+        if phase not in phases:
+            return None
+        before = dict(klaunches)
+        out = fn(*a, **kw)
+        on_path[phase] = {n: klaunches[n] - before[n] for n in klaunches}
+        return out
+
+    serving, n_launches = model_path("serving", phase_serving, dev) or (None, None)
+    times = model_path("times", phase_times, dev) or {}
+    moe = model_path("moe", phase_moe, dev)
+    grad = model_path("grad", phase_grad, dev, halfrun="halfrun" in phases)
+    training = model_path("train", phase_train, dev)
+    unified, userving = model_path("unified", phase_unified, dev) or (None, None)
+    umoe, umserving = model_path("unified_moe", phase_unified_moe, dev) or (None, None)
+    stray = {p: n for p, n in on_path.items() if any(n.values())}
+    if stray:
+        raise AssertionError(f"a model path launched a standalone kernel: {stray}")
     if phases != set(PHASES):
+        if standalone:
+            log("[kernels] " + json.dumps(standalone))
         log(f"[done] phases {sorted(phases)} passed in {time.perf_counter() - t_all:.1f} s; "
             "a partial run prints no result")
         return 3
@@ -3022,6 +3445,21 @@ def main(argv=None) -> int:
         "free_ms_traced_untraced": TRACED["ws_unified"],
         "chaos": CHAOS["ws_unified"],
     }
+    paths = {"serving": "llama3.2-3b", "moe": moe["model"], "train": training["model"],
+             "unified": userving["model"], "unified_moe": umserving["model"],
+             "times": "times phase", "grad": "grad phase"}
+    standalone_lines = [
+        {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+         "replaces": replaces,
+         "launches": standalone[name]["launches"],
+         "launches_by_path": {**{paths[p]: on_path[p][name] for p in paths},
+                              "kernels phase": standalone[name]["launches"]},
+         **{k: v for k, v in standalone[name].items() if k != "launches"},
+         "card": card_line()}
+        for name, replaces in (("flash_fwd", "src/repro/kernels/flash_attention/kernel.py:32"),
+                               ("decode_attention",
+                                "src/repro/kernels/decode_attention/kernel.py:28"),
+                               ("ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:27"))]
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     log("[serving] " + json.dumps(serving))
     log("[moe] " + json.dumps(moe))
@@ -3030,7 +3468,8 @@ def main(argv=None) -> int:
     log("[unified] " + json.dumps(userving))
     log("[unified_moe] " + json.dumps(umserving))
     print(card_line())
-    print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line]}))
+    print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line,
+                                  *standalone_lines]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

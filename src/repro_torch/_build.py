@@ -7,7 +7,7 @@ Each ``csrc/*.cu`` file is compiled on first use with
 
 into ``build/repro_torch/`` at the root of the checkout, under a name keyed
 by a hash of the source, of every ``csrc/*.cuh`` header it includes
-(``ws_sched.cuh``, the scheduler every kernel shares) and of the flags, so an
+(``ws_sched.cuh``, the scheduler every megakernel shares) and of the flags, so an
 edited source or header is rebuilt and an unchanged one is loaded as it is.
 The libraries expose a plain C interface (no PyTorch headers), which keeps a
 build to seconds.  Nothing here runs at
@@ -28,7 +28,10 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("ws_attention", "ws_expert", "ws_expert_grad", "ws_unified")
+# the work-stealing megakernels (each over csrc/ws_sched.cuh), then the
+# standalone kernels of repro_torch.kernels
+WS_KERNELS = ("ws_attention", "ws_expert", "ws_expert_grad", "ws_unified")
+KERNELS = WS_KERNELS + ("flash_fwd", "decode_attention", "ssd_scan")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,6 +1,7 @@
 """Configurations the port builds (``llama3_2_3b``, ``kimi_k2_1t_a32b``,
-``deepseek_v2_236b``: each with ``CONFIG`` and ``SMOKE``), and
-:func:`get_config` by the reference's arch ids."""
+``deepseek_v2_236b``, the dense ``minicpm_2b`` and the windowed dense
+``h2o_danube_1_8b`` and ``gemma3_12b``: each with ``CONFIG`` and ``SMOKE``),
+and :func:`get_config` by the reference's arch ids."""
 
 import importlib
 
@@ -8,6 +9,9 @@ ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "minicpm-2b": "minicpm_2b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "gemma3-12b": "gemma3_12b",
 }
 
 

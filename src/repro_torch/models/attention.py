@@ -156,9 +156,11 @@ class _Flash(torch.autograd.Function):
 
 def flash_ref(q, k, v, *, causal: bool, window: int, chunk: int = 1024):
     """Online-softmax attention over [B, S, H, hd] (kv head-expanded);
-    window <= 0 is full.  Differentiable through the flash VJP.  (The
-    reference's banded fast path for static windows is not ported: the port
-    builds unwindowed attention only.)"""
+    window <= 0 is full, window > 0 masks keys ``window`` or more positions
+    behind the query.  Differentiable through the flash VJP.  (The
+    reference's banded fast path for static windows is not ported: a window
+    is applied by the mask over every block, the same numbers with S^2
+    work.)"""
     return _Flash.apply(q, k, v, int(window), 0, causal, chunk)
 
 

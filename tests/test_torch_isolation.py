@@ -321,7 +321,15 @@ def test_build_key_covers_included_headers(tmp_path):
     with open(csrc / "ws_sched.cuh", "a") as fh:
         fh.write("// edited\n")
     edited = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
-    assert all(edited[n] != keys[n] for n in _build.KERNELS)
+    # the megakernels include the scheduler; the standalone kernels do not
+    assert all(edited[n] != keys[n] for n in _build.WS_KERNELS)
+    assert all(edited[n] == keys[n] for n in _build.KERNELS if n not in _build.WS_KERNELS)
+    assert set(_build.KERNELS) - set(_build.WS_KERNELS) == {"flash_fwd", "decode_attention",
+                                                           "ssd_scan"}
+    with open(csrc / "dtype_io.cuh", "a") as fh:   # the standalone kernels' own header
+        fh.write("// edited\n")
+    again = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
+    assert all((again[n] == edited[n]) == (n in _build.WS_KERNELS) for n in _build.KERNELS)
     with open(csrc / "ws_expert.cu", "a") as fh:
         fh.write("// edited\n")
     assert _build.source_key("ws_expert", csrc) != edited["ws_expert"]
@@ -773,3 +781,257 @@ def test_traced_free_launch_is_clean_on_card(cuda_device):
     rep = SafetyChecker().check(chaos, n_tasks=state.n_tasks, normalized=chaos.res.out,
                                 oracle_normalized=clean.out)
     assert rep.ok and rep.normalized_parity == "bitwise", rep.summary()
+
+
+# ---------------------------------------------------------------------------
+# the standalone kernels (repro_torch.kernels): marshalling and refusals on the
+# CPU, each kernel against its plain version on the card
+
+
+def _standalone_inputs(name, dtype=torch.float32, seed=0):
+    """Small inputs of one standalone kernel: (module, args, kwargs) of its
+    wrapper."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dtype)
+
+    if name == "flash_fwd":
+        return FK, (randn(1, 4, 48, 16), randn(1, 2, 48, 16), randn(1, 2, 48, 16)), \
+            dict(causal=True, window=20, bq=16, bk=16)
+    if name == "decode_attention":
+        return DK, (randn(2, 4, 16), randn(2, 2, 64, 16), randn(2, 2, 64, 16), 40), \
+            dict(window=24, bk=16)
+    dt = torch.nn.functional.softplus(torch.randn((1, 32, 3), generator=g)).to(dtype)
+    A = -torch.exp(torch.randn((3,), generator=g))
+    return SK, (randn(1, 32, 3, 8), dt, A, randn(1, 32, 4), randn(1, 32, 4)), dict(chunk=8)
+
+
+STANDALONE = ("flash_fwd", "decode_attention", "ssd_scan")
+ENTRY = {"flash_fwd": "flash_fwd_launch", "decode_attention": "decode_attention_launch",
+         "ssd_scan": "ssd_scan_launch"}
+WRAPPER = {"flash_fwd": "flash_attention_fwd", "decode_attention": "decode_attention",
+           "ssd_scan": "ssd_scan"}
+
+
+@pytest.mark.parametrize("name", STANDALONE)
+def test_standalone_kernel_wrapper_marshals_every_argument(monkeypatch, name):
+    """Each standalone wrapper's CUDA branch, driven on CPU tensors against a
+    stand-in for its C entry point: every argument passes its ctypes type,
+    the launch is counted, and a CUDA error status raises."""
+    import ctypes
+    import types
+
+    from repro_torch import _build
+    from repro_torch.kernels import launches
+
+    class EntryPoint:
+        argtypes = None
+        restype = ctypes.c_int
+        status = 0
+        calls = 0
+
+        def __call__(self, *args):
+            assert len(args) == len(self.argtypes)
+            for t, a in zip(self.argtypes, args):
+                t.from_param(a)
+            self.calls += 1
+            return self.status
+
+    entry = EntryPoint()
+    monkeypatch.setattr(_build, "load",
+                        lambda lib: types.SimpleNamespace(**{ENTRY[lib]: entry}))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    mod, args, kw = _standalone_inputs(name)
+    monkeypatch.setattr(mod, "runs_plain", lambda *t: False)
+    before = launches[name]
+    out = getattr(mod, WRAPPER[name])(*args, **kw)
+    assert launches[name] == before + 1 and entry.calls == 1
+    n_args = {"flash_fwd": 15, "decode_attention": 15, "ssd_scan": 15}[name]
+    assert len(entry.argtypes) == n_args
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.shape == args[0].shape and first.dtype == args[0].dtype
+    entry.status = 1  # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match=f"{name} launch failed with CUDA error 1"):
+        getattr(mod, WRAPPER[name])(*args, **kw)
+    assert launches[name] == before + 2
+
+
+@pytest.mark.parametrize("name", STANDALONE)
+def test_standalone_kernel_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, name):
+    """Types, shapes and devices are refused on every path; layouts, head
+    dims and shared memory past the kernel's reach on the CUDA path, before
+    any launch (the C entry point is never loaded)."""
+    from repro_torch import _build
+    from repro_torch.kernels import launches
+
+    mod, args, kw = _standalone_inputs(name)
+    fn = getattr(mod, WRAPPER[name])
+    f16 = [a.half() if torch.is_tensor(a) and a.dtype == torch.float32 and a.dim() > 1 else a
+           for a in args]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fn(*f16, **kw)
+    with pytest.raises(ValueError):
+        fn(args[0][:, :-1], *args[1:], **kw)   # a shape that does not fit
+    meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
+    with pytest.raises(ValueError, match="cuda"):
+        fn(*meta, **kw)
+    mixed = [args[0].to("meta"), *args[1:]]
+    with pytest.raises(ValueError, match="several devices"):
+        fn(*mixed, **kw)
+    monkeypatch.setattr(_build, "load", lambda lib: pytest.fail("loaded the C library"))
+    monkeypatch.setattr(mod, "runs_plain", lambda *t: False)
+    before = dict(launches)
+    strided = [args[0].transpose(-1, -2).contiguous().transpose(-1, -2), *args[1:]]
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(*strided, **kw)
+    if name == "ssd_scan":
+        big = [torch.zeros((1, 1024, 1, 64)), torch.zeros((1, 1024, 1)), torch.zeros(1),
+               torch.zeros((1, 1024, 256)), torch.zeros((1, 1024, 256))]
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(*big, chunk=512)
+    else:
+        wide = [a.repeat_interleave(20, dim=-1) if torch.is_tensor(a) and a.dim() > 1 else a
+                for a in args]   # head dim 320
+        with pytest.raises(ValueError, match="head dims up to 256"):
+            fn(*wide, **kw)
+    assert launches == before
+
+
+def test_standalone_cpu_tensors_run_the_plain_version_and_launch_nothing(monkeypatch):
+    """CPU tensors take the plain versions through every public entry point,
+    the autograd Functions' backward included, and build or launch nothing."""
+    from repro_torch import _build
+    from repro_torch.kernels import decode_attention, flash_attention, launches, ssd_scan
+
+    monkeypatch.setattr(_build, "load", lambda lib: pytest.fail("loaded the C library"))
+    before = dict(launches)
+    _, (q, k, v), kw = _standalone_inputs("flash_fwd")
+    xs = [t.requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*xs, **kw).square().sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in xs)
+    _, args, kw = _standalone_inputs("decode_attention")
+    assert torch.isfinite(decode_attention(*args, **kw)).all()
+    _, args, kw = _standalone_inputs("ssd_scan")
+    xs = [t.requires_grad_(True) for t in args]
+    ssd_scan(*xs, **kw).square().sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in xs)
+    assert launches == before
+
+
+# Kernel against plain version on the card: fp32 within 1e-5 abs + 1e-5 rel
+# (the same fp32 arithmetic summed in another order), bf16 within the
+# reference's 2e-2 (both round fp32 results to bf16 at the end).  The SSD
+# scan's fp32 y and final state get 1e-3 abs: its cumulative sum cs of dt * A runs in another
+# order than torch.cumsum, and at chunk 128 |cs| reaches ~200, whose ulp
+# (1.5e-5) moves every exp(cs_i - cs_j) by up to that much relative, in terms
+# of magnitude ~20 (|C . B| ~ sqrt(N) times |x dt|).
+CARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SSD_ATOL_FP32 = 1e-3
+FLASH_CASES = [  # B, H, Hkv, S, hd, bq, bk, causal, window
+    (1, 2, 2, 32, 8, 16, 16, True, 0), (2, 4, 1, 64, 16, 32, 16, False, 0),
+    (1, 8, 4, 128, 32, 32, 32, True, 24), (1, 2, 2, 48, 8, 16, 16, True, 16),
+    (1, 2, 1, 96, 256, 32, 32, True, 40), (1, 3, 3, 80, 128, 16, 16, False, 30),
+]
+DECODE_CASES = [  # B, H, Hkv, S, hd, bk, pos, window
+    (1, 2, 1, 32, 8, 8, 31, 0), (2, 4, 2, 64, 16, 16, 30, 0), (2, 4, 2, 64, 16, 16, 63, 16),
+    (1, 8, 8, 128, 32, 32, 5, 0), (2, 4, 2, 1024, 256, 512, 700, 100),
+    (1, 3, 1, 96, 96, 32, 95, 0),
+]
+SSD_CASES = [  # b, S, H, P, N, chunk
+    (1, 16, 2, 4, 4, 8), (2, 32, 3, 8, 4, 8), (1, 64, 2, 16, 8, 16), (2, 24, 1, 8, 8, 8),
+    (1, 256, 2, 64, 128, 128),
+]
+
+
+def _close(got, want, dtype, atol=None):
+    tol = CARD_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol if atol is None else atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+
+    B, H, Hkv, S, hd, bq, bk, causal, window = case
+    g = torch.Generator().manual_seed(S + hd)
+    q, k, v = (torch.randn(s, generator=g).to(dtype)
+               for s in ((B, H, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
+    kw = dict(causal=causal, window=window, bq=bq, bk=bk)
+    want, want_lse = flash_attention_fwd(q, k, v, **kw)
+    before = launches["flash_fwd"]
+    got, lse = flash_attention_fwd(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_fwd"] == before + 1 and got.dtype == dtype
+    _close(got, want, dtype)
+    _close(lse, want_lse, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_grad_on_card(cuda_device):
+    """The autograd Function over the kernel against the same Function over
+    the plain forward on the CPU: gradients within 1e-4."""
+    from repro_torch.kernels import flash_attention
+
+    g = torch.Generator().manual_seed(5)
+    xs = [torch.randn(s, generator=g) for s in ((2, 4, 32, 16), (2, 2, 32, 16), (2, 2, 32, 16))]
+    for causal, window in [(True, 0), (True, 8), (False, 0)]:
+        res = []
+        for dev in ("cpu", cuda_device):
+            ts = [t.detach().to(dev).requires_grad_(True) for t in xs]
+            (flash_attention(*ts, causal, window, 16, 16) ** 2).sum().backward()
+            res.append([t.grad.cpu() for t in ts])
+        for a, b in zip(*res):
+            torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    from repro_torch.kernels import decode_attention, launches
+
+    B, H, Hkv, S, hd, bk, pos, window = case
+    g = torch.Generator().manual_seed(S + hd + pos)
+    q = torch.randn((B, H, hd), generator=g).to(dtype)
+    k, v = (torch.randn((B, Hkv, S, hd), generator=g).to(dtype) for _ in range(2))
+    want = decode_attention(q, k, v, pos, window=window, bk=bk)
+    before = launches["decode_attention"]
+    qd, kd, vd = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    for p in (pos, torch.tensor(pos, dtype=torch.int64, device=cuda_device)):
+        got = decode_attention(qd, kd, vd, p, window=window, bk=bk)
+        torch.cuda.synchronize()
+        _close(got, want, dtype)
+    assert launches["decode_attention"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+
+    b, S, H, P, N, chunk = case
+    g = torch.Generator().manual_seed(S + P + N)
+    x = torch.randn((b, S, H, P), generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, S, H), generator=g)).to(dtype)
+    A = -torch.exp(torch.randn((H,), generator=g))
+    B, C = (torch.randn((b, S, N), generator=g).to(dtype) for _ in range(2))
+    want, want_fin = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    before = launches["ssd_scan"]
+    got, fin = ssd_scan(*(t.to(cuda_device) for t in (x, dt, A, B, C)), chunk=chunk)
+    torch.cuda.synchronize()
+    assert launches["ssd_scan"] == before + 1 and got.dtype == dtype
+    atol = SSD_ATOL_FP32 if dtype == torch.float32 else None
+    _close(got, want, dtype, atol=atol)
+    _close(fin, want_fin, dtype, atol=atol)

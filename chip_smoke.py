@@ -31,8 +31,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. audit      0 atom/red/fence/membar in each kernel's SASS and PTX, in every
               instantiation (untraced and traced, per-slot and half-run) of
               every kernel function; each per-slot function's registers and
-              SASS instructions must equal the build before half-run steals
-              (BASELINE_FUNCTIONS), and ws_unified has no half-run walk.  The
+              SASS instructions must equal BASELINE_FUNCTIONS (the build
+              before half-run steals; ws_attention's rows the build of its
+              redesigned tile), and ws_unified has no half-run walk.  The
               standalone kernels' functions (registers, spills, SASS
               instructions) are logged and must be free of those opcodes too.
 4b. chaos     repro_torch.chaos on free-mode launches: a traced fault-free
@@ -58,7 +59,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               Then ragged_flash_attention at llama3.2-3b's widths (H 24,
               Hkv 8, hd 128, causal, bq = bk = 32, lengths 1024, 658, 531,
               288, bf16): static, ws and ws cap 4 against
-              ragged_attention_ref, their kernel times and a masked
+              ragged_attention_ref, their kernel times beside the first
+              version's (FIRST_VERSION_MS), the fraction of the bound, and a masked
               F.scaled_dot_product_attention yardstick.  ws_expert_grad's
               half-run checks run in the grad phase (which holds its data).
 4d. kernels   the standalone kernels of repro_torch.kernels at full width in
@@ -78,15 +80,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               block of 16 dropped, a mask edge off by one, a scale 2 % off,
               one step of x dropped) must break those limits.  Kernel, plain
               and masked F.scaled_dot_product_attention times (the SSD scan
-              has no library call) and the bound.  No other phase may launch
+              has no library call) and the bound; flash_fwd's beside its
+              first version's.  No other phase may launch
               them.
 5. serving    llama3.2-3b at full width (bf16, random weights from a seed),
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
               0; every request completes, launches == decode steps x 28, and
               decode_step_ws logits agree with the dense decode_step.
-6. times      attention kernel ms (free, lockstep), bound, plain version,
-              and one F.scaled_dot_product_attention call as a yardstick only.
+6. times      attention kernel ms (free, lockstep) beside the first
+              version's, bound and
+              the fraction of it reached, plain version, and one
+              F.scaled_dot_product_attention call as a yardstick only; the
+              free launch again at 16, 32 and 132 programs, and its split
+              in device times: every task cut to one key, one task a CTA,
+              each CTA on its own round-robin queue (record only).
 7. moe        kimi-k2-1t-a32b at full width, depth 2, moe_dispatch="ws"
               (bf16, random weights from seed 0), after the llama weights
               are freed: 2 replicas x 4 slots x 1024 positions, 8 requests
@@ -164,12 +172,16 @@ The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the 7 ported kernels (the megakernels each with its
 free-mode times untraced and traced, its checker reports and, but for
 ws_unified, its half-run statistics; ws_attention's also the ragged
-prefill; the standalone kernels each with its cases), and {"ok": true,
-"device": {...}}.
+prefill; the standalone kernels each with its cases; the two redesigned
+for this card, ws_attention and flash_fwd, marked so; their first
+versions' times are printed only in the log lines beside this run's),
+and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases build,audit,chaos       # the short check of the rings
     python3 chip_smoke.py --phases build,audit,halfrun,grad   # the short check of half-run
     python3 chip_smoke.py --phases build,audit,kernels     # the standalone kernels
+    python3 chip_smoke.py --phases build,audit,parity,halfrun,times,kernels
+                                                # the redesigned attention kernels
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
 """
 
@@ -243,6 +255,22 @@ HALFRUN_STATS_CAPS = (1, 2, 4)
 HALFRUN_STATS_N = 10           # timed launches a cap (ws_expert_grad: 2 of ~3 s, no warm-up)
 # The ragged prefill at llama3.2-3b's widths: one causal bf16 batch.
 RAGGED = dict(H=24, Hkv=8, hd=128, S=1024, lengths=(1024, 658, 531, 288), bq=32, bk=32, P=8)
+# The free decode launch of the times phase also at these program counts,
+# for the record (the engine and the reference use P = 8).
+TIMES_PROGRAMS = (16, 32, 132)
+# The kernels redesigned for this card, and their first versions' times
+# (the kernels of commit 5ee879c: the ranges of this script's runs of that
+# tree on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), printed in the
+# log beside this run's and kept out of the kernels line, whose numbers are
+# all this run's.
+REDESIGNED = ("ws_attention", "flash_fwd")
+FIRST_VERSION_MS = {
+    "ws_attention free": (6.52, 7.51), "ws_attention lockstep": (37.80, 39.19),
+    "ragged prefill static": (1277.1, 1287.0), "ragged prefill ws": (365.9, 468.4),
+    "ragged prefill ws_cap4": (431.2, 491.8),
+    "flash_fwd gemma3-12b local": (11.07, 11.16), "flash_fwd gemma3-12b global": (26.03, 26.07),
+    "flash_fwd llama3.2-3b": (26.02, 26.03),
+}
 
 # Checker reports, traced/untraced free-mode times and half-run statistics of
 # this run, by kernel (the kernels line carries them), and data a later phase
@@ -780,12 +808,15 @@ def phase_expert(dev):
     return dict(max_abs_err=max(errs), attn_err=attn_err, **times)
 
 
-# Every kernel function of the build before half-run steals (the kernels of
-# commit 5fee79a, measured on an NVIDIA H100 80GB HBM3 (700.00 W; nvcc of
-# CUDA 12.8) by this script's audit on that tree; `python3 chip_smoke.py
-# --audit-baseline DIR` with the tree unpacked in DIR prints the same table):
-# ptxas registers and SASS instructions, by _build.function_key of the
-# function's name.  The per-slot (cap 1) instantiations must keep them.
+# Every per-slot kernel function, pinned: ptxas registers and SASS
+# instructions, by _build.function_key of the function's name.  The
+# ws_expert, ws_expert_grad and ws_unified rows are the build before
+# half-run steals (the kernels of commit 5fee79a), the ws_attention rows the
+# build of its redesigned tile, each measured on an NVIDIA H100 80GB
+# HBM3 (700.00 W; nvcc of CUDA 12.8) by this script's audit on that tree
+# (`python3 chip_smoke.py --audit-baseline DIR` with the tree unpacked in
+# DIR prints the same table).  The per-slot (cap 1) instantiations must
+# keep them: a scheduler edit shows in every row.
 BASELINE_FUNCTIONS = {
     "void ws_expert_free_kernel<__nv_bfloat16, true>(WSQueues, ExpertArgs)":
         (255, 4440),
@@ -820,21 +851,21 @@ BASELINE_FUNCTIONS = {
     "void ws_expert_lockstep_kernel<float>(WSQueues, ExpertArgs)":
         (255, 8152),
     "void ws_free_kernel<__nv_bfloat16, true>(WSQueues, AttnArgs)":
-        (64, 2832),
+        (206, 7272),
     "void ws_free_kernel<__nv_bfloat16>(WSQueues, AttnArgs)":
-        (56, 2680),
+        (196, 7088),
     "void ws_free_kernel<float, true>(WSQueues, AttnArgs)":
-        (64, 3152),
+        (127, 4192),
     "void ws_free_kernel<float>(WSQueues, AttnArgs)":
-        (48, 3552),
+        (120, 3992),
     "void ws_lockstep_kernel<__nv_bfloat16, true>(WSQueues, AttnArgs)":
-        (48, 3888),
+        (206, 12064),
     "void ws_lockstep_kernel<__nv_bfloat16>(WSQueues, AttnArgs)":
-        (48, 3784),
+        (206, 11936),
     "void ws_lockstep_kernel<float, true>(WSQueues, AttnArgs)":
-        (56, 4464),
+        (128, 5928),
     "void ws_lockstep_kernel<float>(WSQueues, AttnArgs)":
-        (48, 4384),
+        (128, 5848),
     "void ws_unified_free<true>(WSQueues, UArgs)":
         (115, 29288),
     "void ws_unified_lockstep<true>(WSQueues, UArgs)":
@@ -861,11 +892,11 @@ def _log_functions(tag, name, fns, baseline=None):
         if baseline is not None:
             b = baseline.get(_build.function_key(f))
             if b is None:
-                line += "; the build before half-run steals: not there"
+                line += "; pinned: not there"
             else:
                 same = b == (st["registers"], st.get("sass_instructions"))
-                line += (f"; the build before half-run steals: {b[0]} registers, {b[1]} SASS "
-                         "instructions" + (" (the same)" if same else " (DIFFERS)"))
+                line += (f"; pinned: {b[0]} registers, {b[1]} SASS instructions"
+                         + (" (the same)" if same else " (DIFFERS)"))
                 if not same:
                     differ.append(f)
         log(line)
@@ -1171,6 +1202,11 @@ def _ragged_prefill(dev):
                card=card_line())
     log(f"[halfrun] ragged prefill bound {row['bound_ms']:.5f} ms ({row['bound_by']}: {nbytes} B, "
         f"{4 * pairs * H * hd} operations), masked SDPA yardstick {library_ms:.3f} ms")
+    for name, arm in arms.items():
+        lo, hi = FIRST_VERSION_MS[f"ragged prefill {name}"]
+        log(f"[halfrun] ragged prefill {name}: {arm['ms']:.3f} ms (first version: {lo}-{hi} ms), "
+            f"{row['bound_ms'] / arm['ms']:.4f} of the bound, {arm['ms'] / library_ms:.1f}x "
+            "masked SDPA")
     return row
 
 
@@ -2850,6 +2886,21 @@ def _event_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def _device_ms(fn, n):
+    """Median device time of one call of ``fn(i)``: each call waits behind a
+    sleeping kernel, so the host's launch time is never in the span."""
+    spans = []
+    for i in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn(i)
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s_.elapsed_time(e_) for s_, e_ in spans]))
+
+
 def phase_times(dev):
     import torch.nn.functional as F
 
@@ -2924,9 +2975,65 @@ def phase_times(dev):
         f"{times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({'bytes' if byte_ms >= ops_ms else 'operations'}: "
         f"{kv_bytes + io_bytes + task_bytes} B), plain version {plain_ms:.2f} ms, "
         f"SDPA yardstick {library_ms:.4f} ms")
+    first = {m: FIRST_VERSION_MS[f"ws_attention {m}"] for m in ("free", "lockstep")}
+    for m in ("free", "lockstep"):
+        log(f"[times] ws_attention {m} {times[m]:.4f} ms (first version: {first[m][0]}-"
+            f"{first[m][1]} ms, {first[m][0] / times[m]:.1f}x its fastest), "
+            f"{bound_ms / times[m]:.4f} of the bound, {times[m] / library_ms:.2f}x SDPA's "
+            f"{library_ms:.4f} ms")
+    def free_state(lens, P, partition="batch", steal=True, n=20):
+        """Free launches of a decode Put: (ms a launch back to back, ms a
+        launch on the device alone, sum(mult) / tasks)."""
+        st = to_device(decode_queue_state(lens, c["H"], c["S"], n_programs=P,
+                                          partition=partition, bk=c["bk"]), dev)
+        parrs = _fresh_arrays(st, "free", 2 * n + 2)
+
+        def launch_p(i):
+            K._launch_cuda(parrs[i], q4, k, v, out, mode="free", rounds=0, steal=steal,
+                           policy="cost", compress=False, causal=False, bq=1, bk=c["bk"],
+                           scale=c["hd"] ** -0.5, g=c["H"] // c["Hkv"], n_tasks=st.n_tasks)
+
+        launch_p(2 * n)
+        launch_p(2 * n + 1)
+        torch.cuda.synchronize()
+        ms = _event_ms(launch_p, n)
+        dev_ms = _device_ms(lambda i: launch_p(n + i), n)
+        mult = torch.stack([a["mult"].sum(0) for a in parrs])
+        if not bool((mult >= 1).all()):
+            raise AssertionError(f"ws_attention free at P={P} ({partition}, steal {steal}) "
+                                 "left a task unexecuted")
+        return ms, dev_ms, float(mult.sum()) / (mult.shape[0] * st.n_tasks)
+
+    # the same free launch at other program counts, for the record
+    by_programs = {c["P"]: times["free"]}
+    for P in TIMES_PROGRAMS:
+        by_programs[P] = free_state(lengths, P)[0]
+    log("[times] ws_attention free decode by programs (record only): "
+        + ", ".join(f"P={P} {ms:.4f} ms" for P, ms in by_programs.items())
+        + f"; at P={c['P']} {(kv_bytes + io_bytes) / times['free'] / 1e6 / c['P']:.1f} GB/s "
+          "of unique K/V, q and out a CTA")
+    # Where the free launch's time goes, for the record: the scheduler and
+    # the tile's fixed cost (every task one key), one tile a CTA (P = tasks,
+    # round-robin queues, no steals: the launch, one claim and the longest
+    # tile), and each CTA walking only its own queue (no steals, no
+    # duplicate runs).  Device times, so no host gap between launches counts.
+    ones = np.ones_like(np.asarray(lengths))
+    split = {}
+    for name, args in (("P8", (lengths, c["P"])),
+                       ("P8, one key a task", (ones, c["P"])),
+                       ("one tile a CTA", (lengths, n_tasks, "round_robin", False)),
+                       ("one tile a CTA, one key", (ones, n_tasks, "round_robin", False)),
+                       ("P8 own queues, no steals", (lengths, c["P"], "round_robin", False)),
+                       ("P8 round robin, steals", (lengths, c["P"], "round_robin", True))):
+        _, dev_ms, dup = free_state(*args)
+        split[name] = dict(device_ms=dev_ms, mult_per_task=dup)
+    log("[times] ws_attention free decode split (device ms a launch, sum(mult)/tasks; "
+        "record only): " + ", ".join(f"{n_} {r['device_ms']:.4f} ({r['mult_per_task']:.3f})"
+                                     for n_, r in split.items()))
     return dict(ms=times["free"], lockstep_ms=times["lockstep"], plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes" if byte_ms >= ops_ms else "operations",
-                library_ms=library_ms)
+                library_ms=library_ms, free_ms_by_programs=by_programs,
+                free_split_device_ms=split)
 
 
 # ---------------------------------------------------------------------------
@@ -3217,6 +3324,11 @@ def phase_kernels(dev):
             2 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd) + 4 * B * H * S,
             4 * B * H * hd * _causal_pairs(S, w), flash_smem(hd), out))
         rows[-1].update(lse_max_abs_err=lse_err, dense_max_abs_err=dense_err, controls=ctl)
+        lo, hi = FIRST_VERSION_MS[f"flash_fwd {c['at']}"]
+        log(f"[kernels] flash_fwd {c['at']}: {rows[-1]['ms']:.4f} ms (first version: {lo}-{hi} ms), "
+            f"{rows[-1]['ms'] / rows[-1]['library_ms']:.2f}x SDPA's "
+            f"{rows[-1]['library_ms']:.4f} ms, {rows[-1]['bound_ms'] / rows[-1]['ms']:.4f} of "
+            "the bound")
     want_g = with_grads(plain_flash_attention, fg_in, fg_do, **fg_kw)
     gerr = max(checks.held(f"flash backward {n}", a, b)
                for n, a, b in zip(("out", "dq", "dk", "dv"), fg, want_g))
@@ -3372,6 +3484,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ws_attention.cu",
         "replaces": "src/repro/pallas_ws/kernel.py:334",
+        "redesigned": "ws_attention" in REDESIGNED,
         "launches": n_launches,
         "launches_by_path": {"llama3.2-3b": n_launches,
                              moe["model"]: moe["ws_attention_launches"],
@@ -3455,6 +3568,7 @@ def main(argv=None) -> int:
          "launches_by_path": {**{paths[p]: on_path[p][name] for p in paths},
                               "kernels phase": standalone[name]["launches"]},
          **{k: v for k, v in standalone[name].items() if k != "launches"},
+         **({"redesigned": True} if name in REDESIGNED else {}),
          "card": card_line()}
         for name, replaces in (("flash_fwd", "src/repro/kernels/flash_attention/kernel.py:32"),
                                ("decode_attention",

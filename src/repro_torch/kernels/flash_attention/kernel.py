@@ -7,9 +7,10 @@ The TPU kernel is ``_fwd_kernel`` in ``flash_attention_fwd``: a grid
 masks inside the block, fully masked block pairs skipped, and GQA mapped by
 ``h // G``.  Here it is ``csrc/flash_fwd.cu``: one CTA per
 ``(b, h, q-tile)`` whose loop over the live k-tiles takes the place of the
-sequential grid dimension.  The CUDA tiles are the kernel's own (64 query
-rows by 32 keys, up to head dim 256); ``bq``/``bk`` stay in the signature
-for the reference's divisibility check, which decides what is accepted.
+sequential grid dimension: bf16 on mma.sync or fp32 on the CUDA cores, as
+:func:`flash_branch` chooses and passes in.  The CUDA tiles are the
+kernel's own (up to head dim 256); ``bq``/``bk`` stay in the signature for
+the reference's divisibility check, which decides what is accepted.
 
 For CUDA tensors :func:`flash_attention_fwd` launches the kernel; for CPU
 tensors it runs :func:`plain_flash_attention_fwd`, the reference's block
@@ -20,22 +21,37 @@ from __future__ import annotations
 
 import torch
 
-from .._launch import DTYPES, FLOAT, INT, PTR, check_contiguous, entry_point, launch, \
-    runs_plain, stream_of
+from .._launch import DTYPES, FLOAT, INT, PTR, check_contiguous, check_smem, entry_point, \
+    launch, runs_plain, stream_of
 
 NEG_INF = -1e30
-# head dims the CUDA kernel takes (its accumulator: 64 columns a thread, 4
-# threads a query row)
+# head dims the CUDA kernel takes (the CUDA-core body's accumulator: 64
+# columns a thread, 4 threads a query row)
 MAX_HEAD_DIM = 256
-# the CUDA kernel's tile: query rows and keys
-CUDA_BQ, CUDA_BK = 64, 32
+# the bodies of csrc/flash_fwd.cu, by the index the wrapper passes it
+BODIES = ("cores", "mma")
 
 
-def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one CTA of ``csrc/flash_fwd.cu``: the Q, K
-    and V tiles (fp32, rows padded by one) and the tile's probabilities;
-    140 KB at the largest head dim."""
-    return 4 * ((CUDA_BQ + 2 * CUDA_BK) * (hd + 1) + CUDA_BQ * (CUDA_BK + 1))
+def flash_branch(dtype, hd: int) -> str:
+    """The body ``csrc/flash_fwd.cu`` runs, chosen here and passed to it:
+    ``"mma"`` (bf16 on mma.sync, over head dims padded to 64, 128 or 256)
+    for bf16 with ``hd % 8 == 0``, whose rows are whole 16-byte vectors;
+    ``"cores"`` (fp32 on CUDA cores) otherwise."""
+    return "mma" if dtype == torch.bfloat16 and hd % 8 == 0 else "cores"
+
+
+def smem_bytes(hd: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA of ``csrc/flash_fwd.cu`` (its
+    ``Tc<HD>::SMEM`` and ``launch``): on the tensor cores the 64-row Q tile
+    and two stages of K and V of 64 keys (32 at hd 256), bf16 rows padded by
+    8, 99 KB at hd 256; on the CUDA cores 64-row Q and 32-key K and V tiles
+    (fp32, rows padded by one) and the tile's probabilities, 140 KB at hd
+    256."""
+    if flash_branch(dtype, hd) == "mma":
+        width = 64 if hd <= 64 else 128 if hd <= 128 else 256
+        bk = 32 if width == 256 else 64
+        return 2 * (64 + 4 * bk) * (width + 8)
+    return 4 * ((64 + 2 * 32) * (hd + 1) + 64 * (32 + 1))
 
 
 def _check(q, k, v, bq: int, bk: int):
@@ -65,22 +81,27 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     check_contiguous("flash_fwd", q, k, v)
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"flash_fwd takes head dims up to {MAX_HEAD_DIM}: {q.shape[-1]}")
+    body = flash_branch(q.dtype, q.shape[-1])
+    if body == "mma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_fwd: the tensor-core body copies 16-byte rows; q, k and v "
+                         "must start on 16-byte boundaries")
+    check_smem("flash_fwd", smem_bytes(q.shape[-1], q.dtype))
     B, H, S, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch_cuda(q, k, v, out, lse, causal=causal, window=window)
+    _launch_cuda(q, k, v, out, lse, causal=causal, window=window, body=body)
     return out, lse
 
 
-def _launch_cuda(q, k, v, out, lse, *, causal: bool, window: int) -> None:
+def _launch_cuda(q, k, v, out, lse, *, causal: bool, window: int, body: str) -> None:
     fn = entry_point("flash_fwd", "flash_fwd_launch",
-                     # dtype; q, k, v, out, lse; B, H, Hkv, S, hd, causal,
-                     # window; scale; stream
-                     [INT] + [PTR] * 5 + [INT] * 7 + [FLOAT, PTR])
+                     # dtype, body; q, k, v, out, lse; B, H, Hkv, S, hd,
+                     # causal, window; scale; stream
+                     [INT] * 2 + [PTR] * 5 + [INT] * 7 + [FLOAT, PTR])
     B, H, S, hd = q.shape
-    launch("flash_fwd", fn, int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, k.shape[1], S, hd,
-           int(causal), int(window), hd ** -0.5, stream_of(q))
+    launch("flash_fwd", fn, int(q.dtype == torch.bfloat16), BODIES.index(body), q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, k.shape[1], S,
+           hd, int(causal), int(window), hd ** -0.5, stream_of(q))
 
 
 def plain_flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,

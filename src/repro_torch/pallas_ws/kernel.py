@@ -723,18 +723,73 @@ def _kernel_fn():
         ptr, i = ctypes.c_void_p, ctypes.c_int
         # mode, dtype; 12 int32 arrays (stage_open may be null); q, k, v,
         # out; strides; 10 sizes and flags (run_cap among them); 8 shape
-        # ints; scale; the ring; stream
+        # ints and the branch; scale; the ring; stream
         fn.argtypes = ([i, i] + [ptr] * 12 + [ptr] * 4 + [ptr]
-                       + [i] * 10 + [i] * 8 + [ctypes.c_float] + RING_ARGTYPES + [ptr])
+                       + [i] * 10 + [i] * 9 + [ctypes.c_float] + RING_ARGTYPES + [ptr])
         fn.restype = i
     return fn
 
 
+# The tile bodies of csrc/ws_attention.cu (its module comment has the
+# design): (a) decode GEMV, (b) bf16 flash tiles on mma.sync, (c) the first
+# fp32 tile body.  The kernel's geometry: 8 warps; branch (b) keeps head
+# dims up to MMA_HD in registers and gives each kv split KW keys a stage.
+BRANCHES = ("decode", "mma", "generic")
+NWARPS = 8
+MMA_HD = 128
+KW = 16
+
+
+def vector_rows(t: torch.Tensor) -> bool:
+    """Whether ``t`` ([.., rows, hd]) reads as rows of 16-byte vectors: unit
+    inner stride, a 16-byte aligned base and outer strides."""
+    *outer, inner = t.stride()
+    size = t.element_size()
+    return (inner == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in outer))
+
+
+def attention_branch(q, k, v, bq: int) -> str:
+    """The tile body a launch runs, from the inputs' dtype, head dim and
+    layouts and the tile's ``bq`` (a pure function of their metadata):
+    ``"decode"`` for bq 1 over 16-byte K/V rows (hd % 8 == 0, <= 256);
+    ``"mma"`` for bf16 tiles of bq a multiple of 16 (<= 128) over 16-byte
+    q/K/V rows (hd % 16 == 0, <= MMA_HD); ``"generic"`` otherwise."""
+    hd = q.shape[-1]
+    kv_rows = vector_rows(k) and vector_rows(v)
+    if bq == 1 and hd % 8 == 0 and hd <= 256 and kv_rows:
+        return "decode"
+    if (q.dtype == torch.bfloat16 and bq % 16 == 0 and 16 <= bq <= 16 * NWARPS
+            and hd % 16 == 0 and hd <= MMA_HD and kv_rows and vector_rows(q)):
+        return "mma"
+    return "generic"
+
+
+def smem_bytes(branch: str, bq: int, bk: int, hd: int) -> int:
+    """Dynamic shared memory of one CTA of ``csrc/ws_attention.cu`` running
+    ``branch`` (its ``tile_smem``): (a) the warps' partials; (b) the K/V
+    ring of two stages of KW keys a kv split and the q tile (bf16 rows
+    padded by 8), or the splits' partials, whichever is larger; (c) the fp32
+    tile body's q, accumulator, K/V block (rows padded by one), scores and
+    row statistics."""
+    if branch == "decode":
+        return 4 * NWARPS * (hd + 2)
+    if branch == "mma":
+        kc = KW * (NWARPS // (bq // 16))
+        return max(2 * (4 * kc + bq) * (hd + 8), 4 * NWARPS * 16 * (hd + 2))
+    return 4 * (2 * bq * hd + bk * (hd + 1) + bq * bk + 3 * bq)
+
+
 def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
                  causal, bq, bk, scale, g, n_tasks, ring=NO_RING, run_cap=1) -> None:
-    fn = _kernel_fn()
+    from ..kernels._launch import check_smem
+
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
+    branch = attention_branch(q, k, v, bq)
+    check_smem(f"ws_attention ({branch} tiles, bq={bq}, bk={bk}, hd={hd})",
+               smem_bytes(branch, bq, bk, hd))
+    fn = _kernel_fn()
     strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride())
     names = ("tasks", "tail", "head", "local_head", "taken", "remaining", "clock",
              "work", "steals", "scanned", "mult")
@@ -747,7 +802,8 @@ def _launch_cuda(arrs, q, k, v, out, *, mode, rounds, steal, policy, compress,
         ctypes.cast(strides, ctypes.c_void_p),
         *queue_dims(arrs), n_tasks, rounds, int(steal), STEAL_POLICIES.index(policy), int(compress),
         run_cap, int(causal),
-        H, Sq, out.shape[2], Sk, hd, g, bq, bk, float(scale), *ring, stream,
+        H, Sq, out.shape[2], Sk, hd, g, bq, bk, BRANCHES.index(branch), float(scale), *ring,
+        stream,
     )
     launches["ws_attention"] += 1
     if err != 0:

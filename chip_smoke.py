@@ -78,11 +78,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               STATE_RTOL) of the plain version, flash and decode also of a
               dense fp32 one; each fault of KCONTROLS and SSD_CONTROLS (a kv
               block of 16 dropped, a mask edge off by one, a scale 2 % off,
-              one step of x dropped) must break those limits.  Kernel, plain
-              and masked F.scaled_dot_product_attention times (the SSD scan
-              has no library call) and the bound; flash_fwd's beside its
-              first version's.  No other phase may launch
-              them.
+              one step of x dropped) and, for decode, DECODE_CONTROL (the
+              last live split dropped) must break those limits.  Kernel,
+              plain and masked F.scaled_dot_product_attention times (the SSD
+              scan has no library call) and the bound; decode's kernel and
+              SDPA also cold (L2 evicted before each timed launch); flash_fwd's
+              and decode_attention's beside their first versions'.  No other
+              phase may launch them.
 5. serving    llama3.2-3b at full width (bf16, random weights from a seed),
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
@@ -260,16 +262,21 @@ RAGGED = dict(H=24, Hkv=8, hd=128, S=1024, lengths=(1024, 658, 531, 288), bq=32,
 TIMES_PROGRAMS = (16, 32, 132)
 # The kernels redesigned for this card, and their first versions' times
 # (the kernels of commit 5ee879c: the ranges of this script's runs of that
-# tree on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), printed in the
-# log beside this run's and kept out of the kernels line, whose numbers are
-# all this run's.
-REDESIGNED = ("ws_attention", "flash_fwd")
+# kernel on an NVIDIA H100 80GB HBM3, 700.00 W, warm; PERF.md §6), printed
+# in the log beside this run's and kept out of the kernels line, whose
+# numbers are all this run's.
+REDESIGNED = ("ws_attention", "flash_fwd", "decode_attention")
 FIRST_VERSION_MS = {
     "ws_attention free": (6.52, 7.51), "ws_attention lockstep": (37.80, 39.19),
     "ragged prefill static": (1277.1, 1287.0), "ragged prefill ws": (365.9, 468.4),
     "ragged prefill ws_cap4": (431.2, 491.8),
     "flash_fwd gemma3-12b local": (11.07, 11.16), "flash_fwd gemma3-12b global": (26.03, 26.07),
     "flash_fwd llama3.2-3b": (26.02, 26.03),
+    "decode_attention gemma3-12b local pos 8191": (0.448, 0.465),
+    "decode_attention gemma3-12b global pos 8191": (4.014, 4.022),
+    "decode_attention gemma3-12b local pos 4000": (0.753, 0.757),
+    "decode_attention gemma3-12b global pos 4000": (2.013, 2.016),
+    "decode_attention llama3.2-3b serving cache pos 1000": (0.156, 0.158),
 }
 
 # Checker reports, traced/untraced free-mode times and half-run statistics of
@@ -2886,19 +2893,30 @@ def _event_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def _device_ms(fn, n):
-    """Median device time of one call of ``fn(i)``: each call waits behind a
-    sleeping kernel, so the host's launch time is never in the span."""
+SLEEP_CYCLES = 2_000_000        # ~1 ms: outlasts the host's enqueue of any timed call
+
+
+def _device_spans(fn, n, before=None):
+    """Device ms of each of ``n`` calls ``fn(i)``: each call waits behind a
+    sleeping kernel, so the host's launch time is never in the span;
+    ``before()`` (if given) runs ahead of the sleep, outside the span."""
     spans = []
     for i in range(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        if before is not None:
+            before()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn(i)
         end.record()
         spans.append((start, end))
     torch.cuda.synchronize()
-    return float(np.median([s_.elapsed_time(e_) for s_, e_ in spans]))
+    return [s_.elapsed_time(e_) for s_, e_ in spans]
+
+
+def _device_ms(fn, n, before=None):
+    """Median of :func:`_device_spans`."""
+    return float(np.median(_device_spans(fn, n, before)))
 
 
 def phase_times(dev):
@@ -3072,6 +3090,12 @@ KATOL = 1e-4
 LSE_ATOL = 1e-4
 STATE_RTOL = 1e-3
 KTIMED = 10                     # timed launches a kernel (median of CUDA-event pairs)
+# Decode's kernel and SDPA also get device times (_device_ms: the host's
+# enqueue, ~0.1 ms through the Python wrapper, kept out of the span), warm
+# (L2 holds the inputs of the launches before) and cold: before each timed
+# launch a write of EVICT_BYTES to one scratch and a read of EVICT_BYTES of
+# another leave the 50 MB L2 holding none of the inputs and no dirty lines.
+EVICT_BYTES = 128 << 20
 
 
 def _median_ms(fn, n=KTIMED, warm=2):
@@ -3168,6 +3192,9 @@ def _visible(qpos, kpos, window, edge=0, drop=None):
 # edge moved by one key, the softmax scale 2 % off; for the SSD scan A 2 %
 # off and one step of x dropped.
 KCONTROLS = ("kv block of 16 dropped", "mask edge off by one", "softmax scale 2% off")
+# and for decode the merge with its last live split dropped (the keys of
+# that split hidden from the dense version)
+DECODE_CONTROL = "last live split dropped"
 SSD_CONTROLS = ("A 2% off", "one step of x dropped")
 
 
@@ -3200,7 +3227,9 @@ def phase_kernels(dev):
 
     from repro_torch.kernels import decode_attention, flash_attention, reset_launches, ssd_scan
     from repro_torch.kernels import launches as klaunches
-    from repro_torch.kernels.decode_attention.kernel import plain_decode_attention
+    from repro_torch.kernels.decode_attention.kernel import _split as decode_split
+    from repro_torch.kernels.decode_attention.kernel import device_cut, \
+        plain_decode_attention, sm_count
     from repro_torch.kernels.decode_attention.kernel import smem_bytes as decode_smem
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, \
         plain_flash_attention_fwd
@@ -3263,18 +3292,44 @@ def phase_kernels(dev):
     log(f"[kernels] entry points driven once a case: launches {counts}")
 
     # -- held to the plain versions, timed, bounded
-    def case(name, c, shape, err, fn, plain, lib, nbytes, ops, smem, want_lib=None):
+    scratch = None
+
+    def evict_l2():
+        scratch[0].fill_(1.0)
+        scratch[1].sum()
+
+    def case(name, c, shape, err, fn, plain, lib, nbytes, ops, smem, want_lib=None,
+             cold=False):
+        """``ms`` and ``library_ms`` keep the host's enqueue in the span;
+        with ``cold`` the kernel and library also get device times, warm
+        (``ms_device``, ``library_ms_device``) and cold (``ms_cold``, the
+        kernel's fastest and slowest in ``ms_cold_range``,
+        ``library_ms_cold``)."""
         bound_ms, bound_by = _bound(nbytes, ops)
-        row = dict(at=c["at"], shape=shape, max_abs_err=err, ms=_median_ms(fn),
-                   plain_ms=_median_ms(plain, n=3, warm=1), bound_ms=bound_ms,
+        row = dict(at=c["at"], shape=shape, max_abs_err=err, ms=_median_ms(fn))
+        if cold:
+            row["ms_device"] = _device_ms(lambda _: fn(), KTIMED)
+        row.update(plain_ms=_median_ms(plain, n=3, warm=1), bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes, operations=ops,
                    library_ms=None if lib is None else _median_ms(lib), smem_bytes=smem)
+        if cold:
+            spans = _device_spans(lambda _: fn(), KTIMED, before=evict_l2)
+            row.update(library_ms_device=_device_ms(lambda _: lib(), KTIMED),
+                       ms_cold=float(np.median(spans)),
+                       ms_cold_range=(min(spans), max(spans)),
+                       library_ms_cold=_device_ms(lambda _: lib(), KTIMED, before=evict_l2))
+            row["bound_fraction_cold"] = bound_ms / row["ms_cold"]
         if lib is not None:  # the yardstick computes the same function (recorded, not held)
             row["library_max_abs_err"] = float((lib().float().reshape(want_lib.shape)
                                                 - want_lib.float()).abs().max())
         log(f"[kernels] {name} {c['at']} {shape}: max |err| {err:.3g} vs plain; kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, library "
             + ("none" if lib is None else f"{row['library_ms']:.4f} ms")
+            + (f"; device warm: kernel {row['ms_device']:.4f} ms, library "
+               f"{row['library_ms_device']:.4f} ms; device cold: kernel {row['ms_cold']:.4f} ms "
+               f"({row['ms_cold_range'][0]:.4f}-{row['ms_cold_range'][1]:.4f}), "
+               f"library {row['library_ms_cold']:.4f} ms, {row['bound_fraction_cold']:.4f} of "
+               "the bound" if cold else "")
             + f", bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} operations); "
             f"{smem} B shared memory a CTA")
         return row
@@ -3339,6 +3394,8 @@ def phase_kernels(dev):
                                 lse_max_abs_err=max(r["lse_max_abs_err"] for r in rows))
 
     rows = []
+    scratch = [torch.empty(EVICT_BYTES // 4, device=dev) for _ in range(2)]
+    scratch[1].zero_()
     for c, (q, k, v, pos), kw, out in decode:
         B, H, Hkv, hd, S, w, P_ = c["B"], c["H"], c["Hkv"], c["hd"], c["S"], c["window"], c["pos"]
         at = f"decode {c['at']} pos {P_}"
@@ -3356,6 +3413,13 @@ def phase_kernels(dev):
         lo = max(0, P_ - w + 1) if w > 0 else 0
         ctl = controls(at, (out,), hd ** -0.5, dense,
                        dict(window=w + 1) if w > 0 else dict(edge=-1), (lo + P_) // 2)
+        chunk, n_split = decode_split(S, min(c["bk"], S), w, B, Hkv, sm_count(dev))
+        first, c_dev, last_key = device_cut(P_, S, w, n_split)
+        c_dev, last_key = int(c_dev), int(last_key)
+        last = int(first[first <= last_key][-1])     # first key of the last live split
+        ctl[DECODE_CONTROL] = checks.control(
+            f"{at}: {DECODE_CONTROL} (keys {last}..{last_key}, splits of {c_dev})",
+            [(out, dense(hd ** -0.5, drop=(last, S))[0], "bf16")])
         mask = _visible(qpos, kpos, w)[None, None]
         live = int(mask.sum())
         kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
@@ -3367,8 +3431,18 @@ def phase_kernels(dev):
             lambda: plain_decode_attention(q, k, v, pos, **kw),
             lambda: F.scaled_dot_product_attention(q4, kr, vr, attn_mask=mask),
             2 * (2 * B * H * hd + 2 * B * Hkv * live * hd) + 4, 4 * B * H * hd * live,
-            decode_smem(hd, c["bk"]), pout))
-        rows[-1].update(dense_max_abs_err=dense_err, controls=ctl)
+            decode_smem(hd, q.dtype, H // Hkv), pout, cold=True))
+        rows[-1].update(dense_max_abs_err=dense_err, controls=ctl, n_split=n_split,
+                        split_keys=c_dev)
+        r = rows[-1]
+        lo_, hi_ = FIRST_VERSION_MS[f"decode_attention {c['at']} pos {P_}"]
+        log(f"[kernels] decode_attention {c['at']} pos {P_}: {r['ms']:.4f} ms with the host's "
+            f"enqueue (first version, the same way: {lo_}-{hi_} ms); device {r['ms_device']:.4f}"
+            f" warm, {r['ms_cold']:.4f} cold; SDPA device {r['library_ms_device']:.4f} warm, "
+            f"{r['library_ms_cold']:.4f} cold ({r['ms_cold'] / r['library_ms_cold']:.2f}x cold);"
+            f" {r['bound_fraction_cold']:.4f} of the bound cold; {n_split} splits of {c_dev} "
+            f"keys (at most {chunk})")
+    del scratch
     entries["decode_attention"] = dict(rows[0], cases=rows,
                                        max_abs_err=max(r["max_abs_err"] for r in rows))
 

@@ -1,8 +1,9 @@
 // The attention tile body of the port's megakernels (sm_90a): a flash/decode
 // tile of `bq` query rows of head `h` against GQA kv head `h / g`, an online
 // softmax over `cost` kv blocks of `bk` (replaces `_attention_execute` of
-// repro/pallas_ws/kernel.py).  ws_attention.cu runs it alone; ws_unified.cu
-// runs it beside the step-glue phases of the unified engine step.
+// repro/pallas_ws/kernel.py).  Its one user is ws_unified.cu, which runs it
+// beside the step-glue phases of the unified engine step (ws_attention.cu
+// carries its own tile bodies).
 //
 // q, k and v are read through element strides, so a [B, S, Hkv, hd] cache is
 // read in place as [B, Hkv, S, hd].  Masks: `kpos < kv_end` (and `kpos <=

@@ -311,7 +311,7 @@ def test_build_key_covers_included_headers(tmp_path):
     """Editing the shared scheduler header changes the cached library's key
     of every kernel that includes it; editing one kernel changes its own.
     dtype_io.cuh belongs to the standalone kernels alone, attn_mma.cuh to
-    ws_attention and flash_fwd."""
+    ws_attention, flash_fwd and decode_attention (its cp.async helpers)."""
     import shutil
 
     from repro_torch import _build
@@ -332,12 +332,14 @@ def test_build_key_covers_included_headers(tmp_path):
         fh.write("// edited\n")
     again = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
     assert all((again[n] == edited[n]) == (n in _build.WS_KERNELS) for n in _build.KERNELS)
-    # the tensor-core blocks: the two attention kernels built on them, and
-    # not the expert kernels or the unified step (whose build must not move)
+    # the tensor-core blocks and cp.async helpers: the attention kernels built
+    # on them, and not the expert kernels or the unified step (whose build
+    # must not move)
     with open(csrc / "attn_mma.cuh", "a") as fh:
         fh.write("// edited\n")
     third = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
-    assert {n for n in _build.KERNELS if third[n] != again[n]} == {"ws_attention", "flash_fwd"}
+    assert {n for n in _build.KERNELS if third[n] != again[n]} == {"ws_attention", "flash_fwd",
+                                                                  "decode_attention"}
     with open(csrc / "ws_expert.cu", "a") as fh:
         fh.write("// edited\n")
     assert _build.source_key("ws_expert", csrc) != third["ws_expert"]
@@ -860,7 +862,7 @@ def test_standalone_kernel_wrapper_marshals_every_argument(monkeypatch, name):
     before = launches[name]
     out = getattr(mod, WRAPPER[name])(*args, **kw)
     assert launches[name] == before + 1 and entry.calls == 1
-    n_args = {"flash_fwd": 16, "decode_attention": 15, "ssd_scan": 15}[name]
+    n_args = {"flash_fwd": 16, "decode_attention": 16, "ssd_scan": 15}[name]
     assert len(entry.argtypes) == n_args
     first = out[0] if isinstance(out, tuple) else out
     assert first.shape == args[0].shape and first.dtype == args[0].dtype

@@ -27,15 +27,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               a traced lockstep launch's rings equal the plain walk's.
               Then the attention kernel once at kimi's shape (H 64, Hkv 8,
               hd 112), and the expert kernel's times at the decode routing
-              (free mode untraced and traced).
+              (free mode untraced and traced, and cold on the device with L2
+              evicted), its sum(mult)/tiles and largest mult, the tile
+              layout (one CTA a program: S 1, the programs the card holds at
+              once, shared memory) and the tile-layout floor (every live
+              tile's 3 d f weights at 3.35 TB/s).
 4. audit      0 atom/red/fence/membar in each kernel's SASS and PTX, in every
               instantiation (untraced and traced, per-slot and half-run) of
               every kernel function; each per-slot function's registers and
               SASS instructions must equal BASELINE_FUNCTIONS (the build
-              before half-run steals; ws_attention's rows the build of its
-              redesigned tile), and ws_unified has no half-run walk.  The
+              before half-run steals; ws_attention's, ws_expert's and
+              ws_expert_grad's rows the builds of their redesigned tiles),
+              and ws_unified has no half-run walk.  The
               standalone kernels' functions (registers, spills, SASS
               instructions) are logged and must be free of those opcodes too.
+              csrc/probes/cluster_barrier.cu is built and its functions'
+              forbidden SASS logged: the hand-offs between a thread-block
+              cluster's CTAs (a barrier with release semantics, relaxed,
+              and st.async onto a peer's mbarrier), none of which the
+              expert kernels use: they run one CTA a program.
 4b. chaos     repro_torch.chaos on free-mode launches: a traced fault-free
               free launch of ws_attention (llama decode shape) and ws_expert
               (kimi-k2 full width, decode routing, the expert phase's
@@ -131,7 +141,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ws_expert 2 and ws_expert_grad 1 launches; that step's grad
               launch against the plain version on its own inputs (a bf16
               evaluation of the same rows must miss); the grad kernel's
-              times at that launch.  Then 3 steps through train() (its
+              times at that launch (cold too, sum(mult)/tiles, the tile
+              layout and its floor).  Then 3 steps through train() (its
               make_optimizer / make_train_step / make_batch), launches
               counted from 0 (2 and 1 a step), finite losses, step seconds
               and peak device memory printed; the grad kernel's free time
@@ -185,6 +196,8 @@ and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases build,audit,parity,halfrun,times,kernels
                                                 # the redesigned attention kernels
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
+    python3 chip_smoke.py --expert-ab DIR [DIR ...]
+                                                # ws_expert's times, theirs beside ours
 """
 
 from __future__ import annotations
@@ -261,11 +274,11 @@ RAGGED = dict(H=24, Hkv=8, hd=128, S=1024, lengths=(1024, 658, 531, 288), bq=32,
 # for the record (the engine and the reference use P = 8).
 TIMES_PROGRAMS = (16, 32, 132)
 # The kernels redesigned for this card, and their first versions' times
-# (the kernels of commit 5ee879c: the ranges of this script's runs of that
-# kernel on an NVIDIA H100 80GB HBM3, 700.00 W, warm; PERF.md §6), printed
-# in the log beside this run's and kept out of the kernels line, whose
-# numbers are all this run's.
-REDESIGNED = ("ws_attention", "flash_fwd", "decode_attention")
+# (the kernels of commit 5ee879c, and for the expert kernels of commit
+# 8da571d: the ranges of this script's runs of that kernel on an NVIDIA H100
+# 80GB HBM3, 700.00 W, warm; PERF.md §6), printed in the log beside this
+# run's and kept out of the kernels line, whose numbers are all this run's.
+REDESIGNED = ("ws_attention", "flash_fwd", "decode_attention", "ws_expert", "ws_expert_grad")
 FIRST_VERSION_MS = {
     "ws_attention free": (6.52, 7.51), "ws_attention lockstep": (37.80, 39.19),
     "ragged prefill static": (1277.1, 1287.0), "ragged prefill ws": (365.9, 468.4),
@@ -277,6 +290,8 @@ FIRST_VERSION_MS = {
     "decode_attention gemma3-12b local pos 4000": (0.753, 0.757),
     "decode_attention gemma3-12b global pos 4000": (2.013, 2.016),
     "decode_attention llama3.2-3b serving cache pos 1000": (0.156, 0.158),
+    "ws_expert free": (81.4, 165.2), "ws_expert lockstep": (166.05, 169.5),
+    "ws_expert_grad free": (2487.2, 3715.9), "ws_expert_grad lockstep": (4862.1, 4893.6),
 }
 
 # Checker reports, traced/untraced free-mode times and half-run statistics of
@@ -709,6 +724,42 @@ def _fresh_arrays(state, mode, n):
     return arrs
 
 
+def _l2_evictor(dev):
+    """A callable that leaves the 50 MB L2 holding none of a launch's inputs
+    and no dirty lines: a write of EVICT_BYTES to one scratch and a read of
+    EVICT_BYTES of another (the kernels phase's cold timing)."""
+    scratch = [torch.empty(EVICT_BYTES // 4, device=dev) for _ in range(2)]
+    scratch[1].zero_()
+
+    def evict():
+        scratch[0].fill_(1.0)
+        scratch[1].sum()
+
+    return evict
+
+
+def _free_stats(arrs, n_live):
+    """Σmult/tiles (mean over the launches) and the largest mult of free
+    launches' arrays (rows [P, n_tasks] of per-program multiplicity)."""
+    mult = torch.stack([a["mult"].sum(0)[:n_live] for a in arrs]).double()
+    if not bool((mult >= 1).all()):
+        raise AssertionError("a free launch left a tile unexecuted")
+    return float(mult.sum(1).mean()) / n_live, int(mult.max())
+
+
+def _tile_layout(dtype, f, grad, P):
+    """The tile's layout on the card: programs of one CTA, the CTAs the card
+    holds at once, and the tile's shared memory."""
+    from repro_torch.moe_ws import expert_kernel as X
+
+    smem, ring_w = X.tile_smem(f, grad=grad)
+    resident = X.resident_programs(dtype, f, grad=grad)
+    if resident < P:
+        raise AssertionError(f"the card holds {resident} programs at once, fewer than P {P}")
+    return dict(programs=P, resident_programs=resident,
+                smem_bytes=smem, ring_bytes_per_warp=ring_w)
+
+
 def _expert_times(x, tasks, routed, ws, w):
     from repro_torch.moe_ws import expert_kernel as X
     from repro_torch.pallas_ws import kernel as K
@@ -735,6 +786,16 @@ def _expert_times(x, tasks, routed, ws, w):
         launch(n)  # warm-up
         torch.cuda.synchronize()
         times[mode + ("_traced" if traced else "")] = _event_ms(launch, n)
+        if mode == "free" and not traced:
+            n_live = int(np.asarray(ws.tail).sum())
+            mult_per_tile, max_mult = _free_stats(arrs[:n], n_live)
+    # cold device times: each free launch queued behind a sleeping kernel, L2
+    # evicted first
+    arrs = _fresh_arrays(state, "free", 10)
+    cold = _device_spans(lambda i: X._launch_cuda(
+        arrs[i], x, tok, *w, out, mode="free", rounds=0, steal=True, policy="cost",
+        compress=False, bt=c["bt"], n_tasks=ws.n_tasks), 10, before=_l2_evictor(dev))
+    layout = _tile_layout(torch.bfloat16, c["f"], False, c["P"])
     TRACED["ws_expert"] = dict(free_ms_untraced=times["free"], free_ms_traced=times["free_traced"],
                                at="kimi-k2 decode routing", card=card_line())
     _moe(ws, x, routed, w, plain=True, mode="free")
@@ -753,14 +814,26 @@ def _expert_times(x, tasks, routed, ws, w):
     ops_ms = 6 * rows * c["d"] * c["f"] / BF16_FLOPS * 1e3
     bound_ms = max(byte_ms, ops_ms)
     bound_by = "bytes" if byte_ms >= ops_ms else "operations"
+    # the tile-layout floor: every live tile reads its expert's 3 d f weights
+    # (bt-row tiles re-read an expert; the bound reads each once)
+    floor_ms = (n_live * 3 * c["d"] * c["f"] * 2 + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ms_cold = float(np.median(cold))
     log(f"[times] ws_expert decode routing T={T} ({rows} rows over {touched} experts, "
         f"{ws.n_tasks} tiles): kernel free {times['free']:.4f} ms (traced "
-        f"{times['free_traced']:.4f} ms), lockstep "
+        f"{times['free_traced']:.4f} ms; cold device {ms_cold:.4f} ms, range "
+        f"{min(cold):.4f}-{max(cold):.4f}), lockstep "
         f"{times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{w_bytes + io_bytes} B), plain version {plain_ms:.2f} ms; no single PyTorch "
-        "call computes a gathered gated expert FFN, so there is no library time")
+        f"{w_bytes + io_bytes} B), tile-layout floor {floor_ms:.5f} ms ({n_live} tiles), "
+        f"sum(mult)/tiles {mult_per_tile:.3f}, max mult {max_mult}, plain version "
+        f"{plain_ms:.2f} ms; {layout}; no single PyTorch "
+        "call computes a gathered gated expert FFN, so there is no library time; the first "
+        "version (free, lockstep): " + ", ".join(
+            f"{a}-{b} ms" for a, b in (FIRST_VERSION_MS[f"ws_expert {m}"]
+                                       for m in ("free", "lockstep"))))
     return dict(ms=times["free"], lockstep_ms=times["lockstep"], plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, ms_cold=ms_cold,
+                ms_cold_range=[min(cold), max(cold)], floor_ms=floor_ms,
+                mult_per_tile=mult_per_tile, max_mult=max_mult, **layout)
 
 
 def phase_expert(dev):
@@ -817,46 +890,47 @@ def phase_expert(dev):
 
 # Every per-slot kernel function, pinned: ptxas registers and SASS
 # instructions, by _build.function_key of the function's name.  The
-# ws_expert, ws_expert_grad and ws_unified rows are the build before
-# half-run steals (the kernels of commit 5fee79a), the ws_attention rows the
-# build of its redesigned tile, each measured on an NVIDIA H100 80GB
-# HBM3 (700.00 W; nvcc of CUDA 12.8) by this script's audit on that tree
+# ws_unified rows are the build before half-run steals (the kernels of
+# commit 5fee79a), the ws_attention rows the build of its redesigned tile,
+# the ws_expert and ws_expert_grad rows the build of their redesigned tiles
+# (csrc/ws_expert_mma.cuh), each measured on an NVIDIA H100 80GB HBM3
+# (700.00 W; nvcc of CUDA 12.8) by this script's audit on that tree
 # (`python3 chip_smoke.py --audit-baseline DIR` with the tree unpacked in
 # DIR prints the same table).  The per-slot (cap 1) instantiations must
 # keep them: a scheduler edit shows in every row.
 BASELINE_FUNCTIONS = {
     "void ws_expert_free_kernel<__nv_bfloat16, true>(WSQueues, ExpertArgs)":
-        (255, 4440),
+        (242, 4216),
     "void ws_expert_free_kernel<__nv_bfloat16>(WSQueues, ExpertArgs)":
-        (255, 4240),
+        (242, 4024),
     "void ws_expert_free_kernel<float, true>(WSQueues, ExpertArgs)":
-        (255, 4304),
+        (128, 2736),
     "void ws_expert_free_kernel<float>(WSQueues, ExpertArgs)":
-        (255, 4096),
+        (128, 2544),
     "void ws_expert_grad_free_kernel<__nv_bfloat16, true>(WSQueues, GradArgs)":
-        (255, 6336),
+        (255, 9928),
     "void ws_expert_grad_free_kernel<__nv_bfloat16>(WSQueues, GradArgs)":
-        (255, 6136),
+        (255, 9672),
     "void ws_expert_grad_free_kernel<float, true>(WSQueues, GradArgs)":
-        (255, 6464),
+        (201, 5640),
     "void ws_expert_grad_free_kernel<float>(WSQueues, GradArgs)":
-        (255, 6256),
+        (197, 4552),
     "void ws_expert_grad_lockstep_kernel<__nv_bfloat16, true>(WSQueues, GradArgs)":
-        (234, 12552),
+        (255, 19776),
     "void ws_expert_grad_lockstep_kernel<__nv_bfloat16>(WSQueues, GradArgs)":
-        (232, 12360),
+        (255, 19552),
     "void ws_expert_grad_lockstep_kernel<float, true>(WSQueues, GradArgs)":
-        (255, 12808),
+        (254, 10584),
     "void ws_expert_grad_lockstep_kernel<float>(WSQueues, GradArgs)":
-        (255, 12664),
+        (254, 10432),
     "void ws_expert_lockstep_kernel<__nv_bfloat16, true>(WSQueues, ExpertArgs)":
-        (255, 8544),
+        (255, 6752),
     "void ws_expert_lockstep_kernel<__nv_bfloat16>(WSQueues, ExpertArgs)":
-        (255, 8384),
+        (255, 6592),
     "void ws_expert_lockstep_kernel<float, true>(WSQueues, ExpertArgs)":
-        (255, 8304),
+        (141, 4696),
     "void ws_expert_lockstep_kernel<float>(WSQueues, ExpertArgs)":
-        (255, 8152),
+        (141, 4544),
     "void ws_free_kernel<__nv_bfloat16, true>(WSQueues, AttnArgs)":
         (206, 7272),
     "void ws_free_kernel<__nv_bfloat16>(WSQueues, AttnArgs)":
@@ -952,6 +1026,12 @@ def phase_audit():
     missing = sorted(set(BASELINE_FUNCTIONS) - keys)
     if missing:
         raise AssertionError(f"the build lacks the per-slot functions {missing}")
+    # why a program of the expert kernels is one CTA: the hand-offs between
+    # a cluster's CTAs that a cluster-wide tile would need
+    probe = _build.function_stats("cluster_barrier", _build.CSRC / "probes")
+    probe = {f.split("(")[0]: st["forbidden_sass"] for f, st in probe.items()}
+    log(f"[audit] csrc/probes/cluster_barrier.cu (not a kernel of the port): forbidden SASS "
+        f"by function {probe}; the expert kernels run one CTA a program")
     return stats
 
 
@@ -975,6 +1055,45 @@ def audit_baseline(root) -> None:
         for f, st in fns.items():
             table[_build.function_key(f)] = (st["registers"], st["sass_instructions"])
     log("[baseline] " + json.dumps(table, sort_keys=True))
+
+
+def expert_ab(roots, dev) -> None:
+    """ws_expert's times at kimi-k2's decode routing (``_expert_times``: free,
+    cold, lockstep, Σmult/tiles) for the builds of other checkouts (``roots``,
+    each with the repo's layout) and of this one, in one process: each build
+    in turn, then in reverse order, twice.  Free mode's makespan moves by
+    whole tiles (~2 ms each), so two builds are compared only within one
+    run."""
+    import ctypes
+    from pathlib import Path
+    from unittest import mock
+
+    from repro_torch import _build
+    from repro_torch.moe_ws import expert_kernel as X
+
+    libs = {str(r): _build.build("ws_expert", Path(r) / "src" / "repro_torch" / "csrc",
+                                 Path(r) / "build" / "repro_torch") for r in roots}
+    libs["this checkout"] = _build.build("ws_expert")
+    ref = X._kernel_fn()
+    fns = {}
+    for tag, path in libs.items():
+        fns[tag] = ctypes.CDLL(str(path)).ws_expert_launch
+        fns[tag].argtypes, fns[tag].restype = ref.argtypes, ref.restype
+    w = expert_weights(dev)
+    x, tasks, routed, ws, _ = expert_routing(np.random.default_rng(SEED), EXPERT_T["decode"])
+    x = torch.from_numpy(x).to(dev)
+    rows = {t: [] for t in fns}
+    for tag in (list(fns) + list(fns)[::-1]) * 2:
+        with mock.patch.object(X, "_kernel_fn", lambda tag=tag: fns[tag]):
+            t = _expert_times(x, tasks, routed, ws, w)
+        rows[tag].append(t)
+        log(f"[ab] {tag}: free {t['ms']:.4f} ms, cold device {t['ms_cold']:.4f} ms, lockstep "
+            f"{t['lockstep_ms']:.4f} ms, sum(mult)/tiles {t['mult_per_tile']:.3f}, max mult "
+            f"{t['max_mult']}")
+    for tag, r in rows.items():
+        log(f"[ab] {tag} medians: free {np.median([t['ms'] for t in r]):.4f} ms, cold device "
+            f"{np.median([t['ms_cold'] for t in r]):.4f} ms, lockstep "
+            f"{np.median([t['lockstep_ms'] for t in r]):.4f} ms ({card_line()})")
 
 
 def _attention_kit(dev):
@@ -2095,6 +2214,17 @@ def _grad_times(state, args, kw):
             launch(n)  # warm-up
             torch.cuda.synchronize()
         times[mode + ("_traced" if traced else "")] = _event_ms(launch, n)
+        if mode == "free" and not traced:
+            n_live = int(np.asarray(state.tail).sum())
+            mult_per_tile, max_mult = _free_stats(arrs[:n], n_live)
+    # cold device times: each free launch queued behind a sleeping kernel, L2
+    # evicted first
+    arrs = _fresh_arrays(ds, "free", 3)
+    cold = _device_spans(lambda i: X._launch_grad_cuda(
+        arrs[i], x, gy, tok, gr, wg, wu, wd, out, mode="free", rounds=0, steal=True,
+        policy="cost", compress=False, bt=kw["bt"], n_tasks=state.n_tasks), 3,
+        before=_l2_evictor(dev))
+    layout = _tile_layout(wg.dtype, f, True, state.n_programs)
     TRACED["ws_expert_grad"] = dict(free_ms_untraced=times["free"],
                                     free_ms_traced=times["free_traced"],
                                     at="deepseek-v2 train step routing", card=card_line())
@@ -2126,15 +2256,30 @@ def _grad_times(state, args, kw):
     ops_ms = 12 * rows * d * f / BF16_FLOPS * 1e3         # u, v, yhat, dh: 2df each; dx 4df
     bound_ms = max(byte_ms, ops_ms)
     bound_by = "bytes" if byte_ms >= ops_ms else "operations"
+    # the tile-layout floor: every live tile reads its expert's 3 d f weights
+    # once (the design reads wg and wu twice: 5 d f a tile)
+    w_tile = d * f * wg.element_size()
+    floor_ms = (n_live * 3 * w_tile + io_bytes) / HBM_BYTES_PER_S * 1e3
+    design_floor_ms = (n_live * 5 * w_tile + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ms_cold = float(np.median(cold))
     log(f"[times] ws_expert_grad at the train step's routing ({rows} rows over {touched} "
-        f"experts, {int(np.asarray(state.tail).sum())} tiles): kernel free {times['free']:.4f} "
-        f"ms (traced {times['free_traced']:.4f} ms), lockstep {times['lockstep']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{w_bytes + io_bytes} B; operations {ops_ms:.5f} ms), plain version {plain_ms:.2f} ms; "
+        f"experts, {n_live} tiles): kernel free {times['free']:.4f} "
+        f"ms (traced {times['free_traced']:.4f} ms; cold device {ms_cold:.4f} ms, range "
+        f"{min(cold):.4f}-{max(cold):.4f}), lockstep {times['lockstep']:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {w_bytes + io_bytes} B; operations {ops_ms:.5f} ms), "
+        f"tile-layout floor {floor_ms:.5f} ms (5 d f a tile: {design_floor_ms:.5f} ms), "
+        f"sum(mult)/tiles {mult_per_tile:.3f}, max mult {max_mult}, plain version "
+        f"{plain_ms:.2f} ms; {layout}; "
         "no single PyTorch call computes the gathered expert FFN's transpose, so there is "
-        f"no library time; ws_expert free at the same routing {fwd_ms:.4f} ms")
+        f"no library time; ws_expert free at the same routing {fwd_ms:.4f} ms; the first "
+        "version (free, lockstep): " + ", ".join(
+            f"{a}-{b} ms" for a, b in (FIRST_VERSION_MS[f"ws_expert_grad {m}"]
+                                       for m in ("free", "lockstep"))))
     return dict(ms=times["free"], lockstep_ms=times["lockstep"], plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                ws_expert_free_ms_at_train_routing=fwd_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, ms_cold=ms_cold,
+                ms_cold_range=[min(cold), max(cold)], floor_ms=floor_ms,
+                design_floor_ms=design_floor_ms, mult_per_tile=mult_per_tile,
+                max_mult=max_mult, **layout, ws_expert_free_ms_at_train_routing=fwd_ms)
 
 
 def phase_train(dev):
@@ -3495,6 +3640,9 @@ def main(argv=None) -> int:
     ap.add_argument("--audit-baseline", metavar="DIR",
                     help="only build the kernels of the checkout in DIR and print every "
                          "kernel function's registers and SASS instructions")
+    ap.add_argument("--expert-ab", metavar="DIR", nargs="+",
+                    help="only time ws_expert at kimi-k2's decode routing as built from each "
+                         "checkout DIR and from this one, alternating, in one process")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -3508,6 +3656,9 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     if args.audit_baseline:
         audit_baseline(args.audit_baseline)
+        return 3
+    if args.expert_ab:
+        expert_ab(args.expert_ab, dev)
         return 3
     from repro_torch.kernels import launches as klaunches
 
@@ -3578,6 +3729,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ws_expert.cu",
         "replaces": "src/repro/moe_ws/expert_kernel.py:47",
+        "redesigned": "ws_expert" in REDESIGNED,
         "launches": moe["ws_expert_launches"],
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_launches"],
                              moe["model"]: moe["ws_expert_launches"],
@@ -3597,6 +3749,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ws_expert_grad.cu",
         "replaces": "src/repro/moe_ws/expert_kernel.py:87",
+        "redesigned": "ws_expert_grad" in REDESIGNED,
         "launches": training["launches"]["ws_expert_grad"],
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_grad_launches"],
                              moe["model"]: moe["ws_expert_grad_launches"],

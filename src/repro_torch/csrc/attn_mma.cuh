@@ -1,5 +1,7 @@
 // Fence-free tensor-core building blocks of the port's attention kernels
-// (sm_90a): ws_attention.cu's flash tiles and flash_fwd.cu's bf16 body.
+// (sm_90a): ws_attention.cu's flash tiles and flash_fwd.cu's bf16 body; the
+// expert tiles of ws_expert_mma.cuh and decode_attention.cu's ring use them
+// too.
 //
 // Only warp-synchronous instructions and asynchronous copies with their own
 // wait: `ldmatrix`, `mma.sync.m16n8k16` (bf16 in, fp32 accumulate) and

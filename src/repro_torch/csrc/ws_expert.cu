@@ -5,7 +5,7 @@
 // repro/pallas_ws/kernel.py (`launch_ws_grid`, reached through
 // `run_moe_schedule`).  The shell is ws_sched.cuh, shared with the attention
 // and backward kernels (its queues dense or shared-pool); this file holds the
-// expert tile and the C entry point.
+// C entry point over the expert tile of ws_expert_mma.cuh.
 //
 // What it computes.  Per claimed record (e, rs, rl) of the dropless MoE
 // dispatch, where rows [rs, rs + bt) of the expert-grouped routed arrays
@@ -19,25 +19,29 @@
 // `out` is already normalised.
 //
 // What bounds it on this card: bytes (a decode-time tile reads 3 d f weights
-// of its expert for a handful of rows); the tile, shared with the unified
-// step's expert tiles, is ws_expert_tile.cuh, which says how it stages x and
-// keeps the hidden tile in shared memory.  Here it runs at RB 8 rows and CPT
-// 8 columns a thread in a 256-thread CTA, one tile per CTA, at most P CTAs
-// busy.  wgmma and TMA staging, and splitting an expert's columns over CTAs,
-// are later work.
+// of its expert for a handful of rows).  The design (ws_expert_mma.cuh): a
+// program is one 256-thread CTA whose warps each stream strips of the
+// expert's weights through their own 3- or 4-stage cp.async ring onto
+// mma.sync.m16n8k16, the fp32 activations in three bf16 parts; h [8, f]
+// stays in shared memory between the two products.  The free walks break
+// the cost policy's victim ties in each program's rotation (ws_sched.cuh,
+// ROT), so thieves that read equal advisories stop claiming the same tile.
+// What stays: at most P SMs busy (a program of a cluster's CTAs needs a
+// hand-off of h between them; barrier.cluster's release compiles to
+// MEMBAR.ALL.GPU, and the mbarrier hand-off of csrc/probes/cluster_barrier.cu
+// is not tried in a tile yet), and the strict maximum still draws every
+// idle program to the same victim when one queue has more rows than the
+// rest.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-#include "ws_expert_tile.cuh"
+#include "ws_expert_mma.cuh"
 #include "ws_sched.cuh"
 
 #define F_E 1
 #define F_RS 2
 #define F_RL 3
-#define NTHREADS 256
-#define RB 8     // rows held in registers per pass over the weights
-#define CPT 8    // consecutive columns per thread (one 16-byte bf16 load)
 
 struct ExpertArgs {
   const float* x;        // [T, d] contiguous fp32
@@ -47,26 +51,22 @@ struct ExpertArgs {
   const void* wd;        // [E, f, d]
   float* out;            // [n_rows, d] contiguous fp32
   int d, f, bt;
+  int ring_w;            // bytes of each warp's cp.async ring (xmma::tile_smem)
 };
 
 // ---------------------------------------------------------------------------
 // expert tile (all threads): record (e, rs, rl) -> rows [rs, rs + bt)
 
 template <typename T>
-__device__ void expert_tile(const ExpertArgs& A, float* smem, const int* rec, bool store) {
-  const int e = rec[F_E], rs = rec[F_RS], rl = rec[F_RL];
-  const long long w = (long long)e * A.d * A.f;
-  expert_rows<T, RB, CPT>(A.x, A.tok_idx + rs, (const T*)A.wg + w, (const T*)A.wu + w,
-                          (const T*)A.wd + w, A.out + (long long)rs * A.d, A.d, A.f, A.bt, rl,
-                          store, smem);
-}
-
-template <typename T>
 struct ExpertTile {
   const ExpertArgs& A;
-  float* smem;
+  char* smem;
   __device__ void operator()(const int* rec, bool store) const {
-    expert_tile<T>(A, smem, rec, store);
+    const int e = rec[F_E], rs = rec[F_RS], rl = rec[F_RL];
+    const long long w = (long long)e * A.d * A.f;
+    xmma::forward_tile<T>(A.x, A.tok_idx + rs, (const T*)A.wg + w, (const T*)A.wu + w,
+                          (const T*)A.wd + w, A.out + (long long)rs * A.d, A.d, A.f, A.bt, rl,
+                          store, smem, A.ring_w);
   }
 };
 
@@ -74,44 +74,68 @@ struct ExpertTile {
 // kernels
 
 template <typename T, bool TRACE>
-__global__ void __launch_bounds__(NTHREADS) ws_expert_lockstep_kernel(WSQueues Q, ExpertArgs A) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(xmma::NT, 1) ws_expert_lockstep_kernel(WSQueues Q,
+                                                                         ExpertArgs A) {
+  extern __shared__ __align__(16) char smem[];
   __shared__ WSShared sh;
   ws_lockstep<TRACE>(Q, sh, ExpertTile<T>{A, smem});
 }
 
 template <typename T, bool TRACE>
-__global__ void __launch_bounds__(NTHREADS) ws_expert_free_kernel(WSQueues Q, ExpertArgs A) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(xmma::NT, 1) ws_expert_free_kernel(WSQueues Q, ExpertArgs A) {
+  extern __shared__ __align__(16) char smem[];
   __shared__ WSShared sh;
-  ws_free<TRACE>(Q, sh, ExpertTile<T>{A, smem});
+  ws_free<TRACE, false, true>(Q, sh, ExpertTile<T>{A, smem});
 }
 
 // The half-run walks (steal_run_cap > 1).
 template <typename T, bool TRACE>
-__global__ void __launch_bounds__(NTHREADS) ws_expert_lockstep_run_kernel(WSQueues Q,
-                                                                          ExpertArgs A) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(xmma::NT, 1) ws_expert_lockstep_run_kernel(WSQueues Q,
+                                                                             ExpertArgs A) {
+  extern __shared__ __align__(16) char smem[];
   __shared__ WSShared sh;
   ws_lockstep<TRACE, true>(Q, sh, ExpertTile<T>{A, smem});
 }
 
 template <typename T, bool TRACE>
-__global__ void __launch_bounds__(NTHREADS) ws_expert_free_run_kernel(WSQueues Q, ExpertArgs A) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(xmma::NT, 1) ws_expert_free_run_kernel(WSQueues Q,
+                                                                         ExpertArgs A) {
+  extern __shared__ __align__(16) char smem[];
   __shared__ WSShared sh;
-  ws_free<TRACE, true>(Q, sh, ExpertTile<T>{A, smem});
+  ws_free<TRACE, true, true>(Q, sh, ExpertTile<T>{A, smem});
 }
 
 template <typename T>
-static int launch(const WSQueues& Q, const ExpertArgs& A, int mode, size_t smem,
+static int launch(const WSQueues& Q, const ExpertArgs& A, int mode, int smem,
                   cudaStream_t stream) {
   static void (*const kerns[8])(WSQueues, ExpertArgs) = {
       ws_expert_lockstep_kernel<T, false>, ws_expert_free_kernel<T, false>,
       ws_expert_lockstep_kernel<T, true>, ws_expert_free_kernel<T, true>,
       ws_expert_lockstep_run_kernel<T, false>, ws_expert_free_run_kernel<T, false>,
       ws_expert_lockstep_run_kernel<T, true>, ws_expert_free_run_kernel<T, true>};
-  return ws_launch(kerns, mode, Q, A, NTHREADS, smem, stream);
+  return ws_launch(kerns, mode, Q, A, xmma::NT, (size_t)smem, stream);
+}
+
+// CTAs of the untraced free kernel the card holds at once (occupancy x
+// SMs), or a negative CUDA error.
+template <typename T>
+static int resident(int f) {
+  int per_sm = 0, sms = 0;
+  int ring_w;
+  const int smem = xmma::tile_smem(f, false, &ring_w);
+  if (smem == 0) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ws_expert_free_kernel<T, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ws_expert_free_kernel<T, false>,
+                                                        xmma::NT, smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  return err == cudaSuccess ? per_sm * sms : -(int)err;
+}
+
+// Programs (CTAs of the free kernel) the card holds at once at hidden width f.
+extern "C" int ws_expert_resident(int dtype, int f) {
+  return dtype == 1 ? resident<__nv_bfloat16>(f) : resident<float>(f);
 }
 
 extern "C" int ws_expert_launch(
@@ -139,8 +163,9 @@ extern "C" int ws_expert_launch(
   A.d = d;
   A.f = f;
   A.bt = bt;
-  // the hidden tile, the x chunk, the tokens (over 227 KB the launch fails)
-  size_t smem = expert_tile_smem<RB>(f);
+  // the header, the hidden tile and the warps' rings: refused where they do not fit
+  const int smem = xmma::tile_smem(f, false, &A.ring_w);
+  if (smem == 0 || d % 16 || f % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) return launch<__nv_bfloat16>(Q, A, mode, smem, s);
   return launch<float>(Q, A, mode, smem, s);

@@ -1,6 +1,6 @@
-// The expert tile of the work-stealing MoE kernels: rows of one expert's
-// gated FFN, shared by csrc/ws_expert.cu (the standalone expert kernel) and
-// csrc/ws_unified.cu (the unified engine step's OP_EXPERT_TILE).
+// The first expert tile of the work-stealing MoE kernels: rows of one
+// expert's gated FFN, now used by csrc/ws_unified.cu alone (the unified
+// engine step's OP_EXPERT_TILE; csrc/ws_expert.cu runs ws_expert_mma.cuh).
 //
 // Replaces the tile body `_expert_execute` of repro/moe_ws/expert_kernel.py
 // (and its unified form, `expert_ffn` in repro/models/unified.py).  For

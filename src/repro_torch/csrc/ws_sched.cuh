@@ -72,6 +72,16 @@
 //    first probe, and a positive `rounds` is a budget: a CTA stops once its
 //    clock reaches it (the kill segments of chaos/inject.py).
 //
+// Rotated ties (ROT, the expert kernels' free walks only).  The cost
+// policy's victim argmax visits the queues from v0 = p * n_queues / P on,
+// wrapping, and a later queue replaces the best only with a strictly larger
+// score: the first index in p's rotation wins a tie.  With the reference's
+// first-index order every idle program reads the same advisories and picks
+// the same victim and slot (decode-time expert queues hold one tile each,
+// so every score is 1); rotated, equal scores send thieves to different
+// queues.  ROT = false (every lockstep walk, every other kernel) is the
+// reference's order and its code.
+//
 // Half-run Steal (the reference's `steal_run_cap > 1`, `_execute_run`).  Both
 // walks and the cost policy's claim take a compile-time HALFRUN flag; the
 // three kernels whose reference entry points admit the cap instantiate both,
@@ -211,8 +221,11 @@ __device__ Claim scan_extract(const WSQueues& Q, int p, int r) {
 
 // "cost" policy: own-queue probe, then the first-index argmax of
 // max(remaining, 1) over open queues of [lo, hi) whose head view is below
-// their tail.  HALFRUN: a steal claims the half-run of the victim.
-template <bool HALFRUN>
+// their tail.  HALFRUN: a steal claims the half-run of the victim.  ROT:
+// the argmax visits every queue in p's rotation; ROT walks are free walks,
+// whose [lo, hi) is every queue and which have no stage gate (launch_grid
+// refuses stage_open in free mode), so it reads no stage_open.
+template <bool HALFRUN, bool ROT = false>
 __device__ ClaimT<HALFRUN> cost_extract(const WSQueues& Q, int p, int r, int lo, int hi) {
   int own = p % Q.n_queues;
   int h0 = rmax_read(Q, p, own);
@@ -230,14 +243,29 @@ __device__ ClaimT<HALFRUN> cost_extract(const WSQueues& Q, int p, int r, int lo,
     return c;
   }
   int best_v = 0, best = 0, best_h = 0;
-  for (int v = lo; v < hi; ++v) {
-    int h = rmax_read(Q, p, v);
-    int rem = Q.remaining[v];
-    int score = (h < Q.tail[v] && is_open(Q, v, r)) ? (rem > 1 ? rem : 1) : 0;
-    if (v == lo || score > best) {
-      best = score;
-      best_v = v;
-      best_h = h;
+  if constexpr (ROT) {
+    const int n = Q.n_queues;
+    int v = (int)((long long)p * n / Q.n_programs);
+    for (int j = 0; j < n; ++j, v = v + 1 == n ? 0 : v + 1) {
+      int h = rmax_read(Q, p, v);
+      int rem = Q.remaining[v];
+      int score = h < Q.tail[v] ? (rem > 1 ? rem : 1) : 0;
+      if (j == 0 || score > best) {
+        best = score;
+        best_v = v;
+        best_h = h;
+      }
+    }
+  } else {
+    for (int v = lo; v < hi; ++v) {
+      int h = rmax_read(Q, p, v);
+      int rem = Q.remaining[v];
+      int score = (h < Q.tail[v] && is_open(Q, v, r)) ? (rem > 1 ? rem : 1) : 0;
+      if (v == lo || score > best) {
+        best = score;
+        best_v = v;
+        best_h = h;
+      }
     }
   }
   bool can = !own_live && best > 0;
@@ -263,13 +291,13 @@ __device__ ClaimT<HALFRUN> cost_extract(const WSQueues& Q, int p, int r, int lo,
 }
 
 // The half-run walks take the cost policy only (ws_launch refuses the rest).
-template <bool HALFRUN>
+template <bool HALFRUN, bool ROT = false>
 __device__ __forceinline__ ClaimT<HALFRUN> extract(const WSQueues& Q, int p, int r, int lo,
                                                    int hi) {
   if constexpr (HALFRUN) {
-    return cost_extract<true>(Q, p, r, lo, hi);
+    return cost_extract<true, ROT>(Q, p, r, lo, hi);
   } else {
-    return Q.policy == 1 ? scan_extract(Q, p, r) : cost_extract<false>(Q, p, r, lo, hi);
+    return Q.policy == 1 ? scan_extract(Q, p, r) : cost_extract<false, ROT>(Q, p, r, lo, hi);
   }
 }
 
@@ -461,7 +489,7 @@ __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
   }
 }
 
-template <bool TRACE, bool HALFRUN = false, class Body>
+template <bool TRACE, bool HALFRUN = false, bool ROT = false, class Body>
 __device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
   const int p = blockIdx.x;
   const bool t0 = threadIdx.x == 0;
@@ -481,10 +509,11 @@ __device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
         // (checked per extraction: a run may overshoot it by run_cap - 1)
         ClaimT<HALFRUN> none{};
         if constexpr (HALFRUN) none.run = 1;
-        c = (Q.rounds <= 0 || Q.clock[p] < Q.rounds) ? extract<HALFRUN>(Q, p, 0, 0, Q.n_queues)
-                                                     : none;
+        c = (Q.rounds <= 0 || Q.clock[p] < Q.rounds)
+                ? extract<HALFRUN, ROT>(Q, p, 0, 0, Q.n_queues)
+                : none;
       } else {
-        c = extract<HALFRUN>(Q, p, 0, 0, Q.n_queues);
+        c = extract<HALFRUN, ROT>(Q, p, 0, 0, Q.n_queues);
       }
       Q.scanned[p] += c.nread;
       sh.found = c.found;

@@ -11,13 +11,17 @@ One task is ``row_len`` routed rows of one expert's gated FFN:
 The TPU kernel is the tile body ``_expert_execute`` inside the scheduler
 shell of ``launch_ws_grid``.  Here it is the hand-written CUDA kernel
 ``csrc/ws_expert.cu`` (the shared scheduler of ``csrc/ws_sched.cuh`` around
-an expert tile), launched by :func:`launch_moe_grid` for CUDA tensors, and
+the tensor-core tile of ``csrc/ws_expert_mma.cuh``: one CTA a program, each
+warp streaming weight strips through its own cp.async ring onto
+``mma.sync``), launched by :func:`launch_moe_grid` for CUDA tensors, and
 :func:`plain_moe_grid` for CPU tensors: the scheduler walk shared with the
 attention family (``pallas_ws.kernel._PlainWalk``) with the expert tile in
 torch fp32.  The modes are the attention family's: lockstep is the
 reference's order and accumulates ``tile × mult``; free mode runs P
 concurrent CTAs that store whole tiles, so its ``out`` is already
-normalised.
+normalised, and breaks the cost policy's victim ties in each program's
+rotation (``rotate_ties``; the kernels' ``ROT`` walks), so thieves that
+read equal advisories spread over the queues.
 
 Backward: one task is the transpose of the same tile.  It gathers its rows'
 activations and output cotangents, replays the FFN and emits per row
@@ -57,9 +61,52 @@ from repro_torch.pallas_ws.kernel import (
 from repro_torch.pallas_ws.queues import QueueState
 from repro_torch.pallas_ws.tasks import BOTTOM, F_COST, F_E, F_OP, F_RL, F_RS, F_TID
 
-# Columns one thread of csrc/ws_expert.cu loads at once (its CPT): d and f
-# must be multiples of it and the weights 16-byte aligned.
-EXPERT_COLS = 8
+# The tiles of csrc/ws_expert_mma.cuh run 16-column mma.sync tiles: d and f
+# must be multiples of 16 and the weights 16-byte aligned.
+EXPERT_COLS = 16
+
+# The tiles' shared memory (xmma::tile_smem of csrc/ws_expert_mma.cuh,
+# mirrored here so that the host refuses a tile that does not fit before
+# any launch; the C launch refuses it too): a 1 KB header, one (forward: h)
+# or two (backward: t then du, and dv) [8, f + 8] fp32 tiles, and a
+# cp.async ring a warp (8 warps) of what is left up to 20 KB, beside 256
+# bytes kept for the kernels' static shared memory.  A program is one CTA.
+SMEM_LIMIT = 232448          # a CTA's shared memory on the H100
+_STATIC, _HDR, _RB, _NW, _RING_W_MAX = 256, 1024, 8, 8, 20480
+# The smallest ring a warp needs: forward 4 stages of 16 k of wg's and wu's
+# 64 columns and of the 8 rows' x; backward 4 stages of 16 k of 64 rows of
+# wd and of the rows' cotangents.
+_MIN_RING_W = {False: 4 * (2 * 16 * 128 + 8 * 16 * 4), True: 4 * (64 * 32 + 8 * 16 * 4)}
+
+
+def tile_smem(f: int, *, grad: bool = False):
+    """``(smem, ring_w)``: the dynamic shared memory of an expert launch at
+    hidden width ``f`` and each warp's ring bytes, as the C entry points
+    compute them.  Raises ``ValueError`` where a warp's ring cannot hold
+    its smallest stages within ``SMEM_LIMIT`` (the launch would be
+    refused)."""
+    fixed = _HDR + (2 if grad else 1) * _RB * (f + 8) * 4
+    ring_w = min((SMEM_LIMIT - _STATIC - fixed) // _NW, _RING_W_MAX) & ~15
+    if ring_w < _MIN_RING_W[grad]:
+        raise ValueError(f"the {'grad ' if grad else ''}expert tile at f={f} needs "
+                         f"{fixed + _NW * _MIN_RING_W[grad] + _STATIC} B of shared memory, past the "
+                         f"{SMEM_LIMIT} B a CTA can have")
+    return fixed + _NW * ring_w, ring_w
+
+
+def resident_programs(dtype, f: int, *, grad: bool = False) -> int:
+    """CTAs of the free kernel the card holds at once at hidden width ``f``
+    (occupancy x SMs): every program of a launch runs at once when P is at
+    most this (on the card; builds the kernel)."""
+    from .. import _build
+
+    name = "ws_expert_grad" if grad else "ws_expert"
+    fn = getattr(_build.load(name), f"{name}_resident")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    n = fn(1 if dtype == torch.bfloat16 else 0, f)
+    if n < 0:
+        raise RuntimeError(f"{name}: occupancy query failed with CUDA error {-n}")
+    return n
 
 
 class _ExpertWalk(_PlainWalk):
@@ -163,7 +210,7 @@ def _run(state: QueueState, x, tok_idx, wg, wu, wd, out, *, bt, plain: bool,
     return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
                        compress=compress, steal=steal, steal_policy=steal_policy,
                        rounds=rounds, mult=mult, trace=trace, trace_capacity=trace_capacity,
-                       fault_plan=fault_plan, steal_run_cap=steal_run_cap)
+                       fault_plan=fault_plan, steal_run_cap=steal_run_cap, rotate_ties=True)
 
 
 def _kernel_fn():
@@ -193,6 +240,7 @@ def _queue_args(arrs):
 
 def _launch_cuda(arrs, x, tok_idx, wg, wu, wd, out, *, mode, rounds, steal, policy,
                  compress, bt, n_tasks, ring=NO_RING, run_cap=1) -> None:
+    tile_smem(wg.shape[2])  # refuses a tile past SMEM_LIMIT
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
@@ -357,7 +405,7 @@ def _run_grad(state: QueueState, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, 
     return launch_grid(state, out, walk=walk, launch=launch, plain=plain, mode=mode,
                        compress=compress, steal=steal, steal_policy=steal_policy,
                        rounds=rounds, mult=mult, trace=trace, trace_capacity=trace_capacity,
-                       steal_run_cap=steal_run_cap)
+                       steal_run_cap=steal_run_cap, rotate_ties=True)
 
 
 def _grad_kernel_fn():
@@ -376,6 +424,7 @@ def _grad_kernel_fn():
 
 def _launch_grad_cuda(arrs, x, gy, tok_idx, gate_rows, wg, wu, wd, out, *, mode, rounds,
                       steal, policy, compress, bt, n_tasks, ring=NO_RING, run_cap=1) -> None:
+    tile_smem(wg.shape[2], grad=True)  # refuses a tile past SMEM_LIMIT
     fn = _grad_kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(

@@ -266,13 +266,17 @@ class _PlainWalk:
             nread += issued
         return found, fq, fs, nread, 1
 
-    def cost_extract(self, p, r, lo, hi):
+    def cost_extract(self, p, r, lo, hi, rotate=False):
         """``[lo, hi)`` holds every queue that can score: queues below
         ``lo`` are drained for every view, those from ``hi`` on not open yet.
         With ``run_cap > 1`` a steal claims the victim's half-run
         ``[h, h + take)``, ``take = clip((tail - h + 1) // 2, 1, run_cap)``:
         the probe of slot ``h`` certifies it, since every slot below the
-        tail is live.  Returns ``(found, queue, slot, nread, run)``."""
+        tail is live.  ``rotate`` (the expert kernels' free walks, ``ROT`` in
+        ``csrc/ws_sched.cuh``) visits every queue from ``p * n_queues // P``
+        on, wrapping, so equal scores go to the first queue in p's
+        rotation; free mode has no stage gate, so it tests no
+        ``stage_open``.  Returns ``(found, queue, slot, nread, run)``."""
         own = p % self.n_queues
         h0 = self.rmax_read(p, own)
         op0, issued0 = self.probe(own, h0, self.is_open(own, r))
@@ -282,10 +286,16 @@ class _PlainWalk:
         if not self.steal:
             return own_live, own, h0, issued0, 1
         best_v, best, best_h = 0, 0, 0
-        for v in range(lo, hi):
+        n = self.n_queues
+        if rotate and self.stage_open is not None:
+            raise ValueError("the rotated argmax is free mode's, which has no stage gate")
+        order = ([(p * n // len(self.clock) + j) % n for j in range(n)] if rotate
+                 else range(lo, hi))
+        for j, v in enumerate(order):
             h = self.rmax_read(p, v)
-            score = max(self.remaining[v], 1) if h < self.tail[v] and self.is_open(v, r) else 0
-            if v == lo or score > best:  # first-index argmax
+            score = (max(self.remaining[v], 1)
+                     if h < self.tail[v] and (rotate or self.is_open(v, r)) else 0)
+            if j == 0 or score > best:  # first-index argmax (in p's rotation)
                 best_v, best, best_h = v, score, h
         can = (not own_live) and best > 0
         op, issued = self.probe(best_v, best_h, can)
@@ -298,10 +308,10 @@ class _PlainWalk:
         return (own_live or live, own if own_live else best_v,
                 h0 if own_live else best_h, issued0 + issued, take if live else 1)
 
-    def extract(self, p, r=0, lo=0, hi=None):
+    def extract(self, p, r=0, lo=0, hi=None, rotate=False):
         if self.policy == "scan":
             return self.scan_extract(p, r)
-        return self.cost_extract(p, r, lo, self.n_queues if hi is None else hi)
+        return self.cost_extract(p, r, lo, self.n_queues if hi is None else hi, rotate)
 
     def account(self, r, p, fq, fs, *, advisory, free, run=1):
         rec = self.rec(fq, fs)
@@ -408,12 +418,13 @@ class _PlainWalk:
         if total > 0:
             self.remaining[own] = max(self.remaining[own] - total, 0)
 
-    def free(self, P, budget=0):
+    def free(self, P, budget=0, rotate=False):
         """Round-robin over the programs, one extraction a turn, until every
         view shows the queues drained.  Traced (as the kernel's traced
         instantiation): a program with an initial clock of k (a stall) sits
         out its first k turns, and stops once its clock reaches a positive
-        ``budget`` (checked per extraction: a run may overshoot it)."""
+        ``budget`` (checked per extraction: a run may overshoot it).
+        ``rotate``: the victim argmax's ties in p's rotation."""
         active = [True] * P
         traced = self.events is not None
         wait = list(self.clock) if traced else [0] * P
@@ -427,7 +438,7 @@ class _PlainWalk:
                 if traced and budget > 0 and self.clock[p] >= budget:
                     active[p] = False
                     continue
-                found, fq, fs, nread, run = self.extract(p)
+                found, fq, fs, nread, run = self.extract(p, rotate=rotate)
                 self.scanned[p] += nread
                 if not found:
                     active[p] = False
@@ -557,7 +568,7 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
                 compress: bool, steal: bool, steal_policy: str, rounds, mult,
                 stage_open=None, trace: bool = False, trace_capacity=None,
                 trace_remote: bool = False, fault_plan=None,
-                steal_run_cap: int = 1) -> WSRunResult:
+                steal_run_cap: int = 1, rotate_ties: bool = False) -> WSRunResult:
     """The family-agnostic half of a launch: fresh copies of the mutable queue
     arrays on ``out``'s device, then the plain walk (``walk(host_arrays,
     steal=, policy=)`` returns a :class:`_PlainWalk`) or the CUDA kernel
@@ -577,7 +588,9 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
     ``trace_remote`` tags every event ``steal-remote``.  ``fault_plan``
     applies its launch faults as initial values, as the reference does: the
     plan's ``remaining`` and stall clocks, with ``rounds`` (when not given)
-    extended by the largest stall."""
+    extended by the largest stall.  ``rotate_ties`` (the expert families,
+    whose kernels' free walks rotate) breaks the plain free walk's victim
+    ties in each program's rotation; lockstep ignores it."""
     dev = out.device
     P = state.n_programs
     n_tasks = max(1, state.n_tasks)
@@ -647,7 +660,7 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
         if mode == "lockstep":
             w.lockstep(rounds, P, compress)
         else:
-            w.free(P, budget=rounds or 0)
+            w.free(P, budget=rounds or 0, rotate=rotate_ties)
         for n, a in w.arrays().items():
             arrs[n].copy_(torch.from_numpy(a))
     else:

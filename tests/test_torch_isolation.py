@@ -311,7 +311,9 @@ def test_build_key_covers_included_headers(tmp_path):
     """Editing the shared scheduler header changes the cached library's key
     of every kernel that includes it; editing one kernel changes its own.
     dtype_io.cuh belongs to the standalone kernels alone, attn_mma.cuh to
-    ws_attention, flash_fwd and decode_attention (its cp.async helpers)."""
+    ws_attention, flash_fwd, decode_attention (its cp.async helpers) and
+    the expert kernels (through ws_expert_mma.cuh, their tiles), and
+    ws_expert_tile.cuh to ws_unified alone."""
     import shutil
 
     from repro_torch import _build
@@ -332,14 +334,22 @@ def test_build_key_covers_included_headers(tmp_path):
         fh.write("// edited\n")
     again = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
     assert all((again[n] == edited[n]) == (n in _build.WS_KERNELS) for n in _build.KERNELS)
-    # the tensor-core blocks and cp.async helpers: the attention kernels built
-    # on them, and not the expert kernels or the unified step (whose build
-    # must not move)
+    # the tensor-core blocks and cp.async helpers: the attention and expert
+    # kernels built on them, and not the unified step (whose build must not
+    # move)
     with open(csrc / "attn_mma.cuh", "a") as fh:
         fh.write("// edited\n")
     third = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
-    assert {n for n in _build.KERNELS if third[n] != again[n]} == {"ws_attention", "flash_fwd",
-                                                                  "decode_attention"}
+    assert {n for n in _build.KERNELS if third[n] != again[n]} == {
+        "ws_attention", "flash_fwd", "decode_attention", "ws_expert", "ws_expert_grad"}
+    with open(csrc / "ws_expert_mma.cuh", "a") as fh:
+        fh.write("// edited\n")
+    fourth = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
+    assert {n for n in _build.KERNELS if fourth[n] != third[n]} == {"ws_expert", "ws_expert_grad"}
+    with open(csrc / "ws_expert_tile.cuh", "a") as fh:
+        fh.write("// edited\n")
+    third = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
+    assert {n for n in _build.KERNELS if third[n] != fourth[n]} == {"ws_unified"}
     with open(csrc / "ws_expert.cu", "a") as fh:
         fh.write("// edited\n")
     assert _build.source_key("ws_expert", csrc) != third["ws_expert"]
@@ -526,9 +536,10 @@ def test_expert_kernel_pool_layout_matches_plain_on_card(cuda_device, kind):
 
 @pytest.mark.cuda
 def test_expert_grad_kernel_launches_at_kimi_hidden_width(cuda_device):
-    """Shared memory grows with f only: at kimi-k2's f 2048 the grad tile
-    holds h, du, dv [8, 2048] and a 512-column chunk (213,312 bytes, under
-    the 227 KB a CTA can have); the launch must be accepted and agree."""
+    """Shared memory grows with f: at kimi-k2's f 2048 the grad tile holds
+    t/du and dv [8, 2048] and shallower cp.async rings (232,192 bytes with
+    the rings, within the 227 KB a CTA can have); the launch must be
+    accepted and agree."""
     from repro_torch.moe_ws import run_moe_grad_schedule
 
     x, gy, w, routed, state = _pool_inputs(13, T=4, d=64, f=2048, E=2, k=1)

@@ -45,7 +45,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               forbidden SASS logged: the hand-offs between a thread-block
               cluster's CTAs (a barrier with release semantics, relaxed,
               and st.async onto a peer's mbarrier), none of which the
-              expert kernels use: they run one CTA a program.
+              expert kernels use: they run one CTA a program.  Then
+              csrc/probes/tagged_handoff.cu, the hand-off ws_unified's
+              walker and helpers use (a value and its request's tag in one
+              64-bit word, st/ld.relaxed.gpu): its forbidden SASS and PTX
+              (none allowed), a stress test (1 producer, SM count - 1
+              consumers, PROBE's requests with random __nanosleep; no wrong
+              value, no newer tag, no spin past its deadline), the round
+              trip to one consumer and to all, and a cooperative launch of
+              one 512-thread CTA an SM at the unified kernel's shared memory
+              (every CTA resident at once).  ws_unified's rows of
+              BASELINE_FUNCTIONS are its redesign's build.
 4b. chaos     repro_torch.chaos on free-mode launches: a traced fault-free
               free launch of ws_attention (llama decode shape) and ws_expert
               (kimi-k2 full width, decode routing, the expert phase's
@@ -148,15 +158,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               and peak device memory printed; the grad kernel's free time
               untraced and traced.
 10. unified   llama3.2-3b in fp32 at full width (28 layers, 14.43 GB) through
-              the unified step (ws_unified): one lockstep decode step at the
-              serving shape (4 slots x 1024 positions), traced, and one with a
-              folded 100-token prompt against the plain version (integer
-              arrays and the decode step's rings bit-equal, logits, caches
-              and the prompt's k/v within UNIFIED_RTOL of their scale), the
-              lockstep step against the split fp32 step, free mode's 86
-              per-stage launches (traced, every task run, within UNIFIED_RTOL
-              of lockstep, clean under SafetyChecker's free-mode reading),
-              times (free untraced and traced) and bounds; then
+              the unified step (ws_unified: in lockstep a walker CTA and one
+              helper CTA an other SM, H = SM count - 1): one lockstep decode
+              step at the serving shape (4 slots x 1024 positions), traced,
+              and one with a folded 100-token prompt against the plain
+              version (integer arrays and the decode step's rings
+              bit-equal, logits, caches and the prompt's k/v within
+              UNIFIED_RTOL of their scale), the lockstep step against the
+              split fp32 step, free mode's 86 per-stage launches (traced,
+              every task run, within UNIFIED_RTOL of lockstep, clean under
+              SafetyChecker's free-mode reading); the walker and its
+              helpers (_unified_helpers): logits bit-equal at H = 0, 1 and
+              the largest H, decode and fold, the walker's requests a step
+              equal to unified_kernel.expected_requests and the time it
+              waited on them, and a one-CTA (H = 0) step's time; times
+              (lockstep, fold, free untraced and traced, beside the first
+              version's FIRST_VERSION_MS) and bounds; then
               2 replicas of ContinuousBatcher(unified_step=True) serve 8
               requests (prompts 16-128 tokens) with no degradation and one
               ws_unified launch per step and no other kernel, and their
@@ -175,8 +192,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               rounding is reported and left out), against the split fp32 step
               (ws_attention, ws_expert), free mode's 7 per-stage launches
               (traced; sum(mult)/tasks and the largest mult printed, clean
-              under SafetyChecker's free-mode reading), times, bounds
-              from this run's routing and peak memory; then 2 replicas of
+              under SafetyChecker's free-mode reading), the walker and its
+              helpers as in the unified phase, times (beside the first
+              version's), bounds from this run's routing and peak memory;
+              then 2 replicas of
               ContinuousBatcher(unified_step=True) serve 8 requests (prompts
               8-64 tokens, 8 new tokens) with one ws_unified launch a step,
               no other kernel and no degradation, against the split engine.
@@ -185,16 +204,20 @@ The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the 7 ported kernels (the megakernels each with its
 free-mode times untraced and traced, its checker reports and, but for
 ws_unified, its half-run statistics; ws_attention's also the ragged
-prefill; the standalone kernels each with its cases; the two redesigned
-for this card, ws_attention and flash_fwd, marked so; their first
-versions' times are printed only in the log lines beside this run's),
-and {"ok": true, "device": {...}}.
+prefill; ws_unified's the tagged hand-off probe and, per model, its
+helpers' readings; the standalone kernels each with its cases; the six
+redesigned for this card (REDESIGNED) marked so; their first versions'
+times are printed only in the log lines beside this run's), and {"ok":
+true, "device": {...}}.
 
     python3 chip_smoke.py --phases build,audit,chaos       # the short check of the rings
     python3 chip_smoke.py --phases build,audit,halfrun,grad   # the short check of half-run
     python3 chip_smoke.py --phases build,audit,kernels     # the standalone kernels
     python3 chip_smoke.py --phases build,audit,parity,halfrun,times,kernels
                                                 # the redesigned attention kernels
+    python3 chip_smoke.py --phases build,audit,unified,unified_moe
+                                                # the redesigned unified step
+    python3 chip_smoke.py --probe                # the tagged hand-off probe alone
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
     python3 chip_smoke.py --expert-ab DIR [DIR ...]
                                                 # ws_expert's times, theirs beside ours
@@ -274,11 +297,13 @@ RAGGED = dict(H=24, Hkv=8, hd=128, S=1024, lengths=(1024, 658, 531, 288), bq=32,
 # for the record (the engine and the reference use P = 8).
 TIMES_PROGRAMS = (16, 32, 132)
 # The kernels redesigned for this card, and their first versions' times
-# (the kernels of commit 5ee879c, and for the expert kernels of commit
-# 8da571d: the ranges of this script's runs of that kernel on an NVIDIA H100
-# 80GB HBM3, 700.00 W, warm; PERF.md §6), printed in the log beside this
-# run's and kept out of the kernels line, whose numbers are all this run's.
-REDESIGNED = ("ws_attention", "flash_fwd", "decode_attention", "ws_expert", "ws_expert_grad")
+# (the kernels of commit 5ee879c, for the expert kernels of commit 8da571d,
+# for ws_unified of commit 0b68ecc: the ranges of this script's runs of that
+# kernel on an NVIDIA H100 80GB HBM3, 700.00 W, warm; PERF.md §6), printed in
+# the log beside this run's and kept out of the kernels line, whose numbers
+# are all this run's.
+REDESIGNED = ("ws_attention", "flash_fwd", "decode_attention", "ws_expert", "ws_expert_grad",
+              "ws_unified")
 FIRST_VERSION_MS = {
     "ws_attention free": (6.52, 7.51), "ws_attention lockstep": (37.80, 39.19),
     "ragged prefill static": (1277.1, 1287.0), "ragged prefill ws": (365.9, 468.4),
@@ -292,7 +317,16 @@ FIRST_VERSION_MS = {
     "decode_attention llama3.2-3b serving cache pos 1000": (0.156, 0.158),
     "ws_expert free": (81.4, 165.2), "ws_expert lockstep": (166.05, 169.5),
     "ws_expert_grad free": (2487.2, 3715.9), "ws_expert_grad lockstep": (4862.1, 4893.6),
+    "ws_unified llama lockstep": (675.41, 704.41), "ws_unified llama fold": (4547.85, 4734.68),
+    "ws_unified llama free": (293.65, 340.83), "ws_unified kimi lockstep": (277.40, 280.84),
+    "ws_unified kimi fold": (1365.15, 1380.70), "ws_unified kimi free": (103.57, 109.27),
 }
+
+
+def _first_unified(model):
+    """The first ws_unified's times at ``model`` (one CTA in lockstep), for the log."""
+    return ", ".join(f"{m} {a}-{b} ms" for m in ("lockstep", "fold", "free")
+                     for a, b in [FIRST_VERSION_MS[f"ws_unified {model} {m}"]])
 
 # Checker reports, traced/untraced free-mode times and half-run statistics of
 # this run, by kernel (the kernels line carries them), and data a later phase
@@ -301,6 +335,7 @@ CHAOS = {}
 TRACED = {}
 HALFRUN = {}
 HELD = {}
+HANDOFF = {}   # the tagged hand-off probe's readings (the audit's)
 
 
 def log(*a):
@@ -893,7 +928,8 @@ def phase_expert(dev):
 # ws_unified rows are the build before half-run steals (the kernels of
 # commit 5fee79a), the ws_attention rows the build of its redesigned tile,
 # the ws_expert and ws_expert_grad rows the build of their redesigned tiles
-# (csrc/ws_expert_mma.cuh), each measured on an NVIDIA H100 80GB HBM3
+# (csrc/ws_expert_mma.cuh), the ws_unified rows that of its walker and
+# helpers, each measured on an NVIDIA H100 80GB HBM3
 # (700.00 W; nvcc of CUDA 12.8) by this script's audit on that tree
 # (`python3 chip_smoke.py --audit-baseline DIR` with the tree unpacked in
 # DIR prints the same table).  The per-slot (cap 1) instantiations must
@@ -947,14 +983,14 @@ BASELINE_FUNCTIONS = {
         (128, 5928),
     "void ws_lockstep_kernel<float>(WSQueues, AttnArgs)":
         (128, 5848),
-    "void ws_unified_free<true>(WSQueues, UArgs)":
-        (115, 29288),
-    "void ws_unified_lockstep<true>(WSQueues, UArgs)":
-        (128, 57512),
-    "ws_unified_free(WSQueues, UArgs)":
-        (115, 29080),
-    "ws_unified_lockstep(WSQueues, UArgs)":
-        (128, 57328),
+    "void ws_unified_free<true>(WSQueues, UArgs, Hand)":
+        (128, 62496),
+    "void ws_unified_lockstep<true>(WSQueues, UArgs, Hand)":
+        (128, 68016),
+    "ws_unified_free(WSQueues, UArgs, Hand)":
+        (128, 62296),
+    "ws_unified_lockstep(WSQueues, UArgs, Hand)":
+        (128, 69856),
 }
 
 
@@ -984,7 +1020,7 @@ def _log_functions(tag, name, fns, baseline=None):
     return differ
 
 
-def phase_audit():
+def phase_audit(dev):
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch import _build
@@ -1032,7 +1068,85 @@ def phase_audit():
     probe = {f.split("(")[0]: st["forbidden_sass"] for f, st in probe.items()}
     log(f"[audit] csrc/probes/cluster_barrier.cu (not a kernel of the port): forbidden SASS "
         f"by function {probe}; the expert kernels run one CTA a program")
+    # why ws_unified's walker may hand its products to helper CTAs: the
+    # tagged hand-off, fence-free, stressed, timed, and every CTA resident
+    rep = tagged_handoff_probe(dev)
+    HANDOFF.update(rep)
+    log("[audit] csrc/probes/tagged_handoff.cu (not a kernel of the port): "
+        + json.dumps(rep))
+    if not rep["ok"]:
+        raise AssertionError(f"the tagged hand-off probe failed: {rep}")
     return stats
+
+
+# The tagged hand-off probe (csrc/probes/tagged_handoff.cu): the stress
+# test's threads a CTA, tagged words and requests, the round trips timed,
+# and the deadline of every spin.  The co-residency launch holds each CTA
+# the unified kernel's shared memory for its products.
+PROBE = dict(threads=128, words=512, requests=100_000, roundtrips=20_000, deadline_s=2.0)
+
+
+def tagged_handoff_probe(dev, smem=None):
+    """Build csrc/probes/tagged_handoff.cu and run its three checks on the
+    card: the stress test (1 producer, SM count - 1 consumers), the round
+    trip to one consumer and to all of them, and a cooperative launch of
+    one CTA an SM at 512 threads and ``smem`` bytes.  Returns the readings
+    and ``ok``: no wrong value, no newer tag, no spin past its deadline,
+    every CTA resident on its own SM, and no forbidden opcode."""
+    import ctypes
+
+    from repro_torch import _build
+    from repro_torch.pallas_ws import unified_kernel
+
+    smem = unified_kernel.SMEM_BYTES if smem is None else smem
+    probes = _build.CSRC / "probes"
+    lib = ctypes.CDLL(str(_build.build("tagged_handoff", probes)))
+    audit = _build.fence_audit("tagged_handoff", probes)
+    fns = _build.function_stats("tagged_handoff", probes)
+    P, I, U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    lib.tagged_stress_run.argtypes = [I, I, I, I, U64, ctypes.c_uint, P, P, P]
+    lib.tagged_roundtrip_run.argtypes = [I, I, U64, P, P, P]
+    lib.tagged_coresident_run.argtypes = [I, I, I, U64, P, P, P, P]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    C = sms - 1
+    ws = torch.zeros(1 << 16, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    dl = int(PROBE["deadline_s"] * 1e9)
+
+    def run(fn, *a, n_out, tail=()):
+        out = torch.zeros(n_out, dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err = fn(*a, ws.data_ptr(), out.data_ptr(), *tail, stream)
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"tagged_handoff probe: CUDA error {err}")
+        return out.cpu().tolist(), time.perf_counter() - t0
+
+    st, st_s = run(lib.tagged_stress_run, C, PROBE["threads"], PROBE["words"],
+                   PROBE["requests"], dl, 7, n_out=3 * (C + 1))
+    rt1, _ = run(lib.tagged_roundtrip_run, 1, PROBE["roundtrips"], dl, n_out=2)
+    rtc, _ = run(lib.tagged_roundtrip_run, C, PROBE["roundtrips"], dl, n_out=2)
+    occ = (ctypes.c_int * 2)()
+    co, _ = run(lib.tagged_coresident_run, sms, 512, smem, dl, n_out=3,
+                tail=(ctypes.cast(occ, P),))
+    rep = {
+        "consumers": C, "threads": PROBE["threads"], "words": PROBE["words"],
+        "requests": PROBE["requests"], "stress_s": round(st_s, 4),
+        "wrong_values": sum(st[0::3]), "newer_tags": sum(st[1::3]), "late": sum(st[2::3]),
+        "roundtrip_ns_1_consumer": rt1[0], "roundtrip_ns_all_consumers": rtc[0],
+        "roundtrip_late": rt1[1] + rtc[1],
+        "coresident": {"ctas": sms, "threads": 512, "smem": smem, "arrived": co[0],
+                       "distinct_sms": co[1], "late": co[2], "blocks_per_sm": occ[0],
+                       "sm_count": occ[1]},
+        "forbidden_sass": audit["sass"], "forbidden_ptx": audit["ptx"],
+        "forbidden_sass_by_function": {f.split("(")[0]: s["forbidden_sass"]
+                                       for f, s in fns.items()},
+    }
+    rep["ok"] = (not audit["sass"] and not audit["ptx"] and rep["wrong_values"] == 0
+                 and rep["newer_tags"] == 0 and rep["late"] == 0 and rep["roundtrip_late"] == 0
+                 and co[0] == sms and co[1] == sms and co[2] == 0)
+    return rep
 
 
 def audit_baseline(root) -> None:
@@ -2493,6 +2607,77 @@ def _check_unified_free(model, rep, logits, lockstep_logits):
             f"{len(rep.trace_stream)} events: {_families(rep)})", report)
 
 
+def _unified_helpers(tag, params, cfg, caches, tok, pos, ptok, run):
+    """The walker and its helpers: each step (decode, and with the fold) at
+    H = 0 (one CTA), 1 and the largest H, its logits (and the prompt's)
+    bit-equal across H; at the largest H the walker's requests (against
+    unified_kernel.expected_requests) and the time it waited on them, and
+    the step's time at H = 0 (the one-CTA fallback, for the record)."""
+    from repro_torch.models.unified import plan_step, run_step
+    from repro_torch.pallas_ws import unified_kernel as U
+
+    dev = tok.device
+    top = torch.cuda.get_device_properties(dev).multi_processor_count - 1
+    rep = {"helpers": top, "helpers_tested": [0, 1, top]}
+    for name, kw in (("decode", {}), ("fold", dict(prefill_tokens=ptok))):
+        outs, requests = [], []
+        for H in (0, 1, top):
+            plan = plan_step(params, cfg, caches(), tok, pos, **kw)
+            res, _ = run_step(params, cfg, plan, mode="lockstep", plain=False, helpers=H, **run)
+            outs.append(plan.bufs["logits"].clone())
+            if "logp" in plan.bufs:
+                outs[-1] = torch.cat([outs[-1], plan.bufs["logp"]])
+            st = U.last_stats(dev)
+            requests.append(st["requests"])
+            if H == top:
+                # the routing buffers hold the last layer's: a deeper MoE
+                # step's requests cannot be counted from them
+                if plan.g.E and plan.g.L != 1:
+                    raise AssertionError(f"{tag}: the walker's requests are counted from one "
+                                         f"layer's routing, and this MoE step has {plan.g.L}")
+                rl = [plan.bufs["rl"].cpu()] if plan.g.E else []
+                want = U.expected_requests(plan.g, res.mult.cpu().numpy(), rl)
+                rep[f"{name}_walker_wait_ms"] = st["wait_ns"] / 1e6
+                rep[f"{name}_walker_ms"] = st["walk_ns"] / 1e6
+                rep[f"{name}_walker_split_ms"] = {
+                    k: st[f"{k}_ns"] / 1e6 for k in ("attention", "expert", "glue")}
+                rep[f"{name}_walker_split_ms"]["scheduler"] = (
+                    st["walk_ns"] - st["attention_ns"] - st["expert_ns"] - st["glue_ns"]) / 1e6
+                rep[f"{name}_helper1_strips_ms"] = st["helper_ns"] / 1e6
+            del plan, res
+        if requests != [0, want, want]:
+            raise AssertionError(f"{tag} {name}: the walker posted {requests} requests at "
+                                 f"H = 0, 1, {top}; want 0, {want}, {want}")
+        rep[f"{name}_requests"] = want
+        same = all(torch.equal(o, outs[0]) for o in outs[1:])
+        rep[f"{name}_bit_equal_across_helpers"] = same
+        if not same:
+            raise AssertionError(f"{tag} {name}: logits differ across H = 0, 1, {top}")
+    plan = plan_step(params, cfg, caches(), tok, pos)
+
+    def one_cta(_):
+        for b in ("att", "attp", "yr"):
+            if b in plan.bufs:
+                plan.bufs[b].zero_()
+        run_step(params, cfg, plan, mode="lockstep", plain=False, helpers=0, **run)
+
+    one_cta(0)
+    torch.cuda.synchronize()
+    rep["one_cta_ms"] = _event_ms(one_cta, 2)
+    log(f"[{tag}] walker and {top} helpers: logits bit-equal at H = 0, 1, {top} (decode and "
+        f"fold); the walker posted {rep['decode_requests']} requests a decode step "
+        f"(expected_requests), {rep['fold_requests']} with the fold, and waited on them "
+        f"{rep['decode_walker_wait_ms']:.3f} of {rep['decode_walker_ms']:.3f} ms "
+        f"({rep['fold_walker_wait_ms']:.3f} of {rep['fold_walker_ms']:.3f} ms with the fold); "
+        f"the walk by body (ms, waits in glue and expert): decode "
+        f"{rep['decode_walker_split_ms']}, fold {rep['fold_walker_split_ms']}; helper 1 on "
+        f"its strips {rep['decode_helper1_strips_ms']:.3f} ms (fold "
+        f"{rep['fold_helper1_strips_ms']:.3f}); "
+        f"one CTA (H = 0) takes {rep['one_cta_ms']:.2f} ms a decode step")
+    del plan
+    return rep
+
+
 def phase_unified(dev):
     """llama3.2-3b in fp32 at full width through the unified step: kernel
     against plain version (decode and a folded prompt), against the split
@@ -2587,9 +2772,11 @@ def phase_unified(dev):
             or not free_err <= UNIFIED_RTOL:
         raise AssertionError("free-mode per-stage launches failed")
 
+    run = dict(steal=True, steal_policy="cost", n_programs=c["P"])
+    hx = _unified_helpers("unified", params, cfg, caches, tok, pos, ptok, run)
+
     # times: the step's launches alone (plan built outside), the attention
     # buffers zeroed before each lockstep launch (tiles accumulate there)
-    run = dict(steal=True, steal_policy="cost", n_programs=c["P"])
     times = {}
     for name, kw, mode, n in (("ms", {}, "lockstep", 3), ("fold_ms", dict(prefill_tokens=ptok),
                                                           "lockstep", 2),
@@ -2624,7 +2811,8 @@ def phase_unified(dev):
         f"fold bound {fbound:.4f} ms ({fbound_by}: {fby} B, {fops} flops); plain version "
         f"{out['plain_decode_ms']:.1f} ms (fold {out['plain_fold_ms']:.1f} ms); split fp32 "
         f"step (decode_step_ws) {times['split_step_ms']:.2f} ms; no single PyTorch call "
-        "computes an engine step, so there is no library time")
+        "computes an engine step, so there is no library time; first version "
+        + _first_unified("llama"))
 
     # serving: 2 replicas of the unified engine, then the split engine, on
     # the same requests
@@ -2703,7 +2891,7 @@ def phase_unified(dev):
                 free_mult_per_task=float(mult.sum()) / rf.n_tasks, bound_ms=bound,
                 bound_by=bound_by, fold_bound_ms=fbound, fold_bound_by=fbound_by,
                 plain_ms=out["plain_decode_ms"], plain_fold_ms=out["plain_fold_ms"],
-                library_ms=None, **times), serving
+                library_ms=None, handoff=hx, **times), serving
 
 
 # kimi-k2 in fp32 at full width, cut to 1 layer (77.69 GB of weights): 4
@@ -2879,6 +3067,7 @@ def phase_unified_moe(dev):
     if rf.launches != 2 + 5 * cfg.n_layers or not bool((mult >= 1).all()) \
             or not free_err <= UNIFIED_RTOL:
         raise AssertionError("free-mode per-stage launches failed")
+    hx = _unified_helpers("unified_moe", params, cfg, caches, tok, pos, ptok, run)
 
     # times: the step's launches alone (plan built outside), the tile buffers
     # zeroed before each lockstep launch (tiles accumulate there)
@@ -2919,7 +3108,8 @@ def phase_unified_moe(dev):
         f"{fbound:.4f} ms ({fbound_by}: {fby} B, {fops} flops); plain version "
         f"{out['plain_decode_ms']:.1f} ms (fold {out['plain_fold_ms']:.1f} ms); split fp32 "
         f"step (decode_step_ws) {times['split_step_ms']:.2f} ms; no single PyTorch call "
-        "computes an engine step, so there is no library time")
+        "computes an engine step, so there is no library time; first version "
+        + _first_unified("kimi"))
 
     # serving: 2 replicas of the unified engine, then the split engine, on
     # the same requests
@@ -3003,7 +3193,7 @@ def phase_unified_moe(dev):
                 bound_ms=bound, bound_by=bound_by, fold_bound_ms=fbound,
                 fold_bound_by=fbound_by, plain_ms=out["plain_decode_ms"],
                 plain_fold_ms=out["plain_fold_ms"], near_tie_rows=flipped,
-                peak_memory_gb=peak / 1e9, seconds=seconds, **times), serving
+                peak_memory_gb=peak / 1e9, seconds=seconds, handoff=hx, **times), serving
 
 
 def _paths(tree, prefix=""):
@@ -3640,6 +3830,8 @@ def main(argv=None) -> int:
     ap.add_argument("--audit-baseline", metavar="DIR",
                     help="only build the kernels of the checkout in DIR and print every "
                          "kernel function's registers and SASS instructions")
+    ap.add_argument("--probe", action="store_true",
+                    help="only build and run csrc/probes/tagged_handoff.cu")
     ap.add_argument("--expert-ab", metavar="DIR", nargs="+",
                     help="only time ws_expert at kimi-k2's decode routing as built from each "
                          "checkout DIR and from this one, alternating, in one process")
@@ -3660,6 +3852,10 @@ def main(argv=None) -> int:
     if args.expert_ab:
         expert_ab(args.expert_ab, dev)
         return 3
+    if args.probe:
+        log("[probe] " + json.dumps(tagged_handoff_probe(dev)))
+        log("[probe] card: " + card_line())
+        return 3
     from repro_torch.kernels import launches as klaunches
 
     t_all = time.perf_counter()
@@ -3667,7 +3863,7 @@ def main(argv=None) -> int:
     max_err = phase_parity(dev) if "parity" in phases else None
     expert = phase_expert(dev) if "expert" in phases else {}
     if "audit" in phases:
-        phase_audit()
+        phase_audit(dev)
     if "chaos" in phases:
         phase_chaos(dev)
     halfrun_err = phase_halfrun(dev) if "halfrun" in phases else None
@@ -3771,6 +3967,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ws_unified.cu",
         "replaces": "src/repro/models/unified.py:415",
+        "redesigned": "ws_unified" in REDESIGNED,
+        "tagged_handoff_probe": {k: v for k, v in HANDOFF.items()
+                                 if k != "forbidden_sass_by_function"},
         "launches": userving["launches"]["ws_unified"],
         "launches_by_path": {"llama3.2-3b": serving["ws_unified_launches"],
                              moe["model"]: moe["ws_unified_launches"],

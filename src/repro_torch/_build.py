@@ -193,19 +193,21 @@ def function_stats(name: str, csrc: Optional[Path] = None,
     return {names[fn]: dict(st, traced=is_traced(names[fn])) for fn, st in stats.items()}
 
 
-def fence_audit(name: str) -> Dict[str, object]:
+def fence_audit(name: str, csrc: Optional[Path] = None) -> Dict[str, object]:
     """Count synchronising instructions in the built kernel: SASS opcodes
     ATOM*/RED*/MEMBAR/FENCE (``cuobjdump -sass`` of the library) and PTX
     ``atom.``/``red.``/``fence.``/``membar.`` (``nvcc -ptx`` of the source).
-    A fence-free scheduler has zero of each."""
-    lib = build(name)
+    A fence-free scheduler has zero of each.  ``csrc`` audits a source
+    elsewhere (the probes)."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    lib = build(name, csrc)
     cuda_bin = Path(nvcc_path()).parent
     cuobjdump = shutil.which("cuobjdump") or str(cuda_bin / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     ptx_file = lib.with_suffix(".ptx")
     subprocess.run([nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-ptx", "-o",
-                    str(ptx_file), str(CSRC / f"{name}.cu")], check=True,
+                    str(ptx_file), str(csrc / f"{name}.cu")], check=True,
                    capture_output=True, text=True)
     ptx = ptx_file.read_text()
     sass_hits: Dict[str, int] = {}

@@ -33,9 +33,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-// the reference's finite score of a masked key (also in dtype_io.cuh and
-// ws_attn_tile.cuh; the definitions are identical)
-#define NEG_INF (-1e30f)
+#include "dtype_io.cuh"  // NEG_INF
 
 namespace amma {
 

@@ -1,6 +1,8 @@
-// fp32 / bf16 loads and stores of the standalone kernels (flash_fwd.cu,
-// decode_attention.cu, ssd_scan.cu): each computes in fp32 whatever type its
-// inputs come in, and stores its outputs in that type.
+// fp32 / bf16 loads and stores of every kernel of the port: each computes in
+// fp32 whatever type its inputs come in (the standalone kernels, flash_fwd.cu,
+// decode_attention.cu and ssd_scan.cu, store their outputs in that type),
+// and the one definition of NEG_INF (attn_mma.cuh and ws_attn_body.cuh
+// include this header).
 
 #pragma once
 

@@ -3,8 +3,8 @@
 //
 // Replaces the tile bodies `_expert_execute` and `_expert_grad_execute` of
 // repro/moe_ws/expert_kernel.py.  What they compute is unchanged; each
-// kernel's header says what.  ws_unified.cu keeps the first tile,
-// ws_expert_tile.cuh.
+// kernel's header says what.  ws_unified.cu runs its expert tiles as two
+// of its own weight products instead.
 //
 // What bounds a tile: bytes.  bt = 8 rows of one expert (1-2 live at
 // decode) read its 3 d f weights: 88 MB at kimi-k2's d 7168, f 2048, on one

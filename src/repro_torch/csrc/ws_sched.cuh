@@ -43,9 +43,10 @@
 // scans one stage's queues, not all 2 + 3L stages'.
 //
 // Fence-free.  head, local_head, taken and remaining are touched only by
-// volatile global loads and stores.  There is no atomic, no fence, no
-// membar: thread 0 of a CTA runs the scheduler and hands its decision to the
-// other threads through shared memory and __syncthreads().
+// volatile global loads and stores (plain ones in a lockstep walk that owns
+// them: WSQueuesOwned below).  There is no atomic, no fence, no membar:
+// thread 0 of a CTA runs the scheduler and hands its decision to the other
+// threads through shared memory and __syncthreads().
 //
 // A tile body is a callable `body(const int* rec, bool store)` run by every
 // thread of the CTA with the claimed record in shared memory; `store` is
@@ -143,6 +144,44 @@ struct WSQueues {
   int run_cap;               // half-run cap (read by the HALFRUN instantiation only)
 };
 
+// The same arrays as a lockstep walker that alone touches them sees them:
+// head, local_head, taken and remaining through plain pointers, which may
+// point at copies in its shared memory.  In lockstep one thread of one CTA
+// reads and writes every queue array, in program order, so plain accesses
+// see what volatile ones would; ws_unified's walker takes this view (its
+// helpers read none of these arrays).  Every scheduler function below is a
+// template over the view, WSQueues or WSQueuesOwned.
+struct WSQueuesOwned {
+  const int* tasks;
+  const int* pool_off;
+  const int* stage_open;
+  const int* tail;
+  int* head;
+  int* local_head;
+  int* taken;
+  int* remaining;
+  int* clock;
+  int* work;
+  int* steals;
+  int* scanned;
+  int* mult;
+  int n_queues, capacity, n_programs, n_tasks, rounds;
+  int steal, policy, compress;
+  volatile int* ev;
+  volatile int* ev_cursor;
+  const int* ev_mult0;
+  int ev_cap, steal_kind, stall_ns;
+  int run_cap;
+};
+
+__device__ __forceinline__ WSQueuesOwned owned(const WSQueues& Q) {
+  return {Q.tasks, Q.pool_off, Q.stage_open, Q.tail, (int*)Q.head, (int*)Q.local_head,
+          (int*)Q.taken, (int*)Q.remaining, Q.clock, Q.work, Q.steals, Q.scanned, Q.mult,
+          Q.n_queues, Q.capacity, Q.n_programs, Q.n_tasks, Q.rounds, Q.steal, Q.policy,
+          Q.compress, Q.ev, Q.ev_cursor, Q.ev_mult0, Q.ev_cap, Q.steal_kind, Q.stall_ns,
+          Q.run_cap};
+}
+
 // The scheduler's hand-off to the CTA's threads (one per CTA, in shared memory).
 struct WSShared {
   int found, fq, fs;
@@ -168,38 +207,42 @@ using ClaimT = typename std::conditional<HALFRUN, RunClaim, Claim>::type;
 // ---------------------------------------------------------------------------
 // scheduler (thread 0 only)
 
-__device__ __forceinline__ int rmax_read(const WSQueues& Q, int p, int v) {
+template <class QT>
+__device__ __forceinline__ int rmax_read(const QT& Q, int p, int v) {
   int lh = Q.local_head[p * Q.n_queues + v];
   int hv = Q.head[v];
   return lh > hv ? lh : hv;
 }
 
 // Flat index of slot (v, s) in tasks (records) and taken, in either layout.
-__device__ __forceinline__ long long slot_index(const WSQueues& Q, int v, int s) {
+template <class QT>
+__device__ __forceinline__ long long slot_index(const QT& Q, int v, int s) {
   return Q.pool_off ? (long long)Q.pool_off[v] + s : (long long)v * Q.capacity + s;
 }
 
 // Guarded ⊥-probe: the op field is loaded only when wanted and the slot is
 // meaningful: h < capacity (dense) or h < tail[v] (pool).
-__device__ __forceinline__ int probe(const WSQueues& Q, int v, int h, bool want,
-                                     int* probed) {
+template <class QT>
+__device__ __forceinline__ int probe(const QT& Q, int v, int h, bool want, int* probed) {
   bool fire = want && (Q.pool_off ? h < Q.tail[v] : h < Q.capacity);
   *probed = fire ? 1 : 0;
   return fire ? Q.tasks[slot_index(Q, v, h) * TASK_WIDTH + F_OP] : BOTTOM;
 }
 
-__device__ __forceinline__ void claim_writes(const WSQueues& Q, int p, int v, int h,
-                                             int take = 1) {
+template <class QT>
+__device__ __forceinline__ void claim_writes(const QT& Q, int p, int v, int h, int take = 1) {
   Q.head[v] = h + take;                        // plain write, no CAS
   Q.local_head[p * Q.n_queues + v] = h + take; // persistent local bound
 }
 
-__device__ __forceinline__ bool is_open(const WSQueues& Q, int v, int r) {
+template <class QT>
+__device__ __forceinline__ bool is_open(const QT& Q, int v, int r) {
   return Q.stage_open == nullptr || Q.stage_open[v] <= r;
 }
 
 // "scan" policy: p-relative sequential scan over every queue.
-__device__ Claim scan_extract(const WSQueues& Q, int p, int r) {
+template <class QT>
+__device__ Claim scan_extract(const QT& Q, int p, int r) {
   Claim c = {0, 0, 0, 0};
   int n_scan = Q.steal ? Q.n_queues : 1;
   for (int j = 0; j < n_scan; ++j) {
@@ -225,8 +268,8 @@ __device__ Claim scan_extract(const WSQueues& Q, int p, int r) {
 // the argmax visits every queue in p's rotation; ROT walks are free walks,
 // whose [lo, hi) is every queue and which have no stage gate (launch_grid
 // refuses stage_open in free mode), so it reads no stage_open.
-template <bool HALFRUN, bool ROT = false>
-__device__ ClaimT<HALFRUN> cost_extract(const WSQueues& Q, int p, int r, int lo, int hi) {
+template <bool HALFRUN, bool ROT = false, class QT>
+__device__ ClaimT<HALFRUN> cost_extract(const QT& Q, int p, int r, int lo, int hi) {
   int own = p % Q.n_queues;
   int h0 = rmax_read(Q, p, own);
   int probed0;
@@ -291,9 +334,8 @@ __device__ ClaimT<HALFRUN> cost_extract(const WSQueues& Q, int p, int r, int lo,
 }
 
 // The half-run walks take the cost policy only (ws_launch refuses the rest).
-template <bool HALFRUN, bool ROT = false>
-__device__ __forceinline__ ClaimT<HALFRUN> extract(const WSQueues& Q, int p, int r, int lo,
-                                                   int hi) {
+template <bool HALFRUN, bool ROT = false, class QT>
+__device__ __forceinline__ ClaimT<HALFRUN> extract(const QT& Q, int p, int r, int lo, int hi) {
   if constexpr (HALFRUN) {
     return cost_extract<true, ROT>(Q, p, r, lo, hi);
   } else {
@@ -302,8 +344,9 @@ __device__ __forceinline__ ClaimT<HALFRUN> extract(const WSQueues& Q, int p, int
 }
 
 // One record into program p's ring row (trace_append).
-__device__ __forceinline__ void trace_append(const WSQueues& Q, int p, int fq, int fs,
-                                             const int* rec, int t0, int m, int run) {
+template <class QT>
+__device__ __forceinline__ void trace_append(const QT& Q, int p, int fq, int fs, const int* rec,
+                                             int t0, int m, int run) {
   const bool is_steal = fq != p % Q.n_queues;
   const int kind = Q.steal_kind == KIND_STEAL_REMOTE ? KIND_STEAL_REMOTE
                    : (is_steal ? Q.steal_kind : KIND_TAKE);
@@ -326,8 +369,9 @@ __device__ __forceinline__ void trace_append(const WSQueues& Q, int p, int fq, i
 }
 
 // Bookkeeping after an execution (ws_account).  Returns the task's cost.
-__device__ int ws_account(const WSQueues& Q, int r, int p, int fq, int fs,
-                          bool advisory, bool free_mode) {
+template <class QT>
+__device__ int ws_account(const QT& Q, int r, int p, int fq, int fs, bool advisory,
+                          bool free_mode) {
   const long long slot = slot_index(Q, fq, fs);
   const int* rec = Q.tasks + slot * TASK_WIDTH;
   int tid = rec[F_TID];
@@ -356,9 +400,9 @@ __device__ int ws_account(const WSQueues& Q, int r, int p, int fq, int fs,
 // ws_account, then the ring append when TRACE (the reference's account);
 // `run` is the claimed run's length, the record's EV_RUN.  The untraced
 // instantiation is the call to ws_account alone.
-template <bool TRACE>
-__device__ __forceinline__ int account(const WSQueues& Q, int r, int p, int fq, int fs,
-                                       bool advisory, bool free_mode, int run = 1) {
+template <bool TRACE, class QT>
+__device__ __forceinline__ int account(const QT& Q, int r, int p, int fq, int fs, bool advisory,
+                                       bool free_mode, int run = 1) {
   if constexpr (!TRACE) {
     return ws_account(Q, r, p, fq, fs, advisory, free_mode);
   } else {
@@ -375,7 +419,8 @@ __device__ __forceinline__ int account(const WSQueues& Q, int r, int p, int fq, 
   }
 }
 
-__device__ __forceinline__ void load_record(const WSQueues& Q, int fq, int fs, int* s_rec) {
+template <class QT>
+__device__ __forceinline__ void load_record(const QT& Q, int fq, int fs, int* s_rec) {
   const int* rec = Q.tasks + slot_index(Q, fq, fs) * TASK_WIDTH;
   for (int f = 0; f < TASK_WIDTH; ++f) s_rec[f] = rec[f];
 }
@@ -388,9 +433,9 @@ __device__ __forceinline__ void load_record(const WSQueues& Q, int fq, int fs, i
 // advisory write, then one clamped advisory write for the run.  Entered with
 // the first slot's record in sh.rec; every thread reads sh.run, which no one
 // writes during the run.
-template <bool TRACE, class Body>
-__device__ __forceinline__ void run_slots(const WSQueues& Q, WSShared& sh, const Body& body,
-                                          int r, int p, bool free_mode) {
+template <bool TRACE, class QT, class Body>
+__device__ __forceinline__ void run_slots(const QT& Q, WSShared& sh, const Body& body, int r,
+                                          int p, bool free_mode) {
   const bool t0 = threadIdx.x == 0;
   int total = 0;
   for (int i = 0; i < sh.run; ++i) {
@@ -407,8 +452,68 @@ __device__ __forceinline__ void run_slots(const WSQueues& Q, WSShared& sh, const
   }
 }
 
-template <bool TRACE, bool HALFRUN = false, class Body>
-__device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
+// The per-slot lockstep walk of a walker that owns its queue arrays
+// (WSQueuesOwned): thread 0 runs every cell's scheduler code in
+// ws_lockstep's order, with the same loads and stores (a busy program's
+// cell adds 0 to scanned, which it leaves out), but passes the cells that
+// claim nothing alone, and wakes the CTA only for a claim (the tile body,
+// then its account).  Every array and ring ends as the loop below leaves
+// them; the CTA's barriers go from two a cell to two a claim.
+template <bool TRACE, class Body>
+__device__ void owned_lockstep(const WSQueuesOwned& Q, WSShared& sh, const Body& body) {
+  const bool t0 = threadIdx.x == 0;
+  int lo = 0, hi = Q.stage_open ? 0 : Q.n_queues;  // thread 0's victim window
+  int r = 0, p = 0;                                // thread 0's next cell
+  int cr = 0, cp = 0;                              // thread 0's claiming cell
+  const int P = Q.n_programs, rounds = Q.rounds;
+  const int* const clock = Q.clock;
+  while (true) {
+    if (t0) {
+      sh.found = 0;
+      while (!sh.found && r < rounds) {
+        if (p == 0) {
+          while (hi < Q.n_queues && Q.stage_open[hi] <= r) ++hi;
+        }
+        if (clock[p] > r) {  // busy: the cell reads and writes nothing else
+          if (++p == P) {
+            p = 0;
+            ++r;
+          }
+          continue;
+        }
+        while (lo < hi && Q.head[lo] >= Q.tail[lo]) ++lo;
+        const Claim c = extract<false>(Q, p, r, lo, hi);
+        Q.scanned[p] += c.nread;
+        if (c.found) {
+          sh.found = 1;
+          sh.fq = c.fq;
+          sh.fs = c.fs;
+          load_record(Q, c.fq, c.fs, sh.rec);
+          cr = r;
+          cp = p;
+        }
+        if (++p == P) {
+          p = 0;
+          ++r;
+        }
+      }
+    }
+    __syncthreads();
+    if (!sh.found) return;
+    body(sh.rec, false);
+    if (t0) account<TRACE>(Q, cr, cp, sh.fq, sh.fs, true, false);
+    __syncthreads();
+  }
+}
+
+template <bool TRACE, bool HALFRUN = false, class QT, class Body>
+__device__ void ws_lockstep(const QT& Q, WSShared& sh, const Body& body) {
+  if constexpr (std::is_same<QT, WSQueuesOwned>::value && !HALFRUN) {
+    if (!Q.compress) {
+      owned_lockstep<TRACE>(Q, sh, body);
+      return;
+    }
+  }
   const bool t0 = threadIdx.x == 0;
   int lo = 0, hi = Q.stage_open ? 0 : Q.n_queues;  // thread 0's victim window
   for (int r = 0; r < Q.rounds; ++r) {
@@ -489,8 +594,8 @@ __device__ void ws_lockstep(const WSQueues& Q, WSShared& sh, const Body& body) {
   }
 }
 
-template <bool TRACE, bool HALFRUN = false, bool ROT = false, class Body>
-__device__ void ws_free(const WSQueues& Q, WSShared& sh, const Body& body) {
+template <bool TRACE, bool HALFRUN = false, bool ROT = false, class QT, class Body>
+__device__ void ws_free(const QT& Q, WSShared& sh, const Body& body) {
   const int p = blockIdx.x;
   const bool t0 = threadIdx.x == 0;
   if constexpr (TRACE) {

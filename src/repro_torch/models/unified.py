@@ -28,18 +28,22 @@ on the device.  The kernel is ``csrc/ws_unified.cu``
 plain PyTorch version, taken for CPU tensors only.
 
 Two modes.
-* ``mode="lockstep"`` (the default) is the reference's launch: one CTA
-  walks the ``(rounds, P)`` grid, the stage gate read each round, the whole
-  step ONE launch; every integer array ends bit-equal to the plain walk.
-  Attention tiles accumulate, and the glue divides them by ``mult``.
+* ``mode="lockstep"`` (the default) is the reference's launch: one CTA,
+  the walker, walks the ``(rounds, P)`` grid, the stage gate read each
+  round, the whole step ONE launch; every integer array ends bit-equal to
+  the plain walk.  Attention tiles accumulate, and the glue divides them by
+  ``mult``.  The walker hands every weight product to ``helpers`` CTAs
+  launched beside it (one an SM by default), each computing its own column
+  strips, through tagged 64-bit words that carry their own validity: no
+  fence, and the walk itself unchanged (``csrc/ws_unified.cu``).
 * ``mode="free"`` cannot be one launch: stage windows are counted in
-  rounds, and free CTAs have none.  Making a consumer stage wait for its
-  producer on the device would take acquire/release ordering, which the
-  fence-free scheduler forbids.  So free mode runs one launch per stage (2
-  + 3L launches a step, 86 for llama3.2-3b; 2 + 5L on a MoE model) of
-  the same kernel over only that stage's queues; the kernel boundaries on
-  the stream order the stages, and each launch carries the summed
-  ``mult`` of the ones before.
+  rounds, and free CTAs have none: a stage is done only once every CTA's
+  claims of it are, which no CTA can see without a count across CTAs (an
+  atomic) or a wait on every other CTA.  So free mode runs one launch per
+  stage (2 + 3L launches a step, 86 for llama3.2-3b; 2 + 5L on a MoE model)
+  of the same kernel over only that stage's queues, every product computed
+  in the CTA that claims it; the kernel boundaries on the stream order the
+  stages, and each launch carries the summed ``mult`` of the ones before.
   Tiles store whole tiles, so nothing is divided by ``mult``.
 
 Free CTAs can claim one glue task several times at once, so a glue phase
@@ -91,7 +95,7 @@ from ..pallas_ws.kernel import (
     launch_grid,
     scheduler_knobs,
 )
-from ..pallas_ws.queues import QueueState, make_staged_queue_state
+from ..pallas_ws.queues import QueueState, make_staged_queue_state, to_device
 from ..pallas_ws.ragged import _pad_to
 from ..wstrace.ring import EV_QUEUE, EV_ROUND, EVENT_WIDTH, decode_rings
 from ..pallas_ws.tasks import (
@@ -649,7 +653,9 @@ def _check_inputs(params, caches: Caches, tokens, ptok, g: Geometry) -> None:
 @dataclass
 class StepPlan:
     """Everything one step's launches read: its geometry, buffers, inputs
-    and the staged Put."""
+    and the staged Put (on a card also uploaded once, ``device_queues``: a
+    lockstep launch then clones its arrays on the device and the host never
+    waits on a copy)."""
 
     g: Geometry
     bufs: Dict[str, torch.Tensor]
@@ -657,6 +663,7 @@ class StepPlan:
     state: QueueState
     stage_open: np.ndarray
     rounds: int
+    device_queues: Optional[Tuple[QueueState, torch.Tensor]] = None
 
 
 def plan_step(params, cfg, caches: Caches, tokens, pos, *, prefill_tokens=None, bk: int = 64,
@@ -684,13 +691,19 @@ def plan_step(params, cfg, caches: Caches, tokens, pos, *, prefill_tokens=None, 
     inputs = {"tokens": tokens, "pos": torch.as_tensor(pos_h, dtype=torch.int64, device=dev)}
     if Lp:
         inputs.update(ptok=ptok, pos_p=_positions(1, Lp, device=dev))
-    return StepPlan(g, alloc_buffers(g, caches, dev), inputs, state, stage_open, rounds)
+    device_queues = None
+    if dev.type == "cuda":
+        device_queues = (to_device(state, dev),
+                         torch.as_tensor(stage_open, dtype=torch.int32, device=dev))
+    return StepPlan(g, alloc_buffers(g, caches, dev), inputs, state, stage_open, rounds,
+                    device_queues)
 
 
 def decode_step_unified(params, cfg, caches: Caches, tokens, pos, *, prefill_tokens=None,
                         bk: int = 64, bq: int = 32, bt: int = 8, n_programs: int = 8,
                         steal: bool = True, steal_policy: str = "cost",
-                        trace: bool = False, check: bool = True, mode: Optional[str] = None):
+                        trace: bool = False, check: bool = True, mode: Optional[str] = None,
+                        helpers: Optional[int] = None):
     """One engine step as one unified launch (lockstep, the default) or one
     launch per stage (``mode="free"``).
 
@@ -700,7 +713,10 @@ def decode_step_unified(params, cfg, caches: Caches, tokens, pos, *, prefill_tok
     fp32, caches, UnifiedStepReport)``; the caches are updated in place
     (the new row of every slot), and the report carries the prompt's
     last-token logits and its ``[L, 1, cap, Hkv, hd]`` k/v.  ``bt`` is the
-    expert tiles' height (MoE models).
+    expert tiles' height (MoE models).  ``helpers`` is the lockstep
+    launch's helper CTAs (None: one an SM beside the walker's; 0: one CTA
+    runs every product), which the plain version does not have; free mode
+    takes none (:func:`~repro_torch.pallas_ws.unified_kernel.choose_helpers`).
 
     CUDA tensors launch ``csrc/ws_unified.cu``; CPU tensors run the plain
     version.  There is no fallback between the two.
@@ -708,7 +724,7 @@ def decode_step_unified(params, cfg, caches: Caches, tokens, pos, *, prefill_tok
     return _decode_step(params, cfg, caches, tokens, pos, prefill_tokens=prefill_tokens,
                         bk=bk, bq=bq, bt=bt, n_programs=n_programs, steal=steal,
                         steal_policy=steal_policy, trace=trace, check=check, mode=mode,
-                        plain=caches.kv.k.device.type == "cpu")
+                        helpers=helpers, plain=caches.kv.k.device.type == "cpu")
 
 
 def plain_decode_step_unified(params, cfg, caches: Caches, tokens, pos, **kw):
@@ -720,17 +736,21 @@ def plain_decode_step_unified(params, cfg, caches: Caches, tokens, pos, **kw):
 
 def _decode_step(params, cfg, caches, tokens, pos, *, prefill_tokens=None, bk=64, bq=32,
                  bt=8, n_programs=8, steal=True, steal_policy="cost", trace=False, check=True,
-                 mode=None, plain: bool):
+                 mode=None, helpers=None, plain: bool):
+    from ..pallas_ws.unified_kernel import choose_helpers
+
     mode = "lockstep" if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}: {mode!r}")
+    if mode == "free":
+        choose_helpers(mode, helpers, 0)
     scheduler_knobs(steal=steal, steal_policy=steal_policy, steal_run_cap=1, mode=mode,
                     compress_runs=False)
     plan = plan_step(params, cfg, caches, tokens, pos, prefill_tokens=prefill_tokens, bk=bk,
                      bq=bq, bt=bt, n_programs=n_programs)
     res, launches = run_step(params, cfg, plan, mode=mode, steal=steal,
                              steal_policy=steal_policy, n_programs=n_programs, plain=plain,
-                             trace=trace)
+                             trace=trace, helpers=helpers)
     g, bufs = plan.g, plan.bufs
     if check:
         _check_drained(g.n_tasks, res)
@@ -753,13 +773,14 @@ def _step_stream(res: WSRunResult, n_programs: int) -> np.ndarray:
 
 
 def run_step(params, cfg, plan: StepPlan, *, mode, steal, steal_policy, n_programs,
-             stages=None, mult=None, plain=None, trace=False):
+             stages=None, mult=None, plain=None, trace=False, helpers=None):
     """Launch a planned step: one stage-gated launch in lockstep, one launch
     per stage in free mode (``stages`` picks which, ``mult`` is carried in;
     each launch copies the Put afresh, so relaunching a stage rewinds it).
     The kernel for CUDA buffers, the plain version for CPU buffers (or on
     any device with ``plain=True``).  ``trace`` records every launch's
-    rings (module docstring).  Returns ``(WSRunResult, launches)``."""
+    rings (module docstring); ``helpers`` is the kernel's lockstep helper
+    CTAs.  Returns ``(WSRunResult, launches)``."""
     g, bufs = plan.g, plan.bufs
     out = bufs["logits"]
     plain = out.device.type == "cpu" if plain is None else plain
@@ -770,13 +791,16 @@ def run_step(params, cfg, plan: StepPlan, *, mode, steal, steal_policy, n_progra
     def launch(arrs, **kw):
         from ..pallas_ws import unified_kernel
 
-        unified_kernel.launch_cuda(arrs, params, g, bufs, plan.inputs, **kw)
+        unified_kernel.launch_cuda(arrs, params, g, bufs, plan.inputs, helpers=helpers, **kw)
 
     kw = dict(walk=walk, launch=launch, plain=plain, compress=False, steal=steal,
               steal_policy=steal_policy, trace=trace)
     if mode == "lockstep":
-        res = launch_grid(plan.state, out, mode="lockstep", rounds=plan.rounds, mult=mult,
-                          stage_open=plan.stage_open, **kw)
+        state, stage_open = plan.state, plan.stage_open
+        if not plain and plan.device_queues is not None:
+            state, stage_open = plan.device_queues
+        res = launch_grid(state, out, mode="lockstep", rounds=plan.rounds, mult=mult,
+                          stage_open=stage_open, **kw)
         return res, 1
     n_stages = plan.state.n_queues // n_programs
     runs = []

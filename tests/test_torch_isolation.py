@@ -310,10 +310,11 @@ def test_expert_grad_kernel_wrapper_marshals_every_argument(monkeypatch):
 def test_build_key_covers_included_headers(tmp_path):
     """Editing the shared scheduler header changes the cached library's key
     of every kernel that includes it; editing one kernel changes its own.
-    dtype_io.cuh belongs to the standalone kernels alone, attn_mma.cuh to
+    dtype_io.cuh (NEG_INF, to_f) belongs to every kernel, attn_mma.cuh to
     ws_attention, flash_fwd, decode_attention (its cp.async helpers) and
     the expert kernels (through ws_expert_mma.cuh, their tiles), and
-    ws_expert_tile.cuh to ws_unified alone."""
+    ws_attn_body.cuh (the CUDA-core attention bodies) to ws_attention and
+    ws_unified."""
     import shutil
 
     from repro_torch import _build
@@ -330,10 +331,10 @@ def test_build_key_covers_included_headers(tmp_path):
     assert all(edited[n] == keys[n] for n in _build.KERNELS if n not in _build.WS_KERNELS)
     assert set(_build.KERNELS) - set(_build.WS_KERNELS) == {"flash_fwd", "decode_attention",
                                                            "ssd_scan"}
-    with open(csrc / "dtype_io.cuh", "a") as fh:   # the standalone kernels' own header
+    with open(csrc / "dtype_io.cuh", "a") as fh:   # every kernel's NEG_INF
         fh.write("// edited\n")
     again = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
-    assert all((again[n] == edited[n]) == (n in _build.WS_KERNELS) for n in _build.KERNELS)
+    assert all(again[n] != edited[n] for n in _build.KERNELS)
     # the tensor-core blocks and cp.async helpers: the attention and expert
     # kernels built on them, and not the unified step (whose build must not
     # move)
@@ -346,14 +347,19 @@ def test_build_key_covers_included_headers(tmp_path):
         fh.write("// edited\n")
     fourth = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
     assert {n for n in _build.KERNELS if fourth[n] != third[n]} == {"ws_expert", "ws_expert_grad"}
-    with open(csrc / "ws_expert_tile.cuh", "a") as fh:
+    with open(csrc / "ws_attn_body.cuh", "a") as fh:
         fh.write("// edited\n")
     third = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
-    assert {n for n in _build.KERNELS if third[n] != fourth[n]} == {"ws_unified"}
+    assert {n for n in _build.KERNELS if third[n] != fourth[n]} == {"ws_attention", "ws_unified"}
+    assert not any((csrc / h).exists() for h in ("ws_attn_tile.cuh", "ws_expert_tile.cuh",
+                                                  "ws_load8.cuh"))
     with open(csrc / "ws_expert.cu", "a") as fh:
         fh.write("// edited\n")
     assert _build.source_key("ws_expert", csrc) != third["ws_expert"]
     assert _build.source_key("ws_attention", csrc) == third["ws_attention"]
+    # one definition of NEG_INF in csrc/
+    defs = [p.name for p in csrc.rglob("*.cu*") if "#define NEG_INF" in p.read_text()]
+    assert defs == ["dtype_io.cuh"]
 
 
 def test_nvcc_flags_target_hopper():

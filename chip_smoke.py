@@ -40,7 +40,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ws_expert_grad's rows the builds of their redesigned tiles),
               and ws_unified has no half-run walk.  The
               standalone kernels' functions (registers, spills, SASS
-              instructions) are logged and must be free of those opcodes too.
+              instructions) are logged and must be free of those opcodes too;
+              every function of csrc/ssd_scan.cu must hold HMMA (its products
+              run on tensor cores).
               csrc/probes/cluster_barrier.cu is built and its functions'
               forbidden SASS logged: the hand-offs between a thread-block
               cluster's CTAs (a barrier with release semantics, relaxed,
@@ -96,15 +98,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               output (flash lse and the final SSD state included) and the
               flash gradients within KULPS bf16 ulps (lse: LSE_ATOL; state:
               STATE_RTOL) of the plain version, flash and decode also of a
-              dense fp32 one; each fault of KCONTROLS and SSD_CONTROLS (a kv
+              dense fp32 one, the SSD scan's y and state also of the
+              sequential fp32 oracle ssd_ref; each fault of KCONTROLS and SSD_CONTROLS (a kv
               block of 16 dropped, a mask edge off by one, a scale 2 % off,
               one step of x dropped) and, for decode, DECODE_CONTROL (the
               last live split dropped) must break those limits.  Kernel,
               plain and masked F.scaled_dot_product_attention times (the SSD
               scan has no library call) and the bound; decode's kernel and
-              SDPA also cold (L2 evicted before each timed launch); flash_fwd's
-              and decode_attention's beside their first versions'.  No other
-              phase may launch them.
+              SDPA, and the SSD scan, also on the device warm and cold (L2
+              evicted before each timed launch), the scan with its CTAs, the
+              CTAs an SM holds (as cudaOccupancy... reports them), its waves,
+              its launches a call and the bytes it allocates beyond its
+              outputs (both read around one call); flash_fwd's,
+              decode_attention's and ssd_scan's beside their first
+              versions'.  No other phase may launch them.
 5. serving    llama3.2-3b at full width (bf16, random weights from a seed),
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
@@ -206,8 +213,8 @@ free-mode times untraced and traced, its checker reports and, but for
 ws_unified, its half-run statistics; ws_attention's also the ragged
 prefill; ws_unified's the tagged hand-off probe and, per model, its
 helpers' readings; the standalone kernels each with its cases; the six
-redesigned for this card (REDESIGNED) marked so; their first versions'
-times are printed only in the log lines beside this run's), and {"ok":
+redesigned for this card (REDESIGNED, all seven) marked so; their first
+versions' times are printed only in the log lines beside this run's), and {"ok":
 true, "device": {...}}.
 
     python3 chip_smoke.py --phases build,audit,chaos       # the short check of the rings
@@ -221,6 +228,8 @@ true, "device": {...}}.
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
     python3 chip_smoke.py --expert-ab DIR [DIR ...]
                                                 # ws_expert's times, theirs beside ours
+    python3 chip_smoke.py --ssd-ab DIR [DIR ...]
+                                                # ssd_scan's times, theirs beside ours
 """
 
 from __future__ import annotations
@@ -298,12 +307,12 @@ RAGGED = dict(H=24, Hkv=8, hd=128, S=1024, lengths=(1024, 658, 531, 288), bq=32,
 TIMES_PROGRAMS = (16, 32, 132)
 # The kernels redesigned for this card, and their first versions' times
 # (the kernels of commit 5ee879c, for the expert kernels of commit 8da571d,
-# for ws_unified of commit 0b68ecc: the ranges of this script's runs of that
-# kernel on an NVIDIA H100 80GB HBM3, 700.00 W, warm; PERF.md §6), printed in
-# the log beside this run's and kept out of the kernels line, whose numbers
-# are all this run's.
+# for ws_unified of commit 0b68ecc, for ssd_scan of commit 3b379c4: the ranges
+# of this script's runs of that kernel on an NVIDIA H100 80GB HBM3, 700.00 W,
+# warm; PERF.md §6), printed in the log beside this run's and kept out of the
+# kernels line, whose numbers are all this run's.
 REDESIGNED = ("ws_attention", "flash_fwd", "decode_attention", "ws_expert", "ws_expert_grad",
-              "ws_unified")
+              "ws_unified", "ssd_scan")
 FIRST_VERSION_MS = {
     "ws_attention free": (6.52, 7.51), "ws_attention lockstep": (37.80, 39.19),
     "ragged prefill static": (1277.1, 1287.0), "ragged prefill ws": (365.9, 468.4),
@@ -320,6 +329,7 @@ FIRST_VERSION_MS = {
     "ws_unified llama lockstep": (675.41, 704.41), "ws_unified llama fold": (4547.85, 4734.68),
     "ws_unified llama free": (293.65, 340.83), "ws_unified kimi lockstep": (277.40, 280.84),
     "ws_unified kimi fold": (1365.15, 1380.70), "ws_unified kimi free": (103.57, 109.27),
+    "ssd_scan mamba2-2.7b": (6.81, 6.82),
 }
 
 
@@ -1042,6 +1052,11 @@ def phase_audit(dev):
             if bad or any(st["traced"] for st in fns.values()):
                 raise AssertionError(f"{name}: forbidden SASS {bad} or a traced function in "
                                      f"{sorted(fns)}")
+            if name == "ssd_scan":  # every product on tensor cores
+                hmma = {f: st["hmma"] for f, st in fns.items()}
+                log(f"[audit] ssd_scan HMMA instructions by function {hmma}")
+                if not all(hmma.values()):
+                    raise AssertionError(f"ssd_scan: a function without HMMA: {hmma}")
             continue
         differ = _log_functions("audit", name, fns, BASELINE_FUNCTIONS)
         if differ:
@@ -1208,6 +1223,68 @@ def expert_ab(roots, dev) -> None:
         log(f"[ab] {tag} medians: free {np.median([t['ms'] for t in r]):.4f} ms, cold device "
             f"{np.median([t['ms_cold'] for t in r]):.4f} ms, lockstep "
             f"{np.median([t['lockstep_ms'] for t in r]):.4f} ms ({card_line()})")
+
+
+def ssd_ab(roots, dev) -> None:
+    """ssd_scan's device times at mamba2-2.7b's widths (KSSD, bf16), warm and
+    cold (L2 evicted), for the builds of other checkouts (``roots``, each
+    with the repo's layout and this one's C entry point) and of this one, in
+    one process: each build's y and final state first held to the plain
+    version under the kernels phase's limits, then each build in turn and in
+    reverse order, twice."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from repro_torch import _build
+    from repro_torch.kernels.ssd_scan.kernel import plain_ssd_scan, ssd_scan
+
+    dirs = {str(r): (Path(r) / "src" / "repro_torch" / "csrc", Path(r) / "build" / "repro_torch")
+            for r in roots}
+    dirs["this checkout"] = (None, None)
+    with ThreadPoolExecutor(len(dirs)) as pool:  # one nvcc each, all started together
+        libs = dict(zip(dirs, pool.map(lambda d: _build.build("ssd_scan", *d), dirs.values())))
+    cdlls = {tag: ctypes.CDLL(str(path)) for tag, path in libs.items()}
+    c = KSSD
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, S, H, P, N, Q = c["b"], c["S"], c["H"], c["P"], c["N"], c["chunk"]
+    dt = F.softplus(_randn(gen, (b, S, H), dev, torch.float32)).to(torch.bfloat16)
+    A = -torch.exp(_randn(gen, (H,), dev, torch.float32))
+    sx = (_randn(gen, (b, S, H, P), dev), dt, A, _randn(gen, (b, S, N), dev),
+          _randn(gen, (b, S, N), dev))
+    py, pfin = plain_ssd_scan(*sx, chunk=Q)
+    checks = _Checks()
+    scratch = [torch.empty(EVICT_BYTES // 4, device=dev) for _ in range(2)]
+    scratch[1].zero_()
+
+    def evict_l2():
+        scratch[0].fill_(1.0)
+        scratch[1].sum()
+
+    def run():
+        return ssd_scan(*sx, chunk=Q)
+
+    for tag, lib in cdlls.items():
+        with mock.patch.object(_build, "load", lambda name, lib=lib: lib):
+            y, fin = run()
+            torch.cuda.synchronize()
+        checks.held(f"ssd_ab {tag} y", y, py)
+        checks.held(f"ssd_ab {tag} final state", fin, pfin, "state")
+    checks.verdict()
+    rows = {t: [] for t in cdlls}
+    for tag in (list(cdlls) + list(cdlls)[::-1]) * 2:
+        with mock.patch.object(_build, "load", lambda name, lib=cdlls[tag]: lib):
+            run()
+            warm = _device_ms(lambda _: run(), KTIMED)
+            cold = _device_ms(lambda _: run(), KTIMED, before=evict_l2)
+        rows[tag].append((warm, cold))
+        log(f"[ab] ssd_scan {tag}: device {warm:.4f} ms warm, {cold:.4f} ms cold")
+    for tag, r in rows.items():
+        log(f"[ab] ssd_scan {tag} medians: device {np.median([w for w, _ in r]):.4f} ms warm, "
+            f"{np.median([c_ for _, c_ in r]):.4f} ms cold ({card_line()})")
 
 
 def _attention_kit(dev):
@@ -3433,6 +3510,10 @@ KTIMED = 10                     # timed launches a kernel (median of CUDA-event 
 EVICT_BYTES = 128 << 20
 
 
+def _ms_or_none(ms):
+    return "none" if ms is None else f"{ms:.4f} ms"
+
+
 def _median_ms(fn, n=KTIMED, warm=2):
     for _ in range(warm):
         fn()
@@ -3570,9 +3651,10 @@ def phase_kernels(dev):
         plain_flash_attention_fwd
     from repro_torch.kernels.flash_attention.kernel import smem_bytes as flash_smem
     from repro_torch.kernels.flash_attention.ops import plain_flash_attention
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.kernel import plain_ssd_scan
-    from repro_torch.kernels.ssd_scan.kernel import smem_bytes as ssd_smem
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan as ssd_fwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3649,10 +3731,12 @@ def phase_kernels(dev):
                    library_ms=None if lib is None else _median_ms(lib), smem_bytes=smem)
         if cold:
             spans = _device_spans(lambda _: fn(), KTIMED, before=evict_l2)
-            row.update(library_ms_device=_device_ms(lambda _: lib(), KTIMED),
+            row.update(library_ms_device=None if lib is None else
+                       _device_ms(lambda _: lib(), KTIMED),
                        ms_cold=float(np.median(spans)),
                        ms_cold_range=(min(spans), max(spans)),
-                       library_ms_cold=_device_ms(lambda _: lib(), KTIMED, before=evict_l2))
+                       library_ms_cold=None if lib is None else
+                       _device_ms(lambda _: lib(), KTIMED, before=evict_l2))
             row["bound_fraction_cold"] = bound_ms / row["ms_cold"]
         if lib is not None:  # the yardstick computes the same function (recorded, not held)
             row["library_max_abs_err"] = float((lib().float().reshape(want_lib.shape)
@@ -3661,10 +3745,10 @@ def phase_kernels(dev):
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, library "
             + ("none" if lib is None else f"{row['library_ms']:.4f} ms")
             + (f"; device warm: kernel {row['ms_device']:.4f} ms, library "
-               f"{row['library_ms_device']:.4f} ms; device cold: kernel {row['ms_cold']:.4f} ms "
-               f"({row['ms_cold_range'][0]:.4f}-{row['ms_cold_range'][1]:.4f}), "
-               f"library {row['library_ms_cold']:.4f} ms, {row['bound_fraction_cold']:.4f} of "
-               "the bound" if cold else "")
+               f"{_ms_or_none(row['library_ms_device'])}; device cold: kernel "
+               f"{row['ms_cold']:.4f} ms ({row['ms_cold_range'][0]:.4f}-"
+               f"{row['ms_cold_range'][1]:.4f}), library {_ms_or_none(row['library_ms_cold'])}, "
+               f"{row['bound_fraction_cold']:.4f} of the bound" if cold else "")
             + f", bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} operations); "
             f"{smem} B shared memory a CTA")
         return row
@@ -3790,6 +3874,10 @@ def phase_kernels(dev):
     log(f"[kernels] ssd_scan max |state| {float(pfin.abs().max()):.3g}, max |y| "
         f"{float(py.float().abs().max()):.3g}")
     del py, pfin
+    oy, ofin = ssd_ref(*(t.float() for t in sx))    # the sequential fp32 oracle
+    oracle_err = max(checks.held("ssd y vs the sequential oracle", y, oy),
+                     checks.held("ssd final state vs the sequential oracle", fin, ofin, "state"))
+    del oy, ofin
     x32, dt32, A32, B32, C32 = (t.float() for t in sx)
     x_drop = x32.clone()
     x_drop[:, S // 2 + 5] = 0
@@ -3800,10 +3888,52 @@ def phase_kernels(dev):
         ssd_ctl[name] = checks.control(f"ssd {name}", [(y, wy, "bf16"), (fin, wfin, "state")])
     del x32, dt32, B32, C32, x_drop, wy, wfin
     tri = Q * (Q + 1) // 2
+    ssd_smem = ssd_kernel.smem_bytes(*ssd_kernel.plan(Q, N, torch.bfloat16), torch.bfloat16)
+    scratch = [torch.empty(EVICT_BYTES // 4, device=dev) for _ in range(2)]
+    scratch[1].zero_()
     row = case("ssd_scan", c, dict(b=b, S=S, H=H, P=P, N=N, chunk=Q), err,
                lambda: ssd_fwd(*sx, chunk=Q), lambda: plain_ssd_scan(*sx, chunk=Q), None,
                2 * (2 * b * S * H * P + b * S * H + 2 * b * S * N) + 4 * H + 4 * b * H * P * N,
-               2 * (tri * N + tri * P + 2 * Q * P * N) * b * H * (S // Q), ssd_smem(Q, P, N, 2))
+               2 * (tri * N + tri * P + 2 * Q * P * N) * b * H * (S // Q), ssd_smem, cold=True)
+    del scratch
+    # one call's launches (the count's change) and the device memory it asks
+    # the allocator for beyond its outputs (bytes requested, before the
+    # allocator's rounding), the CTAs an SM holds as the card reports them for
+    # the instantiation the launch picks, and the waves from those
+    torch.cuda.synchronize()
+
+    def requested():
+        st = torch.cuda.memory_stats(dev)
+        return st["requested_bytes.all.allocated"], st["allocation.all.allocated"]
+
+    n0, (m0, a0) = klaunches["ssd_scan"], requested()
+    one = drive(lambda: ssd_fwd(*sx, chunk=Q))
+    per_call = klaunches["ssd_scan"] - n0
+    m1, a1 = requested()
+    extra = m1 - m0 - sum(t.numel() * t.element_size() for t in one)
+    del one
+    grid = ssd_kernel.grid(b, H, P)
+    ctas = int(np.prod(grid))
+    resident = ssd_kernel.occupancy(Q, N, sx[4])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    row.update(grid=list(grid), ctas=ctas, threads=32 * ssd_kernel.WARPS,
+               resident_per_sm_measured=resident, waves=ctas / (sms * resident),
+               intermediate_bytes_measured=extra, allocations_per_call_measured=a1 - a0,
+               launches_per_call_measured=per_call,
+               oracle_max_abs_err=oracle_err,
+               plan=list(ssd_kernel.plan(Q, N, torch.bfloat16, sx[4].data_ptr() % 4 == 0)),
+               bound_fraction_warm=row["bound_ms"] / row["ms_device"])
+    lo, hi = FIRST_VERSION_MS[f"ssd_scan {c['at']}"]
+    log(f"[kernels] ssd_scan {c['at']}: {per_call} launch(es) a call, device "
+        f"{row['ms_device']:.4f} ms warm, "
+        f"{row['ms_cold']:.4f} cold ({row['ms_cold_range'][0]:.4f}-{row['ms_cold_range'][1]:.4f})"
+        f" (first version: {lo}-{hi} ms), {row['ms']:.4f} with the host's enqueue; plain "
+        f"{row['plain_ms']:.3f} ms; {row['bound_fraction_warm']:.4f} of the "
+        f"{row['bound_ms']:.5f} ms bound warm, {row['bound_fraction_cold']:.4f} cold; grid "
+        f"{grid[0]} x {grid[1]} = {ctas} CTAs of {32 * ssd_kernel.WARPS} threads, {resident} "
+        f"an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor; {ssd_smem} B shared memory a "
+        f"CTA), {row['waves']:.3f} waves on {sms} SMs; chunk and tile of N {row['plan']}; "
+        f"{a1 - a0} allocations a call, {extra} B requested beyond y and the state")
     # the Function's backward recomputes ssd_chunked in torch ops and runs no
     # kernel: its y is held, its gradients only checked for shape and finiteness
     gy = checks.held("ssd autograd y", sg[0], plain_ssd_scan(*sg_in, chunk=KSSD_GRAD["chunk"])[0])
@@ -3832,6 +3962,9 @@ def main(argv=None) -> int:
                          "kernel function's registers and SASS instructions")
     ap.add_argument("--probe", action="store_true",
                     help="only build and run csrc/probes/tagged_handoff.cu")
+    ap.add_argument("--ssd-ab", metavar="DIR", nargs="+",
+                    help="only time ssd_scan at mamba2-2.7b's widths as built from each "
+                         "checkout DIR and from this one, alternating, in one process")
     ap.add_argument("--expert-ab", metavar="DIR", nargs="+",
                     help="only time ws_expert at kimi-k2's decode routing as built from each "
                          "checkout DIR and from this one, alternating, in one process")
@@ -3851,6 +3984,9 @@ def main(argv=None) -> int:
         return 3
     if args.expert_ab:
         expert_ab(args.expert_ab, dev)
+        return 3
+    if args.ssd_ab:
+        ssd_ab(args.ssd_ab, dev)
         return 3
     if args.probe:
         log("[probe] " + json.dumps(tagged_handoff_probe(dev)))

@@ -123,6 +123,7 @@ _FORBIDDEN_PTX = re.compile(r"\b(atom|red|fence|membar)\.")
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _REGS = re.compile(r"Used (\d+) registers")
 _SPILL = re.compile(r"(\d+) bytes spill stores")
+_HMMA = re.compile(r"\bHMMA\b")
 
 
 def _demangle(names: List[str]) -> Dict[str, str]:
@@ -162,8 +163,8 @@ def function_stats(name: str, csrc: Optional[Path] = None,
                    build_dir: Optional[Path] = None) -> Dict[str, Dict[str, object]]:
     """Per kernel function of the built library, by demangled name: ptxas'
     registers and spill stores (from the build log), SASS instructions and
-    forbidden SASS opcodes (``cuobjdump -sass``), and whether it is a traced
-    instantiation (:func:`is_traced`)."""
+    forbidden SASS opcodes and tensor-core instructions (HMMA) (``cuobjdump
+    -sass``), and whether it is a traced instantiation (:func:`is_traced`)."""
     lib = build(name, csrc, build_dir)
     stats: Dict[str, Dict[str, object]] = {}
     fn = None
@@ -188,7 +189,7 @@ def function_stats(name: str, csrc: Optional[Path] = None,
             hits[m.group(1)] = hits.get(m.group(1), 0) + 1
         stats.setdefault(fn, {"registers": None, "spill_stores": 0})
         stats[fn].update(sass_instructions=len(re.findall(r"/\*[0-9a-f]{4,}\*/", body)),
-                         forbidden_sass=hits)
+                         forbidden_sass=hits, hmma=len(_HMMA.findall(body)))
     names = _demangle(sorted(stats))
     return {names[fn]: dict(st, traced=is_traced(names[fn])) for fn, st in stats.items()}
 

@@ -335,14 +335,15 @@ def test_build_key_covers_included_headers(tmp_path):
         fh.write("// edited\n")
     again = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
     assert all(again[n] != edited[n] for n in _build.KERNELS)
-    # the tensor-core blocks and cp.async helpers: the attention and expert
-    # kernels built on them, and not the unified step (whose build must not
-    # move)
+    # the tensor-core blocks and cp.async helpers: the attention, expert and
+    # SSD scan kernels built on them, and not the unified step (whose build
+    # must not move)
     with open(csrc / "attn_mma.cuh", "a") as fh:
         fh.write("// edited\n")
     third = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
     assert {n for n in _build.KERNELS if third[n] != again[n]} == {
-        "ws_attention", "flash_fwd", "decode_attention", "ws_expert", "ws_expert_grad"}
+        "ws_attention", "flash_fwd", "decode_attention", "ws_expert", "ws_expert_grad",
+        "ssd_scan"}
     with open(csrc / "ws_expert_mma.cuh", "a") as fh:
         fh.write("// edited\n")
     fourth = {n: _build.source_key(n, csrc) for n in _build.KERNELS}
@@ -879,7 +880,7 @@ def test_standalone_kernel_wrapper_marshals_every_argument(monkeypatch, name):
     before = launches[name]
     out = getattr(mod, WRAPPER[name])(*args, **kw)
     assert launches[name] == before + 1 and entry.calls == 1
-    n_args = {"flash_fwd": 16, "decode_attention": 16, "ssd_scan": 15}[name]
+    n_args = {"flash_fwd": 16, "decode_attention": 16, "ssd_scan": 17}[name]
     assert len(entry.argtypes) == n_args
     first = out[0] if isinstance(out, tuple) else out
     assert first.shape == args[0].shape and first.dtype == args[0].dtype
@@ -917,11 +918,12 @@ def test_standalone_kernel_wrapper_refuses_what_the_kernel_does_not_take(monkeyp
     strided = [args[0].transpose(-1, -2).contiguous().transpose(-1, -2), *args[1:]]
     with pytest.raises(ValueError, match="contiguous"):
         fn(*strided, **kw)
-    if name == "ssd_scan":
-        big = [torch.zeros((1, 1024, 1, 64)), torch.zeros((1, 1024, 1)), torch.zeros(1),
-               torch.zeros((1, 1024, 256)), torch.zeros((1, 1024, 256))]
-        with pytest.raises(ValueError, match="shared memory"):
-            fn(*big, chunk=512)
+    if name == "ssd_scan":  # every chunk and N fit (a shorter chunk, tiles of N); b
+        # past the grid's second dimension does not
+        big = [torch.zeros((65536, 1, 1, 1)), torch.zeros((65536, 1, 1)), torch.zeros(1),
+               torch.zeros((65536, 1, 1)), torch.zeros((65536, 1, 1))]
+        with pytest.raises(ValueError, match="grid takes b up to 65535"):
+            fn(*big, chunk=1)
     else:
         wide = [a.repeat_interleave(20, dim=-1) if torch.is_tensor(a) and a.dim() > 1 else a
                 for a in args]   # head dim 320

@@ -116,7 +116,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
               0; every request completes, launches == decode steps x 28, and
-              decode_step_ws logits agree with the dense decode_step.
+              decode_step_ws logits agree with the dense decode_step.  Then
+              the same requests with jit_ws on (every Put on the device, each
+              replica's step captured into a CUDA graph at its first step
+              and replayed, the drain counts read once a step): greedy
+              streams identical, ws_attention launches == decode steps x 28;
+              step p50/p99, tokens/s and launches a step for both settings.
+              On one step's caches the captured step (first call, a replay,
+              and a replay under torch.cuda.set_sync_debug_mode("error"),
+              which must synchronise nothing before the logits are read)
+              gives logits bit-equal to the host-Put step's; a replay's
+              device time.
 6. times      attention kernel ms (free, lockstep) beside the first
               version's, bound and
               the fraction of it reached, plain version, and one
@@ -134,7 +144,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               step's expert launches within ATOL of the plain version on
               their own inputs (a bf16 evaluation must miss ATOL), and its
               fp32 logits within LOGIT_ULP_SLACK one-ulp distances of the
-              same step on both plain versions.
+              same step on both plain versions.  Then jit_ws on, as in the
+              serving phase: streams identical, ws_attention == steps x 2
+              and ws_expert == (steps + prefills) x 2 (the device Put: the
+              shared pool on the routing's device), the figures of both
+              settings, and the captured step's logits within
+              LOGIT_ULP_SLACK one-ulp distances of decode_step_ws's own
+              (the combine's index_add_ order is not fixed), a replay
+              under the sync debug mode included.
 8. grad       the expert backward kernel against its plain version at
               deepseek-v2's full width (d 5120, f 1536, 160 experts top-6,
               bt 8, P 8, bf16 weights from seed 0; 8 x 64 tokens, unit
@@ -1716,6 +1733,145 @@ def _grad_halfrun(pool, x, gy, routed, w, n_live, expect, free_out):
     return max(errs)
 
 
+def _streams(done):
+    return {rid: list(r.out) for rid, r in done.items()}
+
+
+def _serve_jit(tag, params, cfg, prompts, max_new, want):
+    """The serving run again with ``jit_ws=True`` (every Put on the device,
+    each replica's step captured at its first step and replayed): the same
+    greedy streams as the run without it (``want``), ws_attention launches
+    == decode steps x layers (and ws_expert == (steps + prefills) x layers
+    on a MoE model), and its step and throughput figures."""
+    from repro_torch.pallas_ws import launches, reset_launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    front = WorkStealingFrontend(
+        lambda: ContinuousBatcher(params, cfg, slots=4, capacity=1024, jit_ws=True),
+        n_replicas=2)
+    for rid, p in enumerate(prompts):
+        front.submit(0, Request(rid=rid, tokens=p, max_new=max_new))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = front.run(max_iters=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: launches[n] for n in ("ws_attention", "ws_expert", "ws_expert_grad",
+                                       "ws_unified")}
+    stats = front.stats()
+    steps = sum(s["steps"] for s in stats["batchers"])
+    prefills = sum(s["admitted"] for s in stats["batchers"])
+    L = cfg.n_layers
+    got = _streams(done)
+    if got != want:
+        diff = sorted(r for r in want if got.get(r) != want[r])
+        raise AssertionError(f"[{tag}] jit_ws streams differ from the eager step's on {diff}")
+    want_exp = (steps + prefills) * L if cfg.family == "moe" else 0
+    if (counts["ws_attention"] != steps * L or counts["ws_expert"] != want_exp
+            or counts["ws_expert_grad"] or counts["ws_unified"]):
+        raise AssertionError(f"[{tag}] jit_ws launches {counts} over {steps} steps and "
+                             f"{prefills} prefills of {L} layers")
+    if not all(b._jit is not None and b._jit._graph is not None for b in front.batchers):
+        raise AssertionError(f"[{tag}] a replica served without its captured step")
+    lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
+    first = [b.metrics.step_latency_s[0] * 1e3 for b in front.batchers]
+    tokens = sum(len(r.out) for r in done.values())
+    out = {
+        "wall_s": wall, "new_tokens": tokens, "tokens_per_s": tokens / wall,
+        "decode_steps": steps, "prefills": prefills,
+        "step_ms_p50": float(np.percentile(lat, 50)),
+        "step_ms_p99": float(np.percentile(lat, 99)),
+        "first_step_ms": first, "stolen": stats["totals"]["stolen"],
+        "launches": counts,
+        "launches_per_decode_step": {"ws_attention": counts["ws_attention"] / steps,
+                                     "ws_expert": (counts["ws_expert"] - want_exp) / steps
+                                     + L * (cfg.family == "moe")},
+    }
+    log(f"[{tag}] jit_ws on: {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
+        f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, step p50 "
+        f"{out['step_ms_p50']:.2f} ms p99 {out['step_ms_p99']:.2f} ms (each replica's first, "
+        f"with its capture: {', '.join(f'{x:.1f}' for x in first)} ms); launches {counts} "
+        f"({counts['ws_attention'] / steps:.1f} ws_attention a step); streams equal to "
+        f"jit_ws off")
+    del front
+    gc.collect()
+    return out
+
+
+def _jit_step_checks(tag, params, cfg, caches, tok, pos, want, tol):
+    """The captured step on a batcher's ``caches`` against one host-Put step's
+    logits ``want`` [B, V] on the same caches: the first call (eager, then
+    the capture), a replay, and a replay under
+    ``torch.cuda.set_sync_debug_mode("error")`` (nothing may synchronise
+    before the logits are read), each on a copy restored in place; within
+    ``tol`` (0: bit-equal).  Also a replay's device time."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.model import Caches
+    from repro_torch.serving import jit_decode_step_ws
+
+    V = cfg.vocab_size
+    step = jit_decode_step_ws(cfg)
+    mine = Caches(kv=KVCache(caches.kv.k.clone(), caches.kv.v.clone()))
+    errs = []
+    for i, what in enumerate(("first call", "replay", "replay, sync debug mode 'error'")):
+        mine.kv.k.copy_(caches.kv.k)
+        mine.kv.v.copy_(caches.kv.v)
+        torch.cuda.synchronize()
+        if i == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg, _ = step(params, mine, tok, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        lg = lg[:, :V]
+        step.check_drained()
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"[{tag}] jit_ws logits ({what}) not finite")
+        errs.append(float((lg - want).abs().max()))
+        if not errs[-1] <= tol:
+            raise AssertionError(f"[{tag}] jit_ws logits ({what}) differ from the host-Put "
+                                 f"step's by {errs[-1]} > {tol}")
+    replay_ms = _device_ms(lambda _: step._graph.replay(), 10)
+    split = _replay_split(step)
+    log(f"[{tag}] jit_ws step on the batcher's caches against the host-Put step: max |logit "
+        f"diff| first call {errs[0]:.4g}, replay {errs[1]:.4g}, replay under sync debug mode "
+        f"'error' {errs[2]:.4g} (<= {tol:.4g}{', bit-equal' if tol == 0 else ''}; nothing "
+        f"synchronised); a replay's device time {replay_ms:.3f} ms; its kernels by group "
+        f"(torch.profiler, one replay): {json.dumps(split)}")
+    del step, mine
+    gc.collect()
+    return {"logit_err_vs_host_put": errs, "logit_tol": tol, "sync_free_replay": True,
+            "replay_device_ms": replay_ms, "replay_split": split}
+
+
+def _replay_split(step):
+    """One replay's kernels under torch.profiler, summed by group: the ws
+    megakernels, GEMMs (cuBLAS/CUTLASS names) and the rest, each with its
+    kernel count; ``None`` where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step._graph.replay()
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if not us:
+            continue
+        name = e.key.lower()
+        g = ("ws_kernels" if name.startswith(("ws_", "void ws_")) else
+             "gemm" if any(w in name for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")) else
+             "other")
+        ms, n = groups.get(g, (0.0, 0))
+        groups[g] = (ms + us / 1e3, n + e.count)
+    if not groups:
+        return None
+    return {g: {"ms": ms, "kernels": n} for g, (ms, n) in sorted(groups.items())}
+
+
 def phase_serving(dev):
     from repro_torch.configs.llama3_2_3b import CONFIG
     from repro_torch.models import decode_step, decode_step_ws, init_params
@@ -1778,8 +1934,11 @@ def phase_serving(dev):
     log(f"[serving] {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
         f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, "
         f"step p50 {serving['step_ms_p50']:.2f} ms p99 {serving['step_ms_p99']:.2f} ms; "
-        f"stolen {stolen}; ws_attention launches {n_launches} == {steps} x {cfg.n_layers}, "
-        f"ws_expert launches {n_exp}")
+        f"stolen {stolen}; ws_attention launches {n_launches} == {steps} x {cfg.n_layers} "
+        f"({n_launches / steps:.1f} a step), ws_expert launches {n_exp}")
+    serving["launches_per_decode_step"] = {"ws_attention": n_launches / steps,
+                                           "ws_expert": 0.0}
+    serving["jit_ws"] = _serve_jit("serving", params, cfg, prompts, max_new, _streams(done))
 
     # ws vs dense logits on the same caches: four prompts in a fresh batcher
     b = ContinuousBatcher(params, cfg, slots=4, capacity=1024)
@@ -1812,6 +1971,9 @@ def phase_serving(dev):
         f"{diff:.4g}; argmax agree {agree}/4")
     if not err_ws <= LOGIT_SLACK * err_dense:
         raise AssertionError("ws logits stray further from the fp32 step than the dense step's")
+    # the captured step on the same caches: bit-equal to the host-Put step
+    serving["jit_ws"].update(_jit_step_checks("serving", params, cfg, b.caches, tok, pos,
+                                              lg_ws, 0.0))
     del b, params
     torch.cuda.empty_cache()
     serving.update(logit_err_ws=err_ws, logit_err_dense=err_dense, logit_ws_vs_dense=diff,
@@ -1967,6 +2129,9 @@ def phase_moe(dev):
         f"{serving['step_ms_p99']:.2f} ms; stolen {stolen}; ws_attention launches {n_attn} "
         f"== {steps} x {L}; ws_expert launches {n_exp} == ({steps} + {prefills}) x {L}; "
         f"free-mode expert duplication sum(mult)/tiles {duplication:.3f}")
+    serving["launches_per_decode_step"] = {"ws_attention": n_attn / steps,
+                                           "ws_expert": (n_exp - prefills * L) / steps}
+    serving["jit_ws"] = _serve_jit("moe", params, cfg, prompts, max_new, _streams(done))
 
     # one decode step of four admitted prompts, on copies of the same caches
     b = ContinuousBatcher(params, cfg, slots=4, capacity=1024)
@@ -2044,6 +2209,15 @@ def phase_moe(dev):
         f"(bf16) logits argmax agree {agree_step}/4")
     if not err <= tol:
         raise AssertionError(f"ws logits differ from the plain-version step by {err} > {tol}")
+    # the captured step on the same caches against decode_step_ws's own logits,
+    # within LOGIT_ULP_SLACK one-ulp distances of that logits function (the
+    # combine's index_add_ order is not fixed)
+    from repro_torch.models.model import _logits
+
+    step_ulp = float((_logits(params, cfg, one_ulp(h_ws, SEED)) - _logits(params, cfg, h_ws))
+                     [:, :V].abs().max())
+    serving["jit_ws"].update(_jit_step_checks("moe", params, cfg, b.caches, tok, pos, lg_step,
+                                              LOGIT_ULP_SLACK * step_ulp))
     serving.update(ws_expert_launches_per_decode_step=per_step["ws_expert"],
                    ws_attention_launches_per_decode_step=per_step["ws_attention"],
                    ws_expert_grad_launches_per_decode_step=per_step["ws_expert_grad"],

@@ -247,12 +247,23 @@ def gqa_decode(x, p, cfg, cache: KVCache, pos, window):
     return torch.einsum("bshe,hed->bsd", o, p["wo"]), new_cache
 
 
+def decode_lengths(pos, B: int, device):
+    """The live lengths ``pos + 1`` of a decode step: on the host for host
+    ``pos`` (the host Put), on ``device`` for a tensor ``pos`` (the device
+    Put, nothing read back)."""
+    if isinstance(pos, torch.Tensor):
+        return broadcast_pos(pos, B, device) + 1
+    return host_lengths(pos, B)
+
+
 def gqa_decode_ws(x, p, cfg, cache: KVCache, pos, *, schedule="ws", bk=64,
-                  n_programs=8, mode=None, state=None):
+                  n_programs=8, mode=None, state=None, drain=None):
     """One-token decode with the attention core on the work-stealing
     megakernel over the live lengths ``pos_b + 1``.  The kernel reads the
     [B, S, Hkv, hd] cache through a transposed view: no copy, no padding.
-    ``state`` may carry the step's Put, built once for all layers."""
+    ``state`` may carry the step's Put, built once for all layers.  A tensor
+    ``pos`` takes the device Put, its unexecuted tasks counted in ``drain``
+    (:func:`~repro_torch.pallas_ws.ragged.ragged_decode_attention`)."""
     from repro_torch.pallas_ws.ragged import ragged_decode_attention
 
     B = x.shape[0]
@@ -264,8 +275,9 @@ def gqa_decode_ws(x, p, cfg, cache: KVCache, pos, *, schedule="ws", bk=64,
         q.reshape(B, H, hd),
         new_cache.k.permute(0, 2, 1, 3),  # [B, S, Hkv, hd] -> [B, Hkv, S, hd] view
         new_cache.v.permute(0, 2, 1, 3),
-        host_lengths(pos, B),
+        decode_lengths(pos, B, x.device),
         schedule=schedule, n_programs=n_programs, bk=bk, mode=mode, state=state,
+        drain=drain,
     )
     o = o.reshape(B, 1, H, hd).to(x.dtype)
     return torch.einsum("bshe,hed->bsd", o, p["wo"]), new_cache

@@ -119,11 +119,12 @@ def _layer_cache(kv: attn.KVCache, idx: int) -> attn.KVCache:
     return attn.KVCache(kv.k[idx], kv.v[idx])
 
 
-def _ffn(h, p, cfg, mode=None):
+def _ffn(h, p, cfg, mode=None, drain=None):
     """The layer's FFN on normalised ``h``: the MoE dispatch where the layer
-    has ``moe`` (``mode`` is the expert kernel's), else the SwiGLU MLP."""
+    has ``moe`` (``mode`` is the expert kernel's; ``drain`` takes its device
+    Put), else the SwiGLU MLP."""
     if "moe" in p:
-        return moe_ffn_dispatch(h, p["moe"], cfg, mode=mode)[0]
+        return moe_ffn_dispatch(h, p["moe"], cfg, mode=mode, drain=drain)[0]
     return swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
 
 
@@ -170,22 +171,39 @@ def ws_decode_supported(cfg) -> bool:
 
 def decode_step_ws(params, cfg, caches: Caches, tokens, pos, *,
                    schedule: str = "ws", bk: int = 64, n_programs: int = 8,
-                   mode=None):
+                   mode=None, drain=None):
     """One decode step with attention on the work-stealing megakernel: one
     launch per layer.  The attention Put is built once per step (the lengths
     are the same in every layer) and placed on the device once; each launch
     clones its mutable arrays.  A MoE layer adds one expert launch with its
-    own Put (routing differs per layer); ``mode`` applies to both kernels."""
+    own Put (routing differs per layer); ``mode`` applies to both kernels.
+
+    Host ``pos`` (numpy, ints) builds the Puts on the host and checks each
+    launch's drain at once.  A tensor ``pos`` is the reference's traced step:
+    every Put is built on the device and nothing is read back to the host;
+    the launches' drain checks go to ``drain`` (a
+    :class:`~repro_torch.pallas_ws.kernel.DrainCounter`), which the caller
+    reads once a step.  Without one, this call makes and reads its own."""
+    from repro_torch.pallas_ws.kernel import DrainCounter
+
+    own = drain is None and isinstance(pos, torch.Tensor)
+    if own:
+        drain = DrainCounter(caches.kv.k.device)
     h, caches = decode_hidden_ws(params, cfg, caches, tokens, pos, schedule=schedule,
-                                 bk=bk, n_programs=n_programs, mode=mode)
-    return _logits(params, cfg, h), caches
+                                 bk=bk, n_programs=n_programs, mode=mode, drain=drain)
+    logits = _logits(params, cfg, h)
+    if own:
+        drain.check()
+    return logits, caches
 
 
 def decode_hidden_ws(params, cfg, caches: Caches, tokens, pos, *,
                      schedule: str = "ws", bk: int = 64, n_programs: int = 8,
-                     mode=None):
+                     mode=None, drain=None):
     """:func:`decode_step_ws` up to the final norm: returns (the residual
-    stream [B, 1, d] in the model's dtype, caches)."""
+    stream [B, 1, d] in the model's dtype, caches).  A tensor ``pos`` without
+    a ``drain`` counter reads its own at the end."""
+    from repro_torch.pallas_ws.kernel import DrainCounter
     from repro_torch.pallas_ws.queues import to_device
     from repro_torch.pallas_ws.ragged import decode_queue_state
 
@@ -196,9 +214,15 @@ def decode_hidden_ws(params, cfg, caches: Caches, tokens, pos, *,
     B = x.shape[0]
     S = caches.kv.k.shape[2]
     H = params["layers"]["attn"]["wq"].shape[2]
-    state = decode_queue_state(attn.host_lengths(pos, B), H, S,
+    device_put = isinstance(pos, torch.Tensor)
+    own = device_put and drain is None
+    if own:
+        drain = DrainCounter(x.device)
+    # the step's attention Put, once for every layer
+    state = decode_queue_state(attn.decode_lengths(pos, B, x.device), H, S,
                                n_programs=n_programs, bk=bk)
-    state = to_device(state, x.device)
+    if not device_put:
+        state = to_device(state, x.device)
     h = x
     for idx in range(cfg.n_layers):
         p = tf.layer_params(params, idx)
@@ -206,10 +230,13 @@ def decode_hidden_ws(params, cfg, caches: Caches, tokens, pos, *,
         a, _ = attn.gqa_decode_ws(
             hn, p["attn"], cfg, _layer_cache(caches.kv, idx), pos,
             schedule=schedule, bk=bk, n_programs=n_programs, mode=mode, state=state,
+            drain=drain,
         )
         h = h + s * a
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-        h = h + s * _ffn(hn, p, cfg, mode)
+        h = h + s * _ffn(hn, p, cfg, mode, drain)
+    if own:
+        drain.check()
     return h, caches
 
 

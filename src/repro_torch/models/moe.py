@@ -105,17 +105,17 @@ def moe_ffn(x, p, cfg, group_size: int = 1024):
     return y.reshape(B, S, d), aux
 
 
-def moe_ffn_dispatch(x, p, cfg, group_size: int = 1024, *, mode=None):
+def moe_ffn_dispatch(x, p, cfg, group_size: int = 1024, *, mode=None, drain=None):
     """Route through the dispatch ``cfg.moe_dispatch`` names: ``"ws"`` the
-    dropless work-stealing path (``mode`` is its kernel's, free by default),
-    ``"dense"`` the capacity-dropping path.  Anything else raises: no
-    dispatch substitutes for another unannounced."""
+    dropless work-stealing path (``mode`` is its kernel's, free by default;
+    ``drain`` takes its device Put), ``"dense"`` the capacity-dropping path.
+    Anything else raises: no dispatch substitutes for another unannounced."""
     dispatch = cfg.moe_dispatch
     if dispatch == "ws":
         from repro_torch.moe_ws import moe_ffn_ws
 
         return moe_ffn_ws(x, p, cfg, group_size, mode=mode,
-                          grad_dispatch=cfg.moe_grad_dispatch)
+                          grad_dispatch=cfg.moe_grad_dispatch, drain=drain)
     if dispatch == "mesh-ws":
         raise NotImplementedError("moe_dispatch='mesh-ws' (cross-device expert "
                                   "stealing) is not ported yet")

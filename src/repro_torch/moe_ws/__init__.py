@@ -12,10 +12,12 @@ multiplicity (:mod:`.layer`).
 from .dispatch import (
     RoutedSet,
     divisor_from_tiles,
+    expert_queue_candidates,
     expert_rounds_bound,
     route_to_tasks,
     route_to_tasks_pool,
     route_to_tasks_pool_torch,
+    route_to_tasks_torch,
     row_divisor,
 )
 from .expert_kernel import (
@@ -39,9 +41,10 @@ from .layer import (
 
 __all__ = [
     "DispatchStats", "GRAD_DISPATCHES", "RoutedSet", "combine_routed",
-    "divisor_from_tiles", "dsilu", "expert_ffn_nodrop_ref", "expert_rounds_bound",
+    "divisor_from_tiles", "dsilu", "expert_ffn_nodrop_ref", "expert_queue_candidates",
+    "expert_rounds_bound",
     "grad_out_width", "launch_moe_grad_grid", "launch_moe_grid", "moe_ffn_nodrop_ref",
     "moe_ffn_ws", "plain_moe_grad_grid", "plain_moe_grid", "route_to_tasks",
-    "route_to_tasks_pool", "route_to_tasks_pool_torch", "row_divisor",
+    "route_to_tasks_pool", "route_to_tasks_pool_torch", "route_to_tasks_torch", "row_divisor",
     "run_moe_grad_schedule", "run_moe_schedule",
 ]

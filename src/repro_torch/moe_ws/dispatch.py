@@ -15,15 +15,17 @@ Routing is lowered to the paper's scheduling problem:
 
 No capacity anywhere: every routed pair gets a row and every row a task,
 so the dispatch is dropless.  Duplicated tile execution is normalised by
-:func:`row_divisor`.  Two Puts: the host Put :func:`route_to_tasks` (task
-objects, compact per-expert queues) and the shared-pool Put
+:func:`row_divisor`.  Three Puts: the host Put :func:`route_to_tasks` (task
+objects, compact per-expert queues); the shared-pool Put
 :func:`route_to_tasks_pool_torch` (flat records, one pool segment per
-expert): the reference's traced ``route_to_tasks_pool_jax`` as torch ops on
+expert), the reference's traced ``route_to_tasks_pool_jax`` as torch ops on
 the routing's device with no host sync, the plain version of the Put that
-the unified step's post-attention glue runs in-kernel.
-:func:`route_to_tasks_pool` runs it on the host for the training path and
-the backward, whose queues are built there.  The padded traced Put
-(``route_to_tasks_jax``) is not ported.
+the unified step's post-attention glue runs in-kernel
+(:func:`route_to_tasks_pool` runs it on the host for the training path and
+the backward, whose queues are built there); and the padded device Put
+:func:`route_to_tasks_torch` (the reference's ``route_to_tasks_jax``: every
+expert at the static worst case, live masks) with
+:func:`expert_queue_candidates`.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.pallas_ws.kernel import STATIC_COMPRESSED_ROUNDS
+from repro_torch.pallas_ws.queues import owner_queue_candidates
 from repro_torch.pallas_ws.tasks import BOTTOM, OP_EXPERT_TILE, ExpertTask
 
 
@@ -208,6 +211,63 @@ def route_to_tasks_pool_torch(idx, gates, n_experts: int, bt: int = 8):
     return records, n_tiles, toff, routed
 
 
+def route_to_tasks_torch(idx, gates, n_experts: int, bt: int = 8,
+                         max_expert_load: Optional[int] = None):
+    """The padded device Put (the reference's ``route_to_tasks_jax``), as
+    torch ops on ``idx``'s device with no host sync.
+
+    Every expert owns ``R = ceil(cap / bt)·bt`` rows from ``e·R`` and ``R /
+    bt`` candidate tiles with static ``tid = e·(R / bt) + i``, where ``cap =
+    min(T·k, T)`` (top-k picks distinct experts, so an expert gets at most
+    one pair a token) or ``max_expert_load``; the router's load moves only
+    the live masks.  Row ``e·R + j`` holds pair ``order[start[e] + j]`` iff
+    ``j < loads[e]`` (pairs past the provisioned range are dropped by the
+    mask, as in the reference); tile ``(e, i)`` is live iff ``i·bt <
+    loads[e]``, with ``row_len = cost = clip(loads[e] - i·bt, 0, bt)``.
+    Dead rows point at token 0 with gate 0.  Returns ``(records [E, R / bt,
+    TASK_WIDTH], live [E, R / bt], routed)``, ``routed``'s arrays tensors
+    but ``expert_off``, the static ``e ↦ e·R`` (numpy).  Tile ``t`` owns rows
+    ``[t·bt, (t+1)·bt)``, so the combine's divisor is the pool layout's."""
+    E = n_experts
+    T, k, order, flat_t, flat_g, loads, start = _group_by_expert_torch(idx, gates, E)
+    dev = order.device
+    Tk = T * k
+    cap = min(Tk, T if max_expert_load is None else int(max_expert_load))
+    tiles_per_e = _cdiv(cap, bt)
+    R = tiles_per_e * bt
+    rows = torch.arange(E * R, dtype=torch.int32, device=dev)
+    e_row = (rows // R).long()
+    j_row = rows - e_row.int() * R
+    row_live = j_row < loads[e_row]
+    pair = order[torch.clamp(start[e_row] + j_row, max=Tk - 1).long()]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    tok_idx = torch.where(row_live, flat_t[pair.long()], zero)
+    gate_rows = torch.where(row_live, flat_g[pair.long()], torch.zeros((), device=dev))
+    row_src = torch.where(row_live, pair, zero + Tk)
+
+    e_ids = torch.arange(E, dtype=torch.int32, device=dev)[:, None]
+    i_ids = torch.arange(tiles_per_e, dtype=torch.int32, device=dev)[None, :]
+    rl = torch.clamp(loads[:, None] - i_ids * bt, 0, bt)
+    shape = (E, tiles_per_e)
+    bot = (zero + BOTTOM).expand(shape)
+    records = torch.stack([
+        (zero + OP_EXPERT_TILE).expand(shape), e_ids.expand(shape), e_ids * R + i_ids * bt,
+        rl, bot, bot, e_ids * tiles_per_e + i_ids, rl,
+    ], dim=-1)
+    routed = RoutedSet(tok_idx=tok_idx, gates=gate_rows,
+                       expert_off=np.arange(E + 1, dtype=np.int32) * R, loads=loads,
+                       n_rows=E * R, n_routed=Tk, n_tokens=T, row_src=row_src)
+    return records, rl > 0, routed
+
+
+def expert_queue_candidates(records, live, n_queues: int):
+    """Owner placement of the device Put's expert tiles: expert ``e`` lands
+    on queue ``e % n_queues`` (per-expert queues when ``n_queues == E``, the
+    static baseline's round-robin over programs when ``n_queues ==
+    n_programs``), the keying of ``partition_tasks(partition="owner")``."""
+    return owner_queue_candidates(records, live, n_queues)
+
+
 def route_to_tasks_pool(idx, gates, n_experts: int, bt: int = 8
                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, RoutedSet]:
     """:func:`route_to_tasks_pool_torch` on the host, its arrays as numpy:
@@ -234,11 +294,23 @@ def expert_rounds_bound(n_routed: int, bt: int, n_queues: int, n_programs: int,
     return STATIC_COMPRESSED_ROUNDS
 
 
-def divisor_from_tiles(row_start, row_len, tile_mult, n_rows: int) -> np.ndarray:
+def divisor_from_tiles(row_start, row_len, tile_mult, n_rows: int):
     """Per-row multiplicity divisor: tile ``i`` owns rows ``[row_start[i],
     row_start[i] + row_len[i])``, which get ``max(1, tile_mult[i])``; every
-    other row gets 1.  An int ``row_len`` is the pool layout's uniform tile
-    height: a live tile's pad rows get its divisor too (they hold 0)."""
+    other row gets 1.  An int ``row_len`` is the uniform tile height of the
+    pool and padded device layouts: a live tile's pad rows get its divisor
+    too (they hold 0).  A ``tile_mult`` tensor with an int ``row_len`` gives
+    a float32 tensor on its device, by one indexed write of a static [n,
+    bt] row grid (the reference's traced branch); otherwise numpy."""
+    if isinstance(tile_mult, torch.Tensor) and isinstance(row_len, (int, np.integer)):
+        bt = int(row_len)
+        dev = tile_mult.device
+        starts = torch.as_tensor(row_start).to(device=dev, dtype=torch.int64)
+        rows = starts[:, None] + torch.arange(bt, device=dev)[None, :]
+        m = torch.clamp(tile_mult, min=1).to(torch.float32)
+        div = torch.ones((n_rows,), dtype=torch.float32, device=dev)
+        div[rows.reshape(-1)] = m[:, None].expand(rows.shape).reshape(-1)
+        return div
     starts = np.asarray(row_start, dtype=np.int64)
     lens = np.broadcast_to(np.asarray(row_len, dtype=np.int64), starts.shape)
     m = np.maximum(1, np.asarray(tile_mult)).astype(np.float32)

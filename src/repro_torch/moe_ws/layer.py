@@ -12,8 +12,8 @@ expert-tile tasks through the expert megakernel:
 * programs Take their own expert's tiles and Steal from overloaded experts'
   stale head views (plain loads and stores only);
 * the combine divides each routed row by its tile's execution count in
-  lockstep mode (a free-mode ``out`` is already normalised), then
-  scatter-adds ``gate × row`` back to the tokens with ``index_add_``, plain
+  lockstep mode (a free-mode ``out`` is already normalised), then sums
+  ``gate × row`` into each token in row order (``combine_routed``), plain
   torch, as the reference computes it outside Pallas.
 
 **Differentiable.**  The routed-expert core is a ``torch.autograd.Function``
@@ -31,9 +31,16 @@ reference leaves them to XLA outside Pallas) and ``dx`` is an
 so their gradients flow through the ordinary torch router math.
 
 The reference picks the pool layout when it is traced (its jitted train
-step) and the host Put eagerly.  The port is eager everywhere, so
-``queue_layout=None`` takes autograd recording the call as the sign of the
-train step: the pool layout then, the host Put otherwise (serving).
+step and decode step) and the host Put eagerly.  The port is eager
+everywhere, so ``queue_layout=None`` takes autograd recording the call, or
+a ``drain`` counter (the device-Put decode step, as
+:func:`repro_torch.serving.engine.jit_decode_step_ws` captures it), as the
+sign of a traced caller: the pool layout then, the host Put otherwise.  A
+``drain`` counter selects the reference's traced branch: the pool
+(:func:`~.dispatch.route_to_tasks_pool_torch`) or padded
+(:func:`~.dispatch.route_to_tasks_torch`) Put built on the routing's device,
+the static rounds bound, the combine on the device, and the drain check
+added to the counter for its caller to read once a step.
 
 ``steal_run_cap > 1`` (half-run steals, cost policy) reaches the forward
 launch on both layouts and the ws backward's launch, with the rounds bound's
@@ -49,14 +56,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.pallas_ws.queues import make_pool_queue_state, make_queue_state
+from repro_torch.pallas_ws.kernel import DrainCounter
+from repro_torch.pallas_ws.queues import (
+    make_pool_queue_state,
+    make_queue_state,
+    make_queue_state_torch,
+)
 from repro_torch.pallas_ws.ragged import RaggedStats as DispatchStats  # family-neutral
 
 from .dispatch import (
     divisor_from_tiles,
+    expert_queue_candidates,
     expert_rounds_bound,
     route_to_tasks,
     route_to_tasks_pool,
+    route_to_tasks_pool_torch,
+    route_to_tasks_torch,
     row_divisor,
 )
 from .expert_kernel import dsilu, run_moe_grad_schedule, run_moe_schedule
@@ -99,12 +114,14 @@ def _check_drained(state, res) -> None:
 
 def _row_divisor(routed, tasks, res, bt: int):
     """Per-row multiplicity divisor of a lockstep launch: from the host task
-    list, or (``tasks=None``, the pool layout) from the uniform tiles, tile
-    ``t`` owning rows ``[t·bt, (t+1)·bt)``."""
-    mult = res.mult.cpu().numpy()
+    list, or (``tasks=None``, the pool and padded device layouts) from the
+    uniform tiles, tile ``t`` owning rows ``[t·bt, (t+1)·bt)``, on the
+    device."""
     if tasks is None:
-        return divisor_from_tiles(np.arange(mult.shape[0]) * bt, bt, mult, routed.n_rows)
-    return row_divisor(tasks, mult, routed.n_rows)
+        n_tiles = res.mult.shape[0]
+        return divisor_from_tiles(torch.arange(n_tiles, device=res.mult.device) * bt, bt,
+                                  res.mult, routed.n_rows)
+    return torch.from_numpy(row_divisor(tasks, res.mult.cpu().numpy(), routed.n_rows))
 
 
 def _normalised(res, routed, tasks, bt: int):
@@ -112,29 +129,51 @@ def _normalised(res, routed, tasks, bt: int):
     or as stored (free)."""
     out = res.out
     if res.mode == "lockstep":
-        div = _row_divisor(routed, tasks, res, bt)
-        out = out / torch.from_numpy(div).to(out.device)[:, None]
+        out = out / _row_divisor(routed, tasks, res, bt).to(out.device)[:, None]
     return out
+
+
+def _on(a, dev, dtype):
+    """A routed array (numpy or a tensor) as a ``dtype`` tensor on ``dev``."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.asarray(a))
+    return a.to(device=dev, dtype=dtype)
 
 
 def combine_routed(routed, tasks, res, *, bt: Optional[int] = None):
     """Multiplicity-normalised, gate-weighted combine of an expert-kernel run:
     a lockstep ``out`` is divided row by row by its tile's execution count
-    (a free-mode ``out`` holds plain stores and is used as it is), then
-    ``gate × row`` is scatter-added back to the tokens.  Pad rows carry gate
-    0, so they vanish.  Returns [n_tokens, d] float32 on ``res.out``'s device.
+    (a free-mode ``out`` holds plain stores and is used as it is), then each
+    token sums ``gate × row`` over its routed rows.  Returns [n_tokens, d]
+    float32 on ``res.out``'s device.
+
+    The sum runs over each token's rows in increasing row order, one add at
+    a time: the order of a sequential scatter-add (``index_add_`` on the
+    CPU), on any device.  So the result does not depend on the order atomic
+    adds land in, and every expert-major layout (the host Put, the padded
+    and pool device Puts) gives the same bits.  Pad rows (``row_src ==
+    n_routed``) join no token; a pair with no row adds 0.
 
     ``tasks`` is the host task list; pass ``tasks=None`` with the tile
-    height ``bt`` for the pool layout.
+    height ``bt`` for the pool and padded device layouts.
     """
     if tasks is None and bt is None:
         raise ValueError("the pool layout's combine needs the tile height bt")
     out = _normalised(res, routed, tasks, bt)
     dev = out.device
-    tok = torch.as_tensor(np.asarray(routed.tok_idx), dtype=torch.int64).to(dev)
-    gates = torch.as_tensor(np.asarray(routed.gates), dtype=torch.float32).to(dev)
-    y = torch.zeros((routed.n_tokens, out.shape[-1]), dtype=torch.float32, device=dev)
-    return y.index_add_(0, tok, gates[:, None] * out)
+    T, Tk = routed.n_tokens, routed.n_routed
+    n_rows, d = out.shape
+    # each row's part, and a zero row for a pair the layout dropped
+    part = torch.cat([_on(routed.gates, dev, torch.float32)[:, None] * out,
+                      out.new_zeros((1, d))])
+    # the row of each (token, choice) pair; every pad row lands on slot Tk
+    row_of = torch.full((Tk + 1,), n_rows, dtype=torch.int64, device=dev)
+    row_of[_on(routed.row_src, dev, torch.int64)] = torch.arange(n_rows, device=dev)
+    rows = row_of[:Tk].reshape(T, Tk // T).sort(dim=1).values
+    y = torch.zeros((T, d), dtype=torch.float32, device=dev)
+    for j in range(rows.shape[1]):
+        y = y + part[rows[:, j]]
+    return y
 
 
 def expert_ffn_nodrop_ref(idx, gates, x, wg, wu, wd):
@@ -176,16 +215,52 @@ def _pool_put(idx, gate_vals, n_experts: int, n_programs: int, bt: int,
                                               steal_run_cap=steal_run_cap)
 
 
+def _device_put(static: _CoreStatic, idx, gate_vals, E: int, P: int):
+    """The traced branch's Put, built on ``idx``'s device: the shared pool
+    with stealing (``queue_layout="pool"``), else the padded layout over
+    ``E`` queues (stealing) or ``P`` (the static baseline).  Returns
+    ``(state, routed, live)``, ``live`` the [n_tasks] mask of live tile ids
+    for the drain check."""
+    bt = static.bt
+    gates = gate_vals.detach().float()
+    if static.queue_layout == "pool":
+        records, tail, pool_off, routed = route_to_tasks_pool_torch(idx, gates, E, bt=bt)
+        state = make_pool_queue_state(records, tail, pool_off, routed.loads, P,
+                                      n_tasks=records.shape[0])
+        n = records.shape[0]
+        live = torch.arange(n, device=records.device) < tail.sum()
+        return state, routed, live
+    records, live, routed = route_to_tasks_torch(idx, gates, E, bt=bt)
+    n_queues = E if static.schedule == "ws" else P
+    cand, cand_live = expert_queue_candidates(records, live, n_queues)
+    state = make_queue_state_torch(cand, cand_live, P,
+                                   n_tasks=records.shape[0] * records.shape[1])
+    return state, routed, live.reshape(-1)
+
+
 def _dispatch_and_run(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd,
-                      trace: bool = False):
+                      trace: bool = False, drain: Optional[DrainCounter] = None):
     """Put + megakernel launch + combine.  Returns ``(y [T, d] f32, state,
-    res)``; ``trace`` records the launch's event rings."""
+    res)``; ``trace`` records the launch's event rings.  With ``drain`` the
+    Put is built on the device and the launch's unexecuted live tiles are
+    added to it (the caller reads it); otherwise the launch is checked at
+    once."""
     E, bt, P = wg.shape[0], static.bt, static.n_programs
     # With stealing every expert gets its own queue; the static baseline
     # needs every queue owned by a program, so experts are placed
     # round-robin over programs (classic expert parallelism).
     steal = static.schedule == "ws"
     cap = static.steal_run_cap if steal else 1
+    free = static.mode in (None, "free")
+    if drain is not None:
+        T, k = idx.shape
+        state, routed, live = _device_put(static, idx, gate_vals, E, P)
+        rounds = expert_rounds_bound(T * k, bt, state.n_queues, P, steal, steal_run_cap=cap)
+        res = run_moe_schedule(state, x_flat, routed.tok_idx, wg, wu, wd, bt=bt, steal=steal,
+                               steal_policy=static.steal_policy, steal_run_cap=cap,
+                               rounds=None if free else rounds, mode=static.mode)
+        drain.add(res.mult, live)
+        return combine_routed(routed, None, res, bt=bt), state, res
     if static.queue_layout == "pool":
         state, routed, rounds = _pool_put(idx, gate_vals, E, P, bt, cap)
         tasks = None
@@ -195,7 +270,6 @@ def _dispatch_and_run(static: _CoreStatic, x_flat, idx, gate_vals, wg, wu, wd,
         state = make_queue_state(tasks, P, n_queues=E if steal else P, partition="owner")
         rounds = None
     # rounds is a lockstep bound; a traced free launch would read it as a budget
-    free = static.mode in (None, "free")
     res = run_moe_schedule(state, x_flat, routed.tok_idx, wg, wu, wd, bt=bt, steal=steal,
                            steal_policy=static.steal_policy, steal_run_cap=cap,
                            rounds=None if free else rounds, mode=static.mode, trace=trace)
@@ -318,8 +392,8 @@ class _MoECore(torch.autograd.Function):
     core's inputs only."""
 
     @staticmethod
-    def forward(ctx, x_flat, gate_vals, wg, wu, wd, idx, static):
-        y, _, _ = _dispatch_and_run(static, x_flat, idx, gate_vals, wg, wu, wd)
+    def forward(ctx, x_flat, gate_vals, wg, wu, wd, idx, static, drain):
+        y, _, _ = _dispatch_and_run(static, x_flat, idx, gate_vals, wg, wu, wd, drain=drain)
         ctx.save_for_backward(x_flat, gate_vals, wg, wu, wd, idx)
         ctx.static = static
         return y
@@ -333,10 +407,11 @@ class _MoECore(torch.autograd.Function):
         else:
             grads = _grad_dense(x_flat, idx, gate_vals, wg, wu, wd, gy)
         dx, dgates, dwg, dwu, dwd = grads
-        return dx.to(x_flat.dtype), dgates.to(gate_vals.dtype), dwg, dwu, dwd, None, None
+        return (dx.to(x_flat.dtype), dgates.to(gate_vals.dtype), dwg, dwu, dwd, None, None,
+                None)
 
 
-def _check_knobs(schedule, queue_layout, grad_dispatch, trace, return_stats):
+def _check_knobs(schedule, queue_layout, grad_dispatch, trace, return_stats, drain):
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}: {schedule!r}")
     if queue_layout not in (None,) + QUEUE_LAYOUTS:
@@ -349,13 +424,17 @@ def _check_knobs(schedule, queue_layout, grad_dispatch, trace, return_stats):
     if trace and not return_stats:
         raise ValueError("trace=True attaches the WSTrace to the stats; pass "
                          "return_stats=True as well")
+    if drain is not None and return_stats:
+        raise ValueError("return_stats reads the launch on the host: the device Put "
+                         "(drain) has no host telemetry")
 
 
 def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
                steal_policy: str = "cost", steal_run_cap: int = 1,
                queue_layout: Optional[str] = None, grad_dispatch: str = "dense",
                n_programs: int = 8, bt: int = 8, mode: Optional[str] = None,
-               return_stats: bool = False, trace: bool = False):
+               return_stats: bool = False, trace: bool = False,
+               drain: Optional[DrainCounter] = None):
     """x: [B, S, d] -> (y: [B, S, d], aux_loss scalar): the dropless ws
     dispatch, differentiable.
 
@@ -374,8 +453,11 @@ def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
     so a call that autograd records raises ``ValueError``.  ``trace=True``
     (with ``return_stats``) records the launch's event rings and attaches
     the decoded :class:`~repro_torch.wstrace.WSTrace` to the stats.
+    ``drain`` (a :class:`~repro_torch.pallas_ws.kernel.DrainCounter`) takes
+    the device Put, with no read back to the host: the launch's unexecuted
+    live tiles are added to it, and its caller reads it.
     """
-    _check_knobs(schedule, queue_layout, grad_dispatch, trace, return_stats)
+    _check_knobs(schedule, queue_layout, grad_dispatch, trace, return_stats, drain)
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
     _, gate_vals, idx, aux = _router(x_flat, p, cfg, group_size)
@@ -386,7 +468,8 @@ def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
         raise ValueError("return_stats runs the forward launch alone and has no "
                          "backward; call it under torch.no_grad()")
     if queue_layout is None:
-        queue_layout = "pool" if (recording and schedule == "ws") else "padded"
+        traced = recording or drain is not None
+        queue_layout = "pool" if (traced and schedule == "ws") else "padded"
     static = _CoreStatic(schedule=schedule, steal_policy=steal_policy,
                          steal_run_cap=int(steal_run_cap), queue_layout=queue_layout,
                          grad_dispatch=grad_dispatch, n_programs=n_programs, bt=bt, mode=mode)
@@ -395,7 +478,7 @@ def moe_ffn_ws(x, p, cfg, group_size: int = 1024, *, schedule: str = "ws",
             y, state, res = _dispatch_and_run(static, x_flat, idx, gate_vals, wg, wu, wd,
                                               trace=trace)
     else:
-        y = _MoECore.apply(x_flat, gate_vals, wg, wu, wd, idx, static)
+        y = _MoECore.apply(x_flat, gate_vals, wg, wu, wd, idx, static, drain)
     if cfg.n_shared_experts:
         y = y + _shared_experts(x_flat, p).float()
     y = y.to(x.dtype).reshape(B, S, d)

@@ -3,6 +3,7 @@
 from .kernel import (
     MODES,
     STEAL_POLICIES,
+    DrainCounter,
     WSRunResult,
     default_rounds,
     launch_ws_grid,
@@ -16,6 +17,8 @@ from .queues import (
     copy_state,
     make_pool_queue_state,
     make_queue_state,
+    make_queue_state_torch,
+    owner_queue_candidates,
     partition_tasks,
     queue_costs,
     to_device,
@@ -24,6 +27,7 @@ from .ragged import (
     RaggedStats,
     decode_queue_state,
     decode_rounds_bound,
+    emit_decode_tasks_torch,
     normalized_out,
     ragged_attention_ref,
     ragged_decode_attention,
@@ -42,12 +46,13 @@ from .tasks import (
 )
 
 __all__ = [
-    "BOTTOM", "MODES", "OP_EXPERT_TILE", "STEAL_POLICIES", "TASK_WIDTH", "ExpertTask",
-    "QueueState", "RaggedStats",
+    "BOTTOM", "MODES", "OP_EXPERT_TILE", "STEAL_POLICIES", "TASK_WIDTH", "DrainCounter",
+    "ExpertTask", "QueueState", "RaggedStats",
     "TileTask", "WSRunResult", "copy_state", "decode_queue_state", "decode_rounds_bound",
     "default_rounds",
-    "emit_decode_tasks", "emit_flash_tasks", "launch_ws_grid", "launches",
-    "make_pool_queue_state", "make_queue_state", "multiplicity_divisor", "normalized_out", "partition_tasks",
+    "emit_decode_tasks", "emit_decode_tasks_torch", "emit_flash_tasks", "launch_ws_grid",
+    "launches", "make_pool_queue_state", "make_queue_state", "make_queue_state_torch",
+    "multiplicity_divisor", "normalized_out", "owner_queue_candidates", "partition_tasks",
     "plain_ws_grid", "queue_costs", "ragged_attention_ref", "ragged_decode_attention",
     "ragged_decode_ref", "ragged_flash_attention",
     "reset_launches", "run_ws_schedule", "to_device",

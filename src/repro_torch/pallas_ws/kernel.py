@@ -156,6 +156,32 @@ class WSRunResult:
         return self.slots_scanned / max(1, self.extractions)
 
 
+class DrainCounter:
+    """A step's drain check, kept on the device.  Each launch over a device
+    Put adds the live tasks it left unexecuted (``mult == 0``) and its live
+    tasks into two int32 counts, with no read back to the host; the caller
+    reads them once a step (:meth:`check`), next to the logits it reads
+    anyway.  The host Put's callers check each launch at once instead."""
+
+    def __init__(self, device):
+        self.counts = torch.zeros(2, dtype=torch.int32, device=device)
+
+    def reset(self) -> None:
+        self.counts.zero_()
+
+    def add(self, mult: torch.Tensor, live: torch.Tensor) -> None:
+        """``live``: [n] bool over the launch's task ids ``0 .. n - 1``."""
+        missing = (mult[: live.shape[0]] == 0) & live
+        self.counts += torch.stack((missing, live)).sum(1, dtype=torch.int32)
+
+    def check(self) -> None:
+        """Read the counts (one host read) and raise where a task never ran."""
+        missing, n_live = self.counts.tolist()
+        if missing:
+            raise RuntimeError(f"scheduler under-provisioned: {missing}/{n_live} tasks never "
+                               "executed in this step (rounds bound too small?)")
+
+
 def default_rounds(state: QueueState, steal: bool,
                    compress_runs: Optional[bool] = None,
                    steal_run_cap: int = 1) -> int:
@@ -603,7 +629,9 @@ def launch_grid(state: QueueState, out, *, walk, launch, plain: bool, mode: str,
     remaining = state.remaining
     if remaining is None:
         remaining = queue_costs(state)
-    clock0 = np.zeros(P, dtype=np.int32)
+    # a device state's arrays are tensors on ``dev`` already: the launch
+    # arrays below are device copies of them, with nothing read to the host
+    clock0 = torch.zeros(P, dtype=torch.int32, device=dev)
     if fault_plan is not None:
         # chaos injection is data: a stalled program is a nonzero initial
         # clock, a stale advisory a different initial value

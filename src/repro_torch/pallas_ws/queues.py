@@ -1,8 +1,9 @@
 """Per-program task queues as flat int32 arrays (WS-WMULT Fig. 7), the
-host Puts — port of ``repro/pallas_ws/queues.py`` (the dense host Put
+Puts — port of ``repro/pallas_ws/queues.py`` (the dense host Put
 :func:`make_queue_state`, the stage-gated Put
-:func:`make_staged_queue_state` and the shared-pool Put
-:func:`make_pool_queue_state`).
+:func:`make_staged_queue_state`, the shared-pool Put
+:func:`make_pool_queue_state`, and the device Put of fixed-shape candidate
+records, :func:`owner_queue_candidates` + :func:`make_queue_state_torch`).
 
 ==========================  =====================================================
 paper (Fig. 7)              array (plain loads/stores only)
@@ -25,7 +26,10 @@ never pays the dense layout's per-queue worst-case padding.
 A host-built state holds numpy arrays; :func:`to_device` turns it into a
 state of device tensors once, so a decode step can launch the same Put in
 every layer without uploading it again (each launch clones the mutable
-arrays, so the state itself is never consumed).
+arrays, so the state itself is never consumed).  The device Put (the
+reference's traced Put) builds the same arrays as torch ops on the
+records' device with no read back to the host, at static shapes: a
+launch over it reads its task count from ``n_tasks_hint``.
 """
 
 from __future__ import annotations
@@ -179,25 +183,102 @@ def make_pool_queue_state(records, tail, pool_off, remaining, n_programs: int, *
     ``records``: [pool_slots, TASK_WIDTH], where queue ``q``'s live slots
     already fill the segment ``[pool_off[q], pool_off[q] + tail[q])`` in
     queue order and the pool suffix is all ⊥ (as
-    :func:`repro_torch.moe_ws.dispatch.route_to_tasks_pool` builds them);
+    :func:`repro_torch.moe_ws.dispatch.route_to_tasks_pool_torch` builds them);
     ``pool_off``: [n_queues + 1]; ``tail``: [n_queues] live slots per
     queue; ``remaining``: [n_queues] initial advisories.  ``n_tasks`` sizes
     the multiplicity buffer: pool slot index == ``tid`` == multiplicity
     index, so the dead suffix keeps ``mult == 0``.
+
+    Tensor ``records`` make a device state (the reference's
+    ``make_pool_queue_state_jax``): every array an int32 tensor on their
+    device, nothing read back to the host.
     """
-    records = np.asarray(records, dtype=np.int32)
-    tail = np.asarray(tail, dtype=np.int32)
+    if isinstance(records, torch.Tensor):
+        dev = records.device
+
+        def arr(a):
+            return torch.as_tensor(a).to(device=dev, dtype=torch.int32)
+
+        def full(shape, value):
+            return torch.full(shape, value, dtype=torch.int32, device=dev)
+    else:
+        def arr(a):
+            return np.asarray(a, dtype=np.int32)
+
+        def full(shape, value):
+            return np.full(shape, value, dtype=np.int32)
+    records, tail = arr(records), arr(tail)
     n_queues = tail.shape[0]
     return QueueState(
         tasks=records,
-        head=np.zeros((n_queues,), dtype=np.int32),
+        head=full((n_queues,), 0),
         tail=tail,
-        local_head=np.zeros((n_programs, n_queues), dtype=np.int32),
-        taken=np.full((records.shape[0],), -1, dtype=np.int32),
+        local_head=full((n_programs, n_queues), 0),
+        taken=full((records.shape[0],), -1),
         task_list=None,
-        remaining=np.asarray(remaining, dtype=np.int32),
+        remaining=arr(remaining),
         n_tasks_hint=int(n_tasks),
-        pool_off=np.asarray(pool_off, dtype=np.int32),
+        pool_off=arr(pool_off),
+    )
+
+
+def owner_queue_candidates(records, live, n_queues: int):
+    """Regroup per-owner candidate records into per-queue candidate arrays
+    (the reference's ``owner_queue_candidates``), as torch ops.
+
+    ``records``: [n_owners, per_owner, TASK_WIDTH]; ``live``: [n_owners,
+    per_owner] bool.  Owner ``o`` lands on queue ``o % n_queues`` (the
+    placement :func:`partition_tasks` gives ``"owner"``), its records
+    ordered by ``o // n_queues`` within the queue.  Owners are padded with
+    dead rows up to a multiple of ``n_queues``."""
+    n_owners, per_owner, width = records.shape
+    if n_queues == n_owners:
+        return records, live
+    pad = (-n_owners) % n_queues
+    if pad:
+        records = torch.cat([records, records.new_full((pad, per_owner, width), BOTTOM)])
+        live = torch.cat([live, live.new_zeros((pad, per_owner))])
+    rows = (n_owners + pad) // n_queues
+    # owner o = j * n_queues + q  ->  queue q, block j
+    records = records.reshape(rows, n_queues, per_owner, width).transpose(0, 1)
+    live = live.reshape(rows, n_queues, per_owner).transpose(0, 1)
+    return (records.reshape(n_queues, rows * per_owner, width),
+            live.reshape(n_queues, rows * per_owner))
+
+
+def make_queue_state_torch(records, live, n_programs: int, *, n_tasks: int) -> QueueState:
+    """The device Put (the reference's ``make_queue_state_jax``): the Fig. 7
+    arrays of fixed-shape candidate records, as torch ops on their device.
+
+    ``records``: [n_queues, slots, TASK_WIDTH] candidates at their static
+    slots; ``live``: [n_queues, slots] bool.  Each queue's live records are
+    stably compacted to the slot prefix (the order the host Put produces)
+    and every dead slot becomes ⊥; two trailing ⊥ slots follow, so the
+    capacity is ``slots + 2``.  ``tail[q]`` is the live count and
+    ``remaining[q]`` the live records' cost.  ``n_tasks`` is the static
+    candidate count sizing the multiplicity buffer: a dead candidate's
+    ``tid`` is never extracted and keeps ``mult == 0``."""
+    records = records.to(torch.int32)
+    live = live.to(torch.bool)
+    n_queues, slots, width = records.shape
+    dev = records.device
+    # stable partition: live records first, in their original order
+    order = torch.argsort((~live).to(torch.int32), dim=1, stable=True)
+    arr = torch.take_along_dim(records, order[:, :, None], dim=1)
+    live_sorted = torch.take_along_dim(live, order, dim=1)
+    arr = torch.where(live_sorted[:, :, None], arr, torch.full_like(arr, BOTTOM))
+    # two trailing ⊥ slots: the pre-clear invariant, and room for a full
+    # queue's head to step one past its last live slot
+    arr = torch.cat([arr, arr.new_full((n_queues, 2, width), BOTTOM)], dim=1)
+    return QueueState(
+        tasks=arr,
+        head=torch.zeros((n_queues,), dtype=torch.int32, device=dev),
+        tail=live.sum(1, dtype=torch.int32),
+        local_head=torch.zeros((n_programs, n_queues), dtype=torch.int32, device=dev),
+        taken=torch.full((n_queues, slots + 2), -1, dtype=torch.int32, device=dev),
+        task_list=None,
+        n_tasks_hint=int(n_tasks),
+        remaining=torch.where(live, records[:, :, F_COST], 0).sum(1, dtype=torch.int32),
     )
 
 

@@ -1,15 +1,19 @@
-"""Ragged attention on the work-stealing tile scheduler (port of the
-host-Put path of ``repro/pallas_ws/ragged.py``): the ragged prefill
+"""Ragged attention on the work-stealing tile scheduler (port of
+``repro/pallas_ws/ragged.py``): the ragged prefill
 (:func:`ragged_flash_attention`) and decode (:func:`ragged_decode_attention`)
 entry points, their dense oracles, and the decode launch's static rounds
 bound (:func:`decode_rounds_bound`).
 
-Only the live tiles are emitted (host side, where lengths are concrete),
-laid out in the Fig. 7 queues partitioned by batch row, and drained by the
-megakernel's thieves.  ``schedule="ws"`` steals; ``schedule="static"``
-drains owner queues only (same kernel, same cost accounting).
-``steal_run_cap > 1`` (cost policy) lets a steal claim the victim's
-half-run; the static schedule has no thieves and ignores it.
+Host lengths (numpy, lists) take the host Put: only the live tiles are
+emitted, laid out in the Fig. 7 queues partitioned by batch row, and
+drained by the megakernel's thieves.  Decode lengths that come as a tensor
+take the device Put (the reference's traced branch,
+:func:`emit_decode_tasks_torch`): the full [B, H] candidate grid masked by
+``lengths > 0``, compacted on the device, the static rounds bound, and the
+drain check counted on the device.  ``schedule="ws"`` steals;
+``schedule="static"`` drains owner queues only (same kernel, same cost
+accounting).  ``steal_run_cap > 1`` (cost policy) lets a steal claim the
+victim's half-run; the static schedule has no thieves and ignores it.
 """
 
 from __future__ import annotations
@@ -20,9 +24,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .kernel import STATIC_COMPRESSED_ROUNDS, WSRunResult, run_ws_schedule
-from .queues import QueueState, make_queue_state, queue_costs
-from .tasks import emit_decode_tasks, emit_flash_tasks, multiplicity_divisor
+from .kernel import STATIC_COMPRESSED_ROUNDS, DrainCounter, WSRunResult, run_ws_schedule
+from .queues import (
+    QueueState,
+    make_queue_state,
+    make_queue_state_torch,
+    owner_queue_candidates,
+    queue_costs,
+)
+from .tasks import (
+    OP_DECODE_TILE,
+    emit_decode_tasks,
+    emit_flash_tasks,
+    multiplicity_divisor,
+)
 
 SCHEDULES = ("ws", "static")
 
@@ -171,11 +186,45 @@ def decode_rounds_bound(B: int, n_heads: int, S: int, bk: int,
     return STATIC_COMPRESSED_ROUNDS
 
 
+def emit_decode_tasks_torch(lengths: torch.Tensor, n_heads: int, bk: int):
+    """The device twin of :func:`~repro_torch.pallas_ws.tasks.emit_decode_tasks`
+    (the reference's ``emit_decode_tasks_jax``): the full static [B, H]
+    candidate grid as torch ops on ``lengths``' device, live where
+    ``lengths > 0``.  ``tid = b·H + h`` is static, so the multiplicity buffer
+    holds ``B·H`` counts and a dead slot's stays 0.  Returns ``(records [B,
+    H, TASK_WIDTH], live [B, H])`` for :func:`owner_queue_candidates`."""
+    ln = lengths.to(torch.int32)
+    dev = ln.device
+    B, H = ln.shape[0], n_heads
+    shape = (B, H)
+    cost = torch.clamp((ln + bk - 1) // bk, min=1)  # kv blocks, >= 1 as on the host
+    b_ids = torch.arange(B, dtype=torch.int32, device=dev)[:, None].expand(shape)
+    h_ids = torch.arange(H, dtype=torch.int32, device=dev)[None, :].expand(shape)
+
+    def const(v):
+        return torch.full(shape, v, dtype=torch.int32, device=dev)
+
+    records = torch.stack([
+        const(OP_DECODE_TILE), b_ids, h_ids, const(0), const(1),  # q_start 0, q_len 1
+        ln[:, None].expand(shape), b_ids * H + h_ids, cost[:, None].expand(shape),
+    ], dim=-1)
+    return records, (ln[:, None] > 0).expand(shape)
+
+
 def decode_queue_state(lengths, n_heads: int, S: int, *, n_programs: int = 8,
                        partition: str = "batch", bk: int = 64) -> QueueState:
-    """The host Put of one decode launch: one task per live (b, h)."""
-    lengths = np.asarray(lengths, dtype=np.int64)
+    """The Put of one decode launch: one task per live (b, h).  Host
+    lengths give the host Put; a tensor of lengths gives the device Put on
+    its device (batch-row queues, ``b % n_programs``)."""
     bk = min(bk, max(1, S))
+    if isinstance(lengths, torch.Tensor):
+        if partition != "batch":
+            raise ValueError(f"the device Put partitions by batch row, not {partition!r}")
+        records, live = emit_decode_tasks_torch(lengths, n_heads, bk)
+        cand, cand_live = owner_queue_candidates(records, live, n_programs)
+        return make_queue_state_torch(cand, cand_live, n_programs,
+                                      n_tasks=records.shape[0] * n_heads)
+    lengths = np.asarray(lengths, dtype=np.int64)
     return make_queue_state(emit_decode_tasks(lengths, n_heads, bk), n_programs,
                             partition=partition)
 
@@ -194,6 +243,7 @@ def ragged_decode_attention(
     bk: int = 64,
     mode: Optional[str] = None,
     state: Optional[QueueState] = None,
+    drain: Optional[DrainCounter] = None,
     return_stats: bool = False,
     trace: bool = False,
 ):
@@ -205,23 +255,55 @@ def ragged_decode_attention(
     clones its mutable arrays, so one Put serves every layer of a step.
     ``trace=True`` records the launch's event rings and attaches the
     decoded :class:`~repro_torch.wstrace.WSTrace` to the returned stats.
+
+    ``lengths`` as a tensor takes the device Put and reads nothing back to
+    the host: lockstep runs the static rounds bound
+    (:func:`decode_rounds_bound`), the divisor is ``max(mult, 1)`` on the
+    device, and the unexecuted live tasks are added to ``drain`` (a
+    :class:`~repro_torch.pallas_ws.kernel.DrainCounter` its caller reads
+    once a step; without one this call reads its own).  Telemetry
+    (``return_stats``, ``trace``) needs the host Put.
     """
     _check_schedule(schedule)
     B, H, hd = q.shape
     S = k.shape[2]
     bk = min(bk, max(1, S))
-    lengths = np.asarray(lengths, dtype=np.int64)
-    if lengths.shape != (B,) or lengths.max(initial=0) > S:
-        raise ValueError(f"lengths {lengths} do not fit B={B}, S={S}")
+    steal = schedule == "ws"
+    device_put = isinstance(lengths, torch.Tensor)
+    if device_put:
+        if return_stats or trace:
+            raise ValueError("return_stats and trace read the launch on the host: pass "
+                             "host lengths")
+        if tuple(lengths.shape) != (B,):
+            raise ValueError(f"lengths of shape {tuple(lengths.shape)} do not fit B={B}")
+    else:
+        lengths = np.asarray(lengths, dtype=np.int64)
+        if lengths.shape != (B,) or lengths.max(initial=0) > S:
+            raise ValueError(f"lengths {lengths} do not fit B={B}, S={S}")
     if state is None:
         state = decode_queue_state(lengths, H, S, n_programs=n_programs,
                                    partition=partition, bk=bk)
-    steal = schedule == "ws"
+    rounds = None
+    if device_put and mode == "lockstep":
+        rounds = decode_rounds_bound(B, H, S, bk, state.n_queues, n_programs, steal,
+                                     steal_run_cap=steal_run_cap if steal else 1)
     res = run_ws_schedule(
         state, q[:, :, None, :], k, v, causal=False, bq=1, bk=bk, steal=steal,
         steal_policy=steal_policy, steal_run_cap=steal_run_cap if steal else 1, mode=mode,
-        trace=trace,
+        rounds=rounds, trace=trace,
     )
+    if device_put:
+        own = drain is None
+        if own:
+            drain = DrainCounter(q.device)
+        drain.add(res.mult, (lengths[:, None] > 0).expand(B, H).reshape(-1))
+        if own:
+            drain.check()
+        out = res.out[:, :, 0]
+        if res.mode == "lockstep":
+            # tid = b·H + h: a dead slot's mult stays 0, its divisor 1, its output 0
+            out = out / torch.clamp(res.mult.reshape(B, H), min=1)[..., None]
+        return out.to(q.dtype)
     _check_drained(state, res)
     out = normalized_out(res, state.task_list, (B, H, 1))[:, :, 0].to(q.dtype)
     if return_stats:

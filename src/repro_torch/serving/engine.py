@@ -1,5 +1,5 @@
 """Continuous-batching serving engine + work-stealing request frontend
-(port of the split path of ``repro/serving/engine.py``).
+(port of ``repro/serving/engine.py``).
 
 * ContinuousBatcher — a fixed pool of B decode slots over stacked KV
   caches.  Admitting a request runs a batch-1 prefill and splices its caches
@@ -7,6 +7,10 @@
   step — by default :func:`decode_step_ws`, whose per-layer attention is one
   launch of the fence-free work-stealing megakernel over the slots' ragged
   lengths; ``use_ws=False`` runs the dense :func:`decode_step`.  With
+  ``jit_ws=True`` the ws step is :func:`jit_decode_step_ws`, the stand-in
+  for the reference's ``jax.jit``: every Put built on the device, the whole
+  step captured once per (slot count, capacity) shape into a CUDA graph and
+  replayed, the step's one drain read after the logits.  With
   ``unified_step=True`` (fp32 configs, dense or MoE with the ws dispatch) an
   engine step is ONE launch of the unified megakernel
   (:func:`decode_step_unified`), and admission defers
@@ -17,9 +21,11 @@
   own queue and Steals from the others when idle; a request admitted twice
   under weak multiplicity is deduplicated on completion.
 
-Not ported yet (they raise): the compiled ws step (``jit_ws``), the
-watchdog's deadline and fault-plan half (``step_deadline_s``,
-``fault_plan``), and crash plans.
+* :func:`ragged_slot_attention` — decode attention over a batcher's
+  ragged slots (or a length vector) on the work-stealing megakernel.
+
+Not ported yet (they raise): the watchdog's deadline and fault-plan half
+(``step_deadline_s``, ``fault_plan``), and crash plans.
 """
 
 from __future__ import annotations
@@ -44,7 +50,135 @@ from repro_torch.models import (
     ws_decode_supported,
 )
 from repro_torch.models.unified import check_ported
+from repro_torch.pallas_ws.kernel import DrainCounter
 from repro_torch.wstrace.metrics import SchedulerMetrics
+
+
+class CapturedWSStep:
+    """The stand-in for the reference's ``jit(decode_step_ws)``: the whole
+    ws decode step with its Puts built on the device
+    (:func:`~repro_torch.models.decode_step_ws` with a tensor ``pos``), run
+    as one CUDA graph.
+
+    On CUDA the first call for a (slot count, caches, params) key runs the
+    step eagerly from static buffers (it builds the kernels, and its logits
+    are that call's answer), then captures the same step into a
+    ``torch.cuda.CUDAGraph``; later calls copy ``tokens`` and ``pos`` into
+    the static buffers (through pinned host buffers, so nothing waits) and
+    replay.  The graph writes the caches it was captured on in place, so an
+    admission spliced into them between replays is seen; other caches or
+    params capture anew.  A capture that fails raises: the card never falls
+    back to the eager step.  On the CPU every call runs the device-Put step
+    eagerly.
+
+    Each call leaves the step's drain counts on the device; the caller reads
+    them once, after the logits, with :meth:`check_drained` (a call whose
+    counts were not read reads them first).  Host launch counters advance
+    at capture only, so each replay adds the launches the capture recorded.
+    """
+
+    def __init__(self, cfg, *, schedule: str = "ws", bk: int = 64, n_programs: int = 8,
+                 mode=None):
+        self.cfg = cfg
+        self._kw = dict(schedule=schedule, bk=bk, n_programs=n_programs, mode=mode)
+        self._key = None
+        self._graph = None
+        self._drain = None
+        self._unread = False
+        self._per_replay = []
+
+    def __call__(self, params, caches, tokens, pos):
+        """``tokens`` [B, 1], ``pos`` [B] or a scalar (numpy or tensors).
+        Returns ``(logits [B, V] fp32, caches)``, the caches written in place."""
+        if self._unread:
+            self.check_drained()
+        dev = caches.kv.k.device
+        B = caches.kv.k.shape[1]
+        if dev.type != "cuda":
+            self._drain = DrainCounter(dev)
+            logits, caches = decode_step_ws(
+                params, self.cfg, caches, _staged(tokens, (B, 1)).to(dev),
+                _staged(pos, (B,)).to(dev), drain=self._drain, **self._kw)
+        else:
+            key = (B, caches.kv.k.data_ptr(), caches.kv.v.data_ptr(), id(params))
+            if key != self._key:
+                logits = self._capture(params, caches, tokens, pos, key)
+            else:
+                self._load(tokens, pos)
+                self._graph.replay()
+                for counters, name, n in self._per_replay:
+                    counters[name] += n
+                logits = self._logits.clone()
+        self._unread = True
+        return logits, caches
+
+    def check_drained(self) -> None:
+        """The step's one drain read: raise ``RuntimeError`` if a live task
+        of any of its launches never ran."""
+        self._unread = False
+        if self._drain is not None:
+            self._drain.check()
+
+    def _load(self, tokens, pos) -> None:
+        for dst, host, src in ((self._tok, self._tok_host, tokens),
+                               (self._pos, self._pos_host, pos)):
+            src = _staged(src, tuple(dst.shape))
+            if src.device.type == "cuda":
+                dst.copy_(src)
+            else:
+                host.copy_(src)
+                dst.copy_(host, non_blocking=True)
+
+    def _capture(self, params, caches, tokens, pos, key):
+        from repro_torch import kernels
+        from repro_torch.pallas_ws import kernel
+
+        dev = caches.kv.k.device
+        B = key[0]
+        self._graph = self._key = None  # release the last graph first
+        self._tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+        self._pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self._tok_host = torch.zeros((B, 1), dtype=torch.int64, pin_memory=True)
+        self._pos_host = torch.zeros((B,), dtype=torch.int64, pin_memory=True)
+        self._drain = DrainCounter(dev)
+        self._load(tokens, pos)
+
+        def step():
+            self._drain.reset()
+            return decode_step_ws(params, self.cfg, caches, self._tok, self._pos,
+                                  drain=self._drain, **self._kw)[0]
+
+        logits = step()  # builds the kernels; this call's answer
+        counters = (kernel.launches, kernels.launches)
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._logits = step()
+        # the capture launched nothing: count its launches at each replay
+        self._per_replay = [(c, n, c[n] - b[n]) for c, b in zip(counters, before)
+                            for n in c if c[n] != b[n]]
+        for c, b in zip(counters, before):
+            c.update(b)
+        self._graph, self._key = graph, key
+        return logits
+
+
+def _staged(a, shape) -> torch.Tensor:
+    """Host ints (numpy, a list, a scalar or a tensor) as an int64 tensor of
+    ``shape``; a scalar or [1] ``pos`` is every slot's."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+    t = t.to(torch.int64)
+    return t.reshape(-1).expand(shape[0]).reshape(shape) if t.numel() == 1 else t.reshape(shape)
+
+
+def jit_decode_step_ws(cfg, *, schedule: str = "ws", bk: int = 64, n_programs: int = 8,
+                       mode=None):
+    """The compiled ws decode step (the reference's ``jax.jit`` over
+    ``decode_step_ws``, one compilation per (slot count, capacity) shape):
+    a :class:`CapturedWSStep`, called as ``step(params, caches, tokens,
+    pos)`` and read with ``step.check_drained()`` after the logits.
+    ``mode`` is the kernels' (free by default, or ``"lockstep"``)."""
+    return CapturedWSStep(cfg, schedule=schedule, bk=bk, n_programs=n_programs, mode=mode)
 
 
 @dataclass
@@ -73,8 +207,6 @@ class ContinuousBatcher:
         step_deadline_s: Optional[float] = None,
         fault_plan=None,
     ):
-        if jit_ws:
-            raise NotImplementedError("jit_ws (compiled ws step) is not ported yet")
         if step_deadline_s is not None or fault_plan is not None:
             raise NotImplementedError("the watchdog's step deadline and the serving fault "
                                       "plans (EngineFaultPlan) are not ported yet")
@@ -94,6 +226,9 @@ class ContinuousBatcher:
         self._rng = np.random.default_rng(sample_seed)
         self.attn_schedule = attn_schedule
         self.use_ws = bool(use_ws and ws_decode_supported(cfg))
+        # jit_ws: the ws step captured on the card, its Puts on the device
+        self._jit = (jit_decode_step_ws(cfg, schedule=attn_schedule)
+                     if self.use_ws and jit_ws else None)
         self.metrics = SchedulerMetrics(slots=slots)
         # unified mode: admit() defers a prompt's prefill into the next step's
         # launch; a step whose logits come back non-finite is redone on the
@@ -104,11 +239,24 @@ class ContinuousBatcher:
         self.degradations: List[dict] = []
         self._step_idx = 0
 
-    def _decode(self, tokens, pos):
-        if self.use_ws:
-            return decode_step_ws(self.params, self.cfg, self.caches, tokens, pos,
-                                  schedule=self.attn_schedule)
-        return decode_step(self.params, self.cfg, self.caches, tokens, pos)
+    def _decode_next(self, tokens: np.ndarray) -> np.ndarray:
+        """One decode step of every slot from host ``tokens`` [B, 1]: the next
+        token of each row.  The jit step's drain counts are read once, after
+        the logits."""
+        pos = self.pos.copy()
+        if self._jit is not None:
+            logits, self.caches = self._jit(self.params, self.caches, tokens, pos)
+        else:
+            tok = torch.from_numpy(tokens).to(self.device)
+            if self.use_ws:
+                logits, self.caches = decode_step_ws(self.params, self.cfg, self.caches, tok,
+                                                     pos, schedule=self.attn_schedule)
+            else:
+                logits, self.caches = decode_step(self.params, self.cfg, self.caches, tok, pos)
+        nxt = self._select(logits)  # syncs the device step
+        if self._jit is not None:
+            self._jit.check_drained()
+        return nxt
 
     # -- sampling --------------------------------------------------------------
     def _select(self, logits) -> np.ndarray:
@@ -184,10 +332,7 @@ class ContinuousBatcher:
         for i, r in enumerate(self.live):
             if r is not None:
                 tokens[i, 0] = r.out[-1]
-        logits, self.caches = self._decode(
-            torch.from_numpy(tokens).to(self.device), self.pos.copy()
-        )
-        nxt = self._select(logits)  # syncs the device step
+        nxt = self._decode_next(tokens)
         self.metrics.record_step(time.perf_counter() - t0, n_live)
         done: List[Request] = []
         self._advance([i for i, r in enumerate(self.live) if r is not None], nxt, done)
@@ -281,9 +426,7 @@ class ContinuousBatcher:
             tokens = np.zeros((self.B, 1), dtype=np.int64)
             for i in decodable:
                 tokens[i, 0] = self.live[i].out[-1]
-            logits, self.caches = self._decode(torch.from_numpy(tokens).to(self.device),
-                                               self.pos.copy())
-            self._advance(decodable, self._select(logits), done)
+            self._advance(decodable, self._decode_next(tokens), done)
         return done
 
     def stats(self) -> dict:
@@ -292,6 +435,32 @@ class ContinuousBatcher:
     @property
     def n_live(self) -> int:
         return sum(r is not None for r in self.live)
+
+    def live_lengths(self) -> np.ndarray:
+        """Per-slot KV lengths (0 for free slots): the ragged shape the ws
+        attention path schedules over."""
+        live = np.array([r is not None for r in self.live])
+        return np.where(live, self.pos, 0).astype(np.int64)
+
+
+def ragged_slot_attention(q, k_cache, v_cache, batcher_or_lengths, *, schedule=None, bk=64):
+    """Decode attention over a continuous batcher's ragged slots on the
+    work-stealing megakernel.
+
+    ``q``: [B, H, hd] one query row a slot; ``k_cache``/``v_cache``: [B,
+    Hkv, S, hd]; ``batcher_or_lengths``: a :class:`ContinuousBatcher` (its
+    :meth:`~ContinuousBatcher.live_lengths`) or a [B] length vector (a
+    tensor takes the device Put).  ``schedule=None`` follows the batcher's
+    ``attn_schedule`` ("ws" for a bare length vector)."""
+    from repro_torch.pallas_ws.ragged import ragged_decode_attention
+
+    if isinstance(batcher_or_lengths, ContinuousBatcher):
+        lengths = batcher_or_lengths.live_lengths()
+        schedule = batcher_or_lengths.attn_schedule if schedule is None else schedule
+    else:
+        lengths = batcher_or_lengths
+        schedule = "ws" if schedule is None else schedule
+    return ragged_decode_attention(q, k_cache, v_cache, lengths, schedule=schedule, bk=bk)
 
 
 class WorkStealingFrontend:

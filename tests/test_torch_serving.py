@@ -93,7 +93,7 @@ def test_batcher_rejects_prompts_that_cannot_fit():
     assert r.rid == 2 and len(r.out) == 2
 
 
-@pytest.mark.parametrize("kw", [dict(jit_ws=True), dict(unified_step=True, fault_plan=[]),
+@pytest.mark.parametrize("kw", [dict(unified_step=True, fault_plan=[]),
                                 dict(step_deadline_s=1.0)])
 def test_unported_engine_modes_raise(kw):
     from repro_torch.configs.llama3_2_3b import SMOKE

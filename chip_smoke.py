@@ -111,7 +111,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               its launches a call and the bytes it allocates beyond its
               outputs (both read around one call); flash_fwd's,
               decode_attention's and ssd_scan's beside their first
-              versions'.  No other phase may launch them.
+              versions'.  No model path may launch them (the ssm phase's
+              comparison launch of ssd_scan on a layer's inputs aside).
 5. serving    llama3.2-3b at full width (bf16, random weights from a seed),
               2 ContinuousBatcher replicas (4 slots, 1024 positions) behind
               the WorkStealingFrontend; 8 requests all submitted to replica
@@ -126,7 +127,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               and a replay under torch.cuda.set_sync_debug_mode("error"),
               which must synchronise nothing before the logits are read)
               gives logits bit-equal to the host-Put step's; a replay's
-              device time.
+              device time.  Then the crash drill (jit_ws on): 6 of the 8
+              requests go to replica 0, which dies at frontend iteration
+              CRASH_AT (ReplicaCrashPlan) with 4 in flight and 2 more queued
+              on it: crashed 1, readmitted 4, no duplicate completion, the
+              queued ones stolen and served by the survivor, every stream
+              the uninterrupted run's (up to its crash point exactly; after
+              it a difference passes only at a near-tie no wider than twice
+              the prefill and decode paths' logit distance there).
 6. times      attention kernel ms (free, lockstep) beside the first
               version's, bound and
               the fraction of it reached, plain version, and one
@@ -202,7 +210,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               requests (prompts 16-128 tokens) with no degradation and one
               ws_unified launch per step and no other kernel, and their
               greedy streams equal the split engine's (a difference passes
-              only at a top-2 near-tie within the tolerance).
+              only at a top-2 near-tie within the tolerance).  Then the
+              watchdog (WATCHDOG): one unified batcher serving 4 prompts
+              healthy, with EngineFaultPlan(poison_steps=(0, 2)) and with a
+              deadline, watchdog_cooldown 2 and slow_steps (1,):
+              degradations non-finite x 2 and deadline at step 1, the
+              streams the healthy run's, and the launches of every step
+              (ws_unified 1 and nothing else on a healthy step, 1 plus the
+              split redo's ws_attention on a poisoned one, ws_attention
+              alone in the cooldown).
 11. unified_moe  kimi-k2-1t-a32b in fp32 at full width cut to 1 layer (77.69
               GB of weights, the experts passed in place), after the llama
               weights are freed, through the MoE half of the unified step
@@ -223,6 +239,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ContinuousBatcher(unified_step=True) serve 8 requests (prompts
               8-64 tokens, 8 new tokens) with one ws_unified launch a step,
               no other kernel and no degradation, against the split engine.
+12. ckpt      checkpoints (repro_torch.checkpoint) through train(): llama3.2-3b
+              bf16 at full width cut to 2 layers, AdamW (CKPT): run A, 6 steps
+              saving every 2 and at the last (the newest 3 kept), its last
+              save restored onto the card and held to A's final state bit
+              for bit; run B, a child process preempted after step 3, must
+              exit 17 with step 2 saved; run C resumes at step 3, its losses
+              A's within CKPT_LOSS_ATOL.  Bytes, snapshot and background
+              write seconds of every save, the restore's seconds.
+13. ssm       mamba2-2.7b and zamba2-2.7b in bf16 at full width and depth
+              (SSM): the last logits of a prefill of 128 tokens against a
+              prefill of 120 and 8 dense decode steps, in fp32 within
+              SSM_FP32_TOL and in bf16 within SSM_SLACK times the bf16
+              prefill's distance from the fp32 one, which a decode whose
+              conv state is not shifted must exceed; 2 replicas x 4 slots
+              serving 8 requests twice (the same greedy streams; step
+              p50/p99 and tokens/s); 2 train() steps at depth 2 (zamba2 6).
+              Then ssd_scan on mamba2's own layer-0 scan inputs from a 4 x
+              1024-token prefill against ssd_chunked (the kernels phase's
+              limits; device times of both): a comparison launch, outside
+              the model path, which runs ssd_chunked as the reference does.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the 7 ported kernels (the megakernels each with its
@@ -241,6 +277,8 @@ true, "device": {...}}.
                                                 # the redesigned attention kernels
     python3 chip_smoke.py --phases build,audit,unified,unified_moe
                                                 # the redesigned unified step
+    python3 chip_smoke.py --phases build,serving,unified,ckpt,ssm
+                                                # serving faults, checkpoints, the ssm family
     python3 chip_smoke.py --probe                # the tagged hand-off probe alone
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
     python3 chip_smoke.py --expert-ab DIR [DIR ...]
@@ -301,7 +339,7 @@ KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
 PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "kernels", "serving", "times",
-          "moe", "grad", "train", "unified", "unified_moe")
+          "moe", "grad", "train", "unified", "unified_moe", "ckpt", "ssm")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -1939,6 +1977,7 @@ def phase_serving(dev):
     serving["launches_per_decode_step"] = {"ws_attention": n_launches / steps,
                                            "ws_expert": 0.0}
     serving["jit_ws"] = _serve_jit("serving", params, cfg, prompts, max_new, _streams(done))
+    serving["crash"] = _serve_crash(params, cfg, prompts, max_new, _streams(done))
 
     # ws vs dense logits on the same caches: four prompts in a fresh batcher
     b = ContinuousBatcher(params, cfg, slots=4, capacity=1024)
@@ -2937,7 +2976,7 @@ def phase_unified(dev):
     from repro_torch.configs.llama3_2_3b import CONFIG
     from repro_torch.models import (
         Caches, KVCache, decode_step_unified, decode_step_ws, init_params,
-        plain_decode_step_unified, prefill,
+        plain_decode_step_unified,
     )
     from repro_torch.models.unified import plan_step, run_step
     from repro_torch.pallas_ws import launches, reset_launches
@@ -3114,27 +3153,17 @@ def phase_unified(dev):
         f"stolen {serving['stolen']}; degradations none")
     del front
     _, done_s, wall_s, _ = serve(False)
-    differ = 0
-    for rid, r in sorted(done.items()):
-        want = done_s[rid].out
-        if r.out == want:
-            continue
-        differ += 1
-        j = next(i for i, (a, b) in enumerate(zip(r.out, want)) if a != b)
-        seq = np.concatenate([prompts[rid], np.asarray(want[:j], np.int32)])
-        lg, _ = prefill(params, cfg, {"tokens": torch.from_numpy(seq).to(dev)[None].long()},
-                        capacity=len(seq))
-        top = torch.topk(lg[0, :V], 2).values
-        gap, limit = float(top[0] - top[1]), 2 * UNIFIED_RTOL * max(1.0, float(lg.abs().max()))
-        log(f"[unified] request {rid} differs from the split engine first at token {j}: top-2 "
-            f"logit gap {gap:.3g} (a near-tie flips when under {limit:.3g})")
-        if not gap < limit:
-            raise AssertionError(f"request {rid}: unified and split streams differ at token {j} "
-                                 f"with a top-2 gap of {gap} >= {limit}")
+    split_streams = _streams(done_s)
+    differ = _fp32_streams_held("unified", params, cfg, prompts, _streams(done),
+                                split_streams, "the split engine")
     log(f"[unified] greedy streams: {len(done) - differ}/{len(done)} equal to the split "
         f"engine's ({wall_s:.2f} s)")
     serving.update(split_wall_s=wall_s, streams_equal=len(done) - differ)
-    del params, k0, v0
+    del k0, v0
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving["watchdog"] = _watchdog_drills(params, cfg, prompts[:c["B"]], c)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(errs), split_rel_err=split_err, free_rel_err=free_err,
@@ -4125,6 +4154,747 @@ def phase_kernels(dev):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# serving faults: a replica crash under jit_ws, the unified step's watchdog
+
+
+# The serving phase's crash drill: 6 of its 8 requests go to replica 0, the
+# frontend runs CRASH_AT iterations (replica 0 admits 4, replica 1 steals 2),
+# the last 2 are queued on replica 0, and replica 0 dies at iteration
+# CRASH_AT with 4 requests in flight and 2 queued.
+CRASH_AT = 2
+CRASH_LATE = 2
+# The unified phase's watchdog drills: one batcher of UNIFIED's 4 slots
+# serving the first 4 prompts; a deadline that only the injected latency
+# (EngineFaultPlan's 1e9 s) can pass.
+WATCHDOG = dict(poison_steps=(0, 2), slow_steps=(1,), cooldown=2, deadline_s=60.0)
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def _last_logits(params, cfg, seq):
+    """The prefill logits [V] at the last position of ``seq``."""
+    dev = params["embed"].device
+    from repro_torch.models import prefill
+
+    lg, _ = prefill(params, cfg, {"tokens": torch.from_numpy(np.asarray(seq)).to(dev)[None]
+                                  .long()}, capacity=len(seq))
+    return lg[0, :cfg.vocab_size]
+
+
+def _below_top(lg, *tokens):
+    """How far below the largest logit each token's logit lies."""
+    top = float(lg.max())
+    return [top - float(lg[t]) for t in tokens]
+
+
+def _fp32_streams_held(tag, params, cfg, prompts, got, want, what):
+    """Greedy streams of an fp32 model on two paths, ``got`` against ``want``
+    ({rid: tokens}): a difference passes only at a near-tie of the prefill
+    logits at its first differing token (both streams' tokens within 2 x
+    UNIFIED_RTOL x max(1, max |logit|) of the largest logit).  Returns the
+    number of streams that differ."""
+    differ = 0
+    for rid in sorted(want):
+        g, w = list(got[rid]), list(want[rid])
+        if g == w:
+            continue
+        differ += 1
+        j = _first_diff(g, w)
+        if j >= min(len(g), len(w)):
+            raise AssertionError(f"[{tag}] request {rid}: {len(g)} tokens against {len(w)}")
+        lg = _last_logits(params, cfg, np.concatenate([prompts[rid], np.asarray(w[:j], np.int32)]))
+        gap = max(_below_top(lg, g[j], w[j]))
+        limit = 2 * UNIFIED_RTOL * max(1.0, float(lg.abs().max()))
+        log(f"[{tag}] request {rid} differs from {what} first at token {j}: tokens {g[j]} and "
+            f"{w[j]} within {gap:.3g} of the largest logit (a near-tie flips when under "
+            f"{limit:.3g})")
+        if not gap < limit:
+            raise AssertionError(f"[{tag}] request {rid}: the streams differ at token {j}, a "
+                                 f"token {gap} below the largest logit >= {limit}")
+    return differ
+
+
+def _resumed_streams_held(tag, params, cfg, prompts, got, want, resumed_at):
+    """A crash drill's streams ``got`` against the uninterrupted run's
+    ``want``.  A request not in flight at the crash ran the same path: equal.
+    A resumed one (``resumed_at[rid]`` tokens emitted before the crash) is
+    equal up to there; after it its tokens come from a prefill over the
+    prompt and the emitted tokens where the uninterrupted run decoded, two
+    bf16 paths.  So a difference at token j passes only where both tokens'
+    prefill-path logits there lie within twice the distance between the two
+    paths' logits at j (max |prefill - decode_step_ws|) of the largest one
+    (bf16 logits tie exactly, often among more than two tokens).  Returns
+    per request the first differing token (or None) and, where one differs,
+    how far below the largest logit the two tokens lie and the paths'
+    distance."""
+    from repro_torch.models import decode_step_ws, prefill
+
+    dev = params["embed"].device
+    out = {}
+    for rid in sorted(want):
+        g, w = list(got[rid]), list(want[rid])
+        if len(g) != len(w):
+            raise AssertionError(f"[{tag}] request {rid}: {len(g)} tokens, want {len(w)}")
+        j = _first_diff(g, w)
+        if j == len(w):
+            out[rid] = None
+            continue
+        m = resumed_at.get(rid)
+        if m is None or j < m:
+            raise AssertionError(f"[{tag}] request {rid} differs at token {j} "
+                                 f"({'not resumed' if m is None else f'resumed after {m}'}): "
+                                 f"{g} against {w}")
+        seq = np.concatenate([prompts[rid], np.asarray(w[:j], np.int32)])
+        lg_p = _last_logits(params, cfg, seq)
+        _, caches = prefill(params, cfg, {"tokens": torch.from_numpy(seq[:-1]).to(dev)[None]
+                                          .long()}, capacity=len(seq))
+        lg_d = decode_step_ws(params, cfg, caches, torch.tensor([[int(seq[-1])]], device=dev),
+                              np.array([len(seq) - 1]))[0][0, :cfg.vocab_size]
+        dist = float((lg_p - lg_d).abs().max())
+        below = _below_top(lg_p, g[j], w[j])
+        log(f"[{tag}] request {rid} (resumed after {m} tokens) differs from the uninterrupted "
+            f"stream first at token {j}: tokens {g[j]} and {w[j]} {below[0]:.4g} and "
+            f"{below[1]:.4g} below the largest prefill-path logit, the paths' logits {dist:.4g} "
+            f"apart (passes within {2 * dist:.4g})")
+        if not max(below) <= 2 * dist:
+            raise AssertionError(f"[{tag}] request {rid}: the resumed stream differs at token {j} "
+                                 f"with a token {max(below)} below the largest logit > 2 x {dist}")
+        out[rid] = dict(token=j, below_top=below, path_distance=dist)
+    return out
+
+
+def _serve_crash(params, cfg, prompts, max_new, want):
+    """The serving phase's requests again under ``jit_ws`` with replica 0
+    killed at iteration CRASH_AT (ReplicaCrashPlan), 4 requests in flight on
+    it and CRASH_LATE queued: crashed == 1, readmitted == the in-flight
+    count, no duplicate completion, every request completed with max_new
+    tokens, the queued ones stolen and served by the survivor, and every
+    stream the uninterrupted run's (``want``) as _resumed_streams_held
+    reads it."""
+    from repro_torch.chaos import ReplicaCrashPlan
+    from repro_torch.pallas_ws import launches, reset_launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    front = WorkStealingFrontend(
+        lambda: ContinuousBatcher(params, cfg, slots=4, capacity=1024, jit_ws=True),
+        n_replicas=2, crash_plan=ReplicaCrashPlan({0: CRASH_AT}))
+    early = len(prompts) - CRASH_LATE
+    for rid in range(early):
+        front.submit(0, Request(rid=rid, tokens=prompts[rid], max_new=max_new))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CRASH_AT):
+        front.run_iteration()
+    inflight = {r.rid: len(r.out) for r in front.batchers[0].live if r is not None}
+    for rid in range(early, len(prompts)):  # queued on replica 0 when it dies
+        front.submit(0, Request(rid=rid, tokens=prompts[rid], max_new=max_new))
+    done = front.run(max_iters=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: launches[n] for n in ("ws_attention", "ws_expert", "ws_expert_grad",
+                                       "ws_unified")}
+    c, per = front.counters, front.per_replica
+    if not inflight:
+        raise AssertionError(f"[serving] replica 0 had nothing in flight at iteration {CRASH_AT}")
+    if (c["crashed"] != 1 or c["readmitted"] != len(inflight) or c["dup_completed"]
+            or front.rejected or front.dead != {0}):
+        raise AssertionError(f"[serving] crash counters {c}, dead {front.dead}, in flight "
+                             f"{inflight}")
+    if sorted(done) != list(range(len(prompts))) or any(len(r.out) != max_new
+                                                        for r in done.values()):
+        raise AssertionError(f"[serving] crash drill completed {sorted(done)}: "
+                             f"{ {rid: len(r.out) for rid, r in done.items()} }")
+    if per[0]["admitted"] != len(inflight) or per[0]["completed"] or per[1]["stolen"] < \
+            early - len(inflight) + CRASH_LATE:
+        raise AssertionError(f"[serving] per replica {per}: replica 0 must admit only its "
+                             "in-flight requests, and the survivor steal the queued ones")
+    for rid, r in done.items():
+        np.testing.assert_array_equal(np.asarray(r.tokens), prompts[rid])
+    held = _resumed_streams_held("serving", params, cfg, prompts, _streams(done), want,
+                                 inflight)
+    equal = sum(v is None for v in held.values())
+    tokens = sum(len(r.out) for r in done.values())
+    log(f"[serving] crash drill (jit_ws on): replica 0 killed at iteration {CRASH_AT} with "
+        f"{len(inflight)} requests in flight ({inflight} tokens emitted) and {CRASH_LATE} "
+        f"queued; counters {c}; per replica {per}; {tokens} new tokens in {wall:.2f} s; "
+        f"launches {counts}; streams equal to the uninterrupted run's {equal}/{len(done)}"
+        + ("" if equal == len(done) else
+           f" (the rest near-ties after their resume: { {k: v for k, v in held.items() if v} })"))
+    del front
+    gc.collect()
+    return dict(crash_at=CRASH_AT, inflight=inflight, queued=CRASH_LATE, counters=dict(c),
+                per_replica=per, wall_s=wall, new_tokens=tokens, launches=counts,
+                streams_equal=equal, differences={k: v for k, v in held.items() if v})
+
+
+def _watchdog_drills(params, cfg, prompts, c):
+    """The unified engine's watchdog at full width (fp32 llama): one batcher
+    serving ``prompts`` healthy, then with EngineFaultPlan(poison_steps),
+    then with a deadline, cooldown WATCHDOG["cooldown"] and slow_steps.
+    Streams equal to the healthy run's (a near-tie as _fp32_streams_held
+    reads it); degradations ["non-finite"] x 2 at the poisoned steps, and
+    ["deadline"] at the slow one; the launches of every step: a healthy one
+    ws_unified 1 and nothing else, a poisoned one ws_unified 1 and the split
+    redo's ws_attention (n_layers where a slot decodes), a cooled-down one
+    no ws_unified and the split step's ws_attention."""
+    from repro_torch.chaos import EngineFaultPlan
+    from repro_torch.pallas_ws import launches, reset_launches
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    w = WATCHDOG
+    L = cfg.n_layers
+
+    def serve(**kw):
+        b = ContinuousBatcher(params, cfg, slots=c["B"], capacity=c["cap"], unified_step=True,
+                              **kw)
+        for rid, p in enumerate(prompts):
+            assert b.admit(Request(rid=rid, tokens=p, max_new=c["max_new"]))
+        done, steps = [], []
+        t0 = time.perf_counter()
+        while b.n_live:
+            decodes = any(r is not None and r.out and i not in b._pending_slots
+                          for i, r in enumerate(b.live))
+            reset_launches()
+            done += b.step()
+            torch.cuda.synchronize()
+            steps.append(dict(decodes=decodes, ws_unified=launches["ws_unified"],
+                              ws_attention=launches["ws_attention"],
+                              other=launches["ws_expert"] + launches["ws_expert_grad"]))
+        return {r.rid: list(r.out) for r in done}, b, steps, time.perf_counter() - t0
+
+    healthy, b0, s0, t_h = serve()
+    if b0.degradations:
+        raise AssertionError(f"[unified] the healthy watchdog run degraded: {b0.degradations}")
+    runs = {"poisoned": serve(fault_plan=EngineFaultPlan(poison_steps=w["poison_steps"])),
+            "deadline": serve(step_deadline_s=w["deadline_s"], watchdog_cooldown=w["cooldown"],
+                              fault_plan=EngineFaultPlan(slow_steps=w["slow_steps"]))}
+    want_kinds = {"poisoned": [(s, "non-finite") for s in w["poison_steps"]],
+                  "deadline": [(s, "deadline") for s in w["slow_steps"]]}
+    redo = {"poisoned": set(w["poison_steps"]),
+            "deadline": {s + 1 + k for s in w["slow_steps"] for k in range(w["cooldown"])}}
+    out = {"healthy_s": t_h, "steps": len(s0), "requests": len(prompts)}
+    for name, (got, b, steps, t) in runs.items():
+        kinds = [(d["step"], d["kind"]) for d in b.degradations]
+        if kinds != want_kinds[name]:
+            raise AssertionError(f"[unified] watchdog {name}: degradations {b.degradations}")
+        for i, st in enumerate(steps):
+            unified = 0 if (name == "deadline" and i in redo[name]) else 1
+            split = L if (i in redo[name] and st["decodes"]) else 0
+            if (st["ws_unified"], st["ws_attention"], st["other"]) != (unified, split, 0):
+                raise AssertionError(f"[unified] watchdog {name} step {i}: launches {st}, want "
+                                     f"ws_unified {unified}, ws_attention {split}")
+        differ = _fp32_streams_held("unified", params, cfg, prompts, got, healthy,
+                                    f"the healthy run ({name})")
+        out[name] = dict(degradations=b.degradations, seconds=t, streams_equal=len(got) - differ,
+                         launches_by_step=steps, redone_or_cooled=sorted(redo[name]))
+        log(f"[unified] watchdog {name}: degradations {kinds}; steps "
+            f"{sorted(redo[name])} on the split path (ws_attention "
+            f"{[steps[i]['ws_attention'] for i in sorted(redo[name])]}, ws_unified "
+            f"{[steps[i]['ws_unified'] for i in sorted(redo[name])]}), every other step one "
+            f"ws_unified launch; {len(steps)} steps in {t:.2f} s (healthy {t_h:.2f} s); streams "
+            f"{len(got) - differ}/{len(got)} equal to the healthy run's")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: save, preemption and resume through train()
+
+
+# llama3.2-3b bf16 at full width cut to 2 layers (0.99 B parameters: 1.98 GB
+# of bf16 weights, 7.93 GB of AdamW's fp32 states, so 9.9 GB a checkpoint),
+# AdamW, 4 x 256 tokens a step: run A takes 6 steps with a save every 2 (and
+# at the last), run B (a child process) is preempted after step 3 (exit 17,
+# step 2 its last save), run C resumes it at step 3.
+CKPT = dict(arch="llama3.2-3b", smoke=False, n_layers=2, steps=6, every=2, preempt_at=3, rows=4,
+            seq=256)
+# C's losses against A's for steps 3-5: A and B reach step 2 through the same
+# steps, so they agree bit for bit unless a kernel on the way sums in an
+# order that varies between runs; this allows a last-bit difference in a
+# loss of ~12, far below any error of the checkpoint itself.  Bit-equal
+# losses are reported as such.
+CKPT_LOSS_ATOL = 1e-3
+
+
+@contextmanager
+def _recorded_checkpointers(made):
+    """Every AsyncCheckpointer that train() makes, appended to ``made``."""
+    from repro_torch.launch import train as train_mod
+
+    orig = train_mod.AsyncCheckpointer
+
+    class Recording(orig):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    train_mod.AsyncCheckpointer = Recording
+    try:
+        yield
+    finally:
+        train_mod.AsyncCheckpointer = orig
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def phase_ckpt(dev):
+    """Checkpoints at full width: run A through train(ckpt_dir, ckpt_every),
+    its last save restored and held to A's final state bit for bit; run B
+    preempted in a child process (exit code 17); run C resumed from B's
+    last save, its losses against A's.  Bytes written, snapshot and write
+    seconds a save, restore seconds."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.launch.train import train
+    from repro_torch.pallas_ws import launches, reset_launches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    c = CKPT
+    root = tempfile.mkdtemp(prefix="ckpt-phase-")
+    dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+    log(f"[ckpt] {c['arch']} at full width, depth {c['n_layers']}, AdamW; checkpoints "
+        f"under {root} ({shutil.disk_usage(root).free / 1e9:.1f} GB free)")
+    common = dict(smoke=c["smoke"], n_layers=c["n_layers"], steps=c["steps"], rows=c["rows"],
+                  seq=c["seq"], seed=SEED, ckpt_every=c["every"], log_every=1)
+    try:
+        made = []
+        reset_launches()
+        with _recorded_checkpointers(made):
+            t0 = time.perf_counter()
+            state_a, losses_a = train(c["arch"], ckpt_dir=dir_a, device=dev, **common)
+            run_a_s = time.perf_counter() - t0
+        saves = made[0].records
+        want_steps = [s for s in range(c["steps"]) if s % c["every"] == 0 or s == c["steps"] - 1]
+        if [r["step"] for r in saves] != want_steps or latest_step(dir_a) != c["steps"] - 1:
+            raise AssertionError(f"[ckpt] run A saved {[r['step'] for r in saves]}, latest "
+                                 f"{latest_step(dir_a)}, want {want_steps}")
+        kept = sorted(os.listdir(dir_a))
+        if kept != [f"step_{s:08d}" for s in want_steps[-3:]]:
+            raise AssertionError(f"[ckpt] run A kept {kept}, want the newest 3 of {want_steps}")
+        # the last save restored onto the card: A's final state, bit for bit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, step = restore(dir_a, state_a, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        n_leaves = n_bytes = 0
+        for (path, g), (_, w) in zip(_flatten(got), _flatten(state_a)):
+            if isinstance(w, torch.Tensor):
+                if g.dtype != w.dtype or not torch.equal(_bits(g), _bits(w.detach())):
+                    raise AssertionError(f"[ckpt] restored {path} differs from the saved state")
+                n_leaves += 1
+                n_bytes += w.numel() * w.element_size()
+            elif g != w:
+                raise AssertionError(f"[ckpt] restored {path} = {g}, saved {w}")
+        if step != c["steps"] - 1:
+            raise AssertionError(f"[ckpt] restored step {step}")
+        n_params = sum(t.numel() for t in _leaves(state_a["params"]))
+        del got, state_a
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(dir_a)
+        log(f"[ckpt] run A: {c['steps']} steps in {run_a_s:.1f} s, losses {losses_a}; "
+            f"{n_params / 1e9:.3f} B parameters; saves "
+            + ", ".join(f"step {r['step']}: {r['bytes'] / 1e9:.2f} GB, snapshot "
+                        f"{r['snapshot_s']:.2f} s, background write {r['write_s']:.2f} s"
+                        for r in saves)
+            + f"; the last save restored in {restore_s:.2f} s: {n_leaves} tensors "
+            f"({n_bytes / 1e9:.2f} GB) and the step bit-equal to run A's final state")
+
+        # run B: preempted after step preempt_at in a process of its own
+        env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", c["arch"],
+               *([] if c["smoke"] else ["--full-config"]), "--device", str(dev),
+               "--n-layers", str(c["n_layers"]), "--steps", str(c["steps"]),
+               "--rows", str(c["rows"]), "--seq", str(c["seq"]), "--seed", str(SEED),
+               "--ckpt-dir", dir_b, "--ckpt-every", str(c["every"]), "--preempt-at",
+               str(c["preempt_at"]), "--log-every", "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+        run_b_s = time.perf_counter() - t0
+        losses_b = [json.loads(line.split(" ", 1)[1])["loss"] for line in
+                    proc.stdout.splitlines() if line.startswith("[train] {")]
+        last_b = max(s for s in want_steps if s <= c["preempt_at"])
+        if proc.returncode != 17 or latest_step(dir_b) != last_b:
+            raise AssertionError(f"[ckpt] run B exited {proc.returncode} (want 17), latest "
+                                 f"save {latest_step(dir_b)} (want {last_b}):\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        log(f"[ckpt] run B (child process): exit code 17 after step {c['preempt_at']} in "
+            f"{run_b_s:.1f} s; losses (4 decimals, as logged) {losses_b}; latest save {last_b}")
+
+        # run C: resumed from B's last save
+        made.clear()
+        with _recorded_checkpointers(made):
+            t0 = time.perf_counter()
+            _, losses_c = train(c["arch"], ckpt_dir=dir_b, resume=True, device=dev, **common)
+            run_c_s = time.perf_counter() - t0
+        want_c = losses_a[last_b + 1:]
+        diff = max(abs(a - b) for a, b in zip(losses_c, want_c)) if losses_c else float("inf")
+        if len(losses_c) != len(want_c) or not diff <= CKPT_LOSS_ATOL:
+            raise AssertionError(f"[ckpt] run C losses {losses_c} against run A's {want_c}")
+        if not all(abs(a - round(b, 4)) <= 5e-5 + CKPT_LOSS_ATOL
+                   for a, b in zip(losses_b, losses_a)):
+            raise AssertionError(f"[ckpt] run B's logged losses {losses_b} against A's {losses_a}")
+        counts = {n: launches[n] for n in launches}
+        log(f"[ckpt] run C: resumed at step {last_b + 1}, {len(losses_c)} steps in "
+            f"{run_c_s:.1f} s, losses {losses_c} against run A's {want_c}: "
+            + ("bit-equal" if losses_c == want_c else
+               f"max |diff| {diff:.3g} (<= {CKPT_LOSS_ATOL}: a kernel summing in an order "
+               "that varies between runs)")
+            + f"; saves {[r['step'] for r in made[0].records]}; ws launches {counts}; phase "
+            f"{time.perf_counter() - t_phase:.1f} s; card: {card_line()}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+
+    dtype = get_config(c["arch"], smoke=c["smoke"]).dtype
+    return dict(model=f"{c['arch']} (depth {c['n_layers']}, {dtype}, AdamW)", losses_a=losses_a,
+                losses_b_logged=losses_b, losses_c=losses_c, resumed_at=last_b + 1,
+                losses_bit_equal=losses_c == want_c, loss_max_abs_diff=diff,
+                saves=saves, restore_s=restore_s, restored_bytes=n_bytes,
+                run_s=dict(a=run_a_s, b=run_b_s, c=run_c_s), launches=counts)
+
+
+# ---------------------------------------------------------------------------
+# the ssm family: mamba2-2.7b and zamba2-2.7b at full width and depth
+
+
+# Both bf16 at full width and full depth (64 and 54 layers).  Prefill of
+# S + extra tokens against a prefill of S then `extra` dense decode steps (S +
+# extra = ssm_chunk: a prompt past the chunk must be a multiple of it);
+# serving: 2 replicas x 4 slots x 1024 positions, 8 requests of 16-128 tokens
+# (at most ssm_chunk), 16 new tokens each, run twice; training: 2 steps
+# through train() at depth 2 (zamba2 at 6, its first shared attention block),
+# 4 x 256 tokens.  The scan's model inputs: mamba2's layer 0 in a prefill of
+# 4 x 1024 tokens.
+SSM = dict(archs=("mamba2-2.7b", "zamba2-2.7b"), smoke=False, S=120, extra=8, slots=4, cap=1024,
+           requests=8, prompt_lens=(16, 129), max_new=16, train_steps=2, train_rows=4,
+           train_seq=256, train_depth={"mamba2-2.7b": 2, "zamba2-2.7b": 6},
+           scan_batch=4, scan_seq=1024)
+# Prefill against decode.  fp32: the decode path's last logits within
+# SSM_FP32_TOL x max(1, max |logit|) of the prefill's (the reference's
+# 2e-3 of tests/test_models_smoke.py).  bf16: the bf16 decode path may stray
+# from the fp32 prefill at most SSM_SLACK times as far as the bf16 prefill
+# does (both round the same activations to bf16, along other paths);
+# the control, a decode whose conv state is not shifted, must stray further.
+SSM_FP32_TOL = 2e-3
+SSM_SLACK = 2.0
+
+
+@contextmanager
+def _captured_scan(record):
+    """The first ssd_chunked call's inputs (x, dt, A, B, C, chunk) into
+    ``record`` (the Mamba-2 layer's scan, as the model calls it)."""
+    from repro_torch.models import ssm as ssm_mod
+
+    real = ssm_mod.ssd_chunked
+
+    def capture(x, dt, A, B, C, chunk, init_state=None):
+        if not record:
+            record.extend([t.detach().clone() for t in (x, dt, A, B, C)] + [chunk])
+        return real(x, dt, A, B, C, chunk, init_state)
+
+    ssm_mod.ssd_chunked = capture
+    try:
+        yield
+    finally:
+        ssm_mod.ssd_chunked = real
+
+
+@contextmanager
+def _conv_state_not_shifted():
+    """The control's fault: a decode whose conv state keeps its old window."""
+    from repro_torch.models import ssm as ssm_mod
+
+    real = ssm_mod._conv_step
+
+    def stale(x_new, conv_state, w):
+        out, _ = real(x_new, conv_state, w)
+        return out, conv_state
+
+    ssm_mod._conv_step = stale
+    try:
+        yield
+    finally:
+        ssm_mod._conv_step = real
+
+
+def _ssm_prefill_vs_decode(params, cfg, dev, rng):
+    """Last logits of a prefill of S + extra tokens against a prefill of S
+    then `extra` decode steps, in bf16 and in fp32 (the weights widened),
+    and the control (bf16, conv state not shifted)."""
+    from repro_torch.models import decode_step, prefill
+
+    S, extra, V = SSM["S"], SSM["extra"], cfg.vocab_size
+    toks = torch.from_numpy(rng.integers(0, V, (1, S + extra))).to(dev)
+
+    def via_decode(p, cfg_):
+        _, caches = prefill(p, cfg_, {"tokens": toks[:, :S]}, capacity=S + extra)
+        for i in range(S, S + extra):
+            lg, caches = decode_step(p, cfg_, caches, toks[:, i:i + 1], i)
+        return lg[0, :V]
+
+    def via_prefill(p, cfg_):
+        return prefill(p, cfg_, {"tokens": toks}, capacity=S + extra)[0][0, :V]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec16 = via_decode(params, cfg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    pre16 = via_prefill(params, cfg)
+    with _conv_state_not_shifted():
+        ctl16 = via_decode(params, cfg)
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = _map(params, lambda t: t.float())
+    pre32, dec32 = via_prefill(params32, cfg32), via_decode(params32, cfg32)
+    del params32
+    torch.cuda.empty_cache()
+    scale = max(1.0, float(pre32.abs().max()))
+    err32 = float((dec32 - pre32).abs().max())
+    err_pre, err_dec, err_ctl = (float((x - pre32).abs().max()) for x in (pre16, dec16, ctl16))
+    out = dict(S=S, extra=extra, logit_scale=scale, fp32_decode_vs_prefill=err32,
+               fp32_limit=SSM_FP32_TOL * scale, bf16_prefill_vs_fp32=err_pre,
+               bf16_decode_vs_fp32=err_dec, bf16_limit=SSM_SLACK * err_pre,
+               control_no_conv_shift_vs_fp32=err_ctl, decode_path_s=decode_s,
+               argmax_agree=int(dec16.argmax()) == int(pre16.argmax()))
+    log(f"[ssm] {cfg.name}: prefill of {S + extra} tokens against prefill of {S} + {extra} "
+        f"decode steps: fp32 max |diff| {err32:.4g} (<= {SSM_FP32_TOL} x {scale:.4g}); bf16 "
+        f"decode path {err_dec:.4g} from the fp32 prefill, bf16 prefill {err_pre:.4g} (<= "
+        f"{SSM_SLACK} x); control (conv state not shifted) {err_ctl:.4g} (must exceed "
+        f"{SSM_SLACK * err_pre:.4g}); argmax agree {out['argmax_agree']}")
+    if not (err32 <= SSM_FP32_TOL * scale and err_dec <= SSM_SLACK * err_pre):
+        raise AssertionError(f"[ssm] {cfg.name}: decode and prefill disagree: {out}")
+    if not err_ctl > SSM_SLACK * err_pre:
+        raise AssertionError(f"[ssm] {cfg.name}: the control passed: {out}")
+    return out
+
+
+def _ssm_serve(params, cfg, rng):
+    """2 replicas x 4 slots behind the frontend, 8 requests, twice: the same
+    greedy streams, every request completed, no ws kernel launched."""
+    from repro_torch.pallas_ws import launches, reset_launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    c = SSM
+    lens = rng.integers(*c["prompt_lens"], size=c["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+    runs = []
+    for _ in range(2):
+        front = WorkStealingFrontend(lambda: ContinuousBatcher(
+            params, cfg, slots=c["slots"], capacity=c["cap"]), n_replicas=2)
+        for rid, p in enumerate(prompts):
+            front.submit(0, Request(rid=rid, tokens=p, max_new=c["max_new"]))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = front.run(max_iters=1000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: launches[n] for n in launches}
+        if sorted(done) != list(range(len(prompts))) or front.rejected or any(counts.values()):
+            raise AssertionError(f"[ssm] {cfg.name} serving: completed {sorted(done)}, "
+                                 f"rejected {sorted(front.rejected)}, launches {counts}")
+        if any(len(r.out) != c["max_new"] or not all(0 <= t < cfg.vocab_size for t in r.out)
+               for r in done.values()):
+            raise AssertionError(f"[ssm] {cfg.name} serving produced {_streams(done)}")
+        stats = front.stats()
+        lat = np.concatenate([np.asarray(b.metrics.step_latency_s)
+                              for b in front.batchers]) * 1e3
+        tokens = sum(len(r.out) for r in done.values())
+        runs.append(dict(streams=_streams(done), wall_s=wall, new_tokens=tokens,
+                         tokens_per_s=tokens / wall,
+                         steps=sum(s["steps"] for s in stats["batchers"]),
+                         step_ms_p50=float(np.percentile(lat, 50)),
+                         step_ms_p99=float(np.percentile(lat, 99)),
+                         stolen=stats["totals"]["stolen"]))
+        del front
+    if runs[0]["streams"] != runs[1]["streams"]:
+        raise AssertionError(f"[ssm] {cfg.name}: greedy streams differ between two runs")
+    r = runs[1]
+    log(f"[ssm] {cfg.name} serving (2 replicas x {c['slots']} slots x {c['cap']} positions, "
+        f"{len(prompts)} requests of {int(lens.min())}-{int(lens.max())} tokens, "
+        f"{c['max_new']} new each, the dense decode step): {r['new_tokens']} new tokens in "
+        f"{r['wall_s']:.2f} s ({r['tokens_per_s']:.2f} tokens/s incl. prefill), {r['steps']} "
+        f"steps, step p50 {r['step_ms_p50']:.2f} ms p99 {r['step_ms_p99']:.2f} ms, stolen "
+        f"{r['stolen']}; first run {runs[0]['wall_s']:.2f} s, step p50 "
+        f"{runs[0]['step_ms_p50']:.2f} ms; greedy streams equal in both runs; no ws kernel")
+    return dict({k: v for k, v in r.items() if k != "streams"}, prompt_tokens=int(lens.sum()),
+                first_run_wall_s=runs[0]["wall_s"], first_run_step_ms_p50=runs[0]["step_ms_p50"],
+                streams_reproducible=True)
+
+
+def _ssm_step_profile(params, cfg, dev):
+    """One dense decode step at the serving shape (4 slots, 1024 positions,
+    every slot at position 100) on its own: its wall time (host and
+    device, median of 5 after a warm-up) and, under torch.profiler, its
+    device kernels: their number, their summed device time, the GEMMs among
+    them, and the device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, init_caches
+
+    c = SSM
+    caches = init_caches(cfg, c["slots"], c["cap"], device=dev)
+    tok = torch.zeros((c["slots"], 1), dtype=torch.long, device=dev)
+    pos = np.full(c["slots"], 100)
+    decode_step(params, cfg, caches, tok, pos)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_step(params, cfg, caches, tok, pos)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_step(params, cfg, caches, tok, pos)
+        torch.cuda.synchronize()
+    n = gemm_n = 0
+    us = gemm_us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = e.cuda_time_total if t is None else t
+        if not t:
+            continue
+        n += e.count
+        us += t
+        if any(w in e.key.lower() for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
+            gemm_n += e.count
+            gemm_us += t
+    wall = float(np.median(walls))
+    out = dict(wall_ms=wall, kernels=n, device_ms=us / 1e3 if n else None,
+               gemm_kernels=gemm_n, gemm_ms=gemm_us / 1e3 if n else None,
+               idle_share=1 - us / 1e3 / wall if n else None)
+    log(f"[ssm] {cfg.name} one decode step (4 slots at position 100): {wall:.2f} ms wall; "
+        + (f"{n} device kernels, {us / 1e3:.3f} ms of device time ({gemm_n} GEMMs "
+           f"{gemm_us / 1e3:.3f} ms): the device idle {out['idle_share']:.3f} of the step"
+           if n else "the profiler saw no device time (not measured)"))
+    return out
+
+
+def _ssm_train(arch, dev):
+    from repro_torch.launch.train import train
+
+    c = SSM
+    depth = c["train_depth"][arch]
+    peaks, step_s = [], []
+
+    def on_step(step, state, m, seconds):
+        step_s.append(seconds)
+        peaks.append(torch.cuda.max_memory_allocated())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, losses = train(arch, smoke=c["smoke"], n_layers=depth, steps=c["train_steps"],
+                      rows=c["train_rows"], seq=c["train_seq"], seed=SEED, device=dev,
+                      on_step=on_step, log_every=1)
+    if len(losses) != c["train_steps"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"[ssm] {arch} train losses {losses}")
+    log(f"[ssm] {arch} train() at depth {depth}: losses {losses}, step seconds "
+        f"{[round(s, 3) for s in step_s]}, peak device memory {max(peaks) / 1e9:.2f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(depth=depth, losses=losses, step_s=step_s, peak_bytes=max(peaks))
+
+
+def phase_ssm(dev):
+    """mamba2-2.7b and zamba2-2.7b (bf16, full width and depth): prefill
+    against decode (with the conv-shift control), serving twice, 2 train()
+    steps; mamba2's layer-0 scan inputs from a 4 x 1024-token prefill are
+    captured for _ssm_scan.  Returns (results, captured inputs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+
+    t_phase = time.perf_counter()
+    out, captured = {}, []
+    for arch in SSM["archs"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch, smoke=SSM["smoke"])
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        log(f"[ssm] {arch}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters "
+            f"(param_count {cfg.param_count() / 1e9:.3f} B), {n_bytes / 1e9:.2f} GB, "
+            f"initialised in {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(SEED)
+        res = dict(layers=cfg.n_layers, params=n_params, weight_bytes=n_bytes)
+        res["prefill_vs_decode"] = _ssm_prefill_vs_decode(params, cfg, dev, rng)
+        res["serving"] = _ssm_serve(params, cfg, rng)
+        res["step_profile"] = _ssm_step_profile(params, cfg, dev)
+        if arch == "mamba2-2.7b":
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                 (SSM["scan_batch"], SSM["scan_seq"]))).to(dev)
+            with _captured_scan(captured), torch.no_grad():
+                lg, _ = prefill(params, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"[ssm] {arch}: the {tuple(toks.shape)} prefill's logits "
+                                     "are not finite")
+        del params
+        res["train"] = _ssm_train(arch, dev)
+        out[arch] = res
+    log(f"[ssm] phase {time.perf_counter() - t_phase:.1f} s; card: {card_line()}")
+    return out, captured
+
+
+def _ssm_scan(captured):
+    """The ssd_scan kernel on mamba2's layer-0 scan inputs from the ssm
+    phase's 4 x 1024-token prefill, against ssd_chunked on the same inputs
+    (y and the final state, the kernels phase's limits).  fp32: the layer's
+    dt is fp32 after softplus and the kernel takes one type for x, dt, B
+    and C, so x, B and C (bf16) are widened, exactly.  Device times of
+    both."""
+    from repro_torch.kernels import launches as klaunches
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan as ssd_fwd
+    from repro_torch.models.ssm import ssd_chunked
+
+    x, dt, A, B, C, chunk = captured
+    xs = tuple(t.float() for t in (x, dt, A, B, C))
+    b, S, H, P = x.shape
+    n0 = klaunches["ssd_scan"]
+    y, fin = ssd_fwd(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    n = klaunches["ssd_scan"] - n0
+    if y.is_cuda and n != 1:
+        raise AssertionError(f"[ssm] ssd_scan on the model's inputs launched {n} times, want 1")
+    ry, rfin = ssd_chunked(*xs, chunk)
+    checks = _Checks()
+    err = checks.held("ssd_scan on mamba2 layer 0's inputs: y", y, ry)
+    state_err = checks.held("ssd_scan on mamba2 layer 0's inputs: final state", fin, rfin,
+                            "state")
+    checks.verdict()
+    k_ms = _device_ms(lambda _: ssd_fwd(*xs, chunk=chunk), KTIMED)
+    r_ms = _device_ms(lambda _: ssd_chunked(*xs, chunk), KTIMED)
+    out = dict(at="mamba2-2.7b layer 0, prefill inputs", shape=dict(b=b, S=S, H=H, P=P,
+               N=B.shape[-1], chunk=chunk), dtype="float32 (x, B, C widened from bf16)",
+               launches=n, max_abs_err=err, state_max_abs_err=state_err,
+               ms_device=k_ms, ssd_chunked_ms_device=r_ms,
+               dt_range=[float(dt.min()), float(dt.max())],
+               max_abs_y=float(ry.abs().max()), max_abs_state=float(rfin.abs().max()))
+    log(f"[ssm] ssd_scan on mamba2-2.7b layer 0's own scan inputs (b {b}, S {S}, H {H}, P {P}, "
+        f"N {B.shape[-1]}, chunk {chunk}, fp32): y max |err| {err:.3g}, state {state_err:.3g} "
+        f"against ssd_chunked; device {k_ms:.3f} ms, ssd_chunked {r_ms:.3f} ms; dt in "
+        f"[{out['dt_range'][0]:.3g}, {out['dt_range'][1]:.3g}]; {n} launch; card: {card_line()}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4201,6 +4971,12 @@ def main(argv=None) -> int:
     training = model_path("train", phase_train, dev)
     unified, userving = model_path("unified", phase_unified, dev) or (None, None)
     umoe, umserving = model_path("unified_moe", phase_unified_moe, dev) or (None, None)
+    ckpt = model_path("ckpt", phase_ckpt, dev)
+    ssm, ssm_inputs = model_path("ssm", phase_ssm, dev) or (None, None)
+    # ssd_scan on the ssm phase's own scan inputs: a comparison launch, not
+    # the model path's (the Mamba-2 layer runs ssd_chunked, as the reference's)
+    ssm_scan = _ssm_scan(ssm_inputs) if ssm_inputs else None
+    del ssm_inputs
     stray = {p: n for p, n in on_path.items() if any(n.values())}
     if stray:
         raise AssertionError(f"a model path launched a standalone kernel: {stray}")
@@ -4296,15 +5072,19 @@ def main(argv=None) -> int:
     }
     paths = {"serving": "llama3.2-3b", "moe": moe["model"], "train": training["model"],
              "unified": userving["model"], "unified_moe": umserving["model"],
+             "ckpt": ckpt["model"], "ssm": "mamba2-2.7b, zamba2-2.7b (ssm phase)",
              "times": "times phase", "grad": "grad phase"}
     standalone_lines = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
          "replaces": replaces,
          "launches": standalone[name]["launches"],
          "launches_by_path": {**{paths[p]: on_path[p][name] for p in paths},
-                              "kernels phase": standalone[name]["launches"]},
+                              "kernels phase": standalone[name]["launches"],
+                              **({"ssm phase, mamba2 layer 0's scan inputs":
+                                  ssm_scan["launches"]} if name == "ssd_scan" else {})},
          **{k: v for k, v in standalone[name].items() if k != "launches"},
          **({"redesigned": True} if name in REDESIGNED else {}),
+         **({"model_inputs": ssm_scan} if name == "ssd_scan" else {}),
          "card": card_line()}
         for name, replaces in (("flash_fwd", "src/repro/kernels/flash_attention/kernel.py:32"),
                                ("decode_attention",
@@ -4317,6 +5097,8 @@ def main(argv=None) -> int:
     log("[train] " + json.dumps({k: v for k, v in training.items() if k != "grad_times"}))
     log("[unified] " + json.dumps(userving))
     log("[unified_moe] " + json.dumps(umserving))
+    log("[ckpt] " + json.dumps(ckpt))
+    log("[ssm] " + json.dumps(ssm))
     print(card_line())
     print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line,
                                   *standalone_lines]}))

@@ -7,7 +7,8 @@ storms / kill-and-relaunch) is driven through launch segments by
 contract (no lost task, bounded multiplicity, normalized parity) over the
 trace rings, in lockstep as the reference does and in free mode under the
 reading its docstring states.  The serving layer's plans
-(``ReplicaCrashPlan``, ``EngineFaultPlan``) are not ported yet.
+(:class:`ReplicaCrashPlan`, :class:`EngineFaultPlan`) drive the serving
+engine's crash handling and watchdog.
 """
 
 from .checker import ChaosReport, SafetyChecker, Violation
@@ -21,12 +22,15 @@ from .plan import (
     resume_state,
     seed_advisory,
 )
+from .serving import EngineFaultPlan, ReplicaCrashPlan
 
 __all__ = [
     "ADVISORY_MODES",
     "ChaosReport",
     "ChaosRunResult",
+    "EngineFaultPlan",
     "FaultPlan",
+    "ReplicaCrashPlan",
     "RewindSpec",
     "SafetyChecker",
     "Segment",

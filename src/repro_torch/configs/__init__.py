@@ -1,6 +1,7 @@
 """Configurations the port builds (``llama3_2_3b``, ``kimi_k2_1t_a32b``,
 ``deepseek_v2_236b``, the dense ``minicpm_2b`` and the windowed dense
-``h2o_danube_1_8b`` and ``gemma3_12b``: each with ``CONFIG`` and ``SMOKE``),
+``h2o_danube_1_8b`` and ``gemma3_12b``, the SSM ``mamba2_2_7b`` and the
+hybrid ``zamba2_2_7b``: each with ``CONFIG`` and ``SMOKE``),
 and :func:`get_config` by the reference's arch ids."""
 
 import importlib
@@ -12,6 +13,8 @@ ARCH_MODULES = {
     "minicpm-2b": "minicpm_2b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "gemma3-12b": "gemma3_12b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 

@@ -5,8 +5,10 @@ already turned into a numpy array (the caller does ``np.asarray``; this
 module imports no JAX) and returns the same nested dict of torch tensors,
 layouts unchanged, so both packages compute the same function: GQA and MLA
 layers (``wdkv``, ``wkr``, ``wuk``, ``wuv``, ``wdq``/``wuq``, ``wo``), routed
-and shared experts alike, since the port keeps the reference's parameter
-tree.
+and shared experts, Mamba-2 layers (``mamba``, stacked over L, its fp32
+``A_log``, ``D`` and ``dt_bias`` beside weights of the model's type) and the
+hybrid's ``shared_attn`` (stacked over its 2 sets) alike, since the port
+keeps the reference's parameter tree.
 """
 
 from __future__ import annotations

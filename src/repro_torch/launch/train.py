@@ -1,6 +1,5 @@
 """End-to-end training entry point of the port (``repro/launch/train.py``
-counterpart, without checkpointing and without the ``sched/`` microbatch
-rounds).
+counterpart, without the ``sched/`` microbatch rounds).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b \
         --steps 3 --moe-dispatch ws --moe-grad-dispatch ws --device cpu
@@ -12,12 +11,20 @@ depth.  Each step draws its batch from the synthetic corpus
 (:func:`repro_torch.data.make_batch`) and goes through
 :func:`~repro_torch.launch.steps.make_optimizer` and
 :func:`~repro_torch.launch.steps.make_train_step`.
+
+Checkpoints (:mod:`repro_torch.checkpoint`, atomic and written in the
+background): ``--ckpt-dir`` saves the state ``{"params", "opt"}`` every
+``--ckpt-every`` steps and at the last one; ``--resume`` restores the
+latest step and continues after it; ``--preempt-at N`` is the preemption
+drill: after step N (and its save, if one is due) it waits for the writer
+and exits with code 17, and a rerun with ``--resume`` continues.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs import ARCH_MODULES, get_config
 from repro_torch.data import make_batch
 from repro_torch.launch.steps import make_optimizer, make_train_step
@@ -35,21 +43,22 @@ from repro_torch.models.config import ShapeConfig
 def train(arch: str, *, smoke: bool = True, steps: int = 100, rows: int = 8, seq: int = 64,
           moe_dispatch: str | None = None, moe_grad_dispatch: str | None = None,
           ws_mode: str | None = None, lr: float = 3e-3, ckpt_dir: str | None = None,
-          resume: bool = False, preempt_at: int | None = None, seed: int = 0,
+          ckpt_every: int = 20, resume: bool = False, preempt_at: int | None = None,
+          seed: int = 0,
           log_every: int = 10, log_path: str | None = None, n_layers: int | None = None,
           device: DeviceLike = None, params=None, on_step=None):
     """Train ``arch`` for ``steps`` steps of ``rows`` x ``seq`` tokens; returns
     ``(state, losses)``.  The knobs are the reference's; ``n_layers`` cuts the
     depth, ``device`` is ``cuda`` unless given, ``params`` replaces the
     seeded init (for example the reference's parameters carried across by
-    :func:`repro_torch.convert.params_from_jax`; they are updated in place),
-    and ``on_step(step, state, metrics, seconds)`` is called after every
-    step.  Checkpointing
-    (``ckpt_dir``, ``resume``, ``preempt_at``) and ``ws_mode`` are not
-    ported and raise."""
-    if ckpt_dir is not None or resume or preempt_at is not None:
-        raise NotImplementedError("checkpointing (ckpt_dir, resume, preempt_at) is not "
-                                  "ported yet")
+    :func:`repro_torch.convert.params_from_jax`; they are updated in place,
+    unless a resume replaces them by the restored ones), and ``on_step(step,
+    state, metrics, seconds)`` is called after every step.  With
+    ``ckpt_dir`` the state is saved at every ``ckpt_every``-th step and at
+    the last; ``resume`` restores the latest saved step there and starts at
+    the next; at ``preempt_at`` the run waits for the writer and exits with
+    code 17 (``os._exit``: run it in a process of its own).  ``ws_mode`` is
+    not ported and raises."""
     if ws_mode is not None:
         raise NotImplementedError("ws_mode (the sched/ microbatch rounds) is not ported yet")
     dev = resolve_device(device)
@@ -65,10 +74,16 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100, rows: int = 8, seq
     if params is None:
         params = init_params(cfg, seed=seed, device=dev)
     state = {"params": params, "opt": opt.init(params)}
+    start = 0
+    if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
+        state, start = restore(ckpt_dir, state, device=dev)
+        start += 1
+        print(f"[train] resumed from step {start - 1}")
     step_fn = make_train_step(cfg, opt)
+    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     losses = []
     t0 = time.time()
-    for step in range(steps):
+    for step in range(start, steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in make_batch(cfg, shape, step, n_rows=rows, seed=seed).items()}
         t_step = time.perf_counter()
@@ -86,6 +101,15 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100, rows: int = 8, seq
             if log_path:
                 with open(log_path, "a") as f:
                     f.write(json.dumps(msg) + "\n")
+        if ckpt and (step % ckpt_every == 0 or step == steps - 1):
+            ckpt.save(step, state)
+        if preempt_at is not None and step == preempt_at:
+            print(f"[train] simulating preemption at step {step}", flush=True)
+            if ckpt:
+                ckpt.wait()
+            os._exit(17)  # a hard kill, as a real preemption is
+    if ckpt:
+        ckpt.wait()
     return state, losses
 
 
@@ -100,6 +124,10 @@ def main(argv=None):
     ap.add_argument("--moe-dispatch", default=None, choices=["dense", "ws"])
     ap.add_argument("--moe-grad-dispatch", default=None, choices=["dense", "ws"])
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--preempt-at", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-path", default=None)
     ap.add_argument("--log-every", type=int, default=10)
@@ -107,7 +135,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _, losses = train(args.arch, smoke=not args.full_config, steps=args.steps,
                       rows=args.rows, seq=args.seq, moe_dispatch=args.moe_dispatch,
-                      moe_grad_dispatch=args.moe_grad_dispatch, lr=args.lr, seed=args.seed,
+                      moe_grad_dispatch=args.moe_grad_dispatch, lr=args.lr,
+                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                      resume=args.resume, preempt_at=args.preempt_at, seed=args.seed,
                       log_every=args.log_every, log_path=args.log_path,
                       n_layers=args.n_layers, device=args.device)
     k = max(len(losses) // 10, 1)

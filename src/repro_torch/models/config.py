@@ -1,9 +1,10 @@
-"""Model configuration for the port (the dense, MoE and MLA subset of
-``repro/models/config.py``).
+"""Model configuration for the port (the dense, MoE, MLA, SSM and hybrid
+subset of ``repro/models/config.py``).
 
 A frozen dataclass with the fields and derived properties the decoders
-read: GQA or MLA attention, dense or MoE FFNs, and the analytic
-``param_count`` the trainer's policy reads.  Field names and defaults
+read: GQA or MLA attention, dense or MoE FFNs, the Mamba-2 (SSD) layer of
+the ``ssm`` family and the ``hybrid`` family's shared attention blocks, and
+the analytic ``param_count`` the trainer's policy reads.  Field names and defaults
 match the reference, so a config prints and compares the same way in both
 packages.  :class:`ShapeConfig` is one input-shape cell (sequence length
 and batch rows), as the reference's.
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # the port builds "dense" and "moe"
+    family: str  # the port builds "dense", "moe", "ssm" and "hybrid"
     n_layers: int
     d_model: int
     n_heads: int
@@ -54,6 +55,16 @@ class ModelConfig:
     # through the expert backward megakernel
     moe_grad_dispatch: str = "dense"
 
+    # -- SSM (mamba2 / zamba2) ------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 128
+    ssm_conv_width: int = 4
+
+    # -- hybrid (zamba2): shared attention block applied every k ssm layers --
+    hybrid_attn_every: int = 0
+
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -77,6 +88,18 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def is_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
 
     @property
     def eff_heads(self) -> Tuple[int, int]:
@@ -108,7 +131,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, embedding and LM head included (the
-        reference's terms for the attention decoders, dense or MoE)."""
+        reference's terms: attention decoders, dense or MoE; the ssm family;
+        the hybrid's two shared attention + MLP blocks counted once each)."""
         d, V = self.d_model, self.vocab_size
         total = V * d * (1 if self.tie_embeddings else 2)
         if self.attn_kind == "mla":
@@ -124,6 +148,16 @@ class ModelConfig:
         def dense_ffn(dff: int) -> int:
             return 3 * d * dff  # SwiGLU
 
+        if self.is_ssm:
+            di, ds, H = self.d_inner, self.ssm_state, self.ssm_heads
+            ssm_block = (d * (2 * di + 2 * ds + H)      # in-projections x, z, B, C, dt
+                         + di * self.ssm_conv_width    # conv
+                         + H + H + di                  # A, D, dt_bias-ish
+                         + di * d)                     # out-projection
+            total += self.n_layers * ssm_block
+            if self.family == "hybrid":
+                total += 2 * (attn + dense_ffn(self.d_ff))
+            return total
         if self.is_moe:
             moe = d * self.n_experts + (self.n_experts + self.n_shared_experts) * dense_ffn(
                 self.moe_d_ff)

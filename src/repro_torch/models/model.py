@@ -1,11 +1,13 @@
 """Public model API of the port (the decoders of ``repro/models/model.py``):
-the training loss (:func:`loss_fn`, GQA or MLA, dense or MoE), and for GQA
-decoders cache init, prefill, the dense decode step and the work-stealing
-decode step.  A MoE layer's FFN goes through
-:func:`~repro_torch.models.moe.moe_ffn_dispatch`, so ``cfg.moe_dispatch ==
-"ws"`` runs the expert megakernel in every step, in prefill and in the
-training forward, and its backward megakernel in the training backward
-when ``cfg.moe_grad_dispatch == "ws"``.
+the training loss (:func:`loss_fn`, GQA or MLA, dense or MoE, ssm or
+hybrid), and for GQA decoders and the ssm and hybrid stacks cache init,
+prefill and the dense decode step; the work-stealing decode step for GQA
+decoders.  The ssm and hybrid stacks decode on the dense step, as in the
+reference (:func:`ws_decode_supported` is false for them).  A MoE layer's
+FFN goes through :func:`~repro_torch.models.moe.moe_ffn_dispatch`, so
+``cfg.moe_dispatch == "ws"`` runs the expert megakernel in every step, in
+prefill and in the training forward, and its backward megakernel in the
+training backward when ``cfg.moe_grad_dispatch == "ws"``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from . import attention as attn
 from . import transformer as tf
 from .common import rms_norm, swiglu
 from .moe import moe_ffn_dispatch
+from .ssm import SSMCache, init_ssm_cache, mamba_decode, mamba_train
 
 
 AUX_LOSS_W = 0.01
@@ -49,7 +52,7 @@ def vocab_parallel_xent(hidden, w_un, labels, mask=None, valid_vocab=None,
 def loss_fn(params, cfg, batch, *, remat: bool = True, chunk: int = 1024,
             row_weights=None):
     """Mean next-token cross entropy (+ the MoE aux loss) of ``batch["tokens"]``
-    [B, S] (the lm and moe families).  Returns (loss, {"ce", "aux"})."""
+    [B, S] (the lm, moe, ssm and hybrid families).  Returns (loss, {"ce", "aux"})."""
     tf.check_supported(cfg, training=True)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -67,20 +70,40 @@ def loss_fn(params, cfg, batch, *, remat: bool = True, chunk: int = 1024,
 
 
 class Caches(NamedTuple):
-    """Stacked per-layer decode state: ``kv`` is a KVCache of [L, B, S, Hkv, hd]."""
+    """Stacked per-layer decode state, the batch on axis 1 of every tensor.
+    Unused fields are ()."""
 
-    kv: Any = ()
+    kv: Any = ()         # attention decoders: KVCache of [L, B, S, Hkv, hd]
+    ssm: Any = ()        # ssm / hybrid: SSMCache of [L, B, ...]
+    shared_kv: Any = ()  # hybrid: KVCache of [n_apps, B, S, Hkv, hd]
+
+
+def cache_tensors(caches: Caches):
+    """Every tensor of ``caches`` in field order (the splice's walk)."""
+    return [t for field in caches for t in field]
+
+
+def _kv_zeros(n: int, batch: int, capacity: int, cfg, dt, dev) -> attn.KVCache:
+    shape = (n, batch, capacity, cfg.eff_heads[1], cfg.hd)
+    return attn.KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                        v=torch.zeros(shape, dtype=dt, device=dev))
 
 
 def init_caches(cfg, batch: int, capacity: int, dtype=None,
                 device: DeviceLike = None) -> Caches:
-    """Zeroed caches with ``capacity`` sequence slots on ``device`` (default cuda)."""
+    """Zeroed caches with ``capacity`` sequence slots on ``device`` (default
+    cuda).  The hybrid's shared-attention cache has one entry per application
+    of a shared block (``n_apps = L // hybrid_attn_every``), not per layer."""
     tf.check_supported(cfg)
     dev = resolve_device(device)
     dt = tf.torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.n_layers, batch, capacity, cfg.eff_heads[1], cfg.hd)
-    return Caches(kv=attn.KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
-                                  v=torch.zeros(shape, dtype=dt, device=dev)))
+    L = cfg.n_layers
+    if cfg.is_ssm:
+        ssm = init_ssm_cache(batch, cfg, dt, device=dev, n_layers=L)
+        every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+        shared = _kv_zeros(L // every, batch, capacity, cfg, dt, dev) if every else ()
+        return Caches(ssm=ssm, shared_kv=shared)
+    return Caches(kv=_kv_zeros(L, batch, capacity, cfg, dt, dev))
 
 
 def _positions(B: int, S: int, offset: int = 0, device=None) -> torch.Tensor:
@@ -147,6 +170,8 @@ def decode_hidden(params, cfg, caches: Caches, tokens, pos):
     [B, 1, d] in the model's dtype, caches)."""
     tf.check_supported(cfg)
     x = _embed(params, cfg, tokens)
+    if cfg.is_ssm:
+        return _decode_hidden_ssm(params, cfg, caches, x, pos), caches
     s = tf._res_scale(cfg)
     h = x
     for idx, w in enumerate(cfg.layer_windows):
@@ -157,6 +182,31 @@ def decode_hidden(params, cfg, caches: Caches, tokens, pos):
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
         h = h + s * _ffn(hn, p, cfg)
     return h, caches
+
+
+def _decode_hidden_ssm(params, cfg, caches: Caches, h, pos):
+    """The ssm / hybrid decode: each layer's :func:`mamba_decode` (its state
+    and conv caches written back in place), and in the hybrid one of the two
+    shared attention + MLP blocks after every ``hybrid_attn_every``-th
+    layer, over its application's cache at ``pos``."""
+    every = cfg.hybrid_attn_every
+    for idx in range(cfg.n_layers):
+        p = tf.layer_params(params, idx)
+        one = SSMCache(*(t[idx] for t in caches.ssm))
+        out, new = mamba_decode(rms_norm(h, p["norm"], cfg.norm_eps), p["mamba"], cfg, one)
+        h = h + out
+        for dst, src in zip(one, new):
+            dst.copy_(src)
+        if tf.shared_attn_after(cfg, idx):
+            sp = tf.shared_block_params(params, idx, every)
+            app = idx // every
+            hn = rms_norm(h, sp["attn_norm"], cfg.norm_eps)
+            a, _ = attn.gqa_decode(hn, sp["attn"], cfg, _layer_cache(caches.shared_kv, app),
+                                   pos, 0)
+            h = h + a
+            hn = rms_norm(h, sp["mlp_norm"], cfg.norm_eps)
+            h = h + swiglu(hn, sp["mlp"]["wg"], sp["mlp"]["wu"], sp["mlp"]["wd"])
+    return h
 
 
 def ws_decode_supported(cfg) -> bool:
@@ -186,6 +236,8 @@ def decode_step_ws(params, cfg, caches: Caches, tokens, pos, *,
     reads once a step.  Without one, this call makes and reads its own."""
     from repro_torch.pallas_ws.kernel import DrainCounter
 
+    if not ws_decode_supported(cfg):
+        raise NotImplementedError(f"decode_step_ws does not cover {cfg.name}")
     own = drain is None and isinstance(pos, torch.Tensor)
     if own:
         drain = DrainCounter(caches.kv.k.device)
@@ -248,23 +300,63 @@ def prefill(params, cfg, batch, *, capacity: int | None = None, chunk: int = 102
     dev = tokens.device
     x = _embed(params, cfg, tokens)
     positions = _positions(B, S, device=dev)
-    dt = tf.torch_dtype(cfg.dtype)
-    s = tf._res_scale(cfg)
     cap = capacity or S
     caches = init_caches(cfg, B, cap, device=dev)
+    if cfg.is_ssm:
+        h = _prefill_ssm(params, cfg, caches, x, positions, chunk)
+    else:
+        h = _prefill_attn(params, cfg, caches, x, positions, chunk)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bd,dv->bv", h[:, -1], _unembed_matrix(params, cfg))
+    return _mask_pad_vocab(logits.float(), cfg), caches
+
+
+def _prompt_kv(hn, p, cfg, positions):
+    """The prompt's roped k and its v [B, S, Hkv, hd] for the cache."""
+    k = torch.einsum("bsd,dhe->bshe", hn, p["attn"]["wk"])
+    v = torch.einsum("bsd,dhe->bshe", hn, p["attn"]["wv"])
+    return attn.apply_rope(k, positions, cfg.rope_theta), v
+
+
+def _prefill_ssm(params, cfg, caches: Caches, h, positions, chunk):
+    """The ssm / hybrid prefill into ``caches``: every layer's decode-resume
+    cache (the final SSD state and the conv's last inputs) and the shared
+    blocks' prompt k/v, by application."""
+    S = h.shape[1]
+    every = cfg.hybrid_attn_every
+    for idx in range(cfg.n_layers):
+        p = tf.layer_params(params, idx)
+        out, c = mamba_train(rms_norm(h, p["norm"], cfg.norm_eps), p["mamba"], cfg,
+                             return_cache=True)
+        h = h + out
+        for dst, src in zip(caches.ssm, c):
+            dst[idx] = src
+        if tf.shared_attn_after(cfg, idx):
+            sp = tf.shared_block_params(params, idx, every)
+            app = idx // every
+            hn = rms_norm(h, sp["attn_norm"], cfg.norm_eps)
+            k, v = _prompt_kv(hn, sp, cfg, positions)
+            h = h + attn.gqa_train(hn, sp["attn"], cfg, positions, window=0, chunk=chunk)
+            hn = rms_norm(h, sp["mlp_norm"], cfg.norm_eps)
+            h = h + swiglu(hn, sp["mlp"]["wg"], sp["mlp"]["wu"], sp["mlp"]["wd"])
+            caches.shared_kv.k[app, :, :S] = k
+            caches.shared_kv.v[app, :, :S] = v
+    return h
+
+
+def _prefill_attn(params, cfg, caches: Caches, x, positions, chunk):
+    """The attention decoders' prefill into ``caches``: each layer's prompt k/v."""
+    S = x.shape[1]
+    s = tf._res_scale(cfg)
     h = x
     for idx, w in enumerate(cfg.layer_windows):
         p = tf.layer_params(params, idx)
         hn = rms_norm(h, p["attn_norm"], cfg.norm_eps)
-        k = torch.einsum("bsd,dhe->bshe", hn, p["attn"]["wk"])
-        v = torch.einsum("bsd,dhe->bshe", hn, p["attn"]["wv"])
-        k = attn.apply_rope(k, positions, cfg.rope_theta)
+        k, v = _prompt_kv(hn, p, cfg, positions)
         a = attn.gqa_train(hn, p["attn"], cfg, positions, window=w, chunk=chunk)
-        caches.kv.k[idx, :, :S] = k.to(dt)
-        caches.kv.v[idx, :, :S] = v.to(dt)
+        caches.kv.k[idx, :, :S] = k
+        caches.kv.v[idx, :, :S] = v
         h = h + s * a
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
         h = h + s * _ffn(hn, p, cfg)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bd,dv->bv", h[:, -1], _unembed_matrix(params, cfg))
-    return _mask_pad_vocab(logits.float(), cfg), caches
+    return h

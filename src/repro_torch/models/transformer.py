@@ -1,6 +1,9 @@
-"""The decoder stack (port of ``init_params``, ``lm_hidden`` and
-``_res_scale`` in ``repro/models/transformer.py``): GQA decoders, dense or
-MoE, and MLA+MoE decoders (deepseek-v2) for training.
+"""The decoder stack (port of ``init_params``, ``lm_hidden``,
+``_res_scale``, ``_ssm_block`` and ``_shared_block_params`` in
+``repro/models/transformer.py``): GQA decoders, dense or MoE, MLA+MoE
+decoders (deepseek-v2) for training, the attention-free Mamba-2 stack
+(``ssm``, mamba2) and the ``hybrid`` one (zamba2: Mamba-2 layers with one of
+two shared attention + MLP blocks after every ``hybrid_attn_every``-th).
 
 Parameters are a nested dict of tensors in the reference's layout: per-layer
 weights stacked on a leading [L] axis (``wq`` [L, d, H, hd], ``wo``
@@ -10,7 +13,10 @@ of a MoE config is a MoE layer, and an MLA layer's ``attn`` holds the MLA
 projections (``wdkv``, ``wkr``, ``wuk``, ``wuv``, ``wo``, ``wdq``/``wuq``).  Init runs on the device from a seeded
 ``torch.Generator``, so full width needs no weights file.  The numbers
 differ from ``jax.random``'s; tests carry the reference's weights across
-with :func:`repro_torch.convert.params_from_jax` instead.
+with :func:`repro_torch.convert.params_from_jax` instead.  An ssm layer
+holds ``norm`` and ``mamba`` (the projections, convolutions, ``A_log``,
+``D``, ``dt_bias``, the gated norm's weight and ``w_out``); the hybrid's
+``shared_attn`` is two attention layers stacked on a leading [2] axis.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from .._device import DeviceLike, resolve_device
 from . import attention as attn
 from .common import dense_init, rms_norm, swiglu
 from .moe import init_moe, moe_ffn_dispatch
+from .ssm import init_mamba, mamba_train
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,11 +42,15 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg, training: bool = False) -> None:
     """The families the port builds: dense GQA decoders, GQA decoders with
-    MoE FFNs and full (unwindowed) attention, and, for training only
+    MoE FFNs and full (unwindowed) attention, the ssm family, the hybrid
+    one with unwindowed GQA shared blocks, and, for training only
     (``training=True``: init and the training forward), unwindowed MLA
     decoders with MoE FFNs.  Anything else raises."""
     unwindowed = all(w == 0 for w in cfg.layer_windows)
     if cfg.attn_kind == "gqa" and cfg.family == "dense":
+        return
+    if cfg.family == "ssm" or (cfg.family == "hybrid" and cfg.attn_kind == "gqa"
+                               and unwindowed and not cfg.is_moe):
         return
     if cfg.attn_kind == "gqa" and cfg.family == "moe" and cfg.is_moe and unwindowed:
         return
@@ -47,7 +58,8 @@ def check_supported(cfg, training: bool = False) -> None:
             and unwindowed):
         return
     raise NotImplementedError(f"the port builds dense GQA decoders, unwindowed GQA MoE "
-                              f"decoders and (training only) unwindowed MLA MoE decoders: "
+                              f"decoders, ssm and hybrid stacks and (training only) "
+                              f"unwindowed MLA MoE decoders: "
                               f"{cfg.name} ({cfg.family}, {cfg.attn_kind})")
 
 
@@ -57,9 +69,7 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, V, L, f, hd = cfg.d_model, cfg.padded_vocab, cfg.n_layers, cfg.d_ff, cfg.hd
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    Hp, Hkvp = cfg.eff_heads
+    d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
 
     def init(d_in, shape):
         return dense_init(d_in, shape, dtype, generator=gen, device=dev)
@@ -70,6 +80,14 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]
     params: Dict[str, Any] = {"embed": init(d, (V, d)), "final_norm": zeros((d,))}
     if not cfg.tie_embeddings:
         params["unembed"] = init(d, (d, V))
+    if cfg.is_ssm:
+        params["layers"] = {"norm": zeros((L, d)),
+                            "mamba": init_mamba(cfg, dtype, generator=gen, device=dev,
+                                                n_layers=L)}
+        if cfg.family == "hybrid":
+            # two alternating shared attention + MLP blocks
+            params["shared_attn"] = _gqa_layers(cfg, 2, init, zeros, dev)
+        return params
     if cfg.attn_kind == "mla":
         params["layers"] = {
             "attn_norm": zeros((L, d)),
@@ -78,6 +96,21 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]
             "moe": init_moe(cfg, dtype, generator=gen, device=dev, n_layers=L),
         }
         return params
+    if cfg.family == "moe":
+        params["layers"] = _gqa_layers(cfg, L, init, zeros, dev, mlp=False)
+        params["layers"]["moe"] = init_moe(cfg, dtype, generator=gen, device=dev,
+                                           n_layers=L)
+    else:
+        params["layers"] = _gqa_layers(cfg, L, init, zeros, dev)
+    return params
+
+
+def _gqa_layers(cfg, L: int, init, zeros, dev, mlp: bool = True):
+    """``L`` GQA attention layers stacked on a leading axis (norms,
+    projections and, with ``mlp``, the SwiGLU MLP), padded head slices zero."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    Hp, Hkvp = cfg.eff_heads
     gqa = {
         "wq": init(d, (L, d, Hp, hd)),
         "wk": init(d, (L, d, Hkvp, hd)),
@@ -88,29 +121,39 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]
         # zero the padded head slices, exactly as the reference does
         G, Gp = H // Hkv, Hp // Hkvp
         idx = torch.arange(Hp, device=dev)
+        dtype = gqa["wq"].dtype
         q_real = ((idx % Gp < G) & (idx // Gp < Hkv)).to(dtype)
         kv_real = (torch.arange(Hkvp, device=dev) < Hkv).to(dtype)
         gqa["wq"] *= q_real[None, None, :, None]
         gqa["wo"] *= q_real[None, :, None, None]
         gqa["wk"] *= kv_real[None, None, :, None]
         gqa["wv"] *= kv_real[None, None, :, None]
-    params["layers"] = {"attn_norm": zeros((L, d)), "attn": gqa, "mlp_norm": zeros((L, d))}
-    if cfg.family == "moe":
-        params["layers"]["moe"] = init_moe(cfg, dtype, generator=gen, device=dev,
-                                           n_layers=L)
-    else:
-        params["layers"]["mlp"] = {"wg": init(d, (L, d, f)), "wu": init(d, (L, d, f)),
-                                   "wd": init(f, (L, f, d))}
-    return params
+    layers = {"attn_norm": zeros((L, d)), "attn": gqa, "mlp_norm": zeros((L, d))}
+    if mlp:
+        layers["mlp"] = {"wg": init(d, (L, d, f)), "wu": init(d, (L, d, f)),
+                         "wd": init(f, (L, f, d))}
+    return layers
 
 
-def layer_params(params, idx: int):
-    """Views of layer ``idx`` of the stacked per-layer parameters."""
+def layer_params(params, idx: int, key: str = "layers"):
+    """Views of layer ``idx`` of the stacked per-layer parameters under ``key``."""
 
     def take(tree):
         return {k: take(v) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
 
-    return take(params["layers"])
+    return take(params[key])
+
+
+def shared_block_params(params, layer_idx: int, every: int):
+    """The hybrid's shared attention block that follows ssm layer
+    ``layer_idx``: set ``(layer_idx // every) % 2`` of ``shared_attn``."""
+    return layer_params(params, (layer_idx // every) % 2, "shared_attn")
+
+
+def shared_attn_after(cfg, idx: int) -> bool:
+    """True where the hybrid applies a shared attention block after ssm layer ``idx``."""
+    every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    return bool(every) and (idx + 1) % every == 0
 
 
 def _res_scale(cfg) -> float:
@@ -132,15 +175,31 @@ def _attn_block(h, p, cfg, positions, window: int, chunk: int):
     return h + s * m, aux
 
 
+def _ssm_block(h, p, cfg):
+    """One pre-norm Mamba-2 layer on the residual stream."""
+    return h + mamba_train(rms_norm(h, p["norm"], cfg.norm_eps), p["mamba"], cfg)
+
+
 def lm_hidden(params, cfg, x, positions, *, remat: bool = True, chunk: int = 1024):
     """Run the decoder stack on embeddings ``x`` [B, S, d] -> (hidden, the
     summed MoE aux loss).  ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant, as ``jax.checkpoint`` does in
     the reference's layer scan), so a ws MoE layer launches its expert
-    kernel twice a step (forward and replay) and its grad kernel once."""
+    kernel twice a step (forward and replay) and its grad kernel once.  The
+    ssm and hybrid stacks run their Mamba-2 layers, the hybrid a shared
+    attention block after every ``hybrid_attn_every``-th."""
     check_supported(cfg, training=True)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
+    if cfg.is_ssm:
+        for idx in range(cfg.n_layers):
+            blocks = [lambda h, p=layer_params(params, idx): _ssm_block(h, p, cfg)]
+            if shared_attn_after(cfg, idx):
+                sp = shared_block_params(params, idx, cfg.hybrid_attn_every)
+                blocks.append(lambda h, sp=sp: _attn_block(h, sp, cfg, positions, 0, chunk)[0])
+            for block in blocks:
+                h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
+        return h, aux
     for idx, w in enumerate(cfg.layer_windows):
         p = layer_params(params, idx)
 

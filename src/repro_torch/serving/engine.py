@@ -14,18 +14,25 @@
   ``unified_step=True`` (fp32 configs, dense or MoE with the ws dispatch) an
   engine step is ONE launch of the unified megakernel
   (:func:`decode_step_unified`), and admission defers
-  a prompt's prefill into the next step's launch; the split path stays the
-  escape hatch when a unified step's logits come back non-finite.
+  a prompt's prefill into the next step's launch.  A watchdog guards that
+  launch: a step whose logits come back non-finite is redone on the split
+  path, and a step past ``step_deadline_s`` sends the next
+  ``watchdog_cooldown`` steps straight to the split path;
+  ``fault_plan`` (:class:`repro_torch.chaos.EngineFaultPlan`) poisons or
+  slows chosen steps so both trips can be drilled.  The ssm and hybrid
+  stacks decode on the dense step; every cache of the slot (kv, SSM state
+  and conv inputs, the hybrid's shared kv) is spliced on admission.
 * WorkStealingFrontend — per-replica request queues implemented with the
   literal WS-WMULT algorithm (paper Fig. 7).  Each replica Takes from its
   own queue and Steals from the others when idle; a request admitted twice
-  under weak multiplicity is deduplicated on completion.
+  under weak multiplicity is deduplicated on completion.  A
+  :class:`repro_torch.chaos.ReplicaCrashPlan` kills replicas at chosen
+  iterations: the dead replica's in-flight requests resume on the
+  survivors (prompt plus the tokens already emitted, the remaining budget),
+  and its queue stays stealable.
 
 * :func:`ragged_slot_attention` — decode attention over a batcher's
   ragged slots (or a length vector) on the work-stealing megakernel.
-
-Not ported yet (they raise): the watchdog's deadline and fault-plan half
-(``step_deadline_s``, ``fault_plan``), and crash plans.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from repro_torch.models import (
     prefill,
     ws_decode_supported,
 )
+from repro_torch.models.model import cache_tensors
 from repro_torch.models.unified import check_ported
 from repro_torch.pallas_ws.kernel import DrainCounter
 from repro_torch.wstrace.metrics import SchedulerMetrics
@@ -205,11 +213,9 @@ class ContinuousBatcher:
         jit_ws: bool = False,
         unified_step: bool = False,
         step_deadline_s: Optional[float] = None,
+        watchdog_cooldown: int = 1,
         fault_plan=None,
     ):
-        if step_deadline_s is not None or fault_plan is not None:
-            raise NotImplementedError("the watchdog's step deadline and the serving fault "
-                                      "plans (EngineFaultPlan) are not ported yet")
         if unified_step:
             check_ported(cfg)
         if attn_schedule not in ("ws", "static"):
@@ -231,13 +237,20 @@ class ContinuousBatcher:
                      if self.use_ws and jit_ws else None)
         self.metrics = SchedulerMetrics(slots=slots)
         # unified mode: admit() defers a prompt's prefill into the next step's
-        # launch; a step whose logits come back non-finite is redone on the
-        # split path (degradations records each such step)
+        # launch.  The watchdog: a step whose logits come back non-finite is
+        # redone on the split path; a step past `step_deadline_s` sends the
+        # next `watchdog_cooldown` steps to the split path; `fault_plan` (an
+        # EngineFaultPlan) poisons or slows chosen steps.  degradations
+        # records each trip.
         self.unified = bool(unified_step)
         self._pending = deque()          # (slot, Request) awaiting prefill
         self._pending_slots: set = set()
+        self.step_deadline_s = step_deadline_s
+        self.watchdog_cooldown = int(watchdog_cooldown)
+        self.fault_plan = fault_plan
         self.degradations: List[dict] = []
         self._step_idx = 0
+        self._degraded_until = -1
 
     def _decode_next(self, tokens: np.ndarray) -> np.ndarray:
         """One decode step of every slot from host ``tokens`` [B, 1]: the next
@@ -275,9 +288,10 @@ class ContinuousBatcher:
 
     # -- admission ------------------------------------------------------------
     def _splice_slot(self, slot: int, c1) -> None:
-        """Copy batch-1 prefill caches into the slot's batch row."""
-        self.caches.kv.k[:, slot] = c1.kv.k[:, 0]
-        self.caches.kv.v[:, slot] = c1.kv.v[:, 0]
+        """Copy batch-1 prefill caches into the slot's batch row: every
+        tensor of the Caches (kv, SSM state and conv inputs, shared kv)."""
+        for full, one in zip(cache_tensors(self.caches), cache_tensors(c1)):
+            full[:, slot] = one[:, 0]
 
     def admit(self, req: Request) -> bool:
         # a prompt of capacity-1 tokens is the longest a slot can hold: the
@@ -359,26 +373,45 @@ class ContinuousBatcher:
 
     def _step_unified(self) -> List[Request]:
         """One engine step = one unified launch: the live slots' decode
-        tiles plus at most one pending admission's prefill tiles.  A step
-        whose logits come back non-finite is discarded and redone on the
-        split path (standalone prefill + decode step), and recorded."""
+        tiles plus at most one pending admission's prefill tiles.  The
+        watchdog: a step whose logits come back non-finite is discarded and
+        redone on the split path (standalone prefill + decode step); a step
+        whose observed time passes ``step_deadline_s`` sends the next
+        ``watchdog_cooldown`` steps to the split path with no unified
+        launch.  Each trip is recorded in ``degradations``."""
         fold = self._pending.popleft() if self._pending else None
         n_live = self.n_live
         t0 = time.perf_counter()
         step_idx = self._step_idx
         self._step_idx += 1
-        done = self._try_unified(fold, step_idx)
+        done = None
+        if step_idx >= self._degraded_until:
+            done = self._try_unified(fold, step_idx)
         if done is None:
             done = self._step_split_fallback(fold)
-        self.metrics.record_step(time.perf_counter() - t0, n_live)
+        elapsed = time.perf_counter() - t0
+        observed = elapsed
+        if self.fault_plan is not None and self.fault_plan.slows(step_idx):
+            observed += self.fault_plan.added_latency_s
+        if (self.step_deadline_s is not None and observed > self.step_deadline_s
+                and step_idx >= self._degraded_until):
+            self._degrade(step_idx, "deadline",
+                          f"step took {observed:.4f}s > {self.step_deadline_s:.4f}s; next "
+                          f"{self.watchdog_cooldown} step(s) on split path")
+            self._degraded_until = step_idx + 1 + self.watchdog_cooldown
+        self.metrics.record_step(elapsed, n_live)
         if done:
             self.metrics.record_completion(len(done))
         return done
 
     def _try_unified(self, fold, step_idx: int) -> Optional[List[Request]]:
         """The unified launch and its bookkeeping; None (no token appended,
-        no prefill installed) when its logits are non-finite.  The new cache
-        rows it wrote are the rows the split redo writes again."""
+        no prefill installed) when its logits are non-finite, or poisoned by
+        the fault plan.  The launch writes the caches in place, so a
+        discarded step has already written one row a layer for each slot,
+        at the slot's ``pos``; the split redo's decode step writes those same
+        rows again (and a folded prompt's rows are spliced whole from the
+        redo's own prefill), so nothing of the discarded launch survives."""
         tokens = np.zeros((self.B, 1), dtype=np.int64)
         for i, r in enumerate(self.live):
             if r is not None and r.out:
@@ -389,6 +422,8 @@ class ContinuousBatcher:
             self.pos.copy(), prefill_tokens=ptok)
         lg = logits.float().cpu().numpy()  # syncs the device step
         plg = rep.prefill_logits.float().cpu().numpy() if fold is not None else None
+        if self.fault_plan is not None and self.fault_plan.poisons(step_idx):
+            lg = np.full_like(lg, np.nan)
         if not np.isfinite(lg).all() or (plg is not None and not np.isfinite(plg).all()):
             self._degrade(step_idx, "non-finite",
                           "unified logits non-finite; redoing the step on the split path")
@@ -468,8 +503,6 @@ class WorkStealingFrontend:
 
     def __init__(self, make_batcher, n_replicas: int = 2, steal: bool = True,
                  max_admission_retries: int = 8, crash_plan=None):
-        if crash_plan is not None:
-            raise NotImplementedError("crash plans are not ported yet")
         self.queues = [WSWMult(storage="linked", node_len=32) for _ in range(n_replicas)]
         self.batchers = [make_batcher() for _ in range(n_replicas)]
         self.steal = steal
@@ -478,7 +511,7 @@ class WorkStealingFrontend:
         self.rejected: Dict[int, Request] = {}
         self.counters = {
             "admitted": 0, "stolen": 0, "dup_completed": 0, "rejected": 0,
-            "gave_up": 0,
+            "gave_up": 0, "readmitted": 0, "crashed": 0,
         }
         # transient refusals back off exponentially (retry n waits
         # 2^min(n,6) iterations), then surface in `rejected`
@@ -486,6 +519,13 @@ class WorkStealingFrontend:
         self._iter = 0
         self._backoff: List[List] = [[] for _ in range(n_replicas)]
         self._retries: Dict[int, int] = {}
+        # crash plan (ReplicaCrashPlan): `_orig[rid]` keeps each request's
+        # original prompt and budget, so a resumed copy (prompt ++ tokens so
+        # far, the remaining budget) reassembles into the full stream on
+        # completion; no token is emitted twice
+        self.crash_plan = crash_plan
+        self.dead: set = set()
+        self._orig: Dict[int, tuple] = {}
         self.per_replica = [
             {"submitted": 0, "admitted": 0, "stolen": 0, "completed": 0, "rejected": 0}
             for _ in range(n_replicas)
@@ -496,8 +536,61 @@ class WorkStealingFrontend:
         self._lock = threading.Lock()
 
     def submit(self, replica: int, req: Request):
+        self._orig.setdefault(req.rid, (np.asarray(req.tokens), req.max_new))
         self.per_replica[replica]["submitted"] += 1
         self.queues[replica].put(req)
+
+    def _reassemble(self, r: Request) -> Request:
+        """A resumed request's full stream: its prompt is the original plus
+        the pre-crash emission, which goes back in front of this output."""
+        orig = self._orig.get(r.rid)
+        if orig is None:
+            return r
+        toks, max_new = orig
+        if len(r.tokens) > len(toks):
+            prev = [int(t) for t in np.asarray(r.tokens)[len(toks):]]
+            return Request(r.rid, toks, max_new, prev + list(r.out))
+        return r
+
+    def _crash(self, rep: int) -> None:
+        """Kill replica ``rep``: its engine's slots, caches and pending folds
+        are lost; its queue survives and stays stealable.  Each in-flight
+        request is readmitted to a survivor, keyed by rid and the tokens
+        emitted so far; one whose budget was already spent completes."""
+        b = self.batchers[rep]
+        self.dead.add(rep)
+        self.counters["crashed"] += 1
+        survivors = [i for i in range(len(self.batchers)) if i not in self.dead]
+        inflight, seen = [], set()
+        for r in b.live:
+            # pending unified folds are in b.live too; dedup by identity
+            if r is not None and id(r) not in seen:
+                seen.add(id(r))
+                inflight.append(r)
+        k = 0
+        for r in inflight:
+            with self._lock:
+                if r.rid in self.completed:
+                    continue
+            emitted = list(self._reassemble(r).out)
+            toks, max_new = self._orig.get(r.rid, (np.asarray(r.tokens), r.max_new))
+            remaining = max_new - len(emitted)
+            if remaining <= 0:
+                # the crash landed on the completion boundary: complete it
+                with self._lock:
+                    if r.rid in self.completed:
+                        self.counters["dup_completed"] += 1
+                    else:
+                        self.completed[r.rid] = Request(r.rid, toks, max_new, emitted)
+                continue
+            toks = np.asarray(toks)
+            resume_tokens = (np.concatenate([toks, np.asarray(emitted, dtype=toks.dtype)])
+                             if emitted else toks)
+            tgt = survivors[k % len(survivors)] if survivors else rep
+            k += 1
+            self.counters["readmitted"] += 1
+            self.per_replica[tgt]["submitted"] += 1
+            self.queues[tgt].put(Request(r.rid, resume_tokens, remaining))
 
     def _next_request(self, replica: int) -> Optional[Request]:
         req = self.queues[replica].take()
@@ -532,6 +625,11 @@ class WorkStealingFrontend:
         worked = False
         it = self._iter
         self._iter += 1
+        if self.crash_plan is not None:
+            for rep in self.crash_plan.due(it):
+                if rep not in self.dead and rep < len(self.batchers):
+                    self._crash(rep)
+                    worked = True
         for rep, parked in enumerate(self._backoff):
             due = [e for e in parked if e[0] <= it]
             if due:
@@ -539,6 +637,8 @@ class WorkStealingFrontend:
                 for _, req in due:
                     self.queues[rep].put(req)
         for rep, b in enumerate(self.batchers):
+            if rep in self.dead:
+                continue
             while b.n_live < b.B:
                 req = self._next_request(rep)
                 if req is None:
@@ -564,6 +664,7 @@ class WorkStealingFrontend:
             if b.n_live:
                 for r in b.step():
                     self.per_replica[rep]["completed"] += 1
+                    r = self._reassemble(r)
                     with self._lock:
                         if r.rid in self.completed:
                             self.counters["dup_completed"] += 1  # weak multiplicity

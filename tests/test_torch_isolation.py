@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, runs on
-CUDA unless told otherwise, and never falls back to the CPU by itself.  The
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+``ml_dtypes``, which the machine with the card lacks), runs on CUDA unless
+told otherwise, and never falls back to the CPU by itself.  The
 kernel checks at the bottom need a CUDA card and skip without one."""
 
 import ast
@@ -37,7 +38,7 @@ def test_no_jax_or_reference_import(path):
             continue
         for n in names:
             root = n.split(".")[0]
-            assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {n}"
+            assert root not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{path}: imports {n}"
 
 
 def test_port_imports_with_jax_blocked():
@@ -46,6 +47,7 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "import runpy; runpy.run_path(sys.argv[1], run_name='not_main')\n"
@@ -59,20 +61,26 @@ def test_port_imports_with_jax_blocked():
 
 TRACE_AND_CHAOS = ("repro_torch.wstrace.ring", "repro_torch.wstrace.trace",
                    "repro_torch.wstrace.perfetto", "repro_torch.chaos.plan",
-                   "repro_torch.chaos.inject", "repro_torch.chaos.checker")
+                   "repro_torch.chaos.inject", "repro_torch.chaos.checker",
+                   "repro_torch.chaos.serving", "repro_torch.checkpoint.checkpoint",
+                   "repro_torch.serving.engine", "repro_torch.models.ssm",
+                   "repro_torch.launch.train")
 
 
 @pytest.mark.parametrize("module", TRACE_AND_CHAOS)
 def test_trace_and_chaos_modules_pull_in_no_jax(module):
-    """The ported trace and chaos modules (the reference's are numpy-only
-    too, but live in ``repro``) load neither jax nor any ``repro`` module,
-    even where both are installed; nor does chip_smoke.py."""
+    """The ported trace, chaos, checkpoint, serving, SSM and training
+    modules (the reference's trace, chaos and checkpoint modules are
+    numpy-only too, but live in ``repro``) load neither jax, ``ml_dtypes``
+    nor any ``repro`` module, even where all are installed; nor does
+    chip_smoke.py."""
     assert module in MODULES
     code = (
         "import sys, importlib, runpy\n"
         f"importlib.import_module({module!r})\n"
         "runpy.run_path(sys.argv[1], run_name='not_main')\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "print(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -1064,3 +1072,72 @@ def test_ssd_scan_kernel_matches_plain_on_card(cuda_device, case, dtype):
     atol = SSD_ATOL_FP32 if dtype == torch.float32 else None
     _close(got, want, dtype, atol=atol)
     _close(fin, want_fin, dtype, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path, dtype):
+    """A train state on the card (llama smoke, one AdamW step) saved and
+    restored onto the card: every leaf bit-equal, bf16 ones too."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.configs.llama3_2_3b import SMOKE
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import init_params
+
+    cfg = SMOKE.replace(dtype=dtype)
+    opt = make_optimizer(cfg, total_steps=4)
+    params = init_params(cfg, seed=0, device=cuda_device)
+    state = {"params": params, "opt": opt.init(params)}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda_device)
+    state, _ = make_train_step(cfg, opt)(state, {"tokens": tokens})
+    save(str(tmp_path), 1, state)
+    like = {"params": init_params(cfg, seed=1, device=cuda_device)}
+    like["opt"] = opt.init(like["params"])
+    got, step = restore(str(tmp_path), like, device=cuda_device)
+    assert step == 1 and got["opt"].step == state["opt"].step
+    for (path, g), (_, w) in zip(_flatten(got), _flatten(state)):
+        if isinstance(w, torch.Tensor):
+            assert g.device.type == "cuda" and g.dtype == w.dtype, path
+            bits = torch.int16 if w.dtype == torch.bfloat16 else w.dtype
+            assert torch.equal(g.view(bits), w.detach().view(bits)), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_decode_step_on_card(cuda_device, arch):
+    """The ssm and hybrid smoke models' prefill and 8 dense decode steps on
+    the card against the same on the CPU (fp32, within 1e-4 of the logits'
+    scale: cuBLAS and the CPU sum the products in other orders), and
+    against a longer prefill on the card (the reference's 2e-3).  The
+    prompts are multiples of the smoke chunk (8), as a prompt past the chunk
+    must be."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.model import cache_tensors
+
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(0))
+    out = {}
+    def to(tree, dev):
+        return ({k: to(v, dev) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.to(dev))
+
+    for dev in ("cpu", cuda_device):
+        p = to(params, dev)
+        t = toks.to(dev)
+        _, caches = prefill(p, cfg, {"tokens": t[:, :8]}, capacity=16)
+        logits = []
+        for i in range(8, 16):
+            lg, caches = decode_step(p, cfg, caches, t[:, i:i + 1], i)
+            logits.append(lg)
+        full, _ = prefill(p, cfg, {"tokens": t}, capacity=16)
+        out[str(dev)] = (torch.stack(logits).cpu(), full.cpu(),
+                         [c.cpu() for c in cache_tensors(caches)])
+    (cl, cf, cc), (gl, gf, gc) = out["cpu"], out[str(cuda_device)]
+    scale = max(1.0, float(cl.abs().max()))
+    assert float((gl - cl).abs().max()) <= 1e-4 * scale
+    for a, b in zip(gc, cc):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+    torch.testing.assert_close(gl[-1], gf, rtol=2e-3, atol=2e-3)

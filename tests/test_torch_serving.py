@@ -93,19 +93,6 @@ def test_batcher_rejects_prompts_that_cannot_fit():
     assert r.rid == 2 and len(r.out) == 2
 
 
-@pytest.mark.parametrize("kw", [dict(unified_step=True, fault_plan=[]),
-                                dict(step_deadline_s=1.0)])
-def test_unported_engine_modes_raise(kw):
-    from repro_torch.configs.llama3_2_3b import SMOKE
-    from repro_torch.models import init_params
-    from repro_torch.serving import ContinuousBatcher
-
-    # the unified step is ported whole (dense and MoE); the watchdog's fault
-    # plans are not, in either mode
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(init_params(SMOKE, device="cpu"), SMOKE, slots=1, capacity=8, **kw)
-
-
 def test_duplicate_admission_dedups_on_completion():
     """The §7 interleaving on a request queue: the owner's Take stalls before
     publishing Head, a thief Steals the same request, both replicas admit

@@ -290,9 +290,6 @@ def test_unified_gate_and_unported_knobs(ref):
     with pytest.raises(ValueError):
         ContinuousBatcher(tp, SMOKE.replace(dtype="bfloat16"), slots=2, capacity=16,
                           unified_step=True)
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(tp, SMOKE, slots=2, capacity=16, unified_step=True,
-                          step_deadline_s=1.0)
 
 
 def _serve(make_frontend, req_cls, prompts, max_new=3):

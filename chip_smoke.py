@@ -189,7 +189,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               counted from 0 (2 and 1 a step), finite losses, step seconds
               and peak device memory printed; the grad kernel's free time
               untraced and traced.
-10. unified   llama3.2-3b in fp32 at full width (28 layers, 14.43 GB) through
+10. sched     the paper's scheduler as the train step's gradient accumulation
+              (repro_torch.sched) on the train phase's model (deepseek-v2-236b
+              full width, 1 layer, both ws kernels, SCHED): the 8 rows are 8
+              microbatch tasks on 4 worker queues of tails [5, 1, 1, 1], a
+              round 4 rows x 64 tokens.  schedule_rounds on the card equals
+              the CPU's, every mode, sync_every 1 and 3; for every mode one
+              step through ws_accumulate_grads against the plain full-batch
+              step on the same 8 rows, the loss within STEP_LOSS_ATOL and
+              every gradient within STEP_ULP_SLACK one-ulp distances: the
+              train phase's (the MoE output moved one bf16 ulp) with, in
+              quadrature, sqrt((R - 1) / 12) of the plain gradient moved one
+              bf16 ulp (the R rounds are summed in bf16, the parameters'
+              dtype, as the reference sums them); the same rounds summed in
+              fp32 within STEP_ULP_SLACK of the train phase's distance
+              alone (the row-separable loss: the load-balance term is per
+              routing group and is left out, row_separable_loss);
+              launches = rounds run x STEP_LAUNCHES, the rounds,
+              duplicate picks, sum(counts) and seconds printed; ws-wmult
+              must pick duplicates, and the no-division control (its
+              extracted rows, duplicates kept, each weight 1) must miss.
+              Then 3 train(ws_mode="ws-wmult", skew 4) steps: finite losses,
+              ws_coverage 1.0, launches = each step's rounds x
+              STEP_LAUNCHES, step seconds and peak device memory.
+11. unified   llama3.2-3b in fp32 at full width (28 layers, 14.43 GB) through
               the unified step (ws_unified: in lockstep a walker CTA and one
               helper CTA an other SM, H = SM count - 1): one lockstep decode
               step at the serving shape (4 slots x 1024 positions), traced,
@@ -219,7 +242,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               (ws_unified 1 and nothing else on a healthy step, 1 plus the
               split redo's ws_attention on a poisoned one, ws_attention
               alone in the cooldown).
-11. unified_moe  kimi-k2-1t-a32b in fp32 at full width cut to 1 layer (77.69
+12. unified_moe  kimi-k2-1t-a32b in fp32 at full width cut to 1 layer (77.69
               GB of weights, the experts passed in place), after the llama
               weights are freed, through the MoE half of the unified step
               (router, pool Put, expert tiles, expert combine in ws_unified):
@@ -239,7 +262,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ContinuousBatcher(unified_step=True) serve 8 requests (prompts
               8-64 tokens, 8 new tokens) with one ws_unified launch a step,
               no other kernel and no degradation, against the split engine.
-12. ckpt      checkpoints (repro_torch.checkpoint) through train(): llama3.2-3b
+13. ckpt      checkpoints (repro_torch.checkpoint) through train(): llama3.2-3b
               bf16 at full width cut to 2 layers, AdamW (CKPT): run A, 6 steps
               saving every 2 and at the last (the newest 3 kept), its last
               save restored onto the card and held to A's final state bit
@@ -247,7 +270,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               exit 17 with step 2 saved; run C resumes at step 3, its losses
               A's within CKPT_LOSS_ATOL.  Bytes, snapshot and background
               write seconds of every save, the restore's seconds.
-13. ssm       mamba2-2.7b and zamba2-2.7b in bf16 at full width and depth
+14. ssm       mamba2-2.7b and zamba2-2.7b in bf16 at full width and depth
               (SSM): the last logits of a prefill of 128 tokens against a
               prefill of 120 and 8 dense decode steps, in fp32 within
               SSM_FP32_TOL and in bf16 within SSM_SLACK times the bf16
@@ -279,6 +302,7 @@ true, "device": {...}}.
                                                 # the redesigned unified step
     python3 chip_smoke.py --phases build,serving,unified,ckpt,ssm
                                                 # serving faults, checkpoints, the ssm family
+    python3 chip_smoke.py --phases build,train,sched   # the scheduler on the training path
     python3 chip_smoke.py --probe                # the tagged hand-off probe alone
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
     python3 chip_smoke.py --expert-ab DIR [DIR ...]
@@ -339,7 +363,7 @@ KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
 PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "kernels", "serving", "times",
-          "moe", "grad", "train", "unified", "unified_moe", "ckpt", "ssm")
+          "moe", "grad", "train", "sched", "unified", "unified_moe", "ckpt", "ssm")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -2746,15 +2770,9 @@ def phase_train(dev):
         if not all(torch.equal(a[1], b[1]) for a, b in zip(routes, rr)):
             raise AssertionError("a plain-version step routed differently")
     loss_err = abs(float(loss_k) - float(loss_p))
-    worst, worst_name, worst_rel = -1.0, None, 0.0
-    for name, a, b, u in zip(_paths(g_k), tree_leaves(g_k), tree_leaves(g_p), tree_leaves(g_u)):
-        b32 = b.float()
-        dist = float((a.float() - b32).norm())
-        yard = float((u.float() - b32).norm())
-        ratio = dist / max(yard, 1e-30)
-        worst_rel = max(worst_rel, dist / max(float(b32.norm()), 1e-30))
-        if ratio > worst:
-            worst, worst_name = ratio, name
+    yard = {n: float((u.float() - p.float()).norm())
+            for n, u, p in zip(_paths(g_p), tree_leaves(g_u), tree_leaves(g_p))}
+    worst, worst_name, worst_rel = _ulp_distances(g_k, g_p, yard)
     log(f"[train] one step on both ws kernels in {grad_s:.2f} s (launches {per_step}): loss {float(loss_k):.6f}, plain-version step {float(loss_p):.6f} (|diff| "
         f"{loss_err:.3g} <= {STEP_LOSS_ATOL}; the one-ulp move {abs(float(loss_u) - float(loss_p)):.3g}); "
         f"gradients: worst {worst_name} at {worst:.3g} one-ulp distances (<= {STEP_ULP_SLACK}), "
@@ -2822,6 +2840,273 @@ def phase_train(dev):
                 launch_abs_err=launch_abs, launch_rel_err=launch_rel,
                 launch_bf16_control_rel=min(ctl.values()), grad_times=times,
                 ce=[m["ce"] for m in metrics], aux=[m["aux"] for m in metrics])
+
+
+# ---------------------------------------------------------------------------
+# the paper's scheduler as the train step's gradient accumulation
+
+
+# deepseek-v2 at full width cut to 1 layer, both ws kernels, as the train
+# phase; the step's 8 rows are 8 microbatch tasks of 1 row (64 tokens) on 4
+# worker queues, so a round is 4 rows x 64 tokens.  TAILS is the reference's
+# skewed case (tests/test_launch.py); the trainer draws its tails from
+# _skewed_tails at SKEW.
+SCHED = dict(rows=8, seq=64, n_workers=4, tails=(5, 1, 1, 1), train_steps=3, skew=4.0)
+
+
+@contextmanager
+def row_separable_loss():
+    """The loss without the MoE load-balance term (AUX_LOSS_W 0).  That term
+    is computed over a routing group (a round's 4 rows, or the step's 8), so
+    no schedule of rows reproduces the full batch's; the cross entropy is a
+    sum over rows, which the 1/count weights make exact."""
+    from repro_torch.models import model as M
+
+    orig = M.AUX_LOSS_W
+    M.AUX_LOSS_W = 0.0
+    try:
+        yield
+    finally:
+        M.AUX_LOSS_W = orig
+
+
+def _ulp_distances(got, want, yard):
+    """(worst ratio, its parameter, worst distance / norm): each gradient's
+    distance from ``want`` in units of ``yard`` (the one-ulp distances)."""
+    from repro_torch.optim import tree_leaves
+
+    worst, name, rel = -1.0, None, 0.0
+    for n, a, b in zip(_paths(want), tree_leaves(got), tree_leaves(want)):
+        b32 = b.float()
+        dist = float((a.float() - b32).norm())
+        rel = max(rel, dist / max(float(b32.norm()), 1e-30))
+        ratio = dist / max(yard[n], 1e-30)
+        if ratio > worst:
+            worst, name = ratio, n
+    return worst, name, rel
+
+
+def _rounds_run(assignment) -> int:
+    """Rounds with at least one pick: the rounds ws_accumulate_grads runs."""
+    return int((assignment >= 0).any(dim=1).sum())
+
+
+def phase_sched(dev):
+    """deepseek-v2 at full width, 1 layer, both ws kernels, its step's
+    gradients accumulated by the work-stealing rounds (repro_torch.sched):
+    the schedule on the card against the CPU; each mode's step against the
+    plain full-batch step (the row-separable loss), the no-division control;
+    launches a round; then 3 train(ws_mode="ws-wmult") steps."""
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import _skewed_tails, train
+    from repro_torch.models import ShapeConfig, init_params, loss_fn
+    from repro_torch.optim import tree_leaves
+    from repro_torch.pallas_ws import launches, reset_launches
+    from repro_torch.sched import MODES, schedule_rounds, ws_accumulate_grads
+    from repro_torch.sched.accumulate import default_max_rounds
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sched] device memory in use before init: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    c = SCHED
+    cfg = CONFIG.replace(n_layers=1, moe_dispatch="ws", moe_grad_dispatch="ws")
+    rows, seq, n_w = c["rows"], c["seq"], c["n_workers"]
+    n_tasks = rows  # one row a task
+    params = init_params(cfg, seed=SEED, device=dev)
+    flat = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, ShapeConfig("custom", "train", seq, rows), 0, n_rows=rows, seed=SEED).items()}
+    tasks = {k: v.reshape((n_tasks, 1) + v.shape[1:]) for k, v in flat.items()}
+    tails = torch.tensor(c["tails"])
+    phase_launches = dict.fromkeys(STEP_LAUNCHES, 0)
+    phase_rounds = 0  # the rounds behind phase_launches
+
+    # the schedule on the card, every mode, against the same call on the CPU
+    sched = {}
+    for mode in MODES:
+        mr = default_max_rounds(n_tasks, n_w, mode)
+        for sync_every in (1, 3):
+            cpu = schedule_rounds(tails, n_w, mode, sync_every, mr, n_tasks)
+            card = schedule_rounds(tails.to(dev), n_w, mode, sync_every, mr, n_tasks)
+            if not all(a.device == dev or a.device.type == dev.type for a in card):
+                raise AssertionError(f"{mode}: the schedule left the card")
+            if not all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card)):
+                raise AssertionError(f"{mode}, sync_every {sync_every}: the schedule on the "
+                                     f"card differs from the CPU's: {cpu} {card}")
+            if sync_every == 1:
+                sched[mode] = cpu
+    log(f"[sched] the schedule on the card equals the CPU's for every mode at sync_every 1 "
+        f"and 3 (tails {list(c['tails'])}, {n_w} workers)")
+
+    def flat_loss(p, fl, row_w):
+        return loss_fn(p, cfg, fl, row_weights=row_w)[0]
+
+    def ws_step(mode, acc_dtype=None):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, aux = ws_accumulate_grads(flat_loss, params, tasks, tails, n_workers=n_w,
+                                               mode=mode, flat_loss=True, acc_dtype=acc_dtype)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {n: launches[n] for n in STEP_LAUNCHES}
+        for n in got:
+            phase_launches[n] += got[n]
+        return loss, grads, aux, secs, got
+
+    modes = {}
+    with row_separable_loss():
+        with plain_versions():
+            loss_p, _, g_p = loss_and_grads(params, cfg, flat)
+        with plain_versions(), moe_output_moved_one_ulp(SEED):
+            loss_u, _, g_u = loss_and_grads(params, cfg, flat)
+        # the cascade: a gradient's distance when the MoE output moves one
+        # bf16 ulp (the train phase's one-ulp distance); acc_ulp: every
+        # element of the plain gradient moved one bf16 ulp.  The step sums
+        # its R rounds in bf16, the parameters' dtype (the reference's
+        # zeros_like(params)): each of the R - 1 additions rounds every
+        # element once, within half an ulp (rms ulp / sqrt(12)), independent
+        # of each other and of the cascade, so the yardstick of an R-round
+        # step adds sqrt((R - 1) / 12) acc_ulp to the cascade in quadrature.
+        # The same rounds summed in fp32 (acc_dtype) are held to the cascade
+        # alone: what the rounds' kernels compute, without the bf16 sum.
+        cascade = {n: float((u.float() - p.float()).norm())
+                   for n, u, p in zip(_paths(g_p), tree_leaves(g_u), tree_leaves(g_p))}
+        acc_ulp = {n: float((one_ulp(p, SEED).float() - p.float()).norm())
+                   for n, p in zip(_paths(g_p), tree_leaves(g_p))}
+
+        def yard_for(rounds):
+            return {n: float(np.hypot(cascade[n], np.sqrt((rounds - 1) / 12) * acc_ulp[n]))
+                    for n in cascade}
+
+        loss_yard = abs(float(loss_u) - float(loss_p))
+        del g_u
+        missed = []  # every mode is read before a miss is raised
+        for mode in MODES:
+            assignment, counts, _ = sched[mode]
+            rounds = _rounds_run(assignment)
+            dup = int(counts.sum() - (counts > 0).sum())
+            want = {n: rounds * STEP_LAUNCHES[n] for n in STEP_LAUNCHES}
+            loss_k, g_k, aux, secs, got = ws_step(mode)
+            if got != want:
+                raise AssertionError(f"{mode}: launches {got}, want {rounds} rounds x "
+                                     f"{STEP_LAUNCHES}")
+            if not (torch.equal(aux["counts"].cpu(), counts) and float(aux["coverage"]) == 1.0):
+                raise AssertionError(f"{mode}: counts {aux['counts']}, coverage {aux['coverage']}")
+            worst, name, rel = _ulp_distances(g_k, g_p, yard_for(rounds))
+            worst_c, name_c, _ = _ulp_distances(g_k, g_p, cascade)
+            loss_err = abs(float(loss_k) - float(loss_p))
+            del g_k
+            _, g_w, _, secs_w, got_w = ws_step(mode, acc_dtype=torch.float32)
+            if got_w != want:
+                raise AssertionError(f"{mode}, fp32 accumulator: launches {got_w}, want {want}")
+            worst_w, name_w, _ = _ulp_distances(g_w, g_p, cascade)
+            del g_w
+            phase_rounds += 2 * rounds
+            log(f"[sched] {mode}: {rounds} rounds run, {dup} duplicate picks, sum(counts) "
+                f"{int(counts.sum())} for {n_tasks} tasks, {secs:.2f} s, launches {got}; loss "
+                f"{float(loss_k):.6f} against the plain full-batch step's {float(loss_p):.6f} "
+                f"(|diff| {loss_err:.3g} <= {STEP_LOSS_ATOL}; the one-ulp move {loss_yard:.3g}); "
+                f"gradients: worst {name} at {worst:.3g} one-ulp distances of {rounds} bf16 "
+                f"rounds (<= {STEP_ULP_SLACK}; against the cascade alone {name_c} at "
+                f"{worst_c:.3g}), largest distance {rel:.3g} of a gradient's norm; the rounds "
+                f"summed in fp32 ({secs_w:.2f} s): worst {name_w} at {worst_w:.3g} of the "
+                f"cascade alone (<= {STEP_ULP_SLACK})")
+            if not (loss_err <= STEP_LOSS_ATOL and worst <= STEP_ULP_SLACK
+                    and worst_w <= STEP_ULP_SLACK):
+                missed.append(mode)
+            modes[mode] = dict(rounds=rounds, duplicate_picks=dup, sum_counts=int(counts.sum()),
+                               seconds=secs, launches=got, loss_vs_plain=loss_err,
+                               grad_vs_plain_ulp_distances=worst,
+                               grad_vs_plain_cascade_distances=worst_c, grad_vs_plain_rel=rel,
+                               fp32_acc_cascade_distances=worst_w, fp32_acc_seconds=secs_w)
+        if missed:
+            raise AssertionError(f"{missed}: the ws step differs from the full-batch step")
+        if modes["ws-wmult"]["duplicate_picks"] <= 0:
+            raise AssertionError("ws-wmult picked no duplicate at tails "
+                                 f"{list(c['tails'])}: the check cannot see the 1/count division")
+        # the control: the extracted rows with their duplicates, each weight 1
+        # (a scheduler without the multiplicity division), as plain steps of
+        # n_w rows (a routing group holds at most 1024 tokens), each weighted
+        # by its share of the rows: the loss is a sum over rows
+        assignment = sched["ws-wmult"][0]
+        picked = assignment[assignment >= 0].to(torch.int64)
+        g_c, loss_c = None, 0.0
+        for part in picked.split(n_w):
+            share = part.numel() / picked.numel()
+            with plain_versions():
+                lc, _, gc_ = loss_and_grads(
+                    params, cfg, {k: v.index_select(0, part.to(dev)) for k, v in flat.items()})
+            loss_c += share * float(lc)
+            if g_c is None:
+                g_c = [g.mul_(share) for g in tree_leaves(gc_)]
+            else:
+                for a, g in zip(g_c, tree_leaves(gc_)):
+                    a.add_(g, alpha=share)
+            del gc_
+        # against the loosest mode's yardstick
+        it = iter(g_c)
+        ctl, ctl_name, ctl_rel = _ulp_distances(
+            _map(g_p, lambda _: next(it)), g_p, yard_for(max(m["rounds"] for m in modes.values())))
+        del g_c, it
+        log(f"[sched] control (ws-wmult's {picked.numel()} extracted rows, duplicates kept, "
+            f"each weight 1): worst {ctl_name} at {ctl:.3g} one-ulp distances (must be > "
+            f"{STEP_ULP_SLACK}), largest distance {ctl_rel:.3g} of a gradient's norm, loss "
+            f"{loss_c:.6f}")
+        if not ctl > STEP_ULP_SLACK:
+            raise AssertionError(f"the no-division control came within {STEP_ULP_SLACK} one-ulp "
+                                 "distances: the check cannot see the 1/count correction")
+        del g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3 optimizer steps through train(ws_mode="ws-wmult"), counted from 0
+    snaps, step_s, metrics, peaks = [], [], [], []
+
+    def on_step(step, state, m, seconds):
+        snaps.append({n: launches[n] for n in STEP_LAUNCHES})
+        step_s.append(seconds)
+        metrics.append(m)
+        peaks.append(torch.cuda.max_memory_allocated())
+
+    in_use = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, losses = train("deepseek-v2-236b", smoke=False, n_layers=1, steps=c["train_steps"],
+                      rows=rows, seq=seq, moe_dispatch="ws", moe_grad_dispatch="ws",
+                      ws_mode="ws-wmult", n_workers=n_w, skew=c["skew"], seed=SEED, device=dev,
+                      params=params, on_step=on_step, log_every=1)
+    for n in STEP_LAUNCHES:
+        phase_launches[n] += launches[n]
+    steps = [{n: b[n] - (a[n] if a else 0) for n in b} for a, b in zip([None] + snaps, snaps)]
+    rounds = [_rounds_run(schedule_rounds(
+        torch.from_numpy(_skewed_tails(n_tasks, n_w, s, c["skew"])), n_w, "ws-wmult", 1,
+        default_max_rounds(n_tasks, n_w, "ws-wmult"), n_tasks)[0]) for s in range(len(steps))]
+    want = [{n: r * STEP_LAUNCHES[n] for n in STEP_LAUNCHES} for r in rounds]
+    phase_rounds += sum(rounds)
+    cov = [m["ws_coverage"] for m in metrics]
+    if steps != want:
+        raise AssertionError(f"launches per ws train step {steps}, want {want} ({rounds} rounds)")
+    if len(losses) != c["train_steps"] or not all(np.isfinite(losses)) or cov != [1.0] * len(cov):
+        raise AssertionError(f"ws train losses {losses}, coverage {cov}")
+    peak = max(peaks)
+    log(f"[sched] {len(losses)} train(ws_mode='ws-wmult', skew {c['skew']}) steps: losses "
+        f"{losses}, ws_coverage {cov}, extractions {[m['ws_extractions'] for m in metrics]}, "
+        f"rounds {rounds}, step seconds {[round(s, 3) for s in step_s]}, peak device memory "
+        f"{peak / 1e9:.2f} GB ({in_use / 1e9:.2f} GB in use before train()), launches per step "
+        f"{steps}")
+    per_round = {n: phase_launches[n] / phase_rounds for n in STEP_LAUNCHES}
+    log(f"[sched] launches a round, counted: {per_round} ({phase_launches} in {phase_rounds} "
+        f"rounds)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(model=f"{cfg.name} (depth 1, ws_mode train)", modes=modes,
+                control_ulp_distances=ctl, losses=losses,
+                step_s=step_s, rounds=rounds, ws_coverage=cov, peak_bytes=peak,
+                step_peak_bytes=peaks, in_use_before_bytes=in_use, launches=phase_launches,
+                launches_per_step=steps, launches_per_round=per_round)
 
 
 # ---------------------------------------------------------------------------
@@ -4969,6 +5254,7 @@ def main(argv=None) -> int:
     moe = model_path("moe", phase_moe, dev)
     grad = model_path("grad", phase_grad, dev, halfrun="halfrun" in phases)
     training = model_path("train", phase_train, dev)
+    sched = model_path("sched", phase_sched, dev)
     unified, userving = model_path("unified", phase_unified, dev) or (None, None)
     umoe, umserving = model_path("unified_moe", phase_unified_moe, dev) or (None, None)
     ckpt = model_path("ckpt", phase_ckpt, dev)
@@ -4996,6 +5282,7 @@ def main(argv=None) -> int:
         "launches_by_path": {"llama3.2-3b": n_launches,
                              moe["model"]: moe["ws_attention_launches"],
                              training["model"]: training["launches"]["ws_attention"],
+                             sched["model"]: sched["launches"]["ws_attention"],
                              userving["model"]: userving["launches"]["ws_attention"],
                              umserving["model"]: umserving["launches"]["ws_attention"]},
         "launches_per_train_step": training["launches_per_step"]["ws_attention"],
@@ -5016,10 +5303,12 @@ def main(argv=None) -> int:
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_launches"],
                              moe["model"]: moe["ws_expert_launches"],
                              training["model"]: training["launches"]["ws_expert"],
+                             sched["model"]: sched["launches"]["ws_expert"],
                              userving["model"]: userving["launches"]["ws_expert"],
                              umserving["model"]: umserving["launches"]["ws_expert"]},
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert"],
+        "launches_per_ws_round": sched["launches_per_round"]["ws_expert"],
         "max_abs_err": max(expert["max_abs_err"], halfrun_err["ws_expert"]),
         **{k: v for k, v in expert.items() if k not in ("max_abs_err", "attn_err")},
         **TRACED["ws_expert"],
@@ -5036,10 +5325,12 @@ def main(argv=None) -> int:
         "launches_by_path": {"llama3.2-3b": serving["ws_expert_grad_launches"],
                              moe["model"]: moe["ws_expert_grad_launches"],
                              training["model"]: training["launches"]["ws_expert_grad"],
+                             sched["model"]: sched["launches"]["ws_expert_grad"],
                              userving["model"]: userving["launches"]["ws_expert_grad"],
                              umserving["model"]: umserving["launches"]["ws_expert_grad"]},
         "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
+        "launches_per_ws_round": sched["launches_per_round"]["ws_expert_grad"],
         "max_abs_err": max(grad["max_abs_err"], training["launch_abs_err"],
                            grad["halfrun_max_abs_err"]),
         "max_group_rel_err": max(grad["max_group_rel_err"], training["launch_rel_err"]),
@@ -5060,6 +5351,7 @@ def main(argv=None) -> int:
         "launches_by_path": {"llama3.2-3b": serving["ws_unified_launches"],
                              moe["model"]: moe["ws_unified_launches"],
                              training["model"]: training["launches"]["ws_unified"],
+                             sched["model"]: sched["launches"]["ws_unified"],
                              userving["model"]: userving["launches"]["ws_unified"],
                              umserving["model"]: umserving["launches"]["ws_unified"]},
         "launches_per_step": {"lockstep": 1, "free": unified["free_launches_per_step"],
@@ -5071,6 +5363,7 @@ def main(argv=None) -> int:
         "chaos": CHAOS["ws_unified"],
     }
     paths = {"serving": "llama3.2-3b", "moe": moe["model"], "train": training["model"],
+             "sched": sched["model"],
              "unified": userving["model"], "unified_moe": umserving["model"],
              "ckpt": ckpt["model"], "ssm": "mamba2-2.7b, zamba2-2.7b (ssm phase)",
              "times": "times phase", "grad": "grad phase"}
@@ -5095,6 +5388,7 @@ def main(argv=None) -> int:
     log("[moe] " + json.dumps(moe))
     log("[grad] " + json.dumps(grad))
     log("[train] " + json.dumps({k: v for k, v in training.items() if k != "grad_times"}))
+    log("[sched] " + json.dumps(sched))
     log("[unified] " + json.dumps(userving))
     log("[unified_moe] " + json.dumps(umserving))
     log("[ckpt] " + json.dumps(ckpt))

@@ -11,8 +11,10 @@ Layout, the reference's on disk: ``<dir>/step_<N:08d>/`` holding
   ``os.rename``; a crash mid-save never damages the latest step, and
   :func:`latest_step` ignores ``.tmp-`` directories.
 * bf16 leaves: numpy has no bfloat16, so such a leaf is stored as its 16-bit
-  payload (int16) with ``"bfloat16"`` as its manifest dtype, and viewed back
-  on restore.
+  payload in a two-byte void dtype (``|V2``, the bytes and npz descriptor
+  the reference writes) with ``"bfloat16"`` as its manifest dtype, and
+  viewed back on restore; an ``int16`` payload (what earlier versions of
+  the port wrote) restores alike.
 * Async: :class:`AsyncCheckpointer` copies every leaf to host memory before
   its writer thread starts (a tensor that training later updates in place
   never reaches the file) and writes in the background; ``wait()`` joins and
@@ -92,7 +94,7 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
-            return t.contiguous().view(torch.int16).numpy(), "bfloat16"
+            return t.contiguous().view(torch.int16).numpy().view(np.dtype("V2")), "bfloat16"
         return t.numpy(), str(t.dtype).replace("torch.", "")
     a = np.asarray(leaf)
     return a, str(a.dtype)
@@ -150,7 +152,7 @@ def _leaf(arr: np.ndarray, stored: str, like, dev: torch.device):
     kind of leaf: a tensor of its dtype on ``dev`` (numpy and tensor leaves
     alike), or a Python scalar."""
     arr = np.ascontiguousarray(arr)
-    if stored == "bfloat16":
+    if stored == "bfloat16":  # a |V2 or int16 payload
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     elif isinstance(like, np.ndarray):
         t = torch.from_numpy(arr.astype(like.dtype, copy=False))

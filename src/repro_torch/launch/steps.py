@@ -1,4 +1,4 @@
-"""Train-step builders (port of ``repro/launch/steps.py``, ``ws_mode=None``).
+"""Train-step builders (port of ``repro/launch/steps.py``).
 
 ``train_policy(cfg)`` makes the reference's scale-dependent choices from
 the analytic parameter count: under 8 B parameters AdamW with fp32 states
@@ -9,7 +9,10 @@ raises where the policy asks for it.  The step is eager:
 optimizer's in-place update.  With ``cfg.moe_dispatch == "ws"`` the loss's
 experts run forward on the expert megakernel and backward through the
 layer's custom VJP (``cfg.moe_grad_dispatch``), so no dense dispatch ever
-substitutes on the training path.
+substitutes on the training path.  ``ws_mode`` (one of
+:data:`repro_torch.sched.MODES`) runs the step's batch as microbatch tasks
+through the paper's work-stealing rounds
+(:func:`repro_torch.sched.ws_accumulate_grads`).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from repro_torch.optim import (
     tree_map,
     wsd_schedule,
 )
+from repro_torch.sched import MODES, ws_accumulate_grads
 
 
 def train_policy(cfg) -> Dict[str, Any]:
@@ -77,28 +81,49 @@ def loss_and_grads(params, cfg, batch, *, remat: bool = True, chunk: int = 1024)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg, opt, *, ws_mode: Optional[str] = None, remat: bool = True,
+def make_train_step(cfg, opt, *, ws_mode: Optional[str] = None, n_workers: int = 0,
+                    sync_every: int = 1, max_rounds: Optional[int] = None, remat: bool = True,
                     chunk: int = 1024) -> Callable:
     """``state = {"params", "opt"}``; ``step(state, batch)`` returns the new
-    state (the parameters and optimizer state updated in place) and
-    ``{"loss", "ce", "aux"}`` as floats.
+    state (the parameters and optimizer state updated in place) and its
+    metrics as floats.
 
-    ``ws_mode`` (the reference's microbatch rounds of ``repro.sched``) is not
-    ported and raises.
+    ``ws_mode=None``: one full-batch loss; metrics ``loss``, ``ce``, ``aux``.
+    ``ws_mode`` in :data:`repro_torch.sched.MODES`: ``batch["tails"]`` gives
+    each of the ``n_workers`` queues' task count, and every other leaf is
+    ``[n_tasks, rows, ...]``, a FIFO of microbatch tasks that the rounds
+    schedule; each round's loss is ``loss_fn`` over the round's
+    ``n_workers * rows`` rows with the multiplicity row weights.  Metrics
+    ``loss``, ``ce`` (= the loss), ``ws_coverage`` and ``ws_extractions``.
     """
     if ws_mode is not None:
-        raise NotImplementedError("ws_mode (the sched/ microbatch rounds) is not ported yet")
+        if ws_mode not in MODES:
+            raise ValueError(f"ws_mode {ws_mode!r} not in {MODES}")
+        if n_workers < 1:
+            raise ValueError(f"ws_mode {ws_mode!r} needs n_workers >= 1, got {n_workers}")
     if train_policy(cfg)["fsdp"]:
         raise NotImplementedError(f"{cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters "
                                   "need fsdp, which the one-card port does not have")
     _check_dispatch(cfg)
 
+    def flat_loss(p, flat, row_w):
+        return loss_fn(p, cfg, flat, remat=remat, chunk=chunk, row_weights=row_w)[0]
+
     def step(state, batch):
         params = state["params"]
-        loss, metrics, grads = loss_and_grads(params, cfg, batch, remat=remat, chunk=chunk)
+        if ws_mode is None:
+            loss, metrics, grads = loss_and_grads(params, cfg, batch, remat=remat, chunk=chunk)
+            out = {"loss": float(loss), **{k: float(v) for k, v in metrics.items()}}
+        else:
+            micro = {k: v for k, v in batch.items() if k != "tails"}
+            loss, grads, aux = ws_accumulate_grads(
+                flat_loss, params, micro, batch["tails"], n_workers=n_workers, mode=ws_mode,
+                sync_every=sync_every, max_rounds=max_rounds, flat_loss=True)
+            out = {"loss": float(loss), "ce": float(loss),
+                   "ws_coverage": float(aux["coverage"]),
+                   "ws_extractions": float(aux["extractions"])}
         params, opt_state = opt.apply(params, grads, state["opt"])
         del grads
-        return ({"params": params, "opt": opt_state},
-                {"loss": float(loss), **{k: float(v) for k, v in metrics.items()}})
+        return {"params": params, "opt": opt_state}, out
 
     return step

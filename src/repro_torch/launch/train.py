@@ -1,5 +1,5 @@
 """End-to-end training entry point of the port (``repro/launch/train.py``
-counterpart, without the ``sched/`` microbatch rounds).
+counterpart).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b \
         --steps 3 --moe-dispatch ws --moe-grad-dispatch ws --device cpu
@@ -11,6 +11,19 @@ depth.  Each step draws its batch from the synthetic corpus
 (:func:`repro_torch.data.make_batch`) and goes through
 :func:`~repro_torch.launch.steps.make_optimizer` and
 :func:`~repro_torch.launch.steps.make_train_step`.
+
+``--ws-mode`` (one of :data:`repro_torch.sched.MODES`) trains with the
+paper's work-stealing rounds as the gradient-accumulation engine: each step's
+``rows`` are ``--n-workers`` x ``tasks_per_worker`` microbatch tasks spread
+over the workers' queues by :func:`_skewed_tails` (``--skew``), and the
+step logs ``ws_coverage``.  The queue sizes are the owner's local Put, host
+data: they stay on the CPU, so the schedule's few hundred integer ops run on
+the host and only each round's gather indices and weights go to the card.
+That placement is deliberate (``chip_smoke.py`` shows the schedule computed
+on the card is the same).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
+        --steps 3 --ws-mode ws-wmult --skew 4 --device cpu
 
 Checkpoints (:mod:`repro_torch.checkpoint`, atomic and written in the
 background): ``--ckpt-dir`` saves the state ``{"params", "opt"}`` every
@@ -38,11 +51,23 @@ from repro_torch.data import make_batch
 from repro_torch.launch.steps import make_optimizer, make_train_step
 from repro_torch.models import init_params
 from repro_torch.models.config import ShapeConfig
+from repro_torch.sched import MODES
+
+
+def _skewed_tails(n_tasks: int, n_workers: int, step: int, skew: float) -> np.ndarray:
+    """Deterministic per-step queue skew (the straggler/imbalance model)."""
+    rng = np.random.RandomState(step * 7919 + 13)
+    w = rng.dirichlet(np.full(n_workers, max(1e-3, 1.0 / max(skew, 1e-3))))
+    tails = np.floor(w * n_tasks).astype(np.int64)
+    while tails.sum() < n_tasks:
+        tails[rng.randint(n_workers)] += 1
+    return tails
 
 
 def train(arch: str, *, smoke: bool = True, steps: int = 100, rows: int = 8, seq: int = 64,
           moe_dispatch: str | None = None, moe_grad_dispatch: str | None = None,
-          ws_mode: str | None = None, lr: float = 3e-3, ckpt_dir: str | None = None,
+          ws_mode: str | None = None, n_workers: int = 4, tasks_per_worker: int = 2,
+          skew: float = 1.0, lr: float = 3e-3, ckpt_dir: str | None = None,
           ckpt_every: int = 20, resume: bool = False, preempt_at: int | None = None,
           seed: int = 0,
           log_every: int = 10, log_path: str | None = None, n_layers: int | None = None,
@@ -57,10 +82,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100, rows: int = 8, seq
     ``ckpt_dir`` the state is saved at every ``ckpt_every``-th step and at
     the last; ``resume`` restores the latest saved step there and starts at
     the next; at ``preempt_at`` the run waits for the writer and exits with
-    code 17 (``os._exit``: run it in a process of its own).  ``ws_mode`` is
-    not ported and raises."""
-    if ws_mode is not None:
-        raise NotImplementedError("ws_mode (the sched/ microbatch rounds) is not ported yet")
+    code 17 (``os._exit``: run it in a process of its own).  With
+    ``ws_mode`` a step's batch is ``n_workers * tasks_per_worker`` tasks of
+    ``max(rows // n_tasks, 1)`` rows each, on queues sized by
+    :func:`_skewed_tails` (kept on the CPU: see the module docstring)."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     if moe_dispatch is not None:
@@ -79,13 +104,21 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100, rows: int = 8, seq
         state, start = restore(ckpt_dir, state, device=dev)
         start += 1
         print(f"[train] resumed from step {start - 1}")
-    step_fn = make_train_step(cfg, opt)
+    n_tasks = n_workers * tasks_per_worker
+    rpt = max(rows // n_tasks, 1)
+    step_fn = make_train_step(cfg, opt, ws_mode=ws_mode, n_workers=n_workers)
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     losses = []
     t0 = time.time()
     for step in range(start, steps):
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in make_batch(cfg, shape, step, n_rows=rows, seed=seed).items()}
+        if ws_mode is None:
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in make_batch(cfg, shape, step, n_rows=rows, seed=seed).items()}
+        else:
+            nb = make_batch(cfg, shape, step, n_rows=n_tasks * rpt, seed=seed)
+            batch = {k: torch.from_numpy(v).to(dev).reshape((n_tasks, rpt) + v.shape[1:])
+                     for k, v in nb.items()}
+            batch["tails"] = torch.from_numpy(_skewed_tails(n_tasks, n_workers, step, skew))
         t_step = time.perf_counter()
         state, metrics = step_fn(state, batch)
         if dev.type == "cuda":
@@ -97,6 +130,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100, rows: int = 8, seq
         if step % log_every == 0 or step == steps - 1:
             msg = {"step": step, "loss": round(metrics["loss"], 4),
                    "t": round(time.time() - t0, 1)}
+            if "ws_coverage" in metrics:
+                msg["ws_coverage"] = metrics["ws_coverage"]
             print(f"[train] {json.dumps(msg)}")
             if log_path:
                 with open(log_path, "a") as f:
@@ -123,6 +158,10 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--moe-dispatch", default=None, choices=["dense", "ws"])
     ap.add_argument("--moe-grad-dispatch", default=None, choices=["dense", "ws"])
+    ap.add_argument("--ws-mode", default=None, choices=list(MODES),
+                    help="train with the work-stealing rounds as gradient accumulation")
+    ap.add_argument("--n-workers", type=int, default=4)
+    ap.add_argument("--skew", type=float, default=1.0)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
@@ -135,7 +174,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _, losses = train(args.arch, smoke=not args.full_config, steps=args.steps,
                       rows=args.rows, seq=args.seq, moe_dispatch=args.moe_dispatch,
-                      moe_grad_dispatch=args.moe_grad_dispatch, lr=args.lr,
+                      moe_grad_dispatch=args.moe_grad_dispatch, ws_mode=args.ws_mode,
+                      n_workers=args.n_workers, skew=args.skew, lr=args.lr,
                       ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                       resume=args.resume, preempt_at=args.preempt_at, seed=args.seed,
                       log_every=args.log_every, log_path=args.log_path,

@@ -1,6 +1,7 @@
-"""Optimizers and schedules of the port (``repro.optim`` counterpart, without
-the int8 gradient compression of the cross-pod all-reduce)."""
+"""Optimizers, schedules and int8 error-feedback gradient compression of the
+port (``repro.optim`` counterpart)."""
 
+from .compress import int8_compress_decompress, make_ef_compressor
 from .optimizer import (
     OptState,
     Optimizer,
@@ -15,5 +16,6 @@ from .schedules import cosine_schedule, wsd_schedule
 
 __all__ = [
     "OptState", "Optimizer", "clip_by_global_norm", "cosine_schedule", "global_norm",
-    "make_adafactor_momentum", "make_adamw", "tree_leaves", "tree_map", "wsd_schedule",
+    "int8_compress_decompress", "make_adafactor_momentum", "make_adamw", "make_ef_compressor",
+    "tree_leaves", "tree_map", "wsd_schedule",
 ]

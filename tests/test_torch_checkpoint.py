@@ -3,7 +3,10 @@ resume against the JAX package's, on the CPU at smoke size.
 
 * the round trip: every leaf of a train state (params, AdamW's m and v, the
   step) back bit for bit, fp32 and bf16 leaves alike (a bf16 leaf is its
-  16-bit payload on disk);
+  16-bit payload on disk, ``|V2`` as the reference writes it);
+* a bf16 tree saved by both packages: the same npz dtype and bytes, and
+  the port restores the reference's file, its own and an ``int16``-payload
+  file (the port's earlier format) to equal tensors;
 * ``latest_step`` ignoring ``.tmp-`` directories, the tear drill and the
   background writer's error (the cases of tests/test_chaos.py), the
   snapshot taken before ``AsyncCheckpointer.save`` returns, ``keep=3``;
@@ -81,7 +84,7 @@ def test_round_trip_is_bit_equal(tmp_path, dtype):
     assert dtypes["['opt'].m['embed']"] == "float32"
     assert manifest["metadata"] == {"arch": "llama3.2-3b"}
     with np.load(tmp_path / "step_00000007" / "arrays-0.npz") as z:
-        want = np.int16 if dtype == "bfloat16" else np.float32
+        want = np.dtype("V2") if dtype == "bfloat16" else np.float32
         assert z["['params']['embed']"].dtype == want
 
 
@@ -226,6 +229,51 @@ def test_port_written_state_restores_in_the_reference(tmp_path):
         w = want[path]
         w = w.detach().numpy() if isinstance(w, torch.Tensor) else w
         np.testing.assert_array_equal(g, w, err_msg=path)
+
+
+def test_bf16_files_match_the_reference_on_disk(tmp_path):
+    """The same bf16 tree saved by both packages carries one npz dtype
+    (``|V2``) and one payload; the port restores either file, and a file
+    whose payload is ``int16``, to the tensors saved."""
+    import jax.numpy as jnp
+
+    from repro.checkpoint import save as j_save
+
+    vals = np.random.default_rng(3).normal(size=(5, 7)).astype(np.float32)
+    vals[0, :4] = [1.5, -2.25, 3.0, 0.1]
+    tree = {"b": torch.from_numpy(vals[1]).to(torch.bfloat16),
+            "w": torch.from_numpy(vals).to(torch.bfloat16)}
+    jtree = {k: jnp.asarray(vals[1] if k == "b" else vals, dtype=jnp.bfloat16) for k in tree}
+    assert all(np.array_equal(np.asarray(jtree[k]).view(np.int16), tree[k].view(torch.int16)
+                              .numpy()) for k in tree)
+    port, ref = str(tmp_path / "port"), str(tmp_path / "ref")
+    save(port, 1, tree)
+    j_save(ref, 1, jtree)
+    payload = {}
+    for d in (port, ref):
+        with np.load(os.path.join(d, "step_00000001", "arrays-0.npz")) as z:
+            payload[d] = {k: z[k] for k in z.files}
+        with open(os.path.join(d, "step_00000001", "manifest.json")) as f:
+            assert {leaf["dtype"] for leaf in json.load(f)["leaves"]} == {"bfloat16"}
+    assert sorted(payload[port]) == sorted(payload[ref]) == ["['b']", "['w']"]
+    for k in payload[port]:
+        a, b = payload[port][k], payload[ref][k]
+        assert a.dtype == b.dtype == np.dtype("V2"), (k, a.dtype, b.dtype)
+        assert a.shape == b.shape and a.tobytes() == b.tobytes(), k
+    # the port's earlier format: the same payload stored as int16
+    old = str(tmp_path / "old")
+    save(old, 1, tree)
+    npz = os.path.join(old, "step_00000001", "arrays-0.npz")
+    np.savez(npz, **{k: v.view(np.int16) for k, v in payload[port].items()})
+    with np.load(npz) as z:
+        assert all(z[k].dtype == np.int16 for k in z.files)
+    like = {k: torch.zeros_like(v) for k, v in tree.items()}
+    for d in (port, ref, old):
+        got, step = restore(d, like, device="cpu")
+        assert step == 1
+        for k in tree:
+            assert got[k].dtype == torch.bfloat16
+            assert torch.equal(got[k].view(torch.int16), tree[k].view(torch.int16)), (d, k)
 
 
 # ---------------------------------------------------------------------------

@@ -64,16 +64,18 @@ TRACE_AND_CHAOS = ("repro_torch.wstrace.ring", "repro_torch.wstrace.trace",
                    "repro_torch.chaos.inject", "repro_torch.chaos.checker",
                    "repro_torch.chaos.serving", "repro_torch.checkpoint.checkpoint",
                    "repro_torch.serving.engine", "repro_torch.models.ssm",
-                   "repro_torch.launch.train")
+                   "repro_torch.launch.train", "repro_torch.sched.accumulate",
+                   "repro_torch.sched.simulator", "repro_torch.data.loader",
+                   "repro_torch.optim.compress")
 
 
 @pytest.mark.parametrize("module", TRACE_AND_CHAOS)
 def test_trace_and_chaos_modules_pull_in_no_jax(module):
-    """The ported trace, chaos, checkpoint, serving, SSM and training
-    modules (the reference's trace, chaos and checkpoint modules are
-    numpy-only too, but live in ``repro``) load neither jax, ``ml_dtypes``
-    nor any ``repro`` module, even where all are installed; nor does
-    chip_smoke.py."""
+    """The ported trace, chaos, checkpoint, serving, SSM, training,
+    scheduler, loader and compression modules (the reference's trace,
+    chaos, checkpoint and simulator modules are numpy-only too, but live in
+    ``repro``) load neither jax, ``ml_dtypes`` nor any ``repro`` module,
+    even where all are installed; nor does chip_smoke.py."""
     assert module in MODULES
     code = (
         "import sys, importlib, runpy\n"

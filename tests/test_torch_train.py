@@ -452,10 +452,13 @@ def test_train_entry_point_raises_what_is_not_ported(monkeypatch):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
 
-    with pytest.raises(NotImplementedError):
-        train("deepseek-v2-236b", steps=1, device="cpu", ws_mode="ws-wmult")
-    with pytest.raises(NotImplementedError, match="ws_mode"):
-        make_train_step(SMOKE, None, ws_mode="ws-wmult")
+    with pytest.raises(ValueError, match="ws-bogus"):
+        train("deepseek-v2-236b", steps=1, device="cpu", ws_mode="ws-bogus")
+    with pytest.raises(ValueError, match="not in"):
+        make_train_step(SMOKE, None, ws_mode="ws-bogus", n_workers=4)
+    with pytest.raises(ValueError, match="mesh-ws"):
+        make_train_step(SMOKE.replace(moe_dispatch="mesh-ws"), None, ws_mode="ws-wmult",
+                        n_workers=4)
     with pytest.raises(ValueError, match="mesh-ws"):
         make_train_step(SMOKE.replace(moe_dispatch="mesh-ws"), None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -282,6 +282,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               1024-token prefill against ssd_chunked (the kernels phase's
               limits; device times of both): a comparison launch, outside
               the model path, which runs ssd_chunked as the reference does.
+15. families  three more families through their entry points (FAMILIES),
+              each freed before the next, bf16, random weights from seed 0.
+              deepseek-v2-236b at full width cut to 2 layers,
+              moe_dispatch="ws", served: 2 replicas x 4 slots x 1024
+              positions, 8 requests all submitted to replica 0, on the
+              dense MLA decode step (ws_attention 0, ws_expert a layer in
+              every prefill and decode step; one step counted alone: 2,
+              each of its expert launches held to the plain version on its
+              own inputs within ATOL, the bf16-rows control missing it);
+              step p50/p99, tokens/s, peak memory.  pixtral-12b at full
+              width and depth: 4 rows of 256 patches and 64-128 text
+              tokens, each prefilled alone into its slot (capacity 1280),
+              4 decode_step_ws steps with the host Put (40 ws_attention
+              launches a step, head dim 160; step 0's last launch held to
+              the plain version within ATOL), step 0 against the dense step
+              (the ws step at most LOGIT_SLACK times as far from the fp32
+              dense step as the bf16 dense step) and, through the captured
+              device-Put step, bit-equal to the host Put's (a replay's
+              device time).  whisper-base at full width and depth (6 + 6
+              layers, the encoder over 1500 frames), then 2 train() steps
+              with finite losses.  For each, one row's decode path against
+              a prefill of the whole sequence (FAM_FP32_TOL in fp32, which
+              the bf16 one-ulp control must miss; LOGIT_SLACK in bf16,
+              which a faulty decode must miss; the fp32 side with the
+              kernels' plain versions; deepseek's decode path replays the
+              prefill's top-6 and counts the flips).
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the 7 ported kernels (the megakernels each with its
@@ -303,6 +329,7 @@ true, "device": {...}}.
     python3 chip_smoke.py --phases build,serving,unified,ckpt,ssm
                                                 # serving faults, checkpoints, the ssm family
     python3 chip_smoke.py --phases build,train,sched   # the scheduler on the training path
+    python3 chip_smoke.py --phases build,families      # MLA serving, the vlm and encdec families
     python3 chip_smoke.py --probe                # the tagged hand-off probe alone
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
     python3 chip_smoke.py --expert-ab DIR [DIR ...]
@@ -319,7 +346,7 @@ import os
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -363,7 +390,7 @@ KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
 PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "kernels", "serving", "times",
-          "moe", "grad", "train", "sched", "unified", "unified_moe", "ckpt", "ssm")
+          "moe", "grad", "train", "sched", "unified", "unified_moe", "ckpt", "ssm", "families")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -2069,6 +2096,76 @@ def expert_launches(on_launch):
         layer.run_moe_schedule = orig
 
 
+@contextmanager
+def attention_launches(on_launch):
+    """Call ``on_launch((state, args, kwargs, res))`` after every attention
+    launch of the ws decode step (``ragged.run_ws_schedule``)."""
+    from repro_torch.pallas_ws import ragged
+
+    orig = ragged.run_ws_schedule
+
+    def run(state, *a, **kw):
+        res = orig(state, *a, **kw)
+        on_launch((state, a, kw, res))
+        return res
+
+    ragged.run_ws_schedule = run
+    try:
+        yield
+    finally:
+        ragged.run_ws_schedule = orig
+
+
+def _hold_attention_launch(tag, rec, n):
+    """One recorded attention launch ``(state, args, kwargs, res)`` of a ws
+    decode step of ``n`` launches (the caller checks that the step made
+    them) against the plain version on the same q and cache within ATOL,
+    both outputs normalised by their multiplicities."""
+    from repro_torch.pallas_ws.kernel import run_ws_schedule
+    from repro_torch.pallas_ws.ragged import normalized_out
+
+    st, args, kw, res = rec
+    with plain_versions():
+        res_p = run_ws_schedule(st, *args, **kw)
+    q = args[0]
+    shape = (q.shape[0], q.shape[1], 1)
+    got, want = (normalized_out(r, st.task_list, shape)[:, :, 0] for r in (res, res_p))
+    err = float((got - want).abs().max())
+    log(f"[{tag}] launch {n} of the step (q {tuple(q.shape)}, cache {tuple(args[1].shape)}, "
+        f"{q.dtype}, {res.mode} mode) against the plain version: out max_abs_err {err:.3g} "
+        f"(<= ATOL {ATOL}; max |out| {float(want.abs().max()):.4g})")
+    if not err <= ATOL:
+        raise AssertionError(f"[{tag}] the attention launch differs from the plain version by "
+                             f"{err} > {ATOL}")
+    return dict(max_abs_err=err, hd=int(q.shape[-1]), mode=res.mode)
+
+
+def _hold_expert_launches(tag, recorded):
+    """Each recorded expert launch ``(state, args, kwargs, res)`` against the
+    plain version on its own inputs within ATOL, and the same rows in bf16
+    (:func:`bf16_rows`) as the control that must miss ATOL.  Returns (the
+    largest launch error, the smallest control error)."""
+    from repro_torch.moe_ws import run_moe_schedule
+
+    launch_err, control_err = 0.0, float("inf")
+    for st, args, kw, res in recorded:
+        with plain_versions():
+            res_p = run_moe_schedule(st, *args, **kw)
+        ctl = bf16_rows(st, args[0].float(), *args[1:], kw["bt"])
+        launch_err = max(launch_err, float((res.out - res_p.out).abs().max()))
+        control_err = min(control_err, float((ctl - res_p.out).abs().max()))
+    log(f"[{tag}] the step's {len(recorded)} expert launches against the plain version on "
+        f"their own inputs: out max_abs_err {launch_err:.3g} (<= ATOL {ATOL}); the same rows "
+        f"with bf16 products (the dense dispatch's arithmetic) {control_err:.3g} (> ATOL)")
+    if not launch_err <= ATOL:
+        raise AssertionError(f"[{tag}] served expert launches differ from the plain version "
+                             f"by {launch_err} > {ATOL}")
+    if not control_err > ATOL:
+        raise AssertionError(f"[{tag}] the bf16 control came within ATOL ({control_err}): the "
+                             "launch check cannot tell fp32 from bf16 expert math")
+    return launch_err, control_err
+
+
 def bf16_rows(state, x, tok_idx, wg, wu, wd, bt):
     """The routed rows of one expert launch computed as the dense dispatch's
     einsums compute experts: bf16 operands, bf16 products and hidden tile.
@@ -2113,7 +2210,6 @@ def phase_moe(dev):
     from repro_torch.models import decode_hidden, decode_hidden_ws, decode_step_ws, init_params
     from repro_torch.models.attention import KVCache
     from repro_torch.models.model import Caches
-    from repro_torch.moe_ws import run_moe_schedule
     from repro_torch.pallas_ws import launches, reset_launches
     from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
 
@@ -2233,24 +2329,7 @@ def phase_moe(dev):
         raise AssertionError(f"hooks: {len(recorded)} launches, {len(tape)} taped and "
                              f"{rep_counts[0]} replayed routings, want {L}")
 
-    # each expert launch of the step against the plain version on its own
-    # inputs, and the same rows in bf16 as the control that must fail
-    launch_err, control_err = 0.0, float("inf")
-    for st, args, kw, res in recorded:
-        with plain_versions():
-            res_p = run_moe_schedule(st, *args, **kw)
-        ctl = bf16_rows(st, args[0].float(), *args[1:], kw["bt"])
-        launch_err = max(launch_err, float((res.out - res_p.out).abs().max()))
-        control_err = min(control_err, float((ctl - res_p.out).abs().max()))
-    log(f"[moe] the step's {L} expert launches against the plain version on their own "
-        f"inputs: out max_abs_err {launch_err:.3g} (<= ATOL {ATOL}); the same rows with "
-        f"bf16 products (the dense dispatch's arithmetic) {control_err:.3g} (> ATOL)")
-    if not launch_err <= ATOL:
-        raise AssertionError(f"served expert launches differ from the plain version by "
-                             f"{launch_err} > {ATOL}")
-    if not control_err > ATOL:
-        raise AssertionError(f"the bf16 control came within ATOL ({control_err}): the "
-                             "launch check cannot tell fp32 from bf16 expert math")
+    launch_err, control_err = _hold_expert_launches("moe", recorded)
 
     # end to end: logits with the final norm and unembedding in fp32
     lg_ws, lg_plain, lg_dense = (fp32_logits(params, cfg, h) for h in (h_ws, h_plain, h_dense))
@@ -5180,6 +5259,422 @@ def _ssm_scan(captured):
     return out
 
 
+# ---------------------------------------------------------------------------
+# three more families on their entry points: MLA served (deepseek-v2), the
+# vlm (pixtral-12b) and the encoder-decoder (whisper-base)
+
+
+FAMILIES = dict(
+    deepseek=dict(depth=2, S=64, extra=4, slots=4, cap=1024, requests=8, prompt_lens=(8, 65),
+                  max_new=8),
+    pixtral=dict(rows=4, text_lens=(64, 129), cap=1024 + 256, steps=4),
+    whisper=dict(S=32, extra=8, train_steps=2, train_rows=4, train_seq=64),
+)
+# Prefill against decode, one row, the decode path's last logits against a
+# prefill of the whole sequence.  fp32 (the weights widened): within
+# FAM_FP32_TOL x max(1, max |logit|), and the decode path's final hidden
+# state rounded to bf16 and moved one bf16 ulp (the bf16 control) must miss
+# that limit, so the check tells fp32 from bf16.  bf16: the decode path may
+# stray from the fp32 prefill at most LOGIT_SLACK times as far as the bf16
+# prefill does (both round the same activations along other paths); a
+# faulty decode (the layers' caches swapped, or positions not offset by the
+# patches) must stray further.  The fp32 side runs the kernels' plain
+# versions, so the yardstick does not come from a kernel under test.  MoE routing is discontinuous: the decode
+# path replays the longer prefill's top-k, and the flips are counted.
+FAM_FP32_TOL = 1e-4
+
+
+def _fam_held(tag, params32, cfg32, pre32, h32, pre16, dec16, ctl16, fault):
+    """The prefill-against-decode checks of one model (see FAM_FP32_TOL)."""
+    V = cfg32.vocab_size
+    lg32 = fp32_logits(params32, cfg32, h32)[0, :V]
+    ulp = fp32_logits(params32, cfg32, one_ulp(h32.bfloat16(), SEED).float())[0, :V]
+    scale = max(1.0, float(pre32.abs().max()))
+    limit = FAM_FP32_TOL * scale
+    err32, err_ulp = (float((x - pre32).abs().max()) for x in (lg32, ulp))
+    err_pre, err_dec, err_ctl = (float((x - pre32).abs().max()) for x in (pre16, dec16, ctl16))
+    out = dict(logit_scale=scale, fp32_decode_vs_prefill=err32, fp32_limit=limit,
+               bf16_one_ulp_control=err_ulp, bf16_prefill_vs_fp32=err_pre,
+               bf16_decode_vs_fp32=err_dec, bf16_limit=LOGIT_SLACK * err_pre,
+               control=fault, control_vs_fp32=err_ctl,
+               argmax_agree=int(dec16.argmax()) == int(pre16.argmax()))
+    log(f"[families] {tag}: prefill against decode: fp32 max |diff| {err32:.4g} (<= "
+        f"{FAM_FP32_TOL} x {scale:.4g} = {limit:.4g}; the bf16 one-ulp control {err_ulp:.4g} "
+        f"must exceed it); bf16 decode path {err_dec:.4g} from the fp32 prefill, bf16 prefill "
+        f"{err_pre:.4g} (<= {LOGIT_SLACK} x); control ({fault}) {err_ctl:.4g} (must exceed "
+        f"{LOGIT_SLACK * err_pre:.4g}); argmax agree {out['argmax_agree']}")
+    if not (err32 <= limit < err_ulp and err_dec <= LOGIT_SLACK * err_pre):
+        raise AssertionError(f"[families] {tag}: decode and prefill disagree: {out}")
+    if not err_ctl > LOGIT_SLACK * err_pre:
+        raise AssertionError(f"[families] {tag}: the control passed: {out}")
+    return out
+
+
+def _widen(tree):
+    """Every tensor of a parameter dict in fp32, in place, one at a time (the
+    bf16 copy of each is freed as its fp32 one is made)."""
+    for k, v in tree.items():
+        tree[k] = _widen(v) if isinstance(v, dict) else v.float()
+    return tree
+
+
+def _fam_init(cfg, full, dev):
+    from repro_torch.models import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[families] {cfg.name} depth {cfg.n_layers} (of {full.n_layers}) at full width: "
+        f"{n_params / 1e9:.3f} B parameters (param_count {cfg.param_count() / 1e9:.3f} B), "
+        f"{n_bytes / 1e9:.2f} GB ({cfg.dtype}), initialised in {time.perf_counter() - t0:.1f} s")
+    return params, dict(layers=cfg.n_layers, params=n_params, weight_bytes=n_bytes)
+
+
+def _fam_deepseek(dev):
+    """deepseek-v2 served: MLA decode on the dense step, the expert kernel in
+    every MoE layer of every prefill and decode step."""
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.models import decode_hidden, decode_step, prefill
+    from repro_torch.models.attention import MLACache
+    from repro_torch.models.model import Caches, _logits
+    from repro_torch.pallas_ws import launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    c = FAMILIES["deepseek"]
+    cfg = CONFIG.replace(n_layers=c["depth"], moe_dispatch="ws")
+    L, V = cfg.n_layers, cfg.vocab_size
+    params, out = _fam_init(cfg, CONFIG, dev)
+    rng = np.random.default_rng(SEED)
+
+    # 8 requests through 2 replicas, all submitted to replica 0
+    lens = rng.integers(*c["prompt_lens"], size=c["requests"])
+    prompts = [rng.integers(0, V, size=int(n)).astype(np.int32) for n in lens]
+    front = WorkStealingFrontend(lambda: ContinuousBatcher(
+        params, cfg, slots=c["slots"], capacity=c["cap"]), n_replicas=2)
+    for rid, p in enumerate(prompts):
+        front.submit(0, Request(rid=rid, tokens=p, max_new=c["max_new"]))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    before = dict(launches)
+    t0 = time.perf_counter()
+    done = front.run(max_iters=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _since(before)
+    stats = front.stats()
+    steps = sum(s["steps"] for s in stats["batchers"])
+    prefills = sum(s["admitted"] for s in stats["batchers"])
+    if sorted(done) != list(range(len(prompts))) or front.rejected:
+        raise AssertionError(f"[families] deepseek completed {sorted(done)}, rejected "
+                             f"{sorted(front.rejected)}")
+    if any(len(r.out) != c["max_new"] or not all(0 <= t < V for t in r.out)
+           for r in done.values()):
+        raise AssertionError(f"[families] deepseek served {_streams(done)}")
+    want = {"ws_attention": 0, "ws_expert": (steps + prefills) * L, "ws_expert_grad": 0,
+            "ws_unified": 0}
+    if counts != want or any(b.use_ws for b in front.batchers):
+        raise AssertionError(f"[families] deepseek serving launched {counts}, want {want} "
+                             f"(the dense MLA step, the expert kernel a layer)")
+    if stats["totals"]["stolen"] == 0:
+        raise AssertionError("[families] deepseek: replica 1 stole nothing")
+    peak = torch.cuda.max_memory_allocated()
+    lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
+    tokens = sum(len(r.out) for r in done.values())
+    # one engine step of 4 slots counted alone
+    b = ContinuousBatcher(params, cfg, slots=4, capacity=c["cap"])
+    for rid in range(4):
+        assert b.admit(Request(rid=rid, tokens=prompts[rid], max_new=c["max_new"]))
+    before, recorded = dict(launches), []
+    with expert_launches(lambda *r: recorded.append(r)):
+        b.step()
+    torch.cuda.synchronize()
+    per_step = _since(before)
+    if per_step != {"ws_attention": 0, "ws_expert": L, "ws_expert_grad": 0, "ws_unified": 0}:
+        raise AssertionError(f"[families] one deepseek decode step launched {per_step}")
+    if len(recorded) != L:
+        raise AssertionError(f"[families] the launch hook saw {len(recorded)} of {L} expert "
+                             "launches")
+    # decode routing at deepseek's widths: each launch against the plain version
+    launch_err, control_err = _hold_expert_launches("families deepseek", recorded)
+    out["expert_launches"] = dict(max_abs_err=launch_err, bf16_control_err=control_err)
+    del b, front, recorded
+    out["serving"] = dict(
+        requests=len(done), prompt_tokens=int(lens.sum()), new_tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, decode_steps=steps, prefills=prefills,
+        step_ms_p50=float(np.percentile(lat, 50)), step_ms_p99=float(np.percentile(lat, 99)),
+        stolen=stats["totals"]["stolen"], launches=counts, launches_per_decode_step=per_step,
+        peak_bytes=peak)
+    log(f"[families] deepseek serving (2 replicas x {c['slots']} slots x {c['cap']} "
+        f"positions, the dense MLA step): {len(done)} requests, {tokens} new tokens in "
+        f"{wall:.2f} s ({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, "
+        f"{prefills} prefills, step p50 {out['serving']['step_ms_p50']:.2f} ms p99 "
+        f"{out['serving']['step_ms_p99']:.2f} ms; stolen {stats['totals']['stolen']}; "
+        f"launches {counts}; one decode step {per_step} (ws_expert {per_step['ws_expert']} "
+        f"a step, want {L}); peak device memory {peak / 1e9:.2f} GB")
+
+    # prefill against decode, the decode path replaying the prefill's routing
+    S, extra = c["S"], c["extra"]
+    toks = torch.from_numpy(rng.integers(0, V, (1, S + extra))).to(dev)
+
+    def paths(p, cfg_, slip=False):
+        tape = []
+        with routing_tape(record=tape) as rec:
+            pre = prefill(p, cfg_, {"tokens": toks}, capacity=S + extra)[0][0, :V]
+        replay = [(g[:S], i[:S]) for g, i in tape] + [
+            (g[j:j + 1], i[j:j + 1]) for j in range(S, S + extra) for g, i in tape]
+        with routing_tape(replay=replay) as rep:
+            _, caches = prefill(p, cfg_, {"tokens": toks[:, :S]}, capacity=S + extra)
+            if slip:  # the control: each layer reads and writes the other's cache
+                caches = Caches(kv=MLACache(*(t.flip(0).contiguous() for t in caches.kv)))
+            for i in range(S, S + extra - 1):
+                _, caches = decode_step(p, cfg_, caches, toks[:, i:i + 1], i)
+            h = decode_hidden(p, cfg_, caches, toks[:, -1:], S + extra - 1)[0]
+        if not (rec[0] == L and rep[0] == L * (1 + extra)):
+            raise AssertionError(f"[families] router calls {rec[0]} and {rep[0]}")
+        return pre, h, rep[1]
+
+    pre16, h16, flips16 = paths(params, cfg)
+    dec16 = _logits(params, cfg, h16)[0, :V]
+    _, h_ctl, _ = paths(params, cfg, slip=True)
+    ctl16 = _logits(params, cfg, h_ctl)[0, :V]
+    params32 = _widen(params)
+    del params
+    cfg32 = cfg.replace(dtype="float32")
+    with plain_versions():
+        pre32, h32, flips32 = paths(params32, cfg32)
+    torch.cuda.synchronize()
+    out["prefill_vs_decode"] = dict(
+        S=S, extra=extra, routing_flips_bf16=flips16, routing_flips_fp32=flips32,
+        **_fam_held("deepseek-v2-236b", params32, cfg32, pre32, h32, pre16, dec16, ctl16,
+                    "the 2 layers' MLA caches swapped"))
+    log(f"[families] deepseek: top-6 sets that differed between the decode path and the "
+        f"longer prefill (replayed): bf16 {flips16}, fp32 {flips32} of {L * (S + extra)}")
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fam_pixtral(dev):
+    """pixtral-12b at full depth: 4 rows of patches and text, the ws step
+    (host Put and the captured device-Put step) against the dense step and
+    against a longer prefill."""
+    from repro_torch.configs.pixtral_12b import CONFIG
+    from repro_torch.models import decode_hidden_ws, decode_step, decode_step_ws, init_caches
+    from repro_torch.models import prefill
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.model import Caches, cache_tensors
+    from repro_torch.pallas_ws import launches
+
+    c = FAMILIES["pixtral"]
+    cfg = CONFIG
+    L, V, n_p, R, cap = cfg.n_layers, cfg.vocab_size, cfg.n_patches, c["rows"], c["cap"]
+    params, out = _fam_init(cfg, CONFIG, dev)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    patches = (torch.randn((R, n_p, cfg.d_model), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    text = [torch.from_numpy(rng.integers(0, V, int(n))).to(dev)
+            for n in rng.integers(*c["text_lens"], size=R)]
+
+    # each row prefilled alone (patches, then its text) into its slot
+    caches = init_caches(cfg, R, cap, device=dev)
+    first, pos = [], np.zeros(R, np.int64)
+    t0 = time.perf_counter()
+    for b in range(R):
+        lg, c1 = prefill(params, cfg, {"tokens": text[b][None], "patches": patches[b:b + 1]},
+                         capacity=cap)
+        for full, one in zip(cache_tensors(caches), cache_tensors(c1)):
+            full[:, b] = one[:, 0]
+        first.append(int(lg[0, :V].argmax()))
+        pos[b] = n_p + len(text[b])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    def clone(cc):
+        return Caches(kv=KVCache(cc.kv.k.clone(), cc.kv.v.clone()))
+
+    # the ws step (host Put), its tokens fed to the next
+    tok0 = torch.tensor(first, device=dev)[:, None]
+    ws_c, tok, fed, lgs, per_step, recorded = clone(caches), tok0, [], [], [], []
+    for j in range(c["steps"]):
+        before = dict(launches)
+        with attention_launches(recorded.append) if j == 0 else nullcontext():
+            lg, ws_c = decode_step_ws(params, cfg, ws_c, tok, pos + j)
+        torch.cuda.synchronize()
+        per_step.append(_since(before))
+        if j == 0:  # step 0's last launch, before a later step writes the caches
+            if len(recorded) != L:
+                raise AssertionError(f"[families] the launch hook saw {len(recorded)} of {L} "
+                                     "attention launches")
+            out["attention_launch"] = _hold_attention_launch("families pixtral",
+                                                             recorded[-1], L)
+            del recorded
+        fed.append(tok)
+        lgs.append(lg[:, :V])
+        tok = lg[:, :V].argmax(-1, keepdim=True)
+    want = {"ws_attention": L, "ws_expert": 0, "ws_expert_grad": 0, "ws_unified": 0}
+    if any(s != want for s in per_step):
+        raise AssertionError(f"[families] pixtral ws steps launched {per_step}, want {want}")
+    if not all(bool(torch.isfinite(x).all()) for x in lgs):
+        raise AssertionError("[families] pixtral ws logits not finite")
+    del ws_c
+    lg_dense0 = decode_step(params, cfg, clone(caches), tok0, pos)[0][:, :V]
+    # the device Put: the captured step on the same caches, bit-equal
+    out["jit_ws"] = _jit_step_checks("families pixtral", params, cfg, caches, tok0, pos,
+                                     lgs[0], 0.0)
+
+    # row 0's longer prefill, and the control: its text decoded at positions
+    # not offset by the patches
+    long0 = torch.cat([text[0]] + [t[0] for t in fed])[None]
+    pre16 = prefill(params, cfg, {"tokens": long0, "patches": patches[:1]},
+                    capacity=long0.shape[1] + n_p)[0][0, :V]
+    _, c0 = prefill(params, cfg, {"tokens": text[0][None], "patches": patches[:1]},
+                    capacity=cap)
+    for j in range(c["steps"]):
+        ctl, c0 = decode_step_ws(params, cfg, c0, fed[j][:1], np.array([pos[0] - n_p + j]))
+    ctl16 = ctl[0, :V]
+    del c0
+
+    # fp32: the weights widened in place, the dense step on the caches widened
+    params32 = _widen(params)
+    del params
+    cfg32 = cfg.replace(dtype="float32")
+    c32 = Caches(kv=KVCache(caches.kv.k.float(), caches.kv.v.float()))
+    del caches
+    lg_ref = decode_step(params32, cfg32, c32, tok0, pos)[0][:, :V]
+    del c32
+    err_ws, err_dense = (float((x - lg_ref).abs().max()) for x in (lgs[0], lg_dense0))
+    log(f"[families] pixtral step 0 (4 rows, text {[len(t) for t in text]} tokens after "
+        f"{n_p} patches) vs the fp32 dense step (max |logit| {float(lg_ref.abs().max()):.4g}): "
+        f"ws {err_ws:.4g}, dense bf16 {err_dense:.4g} (ws <= {LOGIT_SLACK} x dense); argmax "
+        f"agree ws/dense {int((lgs[0].argmax(-1) == lg_dense0.argmax(-1)).sum())}/{R}")
+    if not err_ws <= LOGIT_SLACK * err_dense:
+        raise AssertionError("[families] pixtral ws logits stray further from the fp32 step "
+                             "than the dense step's")
+    # row 0's decode path in fp32 on the ws step, against its fp32 prefill
+    pre32 = prefill(params32, cfg32, {"tokens": long0, "patches": patches[:1].float()},
+                    capacity=long0.shape[1] + n_p)[0][0, :V]
+    _, c0 = prefill(params32, cfg32, {"tokens": text[0][None], "patches": patches[:1].float()},
+                    capacity=cap)
+    for j in range(c["steps"] - 1):
+        _, c0 = decode_step_ws(params32, cfg32, c0, fed[j][:1], pos[:1] + j)
+    j = c["steps"] - 1
+    h32 = decode_hidden_ws(params32, cfg32, c0, fed[j][:1], pos[:1] + j)[0]
+    out["prefill_vs_decode"] = _fam_held("pixtral-12b", params32, cfg32, pre32, h32, pre16,
+                                         lgs[-1][0], ctl16, "positions not offset by the "
+                                         "patches")
+    out.update(rows=R, text_tokens=[len(t) for t in text], patches=n_p,
+               prefill_s=prefill_s, launches_per_step=per_step[0],
+               step0_logit_err_ws_vs_fp32=err_ws, step0_logit_err_dense_vs_fp32=err_dense)
+    log(f"[families] pixtral: {R} row prefills in {prefill_s:.2f} s; ws_attention "
+        f"{per_step[0]['ws_attention']} launches a step (want {L}) at head dim {cfg.hd}; a "
+        f"captured step's device time {out['jit_ws']['replay_device_ms']:.3f} ms")
+    del params32, c0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fam_whisper(dev):
+    """whisper-base at full width and depth: prefill against decode (the
+    encoder over 1500 frames, the cross caches), then 2 train() steps."""
+    from repro_torch.configs.whisper_base import CONFIG
+    from repro_torch.launch.train import train
+    from repro_torch.models import decode_hidden, decode_step, prefill
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.model import _logits
+
+    c = FAMILIES["whisper"]
+    cfg = CONFIG
+    V, S, extra = cfg.vocab_size, c["S"], c["extra"]
+    params, out = _fam_init(cfg, CONFIG, dev)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames = torch.randn((1, cfg.enc_seq_len, cfg.d_model), generator=gen, device=dev) * 0.02
+    toks = torch.from_numpy(rng.integers(0, V, (1, S + extra))).to(dev)
+
+    def paths(p, cfg_, slip=False):
+        pre = prefill(p, cfg_, {"tokens": toks, "frames": frames}, capacity=S + extra)[0]
+        _, caches = prefill(p, cfg_, {"tokens": toks[:, :S], "frames": frames},
+                            capacity=S + extra)
+        if slip:  # the control: each layer attends another layer's encoder k/v
+            caches = caches._replace(cross_kv=KVCache(
+                *(t.flip(0).contiguous() for t in caches.cross_kv)))
+        for i in range(S, S + extra - 1):
+            _, caches = decode_step(p, cfg_, caches, toks[:, i:i + 1], i)
+        h = decode_hidden(p, cfg_, caches, toks[:, -1:], S + extra - 1)[0]
+        return pre[0, :V], h
+
+    t0 = time.perf_counter()
+    pre16, h16 = paths(params, cfg)
+    torch.cuda.synchronize()
+    paths_s = time.perf_counter() - t0
+    dec16 = _logits(params, cfg, h16)[0, :V]
+    ctl16 = _logits(params, cfg, paths(params, cfg, slip=True)[1])[0, :V]
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = _widen(params)
+    del params
+    pre32, h32 = paths(params32, cfg32)
+    out["prefill_vs_decode"] = dict(S=S, extra=extra, enc_seq_len=cfg.enc_seq_len,
+                                    both_paths_s=paths_s, **_fam_held(
+                                        "whisper-base", params32, cfg32, pre32, h32, pre16,
+                                        dec16, ctl16, "the layers' cross caches reversed"))
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step_s = []
+    torch.cuda.reset_peak_memory_stats()
+    _, losses = train("whisper-base", smoke=False, steps=c["train_steps"],
+                      rows=c["train_rows"], seq=c["train_seq"], seed=SEED, device=dev,
+                      on_step=lambda step, st, m, s: step_s.append(s), log_every=1)
+    if len(losses) != c["train_steps"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"[families] whisper train losses {losses}")
+    out["train"] = dict(losses=losses, step_s=step_s, rows=c["train_rows"],
+                        seq=c["train_seq"], peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[families] whisper-base train(): losses {losses}, step seconds "
+        f"{[round(s, 3) for s in step_s]}, peak device memory "
+        f"{out['train']['peak_bytes'] / 1e9:.2f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _since(before):
+    """The ws kernels' launches since the counts ``before``."""
+    from repro_torch.pallas_ws import launches
+
+    return {n: launches[n] - before[n] for n in launches}
+
+
+def phase_families(dev):
+    """deepseek-v2 served (MLA), pixtral-12b (vlm) and whisper-base (encdec),
+    each freed before the next; the ws kernels' launches of each, counted
+    from 0 just before it."""
+    from repro_torch.pallas_ws import launches, reset_launches
+
+    t_phase = time.perf_counter()
+    out, by_model = {}, {}
+    for name, fn in (("deepseek-v2-236b (depth 2, served)", _fam_deepseek),
+                     ("pixtral-12b", _fam_pixtral), ("whisper-base", _fam_whisper)):
+        reset_launches()
+        t0 = time.perf_counter()
+        out[name] = fn(dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+        by_model[name] = dict(launches)
+    out["launches"] = by_model
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[families] phase {out['seconds']:.1f} s ("
+        + ", ".join(f"{n.split()[0]} {out[n]['seconds']:.1f} s" for n in by_model)
+        + f"); launches by model {json.dumps(by_model)}; card: {card_line()}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5224,18 +5719,26 @@ def main(argv=None) -> int:
     from repro_torch.kernels import launches as klaunches
 
     t_all = time.perf_counter()
-    phase_build()
-    max_err = phase_parity(dev) if "parity" in phases else None
-    expert = phase_expert(dev) if "expert" in phases else {}
-    if "audit" in phases:
-        phase_audit(dev)
-    if "chaos" in phases:
-        phase_chaos(dev)
-    halfrun_err = phase_halfrun(dev) if "halfrun" in phases else None
+    seconds = {}  # each phase's wall time, for the [done] line
+
+    def timed(phase, fn, *a, **kw):
+        if phase not in phases | {"build"}:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    max_err = timed("parity", phase_parity, dev)
+    expert = timed("expert", phase_expert, dev) or {}
+    timed("audit", phase_audit, dev)
+    timed("chaos", phase_chaos, dev)
+    halfrun_err = timed("halfrun", phase_halfrun, dev)
     HELD.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    standalone = phase_kernels(dev) if "kernels" in phases else None
+    standalone = timed("kernels", phase_kernels, dev)
     gc.collect()
     torch.cuda.empty_cache()
     # the standalone kernels' launches on each model path (none wires them in)
@@ -5245,7 +5748,7 @@ def main(argv=None) -> int:
         if phase not in phases:
             return None
         before = dict(klaunches)
-        out = fn(*a, **kw)
+        out = timed(phase, fn, *a, **kw)
         on_path[phase] = {n: klaunches[n] - before[n] for n in klaunches}
         return out
 
@@ -5263,14 +5766,15 @@ def main(argv=None) -> int:
     # the model path's (the Mamba-2 layer runs ssd_chunked, as the reference's)
     ssm_scan = _ssm_scan(ssm_inputs) if ssm_inputs else None
     del ssm_inputs
+    families = model_path("families", phase_families, dev)
     stray = {p: n for p, n in on_path.items() if any(n.values())}
     if stray:
         raise AssertionError(f"a model path launched a standalone kernel: {stray}")
     if phases != set(PHASES):
         if standalone:
             log("[kernels] " + json.dumps(standalone))
-        log(f"[done] phases {sorted(phases)} passed in {time.perf_counter() - t_all:.1f} s; "
-            "a partial run prints no result")
+        log(f"[done] phases {sorted(phases)} passed in {time.perf_counter() - t_all:.1f} s "
+            f"({json.dumps(seconds)}); a partial run prints no result")
         return 3
     attention = {
         "name": "ws_attention",
@@ -5284,9 +5788,13 @@ def main(argv=None) -> int:
                              training["model"]: training["launches"]["ws_attention"],
                              sched["model"]: sched["launches"]["ws_attention"],
                              userving["model"]: userving["launches"]["ws_attention"],
-                             umserving["model"]: umserving["launches"]["ws_attention"]},
+                             umserving["model"]: umserving["launches"]["ws_attention"],
+                             **{m: n["ws_attention"] for m, n in families["launches"].items()}},
         "launches_per_train_step": training["launches_per_step"]["ws_attention"],
-        "max_abs_err": max(max_err, expert["attn_err"], halfrun_err["ws_attention"]),
+        "launches_per_decode_step_pixtral": families["pixtral-12b"]["launches_per_step"][
+            "ws_attention"],
+        "max_abs_err": max(max_err, expert["attn_err"], halfrun_err["ws_attention"],
+                           families["pixtral-12b"]["attention_launch"]["max_abs_err"]),
         **times,
         **TRACED["ws_attention"],
         "chaos": CHAOS["ws_attention"],
@@ -5305,11 +5813,17 @@ def main(argv=None) -> int:
                              training["model"]: training["launches"]["ws_expert"],
                              sched["model"]: sched["launches"]["ws_expert"],
                              userving["model"]: userving["launches"]["ws_expert"],
-                             umserving["model"]: umserving["launches"]["ws_expert"]},
+                             umserving["model"]: umserving["launches"]["ws_expert"],
+                             **{m: n["ws_expert"] for m, n in families["launches"].items()}},
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
+        "launches_per_decode_step_deepseek_served": families[
+            "deepseek-v2-236b (depth 2, served)"]["serving"]["launches_per_decode_step"][
+            "ws_expert"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert"],
         "launches_per_ws_round": sched["launches_per_round"]["ws_expert"],
-        "max_abs_err": max(expert["max_abs_err"], halfrun_err["ws_expert"]),
+        "max_abs_err": max(expert["max_abs_err"], halfrun_err["ws_expert"],
+                           families["deepseek-v2-236b (depth 2, served)"]["expert_launches"][
+                               "max_abs_err"]),
         **{k: v for k, v in expert.items() if k not in ("max_abs_err", "attn_err")},
         **TRACED["ws_expert"],
         "chaos": CHAOS["ws_expert"],
@@ -5327,7 +5841,8 @@ def main(argv=None) -> int:
                              training["model"]: training["launches"]["ws_expert_grad"],
                              sched["model"]: sched["launches"]["ws_expert_grad"],
                              userving["model"]: userving["launches"]["ws_expert_grad"],
-                             umserving["model"]: umserving["launches"]["ws_expert_grad"]},
+                             umserving["model"]: umserving["launches"]["ws_expert_grad"],
+                             **{m: n["ws_expert_grad"] for m, n in families["launches"].items()}},
         "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
         "launches_per_ws_round": sched["launches_per_round"]["ws_expert_grad"],
@@ -5353,7 +5868,8 @@ def main(argv=None) -> int:
                              training["model"]: training["launches"]["ws_unified"],
                              sched["model"]: sched["launches"]["ws_unified"],
                              userving["model"]: userving["launches"]["ws_unified"],
-                             umserving["model"]: umserving["launches"]["ws_unified"]},
+                             umserving["model"]: umserving["launches"]["ws_unified"],
+                             **{m: n["ws_unified"] for m, n in families["launches"].items()}},
         "launches_per_step": {"lockstep": 1, "free": unified["free_launches_per_step"],
                               "free_moe": umoe["free_launches_per_step"]},
         **unified,
@@ -5366,6 +5882,7 @@ def main(argv=None) -> int:
              "sched": sched["model"],
              "unified": userving["model"], "unified_moe": umserving["model"],
              "ckpt": ckpt["model"], "ssm": "mamba2-2.7b, zamba2-2.7b (ssm phase)",
+             "families": "deepseek-v2-236b, pixtral-12b, whisper-base (families phase)",
              "times": "times phase", "grad": "grad phase"}
     standalone_lines = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
@@ -5383,7 +5900,7 @@ def main(argv=None) -> int:
                                ("decode_attention",
                                 "src/repro/kernels/decode_attention/kernel.py:28"),
                                ("ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:27"))]
-    log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
+    log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s ({json.dumps(seconds)})")
     log("[serving] " + json.dumps(serving))
     log("[moe] " + json.dumps(moe))
     log("[grad] " + json.dumps(grad))
@@ -5393,6 +5910,7 @@ def main(argv=None) -> int:
     log("[unified_moe] " + json.dumps(umserving))
     log("[ckpt] " + json.dumps(ckpt))
     log("[ssm] " + json.dumps(ssm))
+    log("[families] " + json.dumps(families))
     print(card_line())
     print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line,
                                   *standalone_lines]}))

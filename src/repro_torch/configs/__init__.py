@@ -1,8 +1,9 @@
-"""Configurations the port builds (``llama3_2_3b``, ``kimi_k2_1t_a32b``,
-``deepseek_v2_236b``, the dense ``minicpm_2b`` and the windowed dense
-``h2o_danube_1_8b`` and ``gemma3_12b``, the SSM ``mamba2_2_7b`` and the
-hybrid ``zamba2_2_7b``: each with ``CONFIG`` and ``SMOKE``),
-and :func:`get_config` by the reference's arch ids."""
+"""Configurations the port builds, every arch id of the reference
+(``llama3_2_3b``, ``kimi_k2_1t_a32b``, ``deepseek_v2_236b``, the dense
+``minicpm_2b`` and the windowed dense ``h2o_danube_1_8b`` and
+``gemma3_12b``, the vlm ``pixtral_12b``, the encoder-decoder
+``whisper_base``, the SSM ``mamba2_2_7b`` and the hybrid ``zamba2_2_7b``:
+each with ``CONFIG`` and ``SMOKE``), and :func:`get_config` by those ids."""
 
 import importlib
 
@@ -13,6 +14,8 @@ ARCH_MODULES = {
     "minicpm-2b": "minicpm_2b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "gemma3-12b": "gemma3_12b",
+    "pixtral-12b": "pixtral_12b",
+    "whisper-base": "whisper_base",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-2.7b": "zamba2_2_7b",
 }

@@ -6,9 +6,10 @@ module imports no JAX) and returns the same nested dict of torch tensors,
 layouts unchanged, so both packages compute the same function: GQA and MLA
 layers (``wdkv``, ``wkr``, ``wuk``, ``wuv``, ``wdq``/``wuq``, ``wo``), routed
 and shared experts, Mamba-2 layers (``mamba``, stacked over L, its fp32
-``A_log``, ``D`` and ``dt_bias`` beside weights of the model's type) and the
-hybrid's ``shared_attn`` (stacked over its 2 sets) alike, since the port
-keeps the reference's parameter tree.
+``A_log``, ``D`` and ``dt_bias`` beside weights of the model's type), the
+hybrid's ``shared_attn`` (stacked over its 2 sets) and the encdec model's
+``enc_layers``, ``enc_norm`` and decoder ``cross`` / ``cross_norm`` alike,
+since the port keeps the reference's parameter tree.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """GQA and MLA attention (port of ``repro/models/attention.py``: GQA
-prefill and decode, MLA training).
+prefill and decode, MLA training, prefill and decode).
 
 * train / prefill — chunked flash-style attention as plain tensor ops
   (:func:`flash_ref`): outer loop over query chunks, inner loop over key
@@ -7,9 +7,12 @@ prefill and decode, MLA training).
   VJP as a ``torch.autograd.Function``: P is recomputed blockwise from the
   saved logsumexp, so training keeps no score blocks.  The reference
   computes it outside any Pallas kernel, and so does the port.
-* MLA (deepseek-v2) training — :func:`mla_train`: low-rank q and kv
-  projections, a rope part shared across heads, then :func:`flash_ref`.
-  MLA decode is not ported.
+* MLA (deepseek-v2) training and prefill — :func:`mla_train`: low-rank q
+  and kv projections, a rope part shared across heads, then
+  :func:`flash_ref`.  MLA decode — :func:`mla_decode`, the reference's
+  absorbed form: the cache (:class:`MLACache`) holds the kv latent and the
+  roped key, W_uk folds into the query and W_uv into the output, so no
+  per-head key or value is built.
 * decode — one query token against a [B, S, Hkv, hd] KV cache:
   :func:`gqa_decode` is the dense masked contraction (the oracle);
   :func:`gqa_decode_ws` routes the attention core through the work-stealing
@@ -172,8 +175,9 @@ def expand_kv(k, n_rep: int):
     return k[:, :, :, None, :].expand(B, S, Hkv, n_rep, hd).reshape(B, S, Hkv * n_rep, hd)
 
 
-def gqa_train(x, p, cfg, positions, window, chunk: int = 1024):
-    """Causal (optionally windowed) self-attention over [B, S, d]."""
+def gqa_train(x, p, cfg, positions, window, chunk: int = 1024, causal: bool = True):
+    """Causal (optionally windowed) self-attention over [B, S, d]; with
+    ``causal=False`` (the encdec encoder) every position sees every other."""
     H, Hkv = p["wq"].shape[1], p["wk"].shape[1]
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
@@ -182,7 +186,7 @@ def gqa_train(x, p, cfg, positions, window, chunk: int = 1024):
     k = apply_rope(k, positions, cfg.rope_theta)
     k = expand_kv(k, H // Hkv)
     v = expand_kv(v, H // Hkv)
-    o = flash_ref(q, k, v, causal=True, window=window, chunk=chunk)
+    o = flash_ref(q, k, v, causal=causal, window=window, chunk=chunk)
     return torch.einsum("bshe,hed->bsd", o, p["wo"]).to(x.dtype)
 
 
@@ -338,3 +342,43 @@ def mla_train(x, p, cfg, positions, window: int, chunk: int = 1024):
     k = torch.cat([k_nope, k_rope.expand(B, S, H, rhd)], dim=-1)
     o = flash_ref(q, k, v, causal=True, window=window, chunk=chunk)
     return torch.einsum("bshe,hed->bsd", o, p["wo"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2), decode
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor  # [B, S, kv_lora]   (stacked caches: [L, B, S, kv_lora])
+    kr: torch.Tensor   # [B, S, rhd]
+
+
+def mla_decode(x, p, cfg, cache: MLACache, pos):
+    """Absorbed one-token MLA decode: x [B, 1, d] attends cache slots
+    [0, pos_b] with the scores and the output in the latent space
+    (``q_abs = q_nope · W_uk`` against ``ckv``, plus the rope term against
+    ``kr``; the latent output through ``W_uv``).  The new token's ``ckv`` and
+    roped ``kr`` are written at ``pos_b``, in place.  The casts follow the
+    reference: scores in the cache's dtype, then fp32, scale
+    ``(hd + rhd)^-0.5``, softmax weights back in the cache's dtype."""
+    B = x.shape[0]
+    hd, rhd = cfg.hd, cfg.rope_head_dim
+    S = cache.ckv.shape[1]
+    pos_b = broadcast_pos(pos, B, x.device)
+    q_nope, q_rope = _mla_q(x, p, cfg, pos_b[:, None])  # [B, 1, H, hd / rhd]
+    ckv_new = torch.einsum("bsd,dr->bsr", x, p["wdkv"])
+    kr_new = apply_rope(torch.einsum("bsd,de->bse", x, p["wkr"])[:, :, None, :],
+                        pos_b[:, None], cfg.rope_theta)[:, :, 0, :]
+    ckv = _update_at(cache.ckv, ckv_new, pos_b)
+    kr = _update_at(cache.kr, kr_new, pos_b)
+    q_abs = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], p["wuk"])  # W_uk absorbed
+    s = torch.einsum("bhr,bsr->bsh", q_abs, ckv)
+    s = s + torch.einsum("bhe,bse->bsh", q_rope[:, 0], kr)
+    s = s.float() * (hd + rhd) ** -0.5
+    kpos = torch.arange(S, device=x.device)
+    valid = (kpos[None, :] <= pos_b[:, None])[:, :, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=1)
+    o_lat = torch.einsum("bsh,bsr->bhr", w.to(ckv.dtype), ckv)
+    o = torch.einsum("bhr,rhe->bhe", o_lat, p["wuv"])[:, None]  # [B, 1, H, vhd]
+    return torch.einsum("bshe,hed->bsd", o, p["wo"]), MLACache(ckv, kr)

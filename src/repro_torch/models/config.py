@@ -1,10 +1,12 @@
-"""Model configuration for the port (the dense, MoE, MLA, SSM and hybrid
-subset of ``repro/models/config.py``).
+"""Model configuration for the port (``repro/models/config.py``'s
+``ModelConfig`` and ``ShapeConfig``).
 
 A frozen dataclass with the fields and derived properties the decoders
 read: GQA or MLA attention, dense or MoE FFNs, the Mamba-2 (SSD) layer of
-the ``ssm`` family and the ``hybrid`` family's shared attention blocks, and
-the analytic ``param_count`` the trainer's policy reads.  Field names and defaults
+the ``ssm`` family and the ``hybrid`` family's shared attention blocks, the
+encoder of the ``encdec`` family (whisper) and the patch prefix of the
+``vlm`` family (pixtral), and the analytic ``param_count`` the trainer's
+policy reads.  Field names and defaults
 match the reference, so a config prints and compares the same way in both
 packages.  :class:`ShapeConfig` is one input-shape cell (sequence length
 and batch rows), as the reference's.
@@ -20,7 +22,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # the port builds "dense", "moe", "ssm" and "hybrid"
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,6 +66,17 @@ class ModelConfig:
 
     # -- hybrid (zamba2): shared attention block applied every k ssm layers --
     hybrid_attn_every: int = 0
+
+    # -- encoder-decoder (whisper) ---------------------------------------------
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    enc_seq_len: int = 1500         # whisper 30 s at 50 Hz after the conv stub
+
+    # -- modality frontend stub ------------------------------------------------
+    # "none" | "patch" (vlm: precomputed patch embeddings prepended)
+    #        | "frames" (audio: precomputed frame embeddings into the encoder)
+    frontend: str = "none"
+    n_patches: int = 0              # vlm: patches an image, before the text
 
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -131,8 +144,10 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, embedding and LM head included (the
-        reference's terms: attention decoders, dense or MoE; the ssm family;
-        the hybrid's two shared attention + MLP blocks counted once each)."""
+        reference's terms: attention decoders, dense or MoE, the vlm
+        backbone among them; the encdec family's encoder layers and its
+        decoder layers with their cross-attention; the ssm family; the
+        hybrid's two shared attention + MLP blocks counted once each)."""
         d, V = self.d_model, self.vocab_size
         total = V * d * (1 if self.tie_embeddings else 2)
         if self.attn_kind == "mla":
@@ -148,6 +163,9 @@ class ModelConfig:
         def dense_ffn(dff: int) -> int:
             return 3 * d * dff  # SwiGLU
 
+        if self.family == "encdec":
+            enc = self.n_enc_layers * (attn + dense_ffn(self.d_ff))
+            return total + enc + self.n_dec_layers * (2 * attn + dense_ffn(self.d_ff))
         if self.is_ssm:
             di, ds, H = self.d_inner, self.ssm_state, self.ssm_heads
             ssm_block = (d * (2 * di + 2 * ds + H)      # in-projections x, z, B, C, dt

@@ -1,13 +1,21 @@
-"""Public model API of the port (the decoders of ``repro/models/model.py``):
-the training loss (:func:`loss_fn`, GQA or MLA, dense or MoE, ssm or
-hybrid), and for GQA decoders and the ssm and hybrid stacks cache init,
-prefill and the dense decode step; the work-stealing decode step for GQA
-decoders.  The ssm and hybrid stacks decode on the dense step, as in the
-reference (:func:`ws_decode_supported` is false for them).  A MoE layer's
-FFN goes through :func:`~repro_torch.models.moe.moe_ffn_dispatch`, so
+"""Public model API of the port (``repro/models/model.py``): the training
+loss (:func:`loss_fn`), cache init, prefill and the dense decode step for
+every family the port builds (GQA or MLA decoders, dense or MoE; the vlm
+backbone with its patch prefix; the encdec model with its encoder and
+cross-attention caches; the ssm and hybrid stacks), and the work-stealing
+decode step for the GQA decoders (dense, MoE and vlm).  MLA, encdec and the
+ssm and hybrid stacks decode on the dense step, as in the reference
+(:func:`ws_decode_supported` is false for them).  A MoE layer's FFN goes
+through :func:`~repro_torch.models.moe.moe_ffn_dispatch`, so
 ``cfg.moe_dispatch == "ws"`` runs the expert megakernel in every step, in
 prefill and in the training forward, and its backward megakernel in the
 training backward when ``cfg.moe_grad_dispatch == "ws"``.
+
+Batch dicts by family (as the reference's): ``{"tokens": [B, S]}``; vlm
+adds ``"patches"`` [B, n_patches, d] (they go before the text, whose
+positions start at ``n_patches``: decode a vlm row at ``n_patches`` plus
+its text position); encdec adds ``"frames"`` [B, enc_S, d] for the
+encoder.
 """
 
 from __future__ import annotations
@@ -52,16 +60,29 @@ def vocab_parallel_xent(hidden, w_un, labels, mask=None, valid_vocab=None,
 def loss_fn(params, cfg, batch, *, remat: bool = True, chunk: int = 1024,
             row_weights=None):
     """Mean next-token cross entropy (+ the MoE aux loss) of ``batch["tokens"]``
-    [B, S] (the lm, moe, ssm and hybrid families).  Returns (loss, {"ce", "aux"})."""
-    tf.check_supported(cfg, training=True)
+    [B, S]; a vlm model's over the text positions only, after the patches.
+    Returns (loss, {"ce", "aux"})."""
+    tf.check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
+    dev = tokens.device
     x = _embed(params, cfg, tokens)
-    positions = _positions(B, S, device=tokens.device)
-    h, aux = tf.lm_hidden(params, cfg, x, positions, remat=remat, chunk=chunk)
+    if cfg.family == "encdec":
+        enc_out = tf.encode(params, cfg, batch["frames"], remat=remat, chunk=chunk)
+        h = tf.decoder_hidden(params, cfg, x, _positions(B, S, device=dev), enc_out,
+                              remat=remat, chunk=chunk)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+    elif cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        h, aux = tf.lm_hidden(params, cfg, x, _positions(B, x.shape[1], device=dev),
+                              remat=remat, chunk=chunk)
+        h = h[:, x.shape[1] - S:]  # text positions only
+    else:
+        h, aux = tf.lm_hidden(params, cfg, x, _positions(B, S, device=dev), remat=remat,
+                              chunk=chunk)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    mask = torch.ones((B, S), dtype=torch.float32, device=dev)
     mask[:, -1] = 0.0
     ce = vocab_parallel_xent(h, _unembed_matrix(params, cfg), labels, mask,
                              valid_vocab=cfg.vocab_size, row_weights=row_weights)
@@ -73,9 +94,10 @@ class Caches(NamedTuple):
     """Stacked per-layer decode state, the batch on axis 1 of every tensor.
     Unused fields are ()."""
 
-    kv: Any = ()         # attention decoders: KVCache of [L, B, S, Hkv, hd]
+    kv: Any = ()         # attention decoders: KVCache or MLACache of [L, B, S, ...]
     ssm: Any = ()        # ssm / hybrid: SSMCache of [L, B, ...]
     shared_kv: Any = ()  # hybrid: KVCache of [n_apps, B, S, Hkv, hd]
+    cross_kv: Any = ()   # encdec: KVCache of [L, B, enc_S, Hkv, hd]
 
 
 def cache_tensors(caches: Caches):
@@ -90,10 +112,13 @@ def _kv_zeros(n: int, batch: int, capacity: int, cfg, dt, dev) -> attn.KVCache:
 
 
 def init_caches(cfg, batch: int, capacity: int, dtype=None,
-                device: DeviceLike = None) -> Caches:
+                device: DeviceLike = None, cross_len: int | None = None) -> Caches:
     """Zeroed caches with ``capacity`` sequence slots on ``device`` (default
     cuda).  The hybrid's shared-attention cache has one entry per application
-    of a shared block (``n_apps = L // hybrid_attn_every``), not per layer."""
+    of a shared block (``n_apps = L // hybrid_attn_every``), not per layer;
+    an MLA model's holds the kv latent and the roped key; an encdec model's
+    adds the cross-attention k/v of ``cross_len`` encoder positions (default
+    ``enc_seq_len``)."""
     tf.check_supported(cfg)
     dev = resolve_device(device)
     dt = tf.torch_dtype(dtype or cfg.dtype)
@@ -103,6 +128,15 @@ def init_caches(cfg, batch: int, capacity: int, dtype=None,
         every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
         shared = _kv_zeros(L // every, batch, capacity, cfg, dt, dev) if every else ()
         return Caches(ssm=ssm, shared_kv=shared)
+    if cfg.attn_kind == "mla":
+        return Caches(kv=attn.MLACache(
+            ckv=torch.zeros((L, batch, capacity, cfg.kv_lora_rank), dtype=dt, device=dev),
+            kr=torch.zeros((L, batch, capacity, cfg.rope_head_dim), dtype=dt, device=dev)))
+    if cfg.family == "encdec":
+        Ld = cfg.n_dec_layers
+        return Caches(kv=_kv_zeros(Ld, batch, capacity, cfg, dt, dev),
+                      cross_kv=_kv_zeros(Ld, batch, cross_len or cfg.enc_seq_len, cfg, dt,
+                                         dev))
     return Caches(kv=_kv_zeros(L, batch, capacity, cfg, dt, dev))
 
 
@@ -138,8 +172,9 @@ def _mask_pad_vocab(logits, cfg):
     return torch.where(vpos < cfg.vocab_size, logits, torch.full_like(logits, -1e30))
 
 
-def _layer_cache(kv: attn.KVCache, idx: int) -> attn.KVCache:
-    return attn.KVCache(kv.k[idx], kv.v[idx])
+def _layer_cache(kv, idx: int):
+    """Layer ``idx``'s views of a stacked KVCache or MLACache."""
+    return type(kv)(*(t[idx] for t in kv))
 
 
 def _ffn(h, p, cfg, mode=None, drain=None):
@@ -172,16 +207,38 @@ def decode_hidden(params, cfg, caches: Caches, tokens, pos):
     x = _embed(params, cfg, tokens)
     if cfg.is_ssm:
         return _decode_hidden_ssm(params, cfg, caches, x, pos), caches
+    if cfg.family == "encdec":
+        return _decode_hidden_encdec(params, cfg, caches, x, pos), caches
     s = tf._res_scale(cfg)
     h = x
     for idx, w in enumerate(cfg.layer_windows):
         p = tf.layer_params(params, idx)
         hn = rms_norm(h, p["attn_norm"], cfg.norm_eps)
-        a, _ = attn.gqa_decode(hn, p["attn"], cfg, _layer_cache(caches.kv, idx), pos, w)
+        cache = _layer_cache(caches.kv, idx)
+        if cfg.attn_kind == "mla":
+            a, _ = attn.mla_decode(hn, p["attn"], cfg, cache, pos)
+        else:
+            a, _ = attn.gqa_decode(hn, p["attn"], cfg, cache, pos, w)
         h = h + s * a
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
         h = h + s * _ffn(hn, p, cfg)
     return h, caches
+
+
+def _decode_hidden_encdec(params, cfg, caches: Caches, h, pos):
+    """The encdec decoder's step: each layer's causal self-attention over its
+    kv cache at ``pos``, its cross-attention over the prefill's encoder k/v
+    (``cross_kv``, read only), its MLP."""
+    for idx in range(cfg.n_dec_layers):
+        p = tf.layer_params(params, idx)
+        hn = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        a, _ = attn.gqa_decode(hn, p["attn"], cfg, _layer_cache(caches.kv, idx), pos, 0)
+        h = h + a
+        hn = rms_norm(h, p["cross_norm"], cfg.norm_eps)
+        h = h + tf._cross_attn(hn, p["cross"], cfg, _layer_cache(caches.cross_kv, idx))
+        hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+        h = h + swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+    return h
 
 
 def _decode_hidden_ssm(params, cfg, caches: Caches, h, pos):
@@ -211,9 +268,10 @@ def _decode_hidden_ssm(params, cfg, caches: Caches, h, pos):
 
 def ws_decode_supported(cfg) -> bool:
     """True when :func:`decode_step_ws` covers this architecture: full
-    (unwindowed) GQA decoders, dense or MoE."""
+    (unwindowed) GQA decoders, dense, MoE or the vlm backbone (the
+    reference's predicate).  MLA, encdec, ssm and hybrid keep the dense step."""
     return (
-        cfg.family in ("dense", "moe")
+        cfg.family not in ("ssm", "hybrid", "encdec")
         and cfg.attn_kind == "gqa"
         and all(w == 0 for w in cfg.layer_windows)
     )
@@ -293,16 +351,25 @@ def decode_hidden_ws(params, cfg, caches: Caches, tokens, pos, *,
 
 
 def prefill(params, cfg, batch, *, capacity: int | None = None, chunk: int = 1024):
-    """Process a full prompt; returns (last-token logits [B, V] fp32, Caches)."""
+    """Process a full prompt; returns (last-token logits [B, V] fp32, Caches).
+    A vlm prompt is its patches then its tokens (``capacity`` counts both);
+    an encdec prompt's frames fill the cross-attention caches."""
     tf.check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
     x = _embed(params, cfg, tokens)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        S = x.shape[1]
     positions = _positions(B, S, device=dev)
     cap = capacity or S
-    caches = init_caches(cfg, B, cap, device=dev)
-    if cfg.is_ssm:
+    frames = batch["frames"] if cfg.family == "encdec" else None
+    caches = init_caches(cfg, B, cap, device=dev,
+                         cross_len=None if frames is None else frames.shape[1])
+    if frames is not None:
+        h = _prefill_encdec(params, cfg, caches, frames, x, positions, chunk)
+    elif cfg.is_ssm:
         h = _prefill_ssm(params, cfg, caches, x, positions, chunk)
     else:
         h = _prefill_attn(params, cfg, caches, x, positions, chunk)
@@ -345,18 +412,45 @@ def _prefill_ssm(params, cfg, caches: Caches, h, positions, chunk):
 
 
 def _prefill_attn(params, cfg, caches: Caches, x, positions, chunk):
-    """The attention decoders' prefill into ``caches``: each layer's prompt k/v."""
+    """The attention decoders' prefill into ``caches``: each layer's prompt
+    k/v, or for MLA its kv latent and roped key."""
     S = x.shape[1]
     s = tf._res_scale(cfg)
     h = x
     for idx, w in enumerate(cfg.layer_windows):
         p = tf.layer_params(params, idx)
         hn = rms_norm(h, p["attn_norm"], cfg.norm_eps)
-        k, v = _prompt_kv(hn, p, cfg, positions)
-        a = attn.gqa_train(hn, p["attn"], cfg, positions, window=w, chunk=chunk)
-        caches.kv.k[idx, :, :S] = k
-        caches.kv.v[idx, :, :S] = v
+        if cfg.attn_kind == "mla":
+            caches.kv.ckv[idx, :, :S] = torch.einsum("bsd,dr->bsr", hn, p["attn"]["wdkv"])
+            kr = torch.einsum("bsd,de->bse", hn, p["attn"]["wkr"])[:, :, None, :]
+            caches.kv.kr[idx, :, :S] = attn.apply_rope(kr, positions, cfg.rope_theta)[:, :, 0]
+            a = attn.mla_train(hn, p["attn"], cfg, positions, window=w, chunk=chunk)
+        else:
+            k, v = _prompt_kv(hn, p, cfg, positions)
+            caches.kv.k[idx, :, :S] = k
+            caches.kv.v[idx, :, :S] = v
+            a = attn.gqa_train(hn, p["attn"], cfg, positions, window=w, chunk=chunk)
         h = h + s * a
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
         h = h + s * _ffn(hn, p, cfg)
+    return h
+
+
+def _prefill_encdec(params, cfg, caches: Caches, frames, x, positions, chunk):
+    """The encdec prefill into ``caches``: the encoder over ``frames``, then
+    the decoder over the prompt, each layer's prompt k/v into the kv cache
+    and its encoder k/v into the cross cache (of the frames' length, as the
+    reference's)."""
+    S = positions.shape[1]
+    enc_out = tf.encode(params, cfg, frames, remat=False, chunk=chunk)
+    h = x
+    for idx in range(cfg.n_dec_layers):
+        p = tf.layer_params(params, idx)
+        k, v = _prompt_kv(rms_norm(h, p["attn_norm"], cfg.norm_eps), p, cfg, positions)
+        caches.kv.k[idx, :, :S] = k
+        caches.kv.v[idx, :, :S] = v
+        ck, cv = tf.cross_kv(p["cross"], enc_out)
+        caches.cross_kv.k[idx] = ck
+        caches.cross_kv.v[idx] = cv
+        h = tf.decoder_layer(h, p, cfg, positions, (ck, cv), chunk)
     return h

@@ -19,9 +19,12 @@
   path, and a step past ``step_deadline_s`` sends the next
   ``watchdog_cooldown`` steps straight to the split path;
   ``fault_plan`` (:class:`repro_torch.chaos.EngineFaultPlan`) poisons or
-  slows chosen steps so both trips can be drilled.  The ssm and hybrid
-  stacks decode on the dense step; every cache of the slot (kv, SSM state
-  and conv inputs, the hybrid's shared kv) is spliced on admission.
+  slows chosen steps so both trips can be drilled.  MLA decoders
+  (deepseek-v2) and the ssm and hybrid stacks decode on the dense step;
+  every cache of the slot (kv or the MLA latent and rope key, SSM state and
+  conv inputs, the hybrid's shared kv) is spliced on admission.  Prompts are
+  tokens only, as in the reference: the encdec and vlm families, whose
+  prefill needs frames or patches, raise ``NotImplementedError``.
 * WorkStealingFrontend — per-replica request queues implemented with the
   literal WS-WMULT algorithm (paper Fig. 7).  Each replica Takes from its
   own queue and Steals from the others when idle; a request admitted twice
@@ -216,6 +219,14 @@ class ContinuousBatcher:
         watchdog_cooldown: int = 1,
         fault_plan=None,
     ):
+        if cfg.family in ("encdec", "vlm"):
+            # the reference's engine admits token-only prompts and its
+            # prefill then fails on the missing batch key; say so up front
+            need = "frames" if cfg.family == "encdec" else "patches"
+            raise NotImplementedError(
+                f"ContinuousBatcher admits token-only prompts, as the reference's engine "
+                f"does: {cfg.name} ({cfg.family}) prefills with {need!r} beside the tokens; "
+                f"call prefill and decode_step directly")
         if unified_step:
             check_ported(cfg)
         if attn_schedule not in ("ws", "static"):

@@ -219,6 +219,35 @@ def _t_padded(idx, gates, E, bt, n_queues):
 
 
 @needs_jax
+@pytest.mark.parametrize("cap_over_T", [1, 5, 12], ids=["T+1", "T+5", "T*k"])
+def test_padded_layout_with_repeated_experts_matches_reference(cap_over_T):
+    """A routing that repeats an expert among a token's k choices (expert 1
+    takes 13 of the 18 pairs, past T = 6 rows), with ``max_expert_load``
+    between T + 1 and T·k: the padded Put against the reference's traced
+    one under jit, every array bit-equal (at T + 1 and T + 5 the pairs past
+    the provisioned rows are dropped by the mask in both)."""
+    E, T, k, bt = 4, 6, 3, 2
+    idx = np.array([[1, 1, 2], [1, 1, 1], [0, 1, 1], [3, 1, 1], [1, 2, 1], [1, 1, 0]],
+                   dtype=np.int32)
+    gates = np.random.default_rng(3).uniform(0.1, 1.0, (T, k)).astype(np.float32)
+    cap = T + cap_over_T
+    assert T < cap <= T * k and int((idx == 1).sum()) > T
+
+    def build(i, g):
+        return J_moe.route_to_tasks_jax(i, g, E, bt=bt, max_expert_load=cap)
+
+    rj, lj, routed_j = jax.jit(build)(jnp.asarray(idx), jnp.asarray(gates))
+    rt, lt, routed_t = route_to_tasks_torch(torch.from_numpy(idx), torch.from_numpy(gates),
+                                            E, bt=bt, max_expert_load=cap)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    for f in ("tok_idx", "gates", "row_src", "loads", "expert_off"):
+        np.testing.assert_array_equal(_np(getattr(routed_t, f)),
+                                      np.asarray(getattr(routed_j, f)), err_msg=f)
+    assert routed_t.n_rows == routed_j.n_rows == E * -(-cap // bt) * bt
+
+
+@needs_jax
 @pytest.mark.parametrize("seed", range(4))
 def test_padded_expert_layout_matches_reference_seeded(seed):
     """route_to_tasks_torch + expert_queue_candidates + make_queue_state_torch

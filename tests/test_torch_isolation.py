@@ -66,13 +66,15 @@ TRACE_AND_CHAOS = ("repro_torch.wstrace.ring", "repro_torch.wstrace.trace",
                    "repro_torch.serving.engine", "repro_torch.models.ssm",
                    "repro_torch.launch.train", "repro_torch.sched.accumulate",
                    "repro_torch.sched.simulator", "repro_torch.data.loader",
-                   "repro_torch.optim.compress")
+                   "repro_torch.optim.compress", "repro_torch.configs.whisper_base",
+                   "repro_torch.configs.pixtral_12b", "repro_torch.launch.serve")
 
 
 @pytest.mark.parametrize("module", TRACE_AND_CHAOS)
 def test_trace_and_chaos_modules_pull_in_no_jax(module):
     """The ported trace, chaos, checkpoint, serving, SSM, training,
-    scheduler, loader and compression modules (the reference's trace,
+    scheduler, loader, compression and config modules and the serve entry
+    point (the reference's trace,
     chaos, checkpoint and simulator modules are numpy-only too, but live in
     ``repro``) load neither jax, ``ml_dtypes`` nor any ``repro`` module,
     even where all are installed; nor does chip_smoke.py."""
@@ -89,6 +91,30 @@ def test_trace_and_chaos_modules_pull_in_no_jax(module):
     proc = subprocess.run([sys.executable, "-c", code, str(ROOT / "chip_smoke.py")],
                           capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+
+
+def test_port_configs_cover_every_reference_arch():
+    """``ARCH_MODULES`` holds exactly the reference's ``ARCH_IDS``."""
+    pytest.importorskip("jax")
+    from repro.configs import ARCH_IDS
+    from repro_torch.configs import ARCH_MODULES
+
+    assert sorted(ARCH_MODULES) == sorted(ARCH_IDS)
+
+
+def test_param_count_matches_the_reference_for_every_arch():
+    """``param_count`` of every arch's full and smoke config equals the
+    reference's (encdec counts its encoder and cross-attention, vlm its
+    backbone)."""
+    pytest.importorskip("jax")
+    from repro.configs import ARCH_IDS
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            assert get_config(arch, smoke).param_count() == \
+                j_get_config(arch, smoke).param_count(), (arch, smoke)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -169,13 +169,15 @@ def test_moe_decode_step_ws_matches_reference(moe_setup, mode):
 
 def test_moe_support_is_exactly_the_references(moe_setup):
     """MoE with full GQA attention is served by the ws step.  MLA is built
-    for training now: ``init_params`` gives the reference's parameter tree
-    (the same keys and shapes), while MLA decode still raises, as does
-    windowed MoE, instead of falling through to another step.  The ssm
-    family is built, but the ws step does not cover it, as in the
+    and served on the dense step: ``init_params`` gives the reference's
+    parameter tree and ``init_caches`` its MLA cache (the same keys and
+    shapes), while windowed MoE raises instead of falling through to another
+    step.  The ws step covers neither MLA nor the ssm family, as in the
     reference: ``decode_step_ws`` raises."""
+    from repro.models import init_caches as j_init_caches
     from repro.models import init_params as j_init_params
     from repro_torch.models import init_caches, init_params, ws_decode_supported
+    from repro_torch.models.model import cache_tensors
 
     cfg = moe_setup["tcfg"]
     assert ws_decode_supported(cfg)
@@ -191,7 +193,11 @@ def test_moe_support_is_exactly_the_references(moe_setup):
         elif bad.family != "ssm":
             with pytest.raises(NotImplementedError):
                 init_params(bad, device="cpu")
-        if bad.family != "ssm":
+        if bad.attn_kind == "mla":
+            want = [a.shape for a in jax.tree_util.tree_leaves(j_init_caches(jcfg, 1, 8))]
+            got = cache_tensors(init_caches(bad, 1, 8, device="cpu"))
+            assert [tuple(t.shape) for t in got] == want
+        elif bad.family != "ssm":
             with pytest.raises(NotImplementedError):
                 init_caches(bad, 1, 8, device="cpu")
         with pytest.raises(NotImplementedError):

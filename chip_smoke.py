@@ -308,6 +308,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               which a faulty decode must miss; the fp32 side with the
               kernels' plain versions; deepseek's decode path replays the
               prefill's top-6 and counts the flips).
+16. windowed  the banded flash path (models/attention.py::_flash_banded) and
+              the dense windowed and tied configs (WINDOWED), bf16 unless it
+              says fp32, random weights from seed 0, each freed before the
+              next.  The attention alone at full width: gemma3-12b's local
+              layer (B 1, S 8192, H 16 over 8, hd 256, window 1024) and an
+              h2o-danube-1.8b layer (H 32 over 8, hd 80, window 4096),
+              flash_ref (banded) against _Flash.apply with qoff 0 (masked)
+              on the same inputs: forward and forward + backward ms, peak
+              memory, out/dq/dk/dv differences in bf16 (WIN_BF16_ULPS x nb
+              bf16 ulps of the scale) and in fp32 (WIN_FP32_TOL, which the
+              bf16 one-ulp control must miss).  gemma3-12b at full depth (48
+              layers) served by 2 replicas x 4 slots x 3072 positions: 4
+              prompts of 1536-3000 tokens (past the local window: the
+              banded branch in every local layer of every prefill), 16 new
+              tokens each on the dense step (past the window's edge); step
+              p50/p99, tokens/s, peak memory; one row's decode path (2048 +
+              16) against a longer prefill as the families phase holds it,
+              the control a decode that ignores the window.  3 train()
+              steps of h2o-danube-1.8b at full depth on 1 x 8192 tokens
+              (every layer banded) and 2 of gemma3-12b at depth 6 (one
+              local:global period) on 1 x 4096: finite losses, step
+              seconds, peak memory.  minicpm-2b (MHA, tied embeddings,
+              depth-scaled residuals) at full width and depth served on
+              decode_step_ws: ws_attention 40 launches a step (hd 64), one
+              step's last launch held to the plain version within ATOL.
+              Every kernel's launches on each of these paths.
+17. core      repro_torch.core standing alone: every ALGORITHMS entry on
+              real threads (ThreadBackend, 1 owner and 7 thieves, 4096
+              puts) keeps its family's contract (multiplicity: no process
+              extracts a task twice, none lost; exact: each task once;
+              idempotent: each at least once), sum(extractions)/tasks
+              printed; seeded SimBackend schedules through run_program with
+              the property checkers the reference's tests apply to each
+              family, and the §7 drill; each queue of the llama3.2-3b
+              decode Put built by the device Put (make_queue_state_torch)
+              read back and held, field for field, to a PallasWSHost given
+              its records by put_segment, which then drains them.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the 7 ported kernels (the megakernels each with its
@@ -330,6 +367,7 @@ true, "device": {...}}.
                                                 # serving faults, checkpoints, the ssm family
     python3 chip_smoke.py --phases build,train,sched   # the scheduler on the training path
     python3 chip_smoke.py --phases build,families      # MLA serving, the vlm and encdec families
+    python3 chip_smoke.py --phases build,windowed,core # banded attention, windowed configs, core
     python3 chip_smoke.py --probe                # the tagged hand-off probe alone
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
     python3 chip_smoke.py --expert-ab DIR [DIR ...]
@@ -390,7 +428,8 @@ KIMI_DECODE = dict(B=4, H=64, Hkv=8, hd=112, S=1024, bk=64, P=8)
 EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
 PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "kernels", "serving", "times",
-          "moe", "grad", "train", "sched", "unified", "unified_moe", "ckpt", "ssm", "families")
+          "moe", "grad", "train", "sched", "unified", "unified_moe", "ckpt", "ssm", "families",
+          "windowed", "core")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -2188,9 +2227,10 @@ def fp32_logits(params, cfg, h, chunk=16384):
     """Logits of a final residual stream h [B, 1, d] with the final norm and
     the unembedding in fp32 (the model rounds both to bf16)."""
     from repro_torch.models.common import rms_norm
+    from repro_torch.models.model import _unembed_matrix
 
     hn = rms_norm(h[:, 0].float(), params["final_norm"], cfg.norm_eps)
-    U = params["unembed"]
+    U = _unembed_matrix(params, cfg)
     V = cfg.vocab_size
     return torch.cat([hn @ U[:, i:min(i + chunk, V)].float() for i in range(0, V, chunk)], 1)
 
@@ -5284,7 +5324,7 @@ FAMILIES = dict(
 FAM_FP32_TOL = 1e-4
 
 
-def _fam_held(tag, params32, cfg32, pre32, h32, pre16, dec16, ctl16, fault):
+def _fam_held(model, params32, cfg32, pre32, h32, pre16, dec16, ctl16, fault, tag="families"):
     """The prefill-against-decode checks of one model (see FAM_FP32_TOL)."""
     V = cfg32.vocab_size
     lg32 = fp32_logits(params32, cfg32, h32)[0, :V]
@@ -5298,15 +5338,15 @@ def _fam_held(tag, params32, cfg32, pre32, h32, pre16, dec16, ctl16, fault):
                bf16_decode_vs_fp32=err_dec, bf16_limit=LOGIT_SLACK * err_pre,
                control=fault, control_vs_fp32=err_ctl,
                argmax_agree=int(dec16.argmax()) == int(pre16.argmax()))
-    log(f"[families] {tag}: prefill against decode: fp32 max |diff| {err32:.4g} (<= "
+    log(f"[{tag}] {model}: prefill against decode: fp32 max |diff| {err32:.4g} (<= "
         f"{FAM_FP32_TOL} x {scale:.4g} = {limit:.4g}; the bf16 one-ulp control {err_ulp:.4g} "
         f"must exceed it); bf16 decode path {err_dec:.4g} from the fp32 prefill, bf16 prefill "
         f"{err_pre:.4g} (<= {LOGIT_SLACK} x); control ({fault}) {err_ctl:.4g} (must exceed "
         f"{LOGIT_SLACK * err_pre:.4g}); argmax agree {out['argmax_agree']}")
     if not (err32 <= limit < err_ulp and err_dec <= LOGIT_SLACK * err_pre):
-        raise AssertionError(f"[families] {tag}: decode and prefill disagree: {out}")
+        raise AssertionError(f"[{tag}] {model}: decode and prefill disagree: {out}")
     if not err_ctl > LOGIT_SLACK * err_pre:
-        raise AssertionError(f"[families] {tag}: the control passed: {out}")
+        raise AssertionError(f"[{tag}] {model}: the control passed: {out}")
     return out
 
 
@@ -5318,7 +5358,7 @@ def _widen(tree):
     return tree
 
 
-def _fam_init(cfg, full, dev):
+def _fam_init(cfg, full, dev, tag="families"):
     from repro_torch.models import init_params
 
     gc.collect()
@@ -5328,7 +5368,7 @@ def _fam_init(cfg, full, dev):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    log(f"[families] {cfg.name} depth {cfg.n_layers} (of {full.n_layers}) at full width: "
+    log(f"[{tag}] {cfg.name} depth {cfg.n_layers} (of {full.n_layers}) at full width: "
         f"{n_params / 1e9:.3f} B parameters (param_count {cfg.param_count() / 1e9:.3f} B), "
         f"{n_bytes / 1e9:.2f} GB ({cfg.dtype}), initialised in {time.perf_counter() - t0:.1f} s")
     return params, dict(layers=cfg.n_layers, params=n_params, weight_bytes=n_bytes)
@@ -5675,6 +5715,580 @@ def phase_families(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the banded flash path, and the dense windowed and tied configs at full width
+
+
+WINDOWED = dict(
+    attn=(dict(at="gemma3-12b local layer", B=1, S=8192, H=16, Hkv=8, hd=256, window=1024),
+          dict(at="h2o-danube-1.8b layer", B=1, S=8192, H=32, Hkv=8, hd=80, window=4096)),
+    chunk=1024,
+    timed=3,
+    gemma_serve=dict(slots=4, cap=3072, prompt_lens=(1536, 2048, 2560, 3000), max_new=16,
+                     S=2048, extra=16),
+    danube_train=dict(rows=1, seq=8192, steps=3),
+    gemma_train=dict(depth=6, rows=1, seq=4096, steps=2),
+    minicpm_serve=dict(slots=4, cap=256, requests=4, prompt_lens=(16, 129), max_new=8),
+)
+# Banded against masked attention on the same inputs.  fp32: within
+# WIN_FP32_TOL x max(1, max |masked|) (the same fp32 sums, dk and dv summed
+# over the query chunks in another order), and the masked result rounded to
+# bf16 and moved one bf16 ulp (the bf16 control) must miss that limit, so
+# the check tells fp32 agreement from a bf16 one.  bf16: within WIN_BF16_ULPS
+# x nb bf16 ulps of max |masked|, nb the band's width in key chunks (each key
+# chunk's dk and dv are the sum of up to nb query chunks' gradients, each
+# rounded to bf16 and summed in bf16, where the masked path rounds its fp32
+# sum once: about half an ulp a part and a sum).
+WIN_FP32_TOL = 1e-5
+WIN_BF16_ULPS = 1.0
+
+
+def _all_launches():
+    """Every kernel's launch count: the ws kernels (PERF.md §6 rows 1-5;
+    ws_attention is rows 1-2) and the standalone three (rows 6-8)."""
+    from repro_torch.kernels import launches as klaunches
+    from repro_torch.pallas_ws import launches
+
+    return {**launches, **klaunches}
+
+
+def _launches_since(before):
+    return {n: v - before[n] for n, v in _all_launches().items()}
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(float(x), 1e-30))) - 7)
+
+
+def _win_attention(dev, c):
+    """The banded path (flash_ref) against the masked one (_Flash.apply with
+    qoff 0) on the same seeded inputs: forward and forward + backward ms in
+    bf16, peak memory, and the output and gradient differences (see
+    WIN_FP32_TOL)."""
+    from repro_torch.models import attention as A
+
+    B, S, H, Hkv, hd, w = (c[k] for k in ("B", "S", "H", "Hkv", "hd", "window"))
+    chunk = WINDOWED["chunk"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device=dev) for _ in range(2))
+    bc = A._pick_chunk(S, min(chunk, max(w, 16)))
+    nq = S // bc
+    nb = min(-(-w // bc) + 1, nq)
+    pairs = dict(banded=nq * nb, masked=(S // A._pick_chunk(S, chunk)) ** 2)
+
+    def run(path, dtype, grad=True):
+        # fresh leaves each call: .to() of an fp32 tensor to fp32 is the tensor
+        # itself, whose .grad would gather every call's gradients
+        qs, ks, vs = (t.detach().to(dtype, copy=True).requires_grad_(grad) for t in (q, k, v))
+        ke, ve = A.expand_kv(ks, H // Hkv), A.expand_kv(vs, H // Hkv)
+        if path == "banded":
+            out = A.flash_ref(qs, ke, ve, causal=True, window=w, chunk=chunk)
+        else:
+            out = A._Flash.apply(qs, ke, ve, w, 0, True, chunk)
+        if not grad:
+            return out
+        out.backward(do.to(dtype))
+        return [out.detach(), qs.grad, ks.grad, vs.grad]
+
+    res = dict(at=c["at"], shape=dict(B=B, S=S, H=H, Hkv=Hkv, hd=hd, window=w), chunk=bc,
+               nb=nb, block_pairs=pairs)
+    bf16 = torch.bfloat16
+    for path in ("banded", "masked"):
+        with torch.no_grad():
+            fwd = _median_ms(lambda: run(path, bf16, grad=False), n=WINDOWED["timed"], warm=1)
+        both = _median_ms(lambda: run(path, bf16), n=WINDOWED["timed"], warm=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run(path, bf16)
+        torch.cuda.synchronize()
+        res[path] = dict(fwd_ms=fwd, fwd_bwd_ms=both,
+                         peak_bytes=torch.cuda.max_memory_allocated())
+    names = ("out", "dq", "dk", "dv")
+    got16, want16 = run("banded", bf16), run("masked", bf16)
+    got32, want32 = run("banded", torch.float32), run("masked", torch.float32)
+    errs = {}
+    for name, g16, w16, g32, w32 in zip(names, got16, want16, got32, want32):
+        scale16 = float(w16.float().abs().max())
+        lim16 = WIN_BF16_ULPS * nb * _bf16_ulp(scale16)
+        scale32 = max(1.0, float(w32.abs().max()))
+        lim32 = WIN_FP32_TOL * scale32
+        ctl = one_ulp(w32.bfloat16(), SEED).float()
+        e = dict(bf16=float((g16.float() - w16.float()).abs().max()), bf16_limit=lim16,
+                 bf16_bit_equal=bool(torch.equal(g16, w16)),
+                 fp32=float((g32 - w32).abs().max()), fp32_limit=lim32,
+                 fp32_one_ulp_control=float((ctl - w32).abs().max()))
+        errs[name] = e
+        if not (e["bf16"] <= lim16 and e["fp32"] <= lim32 < e["fp32_one_ulp_control"]):
+            raise AssertionError(f"[windowed] {c['at']}: banded {name} differs from masked: {e}")
+    res["errors"] = errs
+    del got16, want16, got32, want32
+    log(f"[windowed] {c['at']} (B {B}, S {S}, H {H} over {Hkv}, hd {hd}, window {w}): chunk "
+        f"{bc}, nb {nb}, block pairs banded {pairs['banded']} / masked {pairs['masked']}; "
+        f"bf16 forward {res['banded']['fwd_ms']:.2f} / {res['masked']['fwd_ms']:.2f} ms, "
+        f"forward + backward {res['banded']['fwd_bwd_ms']:.2f} / "
+        f"{res['masked']['fwd_bwd_ms']:.2f} ms (banded / masked), peak "
+        f"{res['banded']['peak_bytes'] / 1e9:.2f} / {res['masked']['peak_bytes'] / 1e9:.2f} GB; "
+        + "; ".join(f"{n}: bf16 {e['bf16']:.3g} (<= {e['bf16_limit']:.3g}, bit-equal "
+                    f"{e['bf16_bit_equal']}), fp32 {e['fp32']:.3g} (<= {e['fp32_limit']:.3g}; "
+                    f"one-ulp control {e['fp32_one_ulp_control']:.3g})" for n, e in errs.items()))
+    return res
+
+
+def _win_gemma_serve(dev):
+    """gemma3-12b at full depth served by 2 replicas (prompts past the local
+    window: the banded branch in every local layer of every prefill; the
+    dense decode step past the window's edge), then one row's decode path
+    against a longer prefill (as FAM_FP32_TOL)."""
+    from repro_torch.configs.gemma3_12b import CONFIG
+    from repro_torch.models import decode_hidden, decode_step, prefill
+    from repro_torch.models.model import _logits
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    c = WINDOWED["gemma_serve"]
+    cfg = CONFIG
+    V = cfg.vocab_size
+    params, out = _fam_init(cfg, CONFIG, dev, tag="windowed")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, V, size=n).astype(np.int32) for n in c["prompt_lens"]]
+    front = WorkStealingFrontend(lambda: ContinuousBatcher(
+        params, cfg, slots=c["slots"], capacity=c["cap"]), n_replicas=2)
+    for rid, p in enumerate(prompts):
+        front.submit(0, Request(rid=rid, tokens=p, max_new=c["max_new"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _all_launches()
+    t0 = time.perf_counter()
+    done = front.run(max_iters=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launches_since(before)
+    stats = front.stats()
+    if sorted(done) != list(range(len(prompts))) or front.rejected:
+        raise AssertionError(f"[windowed] gemma completed {sorted(done)}, rejected "
+                             f"{sorted(front.rejected)}")
+    if any(len(r.out) != c["max_new"] or not all(0 <= t < V for t in r.out)
+           for r in done.values()):
+        raise AssertionError(f"[windowed] gemma served {_streams(done)}")
+    if any(counts.values()) or any(b.use_ws for b in front.batchers):
+        raise AssertionError(f"[windowed] gemma serving launched {counts} (the dense step "
+                             "launches no kernel of the port)")
+    steps = sum(s["steps"] for s in stats["batchers"])
+    lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
+    tokens = sum(len(r.out) for r in done.values())
+    out["serving"] = dict(
+        requests=len(done), prompt_tokens=[len(p) for p in prompts], new_tokens=tokens,
+        wall_s=wall, tokens_per_s=tokens / wall, decode_steps=steps,
+        step_ms_p50=float(np.percentile(lat, 50)), step_ms_p99=float(np.percentile(lat, 99)),
+        stolen=stats["totals"]["stolen"], launches=counts,
+        peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[windowed] gemma3-12b serving (2 replicas x {c['slots']} slots x {c['cap']} "
+        f"positions, prompts {[len(p) for p in prompts]} tokens, window {cfg.window}, the "
+        f"dense step): {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
+        f"({tokens / wall:.2f} tokens/s incl. prefill); {steps} decode steps, step p50 "
+        f"{out['serving']['step_ms_p50']:.2f} ms p99 {out['serving']['step_ms_p99']:.2f} ms; "
+        f"stolen {stats['totals']['stolen']}; peak device memory "
+        f"{out['serving']['peak_bytes'] / 1e9:.2f} GB")
+    del front, done
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one row: prefill of S + extra against prefill of S and extra decode steps
+    S, extra = c["S"], c["extra"]
+    toks = torch.from_numpy(rng.integers(0, V, (1, S + extra))).to(dev)
+
+    def paths(p, cfg_, control=False):
+        pre = None if control else prefill(p, cfg_, {"tokens": toks},
+                                           capacity=S + extra)[0][0, :V]
+        _, caches = prefill(p, cfg_, {"tokens": toks[:, :S]}, capacity=S + extra)
+        dcfg = cfg_.replace(window=0) if control else cfg_  # the control: no window
+        for i in range(S, S + extra - 1):
+            _, caches = decode_step(p, dcfg, caches, toks[:, i:i + 1], i)
+        return pre, decode_hidden(p, dcfg, caches, toks[:, -1:], S + extra - 1)[0]
+
+    pre16, h16 = paths(params, cfg)
+    dec16 = _logits(params, cfg, h16)[0, :V]
+    ctl16 = _logits(params, cfg, paths(params, cfg, control=True)[1])[0, :V]
+    params32 = _widen(params)
+    del params
+    cfg32 = cfg.replace(dtype="float32")
+    pre32, h32 = paths(params32, cfg32)
+    out["prefill_vs_decode"] = dict(S=S, extra=extra, **_fam_held(
+        "gemma3-12b", params32, cfg32, pre32, h32, pre16, dec16, ctl16,
+        "the decode ignoring the local window", tag="windowed"))
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _win_train(arch, dev, c, n_layers=None):
+    """``c["steps"]`` train() steps at full width (depth ``n_layers`` if given)
+    on rows x seq tokens: finite losses, step seconds, peak memory."""
+    from repro_torch.launch.train import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    _, losses = train(arch, smoke=False, steps=c["steps"], rows=c["rows"], seq=c["seq"],
+                      n_layers=n_layers, seed=SEED, device=dev, log_every=1,
+                      on_step=lambda step, st, m, s: step_s.append(s))
+    torch.cuda.synchronize()
+    if len(losses) != c["steps"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"[windowed] {arch} train losses {losses}")
+    out = dict(losses=losses, step_s=step_s, rows=c["rows"], seq=c["seq"], layers=n_layers,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[windowed] {arch} train() at {c['rows']} x {c['seq']} tokens"
+        + (f", depth {n_layers}" if n_layers else ", full depth")
+        + f": losses {losses}, step seconds {[round(s, 3) for s in step_s]}, peak device "
+        f"memory {out['peak_bytes'] / 1e9:.2f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _win_minicpm(dev):
+    """minicpm-2b (MHA, tied embeddings, depth-scaled residuals) at full width
+    and depth served on decode_step_ws; one step's last attention launch
+    (head dim 64) held to the plain version."""
+    from repro_torch.configs.minicpm_2b import CONFIG
+    from repro_torch.pallas_ws import launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    c = WINDOWED["minicpm_serve"]
+    cfg = CONFIG
+    L, V = cfg.n_layers, cfg.vocab_size
+    params, out = _fam_init(cfg, CONFIG, dev, tag="windowed")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(*c["prompt_lens"], size=c["requests"])
+    prompts = [rng.integers(0, V, size=int(n)).astype(np.int32) for n in lens]
+    front = WorkStealingFrontend(lambda: ContinuousBatcher(
+        params, cfg, slots=c["slots"], capacity=c["cap"]), n_replicas=2)
+    for rid, p in enumerate(prompts):
+        front.submit(0, Request(rid=rid, tokens=p, max_new=c["max_new"]))
+    torch.cuda.synchronize()
+    before = _all_launches()
+    t0 = time.perf_counter()
+    done = front.run(max_iters=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launches_since(before)
+    stats = front.stats()
+    steps = sum(s["steps"] for s in stats["batchers"])
+    if sorted(done) != list(range(len(prompts))) or front.rejected:
+        raise AssertionError(f"[windowed] minicpm completed {sorted(done)}")
+    if not all(b.use_ws for b in front.batchers):
+        raise AssertionError("[windowed] minicpm-2b is not on decode_step_ws")
+    want = {n: 0 for n in counts}
+    want["ws_attention"] = steps * L
+    if counts != want:
+        raise AssertionError(f"[windowed] minicpm serving launched {counts}, want {want}")
+    lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
+    tokens = sum(len(r.out) for r in done.values())
+    # one step of 4 slots counted alone, its last attention launch held
+    b = ContinuousBatcher(params, cfg, slots=c["slots"], capacity=c["cap"])
+    for rid in range(c["slots"]):
+        if not b.admit(Request(rid=rid, tokens=prompts[rid % len(prompts)],
+                               max_new=c["max_new"])):
+            raise AssertionError(f"[windowed] minicpm refused prompt {rid}")
+    before, recorded = dict(launches), []
+    with attention_launches(recorded.append):
+        b.step()
+    torch.cuda.synchronize()
+    per_step = _since(before)
+    if per_step["ws_attention"] != L or len(recorded) != L:
+        raise AssertionError(f"[windowed] one minicpm step launched {per_step}, hook saw "
+                             f"{len(recorded)} (want {L})")
+    out["attention_launch"] = _hold_attention_launch("windowed minicpm", recorded[-1], L)
+    del b, recorded, front
+    out["serving"] = dict(
+        requests=len(done), prompt_tokens=int(lens.sum()), new_tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, decode_steps=steps,
+        step_ms_p50=float(np.percentile(lat, 50)), step_ms_p99=float(np.percentile(lat, 99)),
+        launches=counts, launches_per_decode_step=per_step)
+    log(f"[windowed] minicpm-2b serving (2 replicas x {c['slots']} slots, decode_step_ws, hd "
+        f"{cfg.hd}): {len(done)} requests, {tokens} new tokens in {wall:.2f} s; {steps} decode "
+        f"steps, step p50 {out['serving']['step_ms_p50']:.2f} ms p99 "
+        f"{out['serving']['step_ms_p99']:.2f} ms; ws_attention {per_step['ws_attention']} "
+        f"launches a step (want {L})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_windowed(dev):
+    """The banded attention against the masked one at gemma3-12b's and
+    h2o-danube-1.8b's widths; gemma3-12b served at full depth; h2o-danube
+    trained at full depth, gemma3-12b at depth 6; minicpm-2b served on the ws
+    step.  Every kernel's launches on each path, counted from 0 just before
+    it."""
+    t_phase = time.perf_counter()
+    out, by_path = {"attention": []}, {}
+
+    def path(name, fn, *a):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = _all_launches()
+        t0 = time.perf_counter()
+        res = fn(*a)
+        by_path[name] = _launches_since(before)
+        res["seconds"] = time.perf_counter() - t0
+        return res
+
+    for c in WINDOWED["attn"]:
+        out["attention"].append(path(f"attention alone, {c['at']}", _win_attention, dev, c))
+    out["gemma3-12b served"] = path("gemma3-12b served", _win_gemma_serve, dev)
+    out["h2o-danube-1.8b trained"] = path("h2o-danube-1.8b trained", _win_train,
+                                          "h2o-danube-1.8b", dev, WINDOWED["danube_train"])
+    g = WINDOWED["gemma_train"]
+    out["gemma3-12b trained"] = path("gemma3-12b trained (depth 6)", _win_train, "gemma3-12b",
+                                     dev, g, g["depth"])
+    out["minicpm-2b served"] = path("minicpm-2b served", _win_minicpm, dev)
+    out["launches"] = by_path
+    out["seconds"] = time.perf_counter() - t_phase
+    for name, n in by_path.items():
+        log(f"[windowed] launches on {name}: {json.dumps(n)}")
+    log(f"[windowed] phase {out['seconds']:.1f} s; card: {card_line()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the paper's shared-memory algorithms (repro_torch.core) and the host shims
+
+
+CORE = dict(puts=4096, thieves=7, sim_seeds=(0, 1, 2), sim_steps=400,
+            layout=dict(B=4, H=24, S=1024, bk=64, P=8, lengths=(1024, 658, 531, 288)))
+
+
+def _core_drain(name, n, n_thieves, seed):
+    """One owner and ``n_thieves`` thieves on real threads (ThreadBackend):
+    the owner puts 0..n-1, takes after a put where a seeded draw says so
+    (a third of them), then takes to empty; a thief steals until the owner
+    is done and it has missed 3 times.  Returns each process's extractions."""
+    import threading
+
+    from repro_torch.core import ALGORITHMS, EMPTY
+
+    kw = {"capacity": n + 8} if name in ("pallas-ws", "moe-ws") else {}
+    q = ALGORITHMS[name](**kw)
+    take_after = np.random.default_rng(seed).random(n) < 1 / 3
+    got = {pid: [] for pid in range(n_thieves + 1)}
+    stop = threading.Event()
+
+    def owner():
+        for i in range(n):
+            if not q.put(i):
+                raise AssertionError(f"[core] {name}: put {i} refused")
+            if take_after[i] and (x := q.take()) is not EMPTY:
+                got[0].append(x)
+        while (x := q.take()) is not EMPTY:
+            got[0].append(x)
+        stop.set()
+
+    def thief(pid):
+        misses = 0
+        while not (stop.is_set() and misses >= 3):
+            x = q.steal(pid)
+            if x is EMPTY:
+                misses += 1
+            else:
+                got[pid].append(x)
+                misses = 0
+
+    threads = [threading.Thread(target=owner)] + [
+        threading.Thread(target=thief, args=(p,)) for p in range(1, n_thieves + 1)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)  # preempt often: real interleavings
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(old)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"[core] {name}: a thread did not finish")
+    return got
+
+
+def _core_threads():
+    """Every ALGORITHMS entry drains CORE["puts"] tasks with 1 owner and
+    CORE["thieves"] thieves; each family's contract holds."""
+    from repro_torch.core import ALGORITHMS, EXACT_FAMILY, MULTIPLICITY_FAMILY
+
+    n, res = CORE["puts"], {}
+    for name in sorted(ALGORITHMS):
+        t0 = time.perf_counter()
+        got = _core_drain(name, n, CORE["thieves"], SEED)
+        every = [x for xs in got.values() for x in xs]
+        lost = n - len(set(every))
+        twice = [pid for pid, xs in got.items() if len(xs) != len(set(xs))]
+        fam = ("multiplicity" if name in MULTIPLICITY_FAMILY else
+               "exact" if name in EXACT_FAMILY else "idempotent")
+        ok = (lost == 0 and set(every) <= set(range(n))
+              and not (fam == "multiplicity" and twice)
+              and not (fam == "exact" and len(every) != n))
+        res[name] = dict(family=fam, extractions_per_task=len(every) / n, lost=lost,
+                         processes_twice=twice, by_process=[len(xs) for xs in got.values()],
+                         seconds=time.perf_counter() - t0)
+        if not ok:
+            raise AssertionError(f"[core] {name} broke the {fam} family's contract: "
+                                 f"{res[name]}")
+    log(f"[core] real threads (1 owner + {CORE['thieves']} thieves, {n} puts): "
+        "sum(extractions)/tasks "
+        + ", ".join(f"{k} {v['extractions_per_task']:.4f}" for k, v in res.items()))
+    return res
+
+
+def _core_program(name):
+    """The simulated program of ``name`` (as tests/test_torch_core.py's):
+    THE Cilk's Steal holds its lock across steps, and a step granted to a
+    second locker would stall the controller, so it gets one thief and an
+    owner that only puts."""
+    if name == "the-cilk":
+        return {0: [("put", i) for i in range(1, 9)], 1: [("steal", None)] * 6}
+    prog = {0: [("put", i) for i in range(1, 9)] + [("take", None)] * 5}
+    for t in (1, 2, 3):
+        prog[t] = [("steal", None)] * 5
+    return prog
+
+
+def _core_sim():
+    """Seeded SimBackend schedules through run_program, with the checkers
+    the reference's property tests apply to each family, and the §7 drills
+    (the idempotent FIFO re-extracts one task many times by one thief; the
+    same adversary gets WS-WMULT one extraction a task a process)."""
+    from repro_torch.core import ALGORITHMS, EMPTY, EXACT_FAMILY, MULTIPLICITY_FAMILY
+    from repro_torch.core import IdempotentFIFO, WSWMult
+    from repro_torch.core import simulator as S
+
+    res, checks = {}, 0
+    for name in sorted(ALGORITHMS):
+        kw = {}
+        if name in ("ws-mult", "b-ws-mult"):
+            kw = dict(max_register="tree", capacity=64)
+        elif name in ("pallas-ws", "moe-ws"):
+            kw = dict(capacity=64)
+        prog = _core_program(name)
+        n_ext = []
+        for seed in CORE["sim_seeds"]:
+            schedule = np.random.default_rng(seed).integers(
+                0, len(prog), CORE["sim_steps"]).tolist()
+            rec = S.run_program(lambda b: ALGORITHMS[name](backend=b, **kw), prog, schedule)
+            ext = S.extractions(rec)
+            n_ext.append(len(ext))
+            if name in MULTIPLICITY_FAMILY:
+                S.check_no_process_duplicates(rec)
+                S.check_no_lost_tasks_fifo(rec)
+                S.check_owner_fifo(rec)
+                checks += 3
+                if name in ("ws-mult", "b-ws-mult"):
+                    S.check_pairwise_concurrent_duplicates(rec)
+                    checks += 1
+            if name == "b-ws-wmult":
+                for task in {r.result for r in ext}:
+                    kinds = [r.kind for r in ext if r.result == task]
+                    if kinds.count("steal") > 1 or kinds.count("take") > 1:
+                        raise AssertionError(f"[core] b-ws-wmult extracted {task} by {kinds}")
+                checks += 1
+            if name in EXACT_FAMILY:
+                got = [r.result for r in ext]
+                if len(got) != len(set(got)):
+                    raise AssertionError(f"[core] {name} duplicated: {sorted(got)}")
+                checks += 1
+        res[name] = dict(extractions=n_ext)
+    # §7: a stalled owner's stale head write
+    z = 6
+    fifo, ws = IdempotentFIFO(), WSWMult()
+    for i in range(1, z + 1):
+        fifo.put(i)
+        ws.put(i)
+    stolen = {"idempotent-fifo": [], "ws-wmult": []}
+    for r in range(z, 0, -1):
+        h = fifo.head.read(0)
+        stolen["idempotent-fifo"] += [x for x in (fifo.steal(1) for _ in range(r))
+                                      if x is not EMPTY]
+        fifo.head.write(h + 1, 0)
+        head = max(ws._local_head(0), ws.Head.read(0))
+        if head <= ws.tail:
+            stolen["ws-wmult"] += [x for x in (ws.steal(1) for _ in range(r)) if x is not EMPTY]
+            ws.Head.write(head + 1, 0)
+            ws._head[0] = head + 1
+    most = {k: max(v.count(x) for x in set(v)) for k, v in stolen.items()}
+    if not (most["idempotent-fifo"] >= z - 1 and most["ws-wmult"] == 1):
+        raise AssertionError(f"[core] the §7 drill: one thief's most extractions of a task {most}")
+    log(f"[core] simulated schedules: {len(CORE['sim_seeds'])} seeds x {len(res)} algorithms, "
+        f"{checks} property checks passed; the §7 drill: one thief re-extracted a task "
+        f"{most['idempotent-fifo']} times from the idempotent FIFO, {most['ws-wmult']} from "
+        "WS-WMULT")
+    return dict(algorithms=res, property_checks=checks, section7_most_by_one_thief=most)
+
+
+def core_layout(dev):
+    """For each program's queue of the llama3.2-3b decode Put (the device Put
+    of decode_queue_state at the serving shape), a PallasWSHost given the
+    queue's records by put_segment holds the device state's task slots,
+    tail, two trailing ⊥ slots, head, remaining and (empty) announcements;
+    its host drain extracts every record in order."""
+    from repro_torch.core import BOTTOM as HOST_BOTTOM
+    from repro_torch.core import EMPTY
+    from repro_torch.pallas_ws import PallasWSHost, decode_queue_state
+    from repro_torch.pallas_ws.tasks import BOTTOM
+
+    c = CORE["layout"]
+    lengths = torch.tensor(c["lengths"], dtype=torch.int64, device=dev)
+    st = decode_queue_state(lengths, c["H"], c["S"], n_programs=c["P"], bk=c["bk"])
+    tasks, tail, head, rem, taken = (t.cpu().numpy() for t in (
+        st.tasks, st.tail, st.head, st.remaining, st.taken))
+    n_q, cap, width = tasks.shape
+    per_queue = []
+    for qi in range(n_q):
+        n = int(tail[qi])
+        recs = [tuple(int(x) for x in r) for r in tasks[qi, :n]]
+        host = PallasWSHost(capacity=cap)
+        if not host.put_segment(recs):
+            raise AssertionError(f"[core] queue {qi}: put_segment refused {n} records")
+        slots = np.array([np.full(width, BOTTOM) if x is HOST_BOTTOM else np.asarray(x)
+                          for x in host.tasks.a])
+        h_head, h_tail, h_taken = host.snapshot()
+        same = dict(
+            tasks=bool(np.array_equal(slots, tasks[qi])), tail=h_tail == n,
+            trailing_bottom=all(host.tasks.read(s) is HOST_BOTTOM for s in (n, n + 1)),
+            head=h_head == int(head[qi]), remaining=host.remaining_estimate() == int(rem[qi]),
+            taken=h_taken == {} and bool((taken[qi] == -1).all()))
+        drained = []
+        while (x := host.take()) is not EMPTY:
+            drained.append(x)
+        same["drain"] = drained == recs
+        per_queue.append(dict(tail=n, remaining=int(rem[qi]), equal=same))
+        if not all(same.values()):
+            raise AssertionError(f"[core] queue {qi}: the host layout differs from the device "
+                                 f"Put's: {same}")
+    out = dict(shape=dict(c, capacity=cap, n_queues=n_q), queues=per_queue,
+               shared_fields=["tasks", "head", "tail", "remaining", "taken"],
+               host_only=["local bounds by process (device: local_head [P, Q])",
+                          "faults_injected", "trace events"],
+               device_only=["local_head", "n_tasks_hint", "task_list", "pool_off"])
+    log(f"[core] layout: the llama3.2-3b decode Put on {dev.type} ({n_q} queues, capacity "
+        f"{cap}, tails {[q['tail'] for q in per_queue]}): every queue's PallasWSHost equals "
+        "the device state in tasks, head, tail, the two trailing ⊥ slots, remaining and "
+        "taken, and drains every record")
+    return out
+
+
+def phase_core(dev):
+    """repro_torch.core on real threads and under the simulator, and the host
+    shim against the device Put's layout."""
+    t0 = time.perf_counter()
+    out = dict(threads=_core_threads(), sim=_core_sim(), layout=core_layout(dev))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[core] phase {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5767,6 +6381,8 @@ def main(argv=None) -> int:
     ssm_scan = _ssm_scan(ssm_inputs) if ssm_inputs else None
     del ssm_inputs
     families = model_path("families", phase_families, dev)
+    windowed = model_path("windowed", phase_windowed, dev)
+    core = model_path("core", phase_core, dev)
     stray = {p: n for p, n in on_path.items() if any(n.values())}
     if stray:
         raise AssertionError(f"a model path launched a standalone kernel: {stray}")
@@ -5789,12 +6405,16 @@ def main(argv=None) -> int:
                              sched["model"]: sched["launches"]["ws_attention"],
                              userving["model"]: userving["launches"]["ws_attention"],
                              umserving["model"]: umserving["launches"]["ws_attention"],
-                             **{m: n["ws_attention"] for m, n in families["launches"].items()}},
+                             **{m: n["ws_attention"] for m, n in families["launches"].items()},
+                             **{m: n["ws_attention"] for m, n in windowed["launches"].items()}},
         "launches_per_train_step": training["launches_per_step"]["ws_attention"],
         "launches_per_decode_step_pixtral": families["pixtral-12b"]["launches_per_step"][
             "ws_attention"],
+        "launches_per_decode_step_minicpm": windowed["minicpm-2b served"]["serving"][
+            "launches_per_decode_step"]["ws_attention"],
         "max_abs_err": max(max_err, expert["attn_err"], halfrun_err["ws_attention"],
-                           families["pixtral-12b"]["attention_launch"]["max_abs_err"]),
+                           families["pixtral-12b"]["attention_launch"]["max_abs_err"],
+                           windowed["minicpm-2b served"]["attention_launch"]["max_abs_err"]),
         **times,
         **TRACED["ws_attention"],
         "chaos": CHAOS["ws_attention"],
@@ -5814,7 +6434,8 @@ def main(argv=None) -> int:
                              sched["model"]: sched["launches"]["ws_expert"],
                              userving["model"]: userving["launches"]["ws_expert"],
                              umserving["model"]: umserving["launches"]["ws_expert"],
-                             **{m: n["ws_expert"] for m, n in families["launches"].items()}},
+                             **{m: n["ws_expert"] for m, n in families["launches"].items()},
+                             **{m: n["ws_expert"] for m, n in windowed["launches"].items()}},
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
         "launches_per_decode_step_deepseek_served": families[
             "deepseek-v2-236b (depth 2, served)"]["serving"]["launches_per_decode_step"][
@@ -5842,7 +6463,8 @@ def main(argv=None) -> int:
                              sched["model"]: sched["launches"]["ws_expert_grad"],
                              userving["model"]: userving["launches"]["ws_expert_grad"],
                              umserving["model"]: umserving["launches"]["ws_expert_grad"],
-                             **{m: n["ws_expert_grad"] for m, n in families["launches"].items()}},
+                             **{m: n["ws_expert_grad"] for m, n in families["launches"].items()},
+                             **{m: n["ws_expert_grad"] for m, n in windowed["launches"].items()}},
         "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
         "launches_per_ws_round": sched["launches_per_round"]["ws_expert_grad"],
@@ -5869,7 +6491,8 @@ def main(argv=None) -> int:
                              sched["model"]: sched["launches"]["ws_unified"],
                              userving["model"]: userving["launches"]["ws_unified"],
                              umserving["model"]: umserving["launches"]["ws_unified"],
-                             **{m: n["ws_unified"] for m, n in families["launches"].items()}},
+                             **{m: n["ws_unified"] for m, n in families["launches"].items()},
+                             **{m: n["ws_unified"] for m, n in windowed["launches"].items()}},
         "launches_per_step": {"lockstep": 1, "free": unified["free_launches_per_step"],
                               "free_moe": umoe["free_launches_per_step"]},
         **unified,
@@ -5883,6 +6506,8 @@ def main(argv=None) -> int:
              "unified": userving["model"], "unified_moe": umserving["model"],
              "ckpt": ckpt["model"], "ssm": "mamba2-2.7b, zamba2-2.7b (ssm phase)",
              "families": "deepseek-v2-236b, pixtral-12b, whisper-base (families phase)",
+             "windowed": "gemma3-12b, h2o-danube-1.8b, minicpm-2b (windowed phase)",
+             "core": "core phase",
              "times": "times phase", "grad": "grad phase"}
     standalone_lines = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
@@ -5911,6 +6536,8 @@ def main(argv=None) -> int:
     log("[ckpt] " + json.dumps(ckpt))
     log("[ssm] " + json.dumps(ssm))
     log("[families] " + json.dumps(families))
+    log("[windowed] " + json.dumps(windowed))
+    log("[core] " + json.dumps(core))
     print(card_line())
     print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line,
                                   *standalone_lines]}))

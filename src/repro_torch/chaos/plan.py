@@ -173,8 +173,9 @@ class FaultPlan:
     * ``full_first_storm`` — make storm 0 the maximal rewind (every head to
       0, every local wiped) so the classic mult==2 drill is a plan.
 
-    Host-shim fields (consumed by the reference's ``PallasWSHost``, which
-    the port does not carry yet):
+    Host-shim fields (consumed by
+    :class:`repro_torch.pallas_ws.host.PallasWSHost`, counted in its
+    ``faults_injected``):
 
     * ``drop_advisory_every`` — drop every n-th advisory update (a lost
       plain write).

@@ -5,7 +5,9 @@ prefill and decode, MLA training, prefill and decode).
   (:func:`flash_ref`): outer loop over query chunks, inner loop over key
   chunks with an online softmax.  Its backward is the reference's custom
   VJP as a ``torch.autograd.Function``: P is recomputed blockwise from the
-  saved logsumexp, so training keeps no score blocks.  The reference
+  saved logsumexp, so training keeps no score blocks.  A causal window
+  shorter than the sequence takes the banded path (:func:`_flash_banded`):
+  each query chunk meets only the key chunks it can see.  The reference
   computes it outside any Pallas kernel, and so does the port.
 * MLA (deepseek-v2) training and prefill — :func:`mla_train`: low-rank q
   and kv projections, a rope part shared across heads, then
@@ -160,11 +162,35 @@ class _Flash(torch.autograd.Function):
 def flash_ref(q, k, v, *, causal: bool, window: int, chunk: int = 1024):
     """Online-softmax attention over [B, S, H, hd] (kv head-expanded);
     window <= 0 is full, window > 0 masks keys ``window`` or more positions
-    behind the query.  Differentiable through the flash VJP.  (The
-    reference's banded fast path for static windows is not ported: a window
-    is applied by the mask over every block, the same numbers with S^2
-    work.)"""
-    return _Flash.apply(q, k, v, int(window), 0, causal, chunk)
+    behind the query.  Differentiable through the flash VJP.
+
+    A window > 0 with ``causal`` and Sq == Sk > window takes the banded path
+    (:func:`_flash_banded`, the reference's condition): each query chunk
+    contracts only the key chunks it can see, so the work scales with
+    S * window instead of S^2.  Every other call masks every block."""
+    window = int(window)
+    if window > 0 and causal and q.shape[1] == k.shape[1] > window:
+        return _flash_banded(q, k, v, window, chunk)
+    return _Flash.apply(q, k, v, window, 0, causal, chunk)
+
+
+def _flash_banded(q, k, v, window: int, chunk: int):
+    """Causal sliding-window attention over a band of key chunks: query
+    chunk ``qi`` (of ``c`` rows) attends key chunks ``[lo, lo + nb)`` with
+    ``nb = ceil(window / c) + 1`` and ``lo = max(qi - (nb - 1), 0)``, through
+    the same flash core (and VJP) with the chunk's offset ``(qi - lo) * c``
+    in the band, so the mask stays exact.  The band is a view of k and v."""
+    S = q.shape[1]
+    c = _pick_chunk(S, min(chunk, max(window, 16)))
+    nq = S // c
+    nb = min(-(-window // c) + 1, nq)  # key chunks visible to one query chunk
+    outs = []
+    for qi in range(nq):
+        lo = max(qi - (nb - 1), 0)
+        band = slice(lo * c, (lo + nb) * c)
+        outs.append(_Flash.apply(q[:, qi * c:(qi + 1) * c], k[:, band], v[:, band],
+                                 window, (qi - lo) * c, True, c))
+    return torch.cat(outs, dim=1)
 
 
 def expand_kv(k, n_rep: int):

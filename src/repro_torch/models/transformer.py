@@ -49,10 +49,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    """The families the port builds: dense GQA decoders (the vlm backbone
-    among them), GQA or MLA decoders with MoE FFNs and full (unwindowed)
-    attention, the encdec family with unwindowed GQA, the ssm family and the
-    hybrid one with unwindowed GQA shared blocks.  Anything else raises."""
+    """The families the port builds: dense GQA decoders, windowed or not
+    (the vlm backbone among them), GQA or MLA decoders with MoE FFNs and
+    full (unwindowed) attention, the encdec family with unwindowed GQA, the
+    ssm family and the hybrid one with unwindowed GQA shared blocks.
+    Anything else raises."""
     unwindowed = all(w == 0 for w in cfg.layer_windows)
     if cfg.attn_kind == "gqa" and cfg.family == "dense":
         return

@@ -10,6 +10,7 @@ multiplicity (:mod:`.layer`).
 """
 
 from .dispatch import (
+    MoEDispatchHost,
     RoutedSet,
     divisor_from_tiles,
     expert_queue_candidates,
@@ -40,7 +41,7 @@ from .layer import (
 )
 
 __all__ = [
-    "DispatchStats", "GRAD_DISPATCHES", "RoutedSet", "combine_routed",
+    "DispatchStats", "GRAD_DISPATCHES", "MoEDispatchHost", "RoutedSet", "combine_routed",
     "divisor_from_tiles", "dsilu", "expert_ffn_nodrop_ref", "expert_queue_candidates",
     "expert_rounds_bound",
     "grad_out_width", "launch_moe_grad_grid", "launch_moe_grid", "moe_ffn_nodrop_ref",

@@ -1,5 +1,6 @@
 """Router output → expert-tile task queues, the host Put (port of the host
-half of ``repro/moe_ws/dispatch.py``).
+half of ``repro/moe_ws/dispatch.py``), and :class:`MoEDispatchHost`, the
+expert queue on the device layout for the property harness.
 
 Routing is lowered to the paper's scheduling problem:
 
@@ -37,6 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.pallas_ws.host import PallasWSHost
 from repro_torch.pallas_ws.kernel import STATIC_COMPRESSED_ROUNDS
 from repro_torch.pallas_ws.queues import owner_queue_candidates
 from repro_torch.pallas_ws.tasks import BOTTOM, OP_EXPERT_TILE, ExpertTask
@@ -334,3 +336,28 @@ def row_divisor(tasks: Sequence[ExpertTask], mult, n_rows: int) -> np.ndarray:
     lens = np.fromiter((t.row_len for t in tasks), np.int64, len(tasks))
     tids = np.fromiter((t.tid for t in tasks), np.int64, len(tasks))
     return divisor_from_tiles(starts, lens, mult[tids], n_rows)
+
+
+class MoEDispatchHost(PallasWSHost):
+    """Expert-dispatch queue on the device array layout, for the property
+    harness (registered as ``"moe-ws"`` in ``repro_torch.core.ALGORITHMS``).
+
+    The protocol is :class:`~repro_torch.pallas_ws.host.PallasWSHost`'s:
+    expert tiles ride the same fence-free slot arithmetic as attention
+    tiles; :meth:`put_task` takes an encoded :class:`ExpertTask`.
+    """
+
+    def __init__(self, backend=None, capacity: int = 4096, **kw):
+        super().__init__(backend=backend, capacity=capacity, **kw)
+
+    def put_task(self, task: ExpertTask, *, strict: bool = False) -> bool:
+        return self.put(tuple(int(x) for x in task.encode()), strict=strict)
+
+    def put_tasks(self, tasks, *, strict: bool = False) -> bool:
+        """Batched Put of one expert's tile segment: one pre-clear pair and
+        one advisory write for the whole segment
+        (:meth:`~repro_torch.pallas_ws.host.PallasWSHost.put_segment`)."""
+        return self.put_segment(
+            [tuple(int(x) for x in t.encode()) for t in tasks],
+            strict=strict,
+        )

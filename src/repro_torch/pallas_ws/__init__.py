@@ -1,5 +1,6 @@
 """Work-stealing tile scheduler on the GPU (port of ``repro.pallas_ws``)."""
 
+from .host import PallasWSHost
 from .kernel import (
     MODES,
     STEAL_POLICIES,
@@ -47,7 +48,7 @@ from .tasks import (
 
 __all__ = [
     "BOTTOM", "MODES", "OP_EXPERT_TILE", "STEAL_POLICIES", "TASK_WIDTH", "DrainCounter",
-    "ExpertTask", "QueueState", "RaggedStats",
+    "ExpertTask", "PallasWSHost", "QueueState", "RaggedStats",
     "TileTask", "WSRunResult", "copy_state", "decode_queue_state", "decode_rounds_bound",
     "default_rounds",
     "emit_decode_tasks", "emit_decode_tasks_torch", "emit_flash_tasks", "launch_ws_grid",

@@ -67,14 +67,20 @@ TRACE_AND_CHAOS = ("repro_torch.wstrace.ring", "repro_torch.wstrace.trace",
                    "repro_torch.launch.train", "repro_torch.sched.accumulate",
                    "repro_torch.sched.simulator", "repro_torch.data.loader",
                    "repro_torch.optim.compress", "repro_torch.configs.whisper_base",
-                   "repro_torch.configs.pixtral_12b", "repro_torch.launch.serve")
+                   "repro_torch.configs.pixtral_12b", "repro_torch.launch.serve",
+                   "repro_torch.core", "repro_torch.core.backend", "repro_torch.core.storage",
+                   "repro_torch.core.max_register", "repro_torch.core.ws_mult",
+                   "repro_torch.core.bounded", "repro_torch.core.baselines",
+                   "repro_torch.core.simulator", "repro_torch.pallas_ws.host",
+                   "repro_torch.moe_ws.dispatch", "repro_torch.models.attention")
 
 
 @pytest.mark.parametrize("module", TRACE_AND_CHAOS)
 def test_trace_and_chaos_modules_pull_in_no_jax(module):
     """The ported trace, chaos, checkpoint, serving, SSM, training,
-    scheduler, loader, compression and config modules and the serve entry
-    point (the reference's trace,
+    scheduler, loader, compression and config modules, the serve entry
+    point, the shared-memory algorithms of ``repro_torch.core``, the host
+    shims and the attention module with its banded path (the reference's trace,
     chaos, checkpoint and simulator modules are numpy-only too, but live in
     ``repro``) load neither jax, ``ml_dtypes`` nor any ``repro`` module,
     even where all are installed; nor does chip_smoke.py."""
@@ -1169,3 +1175,45 @@ def test_ssm_decode_step_on_card(cuda_device, arch):
     for a, b in zip(gc, cc):
         assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
     torch.testing.assert_close(gl[-1], gf, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_banded_flash_matches_masked_on_card(cuda_device):
+    """The banded path against the masked one on the card (no JAX): fp32
+    within 1e-5 of the scale, forward and gradients; bf16 forward and dq
+    bit-equal (a window of one chunk: the band's chunk is the masked path's,
+    so both run the same blocks in the same order, the masked ones adding
+    exact zeros)."""
+    from repro_torch.models import attention as A
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    S, H, hd, w, chunk = 256, 4, 32, 64, 64
+    assert A._pick_chunk(S, min(chunk, max(w, 16))) == chunk
+    base = [torch.randn((1, S, H, hd), generator=gen, device=cuda_device) for _ in range(4)]
+    for dtype in (torch.float32, torch.bfloat16):
+        res = {}
+        for path in ("banded", "masked"):
+            q, k, v = (t.to(dtype, copy=True).requires_grad_(True) for t in base[:3])
+            if path == "banded":
+                out = A.flash_ref(q, k, v, causal=True, window=w, chunk=chunk)
+            else:
+                out = A._Flash.apply(q, k, v, w, 0, True, chunk)
+            out.backward(base[3].to(dtype))
+            res[path] = [out.detach(), q.grad, k.grad, v.grad]
+        for name, got, want in zip(("out", "dq", "dk", "dv"), res["banded"], res["masked"]):
+            if dtype == torch.float32:
+                scale = max(1.0, float(want.abs().max()))
+                assert float((got - want).abs().max()) <= 1e-5 * scale, name
+            elif name in ("out", "dq"):
+                assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_host_shim_layout_matches_device_put_on_card(cuda_device):
+    """chip_smoke.core_layout on the card: the llama decode Put built by the
+    device Put, queue by queue, equals the host shim's layout."""
+    import importlib
+
+    sys.path.insert(0, str(ROOT))
+    out = importlib.import_module("chip_smoke").core_layout(cuda_device)
+    assert all(all(q["equal"].values()) for q in out["queues"])

@@ -345,6 +345,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               decode Put built by the device Put (make_queue_state_torch)
               read back and held, field for field, to a PallasWSHost given
               its records by put_segment, which then drains them.
+18. mesh      cross-device expert stealing (repro_torch.mesh_ws, MESH) on
+              torch.distributed.  First 4 gloo ranks spawned on the one card
+              (each on cuda:0; the ranks time-slice the SMs) at deepseek-v2's
+              full expert widths (E 160, d 5120, moe_d_ff 1536, top-6, bf16,
+              El 40 a rank, bt 8, P 8, T 256 = 1536 pairs), each rank drawing
+              only its own block: expert_ffn_mesh_ws in free mode (phase 1
+              on the traced instantiation, cut at its budget) with steal on
+              and off, under skewed_routing (3/4 of the tokens on the 20 hot
+              experts, all rank 0's) and a uniform routing; every rank's y
+              within ATOL of expert_ffn_nodrop_ref (on this card, after the
+              ranks exit) and bit-equal to the others', every live tile of
+              every rank run (the dispatch's own check), ws_expert 3 a rank
+              (1 with steal off), at least one steal under the skewed
+              routing; the telemetry rows, wall and kernel ms, the bytes the
+              context ring sent and the weight bytes a victim sent its
+              thieves (bf16, point to point, none when no rank steals)
+              beside exchange_payload_bytes (the reference's formula, every
+              fp32 shard ring-gathered), the bytes summed, peak memory a
+              rank.  Then emulate_mesh_dispatch in this process at
+              the same widths, D 4 and 8: clean, and a forced plan in which
+              device 1 runs the tail half of device 0's queues while device
+              0 keeps them (2 writers on exactly those tiles), y within
+              ATOL.  Last, deepseek-v2 at depth 2 and full width served with
+              moe_dispatch="mesh-ws" on the 1-device mesh (no process
+              group; FAMILIES' requests): 3 ws_expert launches a MoE layer a
+              step, every mesh call of the served run (each prefill's, up to
+              64 rows, and each decode step's) and of one more counted
+              decode step within ATOL of the oracle on its own inputs, step
+              p50/p99 and tokens/s.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the 7 ported kernels (the megakernels each with its
@@ -368,6 +397,7 @@ true, "device": {...}}.
     python3 chip_smoke.py --phases build,train,sched   # the scheduler on the training path
     python3 chip_smoke.py --phases build,families      # MLA serving, the vlm and encdec families
     python3 chip_smoke.py --phases build,windowed,core # banded attention, windowed configs, core
+    python3 chip_smoke.py --phases build,mesh          # cross-device expert stealing
     python3 chip_smoke.py --probe                # the tagged hand-off probe alone
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
     python3 chip_smoke.py --expert-ab DIR [DIR ...]
@@ -429,7 +459,7 @@ EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
 PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "kernels", "serving", "times",
           "moe", "grad", "train", "sched", "unified", "unified_moe", "ckpt", "ssm", "families",
-          "windowed", "core")
+          "windowed", "core", "mesh")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -6289,6 +6319,433 @@ def phase_core(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# cross-device expert stealing: the mesh of ranks sharing the one card
+
+
+MESH = dict(d=5120, f=1536, E=160, k=6, bt=8, P=8, T=256, ranks=4, hot_experts=20,
+            hot_frac=0.75, emulated=(4, 8), calls=2)
+# deepseek-v2-236b's expert widths; 4 gloo ranks on cuda:0 (El 40 a rank,
+# bf16 weights drawn block by block); T = 256 tokens (1536 pairs) under a
+# skewed routing (3/4 of the tokens on the 20 hot experts, all rank 0's) and
+# a uniform one; every dispatch in free mode; ``calls`` dispatches of each
+# (the first loads the kernel in each rank), the last one timed.
+
+
+def _mesh_weights(block, c, dev):
+    """Expert block ``block`` (El = E / ranks experts) of the mesh phase's
+    weights, bf16, drawn from seed SEED + 1 + block on ``dev``: a rank makes
+    only its own block, the oracle every block."""
+    from repro_torch.models.common import dense_init_slabs
+
+    El, d, f = c["E"] // c["ranks"], c["d"], c["f"]
+    kw = dict(generator=torch.Generator(device=dev).manual_seed(SEED + 1 + block), device=dev)
+    return (dense_init_slabs(d, (El, d, f), torch.bfloat16, **kw),
+            dense_init_slabs(d, (El, d, f), torch.bfloat16, **kw),
+            dense_init_slabs(f, (El, f, d), torch.bfloat16, **kw))
+
+
+def _mesh_routings(c):
+    """fp32 activations [T, d] and the two routings (numpy, from seed SEED)."""
+    from repro_torch.mesh_ws.selfcheck import skewed_routing
+
+    rng = np.random.default_rng(SEED)
+    T, E, k = c["T"], c["E"], c["k"]
+    x = rng.standard_normal((T, c["d"]), dtype=np.float32)
+    skewed = skewed_routing(rng, T, E, k, hot_frac=c["hot_frac"], hot_experts=c["hot_experts"])
+    idx = np.stack([rng.choice(E, k, replace=False) for _ in range(T)]).astype(np.int32)
+    gates = rng.random((T, k), dtype=np.float32)
+    return x, {"skewed": skewed, "uniform": (idx, gates / gates.sum(1, keepdims=True))}
+
+
+def _mesh_rank(rank, c, device):
+    """One rank of the mesh phase (a process of its own on cuda:0, or on the
+    CPU for a rehearsal): its weight block, then every routing with steal on
+    and off, ``calls`` dispatches each.  Counts what the rank's ring hops
+    send, the weight bytes it sends its thieves and what its sums reduce,
+    times its ws_expert launches with CUDA events and the dispatch on the
+    host clock, and returns numpy only."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_expert_mesh
+    from repro_torch.mesh_ws import expert_ffn_mesh_ws
+    from repro_torch.mesh_ws import layer as ML
+    from repro_torch.mesh_ws import steal as MS
+    from repro_torch.moe_ws import expert_kernel as X
+    from repro_torch.pallas_ws import launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    w = _mesh_weights(rank, c, dev)
+    x_np, routings = _mesh_routings(c)
+    x = torch.from_numpy(x_np).to(dev)
+    mesh = make_expert_mesh(c["E"], c["ranks"])
+    sent, spans = {"ring": 0, "weights": 0, "sum": 0}, []
+    ring0, shards0, sum_l, sum_s = ML.ring_allgather, ML.send_stolen_shards, ML.psum, MS.psum
+    launch0 = X._launch_cuda
+
+    def ring(t, axis, n):
+        sent["ring"] += (n - 1) * t.numel() * t.element_size()
+        return ring0(t, axis, n)
+
+    def shards(shard, pairs, axis):
+        n_thieves = sum(v == axis.index for _, v in pairs)
+        sent["weights"] += n_thieves * sum(t.numel() * t.element_size() for t in shard)
+        return shards0(shard, pairs, axis)
+
+    def summed(orig):
+        def fn(t, axis):
+            sent["sum"] += t.numel() * t.element_size()
+            return orig(t, axis)
+        return fn
+
+    def launch(*a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        launch0(*a, **kw)
+        e.record()
+        spans.append((s, e))
+
+    ML.ring_allgather, ML.send_stolen_shards, X._launch_cuda = ring, shards, launch
+    ML.psum, MS.psum = summed(sum_l), summed(sum_s)
+    if not cuda:   # a CPU rehearsal: count the plain walk's launches in the kernel's place
+        grid0 = X.launch_moe_grid
+
+        def grid(*a, **kw):
+            launches["ws_expert"] += 1
+            return grid0(*a, **kw)
+
+        X.launch_moe_grid = grid
+    out = {}
+    for name, (idx, gates) in routings.items():
+        for steal in (True, False):
+            walls = []
+            for _ in range(c["calls"]):
+                for key in sent:
+                    sent[key] = 0
+                spans.clear()
+                n0 = launches["ws_expert"]
+                dist.barrier()
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                y, tele = expert_ffn_mesh_ws(idx, gates, x, *w, mesh=mesh, bt=c["bt"],
+                                             n_programs=c["P"], steal=steal, mode="free",
+                                             return_telemetry=True)
+                if cuda:
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            out[name, steal] = dict(
+                wall_s=walls[-1], first_wall_s=walls[0],
+                kernel_ms=[s.elapsed_time(e) for s, e in spans],
+                launches=launches["ws_expert"] - n0, ring_bytes=sent["ring"],
+                shard_bytes=sent["weights"], sum_bytes=sent["sum"],
+                peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0, y=y.cpu().numpy(),
+                tele=tele.cpu().numpy())
+    out["launches"] = launches["ws_expert"]    # every launch of this rank's process
+    return out
+
+
+def _mesh_ranks(c, routings, wants, dev):
+    """Part 1: ``ranks`` gloo ranks on the one card at the full expert widths
+    (each rank held to the oracle, coverage checked in every rank's
+    dispatch, at least one steal in the skewed routing)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.mesh_ws import TELE_FIELDS, exchange_payload_bytes, mesh_wstrace
+
+    D, El = c["ranks"], c["E"] // c["ranks"]
+    t0 = time.perf_counter()
+    outs = run_ranks(_mesh_rank, D, c, dev.type, device=dev.type, timeout=900)
+    spawn_s = time.perf_counter() - t0
+    Tk = c["T"] * c["k"]
+    pool_tiles = -(-Tk // c["bt"]) + El + 1
+    formula = exchange_payload_bytes(n_devices=D, pool_tiles=pool_tiles, n_local=El,
+                                     n_rows=pool_tiles * c["bt"], n_routed=Tk, d=c["d"],
+                                     f=c["f"])
+    res = {"dispatches": {}, "rank_launches": [o["launches"] for o in outs]}
+    for name in routings:
+        for steal in (True, False):
+            ys = [o[name, steal]["y"] for o in outs]
+            wants_np = wants[name].cpu().numpy()
+            tele = outs[0][name, steal]["tele"]
+            err = max(float(np.abs(y - wants_np).max()) for y in ys)
+            equal = all(np.array_equal(y, ys[0]) and np.array_equal(o[name, steal]["tele"], tele)
+                        for y, o in zip(ys, outs))
+            n_launch = [o[name, steal]["launches"] for o in outs]
+            rows = [dict(zip(TELE_FIELDS, (int(v) for v in row))) for row in tele]
+            tag = f"{name} steal={steal}"
+            r = dict(max_abs_err=err, ranks_equal=equal, launches_per_rank=n_launch,
+                     wall_s=[o[name, steal]["wall_s"] for o in outs],
+                     first_wall_s=[o[name, steal]["first_wall_s"] for o in outs],
+                     kernel_ms=[o[name, steal]["kernel_ms"] for o in outs],
+                     ring_bytes=[o[name, steal]["ring_bytes"] for o in outs],
+                     shard_bytes=[o[name, steal]["shard_bytes"] for o in outs],
+                     sum_bytes=[o[name, steal]["sum_bytes"] for o in outs],
+                     peak_bytes=[o[name, steal]["peak_bytes"] for o in outs],
+                     telemetry=rows, devices_stole=int(tele[:, 5].sum()),
+                     tiles_stolen=int(tele[:, 6].sum()))
+            if steal:
+                r["exchange_payload_bytes"] = formula
+                r["perfetto_tracks"] = len(mesh_wstrace(tele, collective_bytes=formula)
+                                          .mesh_phases)
+            res["dispatches"][tag] = r
+            log(f"[mesh] {D} ranks {tag}: max_abs_err {err:.3g} (<= {ATOL}), ranks bit-equal "
+                f"{equal}, ws_expert launches a rank {n_launch}; wall s "
+                f"{[round(v, 3) for v in r['wall_s']]} (first call "
+                f"{[round(v, 3) for v in r['first_wall_s']]}), kernel ms a rank "
+                f"{[[round(v, 3) for v in k] for k in r['kernel_ms']]}; ring bytes a rank "
+                f"{r['ring_bytes']}, weight bytes sent to thieves {r['shard_bytes']}, summed bytes "
+                f"{r['sum_bytes']}; peak GB {[round(v / 1e9, 2) for v in r['peak_bytes']]}")
+            for m, row in enumerate(rows):
+                log(f"[mesh]   device {m}: {json.dumps(row)}")
+            if not (err <= ATOL and equal):
+                raise AssertionError(f"[mesh] {tag}: ranks {err} from the oracle (ATOL {ATOL}) "
+                                     f"or not bit-equal to each other ({equal})")
+            if n_launch != [3 if steal else 1] * D:
+                raise AssertionError(f"[mesh] {tag}: ws_expert launches a rank {n_launch}")
+    if not res["dispatches"]["skewed steal=True"]["devices_stole"]:
+        raise AssertionError("[mesh] the skewed routing made no rank steal")
+    log(f"[mesh] exchange_payload_bytes (the reference's formula: every fp32 shard "
+        f"ring-gathered) {formula}; "
+        f"the ranks spawned and ran in {spawn_s:.1f} s")
+    res["spawn_s"] = spawn_s
+    return res
+
+
+def _mesh_emulated(c, w, x, routings, wants):
+    """Part 2: emulate_mesh_dispatch at the same widths in this process, D 4
+    and 8, free mode: clean, then a forced plan in which device 1 runs the
+    tail half of each of device 0's queues while device 0 keeps its full
+    tails (both run the segment: 2 writers a tile there)."""
+    from repro_torch.mesh_ws import StealPlan, emulate_mesh_dispatch
+    from repro_torch.pallas_ws import launches
+
+    idx, gates = routings["skewed"]
+    want = wants["skewed"]
+    out = {}
+    for D in c["emulated"]:
+        El = c["E"] // D
+        n0 = launches["ws_expert"]
+        em = emulate_mesh_dispatch(x, idx, gates, *w, n_devices=D, bt=c["bt"],
+                                   n_programs=c["P"])
+        torch.cuda.synchronize()
+        clean_launches = launches["ws_expert"] - n0
+        err = float((em.y - want).abs().max())
+        for tail, mult in zip(em.tails, em.mult_total):
+            if not bool((mult[:int(tail.sum())] >= 1).all()):
+                raise AssertionError(f"[mesh] emulated D={D}: a live tile never ran")
+        tails = [t.clone() for t in em.tails]
+        s_tail = tails[0]
+        s_head = s_tail // 2
+        zeros = torch.zeros_like(s_head)
+
+        def plan(m):
+            stole = m == 1
+            return StealPlan(victim=torch.tensor(0, dtype=torch.int32, device=x.device),
+                             stole=torch.tensor(stole, device=x.device),
+                             s_head=s_head if stole else zeros, s_tail=s_tail if stole else zeros,
+                             new_tail=tails[m],
+                             take_tiles=(s_tail - s_head).sum(dtype=torch.int32) * int(stole))
+
+        n0 = launches["ws_expert"]
+        adv = emulate_mesh_dispatch(x, idx, gates, *w, n_devices=D, bt=c["bt"],
+                                    n_programs=c["P"], plans_override=[plan(m) for m in range(D)])
+        torch.cuda.synchronize()
+        adv_launches = launches["ws_expert"] - n0
+        adv_err = float((adv.y - want).abs().max())
+        n_live = int(tails[0].sum())
+        expect = torch.ones(n_live, dtype=torch.int32, device=x.device)
+        off = torch.cat([s_head.new_zeros(1), torch.cumsum(tails[0], 0)])
+        for q in range(El):
+            expect[int(off[q] + s_head[q]):int(off[q] + s_tail[q])] = 2
+        writers_ok = bool((adv.writers[0][:n_live] == expect).all()) and all(
+            bool((wr[:int(t.sum())] == 1).all()) for wr, t in zip(adv.writers[1:], tails[1:]))
+        mult_ok = all(bool((m[:int(t.sum())] >= wr[:int(t.sum())]).all())
+                      for m, wr, t in zip(adv.mult_total, adv.writers, tails))
+        dup = int((expect == 2).sum())
+        m0 = adv.mult_total[0][:n_live]
+        out[f"D{D}"] = dict(max_abs_err=err, stole=[bool(p.stole) for p in em.plans],
+                            advisories=em.adv.tolist(), launches=clean_launches,
+                            forced_max_abs_err=adv_err, forced_launches=adv_launches,
+                            forced_tiles=dup, writers_as_expected=writers_ok,
+                            victim_mult=[int(m0.min()), int(m0.max())],
+                            victim_sum_mult_over_tiles=float(m0.sum()) / max(1, n_live))
+        log(f"[mesh] emulated D={D} (El {El}) clean: max_abs_err {err:.3g}, advisories "
+            f"{em.adv.tolist()}, stole {out[f'D{D}']['stole']}, {clean_launches} launches; "
+            f"forced (device 1 runs {dup} of device 0's tiles, device 0 keeps them): "
+            f"max_abs_err {adv_err:.3g}, writers as expected {writers_ok}, device 0's mult in "
+            f"{out[f'D{D}']['victim_mult']}, {adv_launches} launches")
+        if not (err <= ATOL and adv_err <= ATOL and writers_ok and mult_ok and dup > 0):
+            raise AssertionError(f"[mesh] emulated D={D}: {out[f'D{D}']}")
+        if not any(out[f"D{D}"]["stole"]):
+            raise AssertionError(f"[mesh] emulated D={D}: no device stole")
+    return out
+
+
+def _mesh_hold(recorded):
+    """Each recorded ``expert_ffn_mesh_ws`` call's y against the oracle on its
+    own inputs (a layer's weights widened to fp32 once); the errors in call
+    order."""
+    from repro_torch.moe_ws import expert_ffn_nodrop_ref
+
+    errs = [None] * len(recorded)
+    layers = {}
+    for i, call in enumerate(recorded):
+        layers.setdefault(call[3].data_ptr(), []).append(i)
+    for calls in layers.values():
+        wg, wu, wd = (t.float() for t in recorded[calls[0]][3:6])
+        for i in calls:
+            idx, gates, x, _, _, _, y = recorded[i]
+            errs[i] = float((y - expert_ffn_nodrop_ref(idx, gates, x, wg, wu, wd)).abs().max())
+        del wg, wu, wd
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _mesh_served(dev):
+    """Part 3: deepseek-v2 at depth 2 and full width served by the engine with
+    ``moe_dispatch="mesh-ws"`` on the 1-device mesh (no process group): 3
+    ws_expert launches a MoE layer a step; every mesh call of the served
+    run (each prefill's and each decode step's) and of one counted decode
+    step held to the oracle on its own inputs."""
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.mesh_ws import layer as ML
+    from repro_torch.pallas_ws import launches
+    from repro_torch.serving import ContinuousBatcher, Request, WorkStealingFrontend
+
+    c = FAMILIES["deepseek"]
+    cfg = CONFIG.replace(n_layers=c["depth"], moe_dispatch="mesh-ws")
+    L, V = cfg.n_layers, cfg.vocab_size
+    params, out = _fam_init(cfg, CONFIG, dev, tag="mesh")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(*c["prompt_lens"], size=c["requests"])
+    prompts = [rng.integers(0, V, size=int(n)).astype(np.int32) for n in lens]
+    front = WorkStealingFrontend(lambda: ContinuousBatcher(
+        params, cfg, slots=c["slots"], capacity=c["cap"]), n_replicas=2)
+    for rid, p in enumerate(prompts):
+        front.submit(0, Request(rid=rid, tokens=p, max_new=c["max_new"]))
+    recorded, orig = [], ML.expert_ffn_mesh_ws
+
+    def rec(idx, gates, x, wg, wu, wd, **kw):
+        y = orig(idx, gates, x, wg, wu, wd, **kw)
+        recorded.append((idx, gates, x.clone(), wg, wu, wd, y))
+        return y
+
+    torch.cuda.synchronize()
+    before = dict(launches)
+    ML.expert_ffn_mesh_ws = rec
+    t0 = time.perf_counter()
+    try:
+        done = front.run(max_iters=1000)
+        torch.cuda.synchronize()
+    finally:
+        ML.expert_ffn_mesh_ws = orig
+    wall = time.perf_counter() - t0
+    counts = _since(before)
+    served_calls, recorded = recorded, []
+    stats = front.stats()
+    steps = sum(s["steps"] for s in stats["batchers"])
+    prefills = sum(s["admitted"] for s in stats["batchers"])
+    if sorted(done) != list(range(len(prompts))) or any(
+            len(r.out) != c["max_new"] or not all(0 <= t < V for t in r.out)
+            for r in done.values()):
+        raise AssertionError(f"[mesh] deepseek on mesh-ws served {_streams(done)}")
+    want = {"ws_attention": 0, "ws_expert": 3 * (steps + prefills) * L, "ws_expert_grad": 0,
+            "ws_unified": 0}
+    if counts != want:
+        raise AssertionError(f"[mesh] deepseek on mesh-ws launched {counts}, want {want}")
+    lat = np.concatenate([np.asarray(b.metrics.step_latency_s) for b in front.batchers]) * 1e3
+    tokens = sum(len(r.out) for r in done.values())
+    if len(served_calls) != (steps + prefills) * L:
+        raise AssertionError(f"[mesh] the served run made {len(served_calls)} mesh calls, want "
+                             f"{(steps + prefills) * L}")
+    b = ContinuousBatcher(params, cfg, slots=4, capacity=c["cap"])
+    for rid in range(4):
+        assert b.admit(Request(rid=rid, tokens=prompts[rid], max_new=c["max_new"]))
+    before = dict(launches)
+    ML.expert_ffn_mesh_ws = rec
+    try:
+        b.step()
+    finally:
+        ML.expert_ffn_mesh_ws = orig
+    torch.cuda.synchronize()
+    per_step = _since(before)
+    if per_step["ws_expert"] != 3 * L or len(recorded) != L:
+        raise AssertionError(f"[mesh] one decode step launched {per_step}, saw {len(recorded)} "
+                             f"mesh calls (want {3 * L} launches, {L} calls)")
+    served_rows = [int(call[0].shape[0]) for call in served_calls]
+    served_errs = _mesh_hold(served_calls)
+    errs = _mesh_hold(recorded)
+    if not max(errs + served_errs) <= ATOL:
+        raise AssertionError(f"[mesh] mesh-ws calls from the oracle > {ATOL}: served run "
+                             f"{served_errs} (rows {served_rows}), one decode step {errs}")
+    longest = max(served_rows)
+    out.update(requests=len(done), new_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+               decode_steps=steps, prefills=prefills, launches=counts,
+               launches_per_decode_step=per_step,
+               step_ms_p50=float(np.percentile(lat, 50)),
+               step_ms_p99=float(np.percentile(lat, 99)), call_max_abs_err=errs,
+               served_calls=len(served_calls), served_call_rows=served_rows,
+               served_call_max_abs_err=served_errs,
+               longest_call=dict(rows=longest, max_abs_err=max(
+                   e for e, n in zip(served_errs, served_rows) if n == longest)),
+               stolen=stats["totals"]["stolen"], peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[mesh] deepseek-v2 depth {L} served on mesh-ws (1 device, 2 replicas x "
+        f"{c['slots']} slots): {len(done)} requests, {tokens} new tokens in {wall:.2f} s "
+        f"({tokens / wall:.2f} tokens/s incl. prefill), step p50 {out['step_ms_p50']:.2f} ms "
+        f"p99 {out['step_ms_p99']:.2f} ms; launches {counts}; all {len(served_calls)} mesh "
+        f"calls of the run (rows {served_rows}) against the oracle: max "
+        f"{max(served_errs):.3g}, the longest ({longest} rows) "
+        f"{out['longest_call']['max_abs_err']:.3g}; one decode step {per_step}, its mesh "
+        f"calls {[f'{e:.3g}' for e in errs]}")
+    del params, front, b, recorded, served_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(dev):
+    """Cross-device expert stealing (repro_torch.mesh_ws): 4 ranks sharing the
+    card at deepseek-v2's full expert widths, the one-process emulation at D 4
+    and 8, and deepseek-v2 served on moe_dispatch="mesh-ws"."""
+    from repro_torch.moe_ws import expert_ffn_nodrop_ref
+    from repro_torch.pallas_ws import launches
+
+    c = MESH
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n0 = dict(launches)
+    x_np, routings = _mesh_routings(c)
+    x = torch.from_numpy(x_np).to(dev)
+    blocks = [_mesh_weights(m, c, dev) for m in range(c["ranks"])]
+    w = tuple(torch.cat([b[i] for b in blocks]) for i in range(3))
+    del blocks
+    wants = {name: expert_ffn_nodrop_ref(idx, gates, x, *w) for name, (idx, gates)
+             in routings.items()}
+    torch.cuda.empty_cache()
+    out = dict(card=card_line(), widths={k: c[k] for k in ("d", "f", "E", "k", "bt", "P", "T")})
+    # the ranks need the card's memory: the oracle's weights wait on the host
+    w_host = tuple(t.cpu() for t in w)
+    del w
+    torch.cuda.empty_cache()
+    out["ranks"] = _mesh_ranks(c, routings, wants, dev)
+    w = tuple(t.to(dev) for t in w_host)
+    del w_host
+    out["emulated"] = _mesh_emulated(c, w, x, routings, wants)
+    del w, wants
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["served"] = _mesh_served(dev)
+    out["launches"] = _since(n0)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase {out['seconds']:.1f} s; this process's launches {out['launches']}; "
+        f"card: {out['card']}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6383,6 +6840,7 @@ def main(argv=None) -> int:
     families = model_path("families", phase_families, dev)
     windowed = model_path("windowed", phase_windowed, dev)
     core = model_path("core", phase_core, dev)
+    mesh = model_path("mesh", phase_mesh, dev)
     stray = {p: n for p, n in on_path.items() if any(n.values())}
     if stray:
         raise AssertionError(f"a model path launched a standalone kernel: {stray}")
@@ -6406,7 +6864,8 @@ def main(argv=None) -> int:
                              userving["model"]: userving["launches"]["ws_attention"],
                              umserving["model"]: umserving["launches"]["ws_attention"],
                              **{m: n["ws_attention"] for m, n in families["launches"].items()},
-                             **{m: n["ws_attention"] for m, n in windowed["launches"].items()}},
+                             **{m: n["ws_attention"] for m, n in windowed["launches"].items()},
+                             "mesh phase (this process)": mesh["launches"]["ws_attention"]},
         "launches_per_train_step": training["launches_per_step"]["ws_attention"],
         "launches_per_decode_step_pixtral": families["pixtral-12b"]["launches_per_step"][
             "ws_attention"],
@@ -6435,16 +6894,25 @@ def main(argv=None) -> int:
                              userving["model"]: userving["launches"]["ws_expert"],
                              umserving["model"]: umserving["launches"]["ws_expert"],
                              **{m: n["ws_expert"] for m, n in families["launches"].items()},
-                             **{m: n["ws_expert"] for m, n in windowed["launches"].items()}},
+                             **{m: n["ws_expert"] for m, n in windowed["launches"].items()},
+                             "mesh phase (this process)": mesh["launches"]["ws_expert"],
+                             "mesh phase (4 ranks)": sum(mesh["ranks"]["rank_launches"])},
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
         "launches_per_decode_step_deepseek_served": families[
             "deepseek-v2-236b (depth 2, served)"]["serving"]["launches_per_decode_step"][
             "ws_expert"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert"],
         "launches_per_ws_round": sched["launches_per_round"]["ws_expert"],
+        "launches_per_mesh_dispatch": {tag: r["launches_per_rank"] for tag, r
+                                       in mesh["ranks"]["dispatches"].items()},
+        "launches_per_decode_step_mesh_ws_served": mesh["served"]["launches_per_decode_step"][
+            "ws_expert"],
         "max_abs_err": max(expert["max_abs_err"], halfrun_err["ws_expert"],
                            families["deepseek-v2-236b (depth 2, served)"]["expert_launches"][
-                               "max_abs_err"]),
+                               "max_abs_err"],
+                           *(r["max_abs_err"] for r in mesh["ranks"]["dispatches"].values()),
+                           *(r["max_abs_err"] for r in mesh["emulated"].values()),
+                           *mesh["served"]["call_max_abs_err"]),
         **{k: v for k, v in expert.items() if k not in ("max_abs_err", "attn_err")},
         **TRACED["ws_expert"],
         "chaos": CHAOS["ws_expert"],
@@ -6464,7 +6932,8 @@ def main(argv=None) -> int:
                              userving["model"]: userving["launches"]["ws_expert_grad"],
                              umserving["model"]: umserving["launches"]["ws_expert_grad"],
                              **{m: n["ws_expert_grad"] for m, n in families["launches"].items()},
-                             **{m: n["ws_expert_grad"] for m, n in windowed["launches"].items()}},
+                             **{m: n["ws_expert_grad"] for m, n in windowed["launches"].items()},
+                             "mesh phase (this process)": mesh["launches"]["ws_expert_grad"]},
         "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
         "launches_per_ws_round": sched["launches_per_round"]["ws_expert_grad"],
@@ -6492,7 +6961,8 @@ def main(argv=None) -> int:
                              userving["model"]: userving["launches"]["ws_unified"],
                              umserving["model"]: umserving["launches"]["ws_unified"],
                              **{m: n["ws_unified"] for m, n in families["launches"].items()},
-                             **{m: n["ws_unified"] for m, n in windowed["launches"].items()}},
+                             **{m: n["ws_unified"] for m, n in windowed["launches"].items()},
+                             "mesh phase (this process)": mesh["launches"]["ws_unified"]},
         "launches_per_step": {"lockstep": 1, "free": unified["free_launches_per_step"],
                               "free_moe": umoe["free_launches_per_step"]},
         **unified,
@@ -6507,7 +6977,7 @@ def main(argv=None) -> int:
              "ckpt": ckpt["model"], "ssm": "mamba2-2.7b, zamba2-2.7b (ssm phase)",
              "families": "deepseek-v2-236b, pixtral-12b, whisper-base (families phase)",
              "windowed": "gemma3-12b, h2o-danube-1.8b, minicpm-2b (windowed phase)",
-             "core": "core phase",
+             "core": "core phase", "mesh": "mesh phase",
              "times": "times phase", "grad": "grad phase"}
     standalone_lines = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
@@ -6538,6 +7008,7 @@ def main(argv=None) -> int:
     log("[families] " + json.dumps(families))
     log("[windowed] " + json.dumps(windowed))
     log("[core] " + json.dumps(core))
+    log("[mesh] " + json.dumps(mesh))
     print(card_line())
     print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line,
                                   *standalone_lines]}))

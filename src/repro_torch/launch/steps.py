@@ -60,10 +60,11 @@ def _check_dispatch(cfg) -> None:
     for knob in ("moe_dispatch", "moe_grad_dispatch"):
         val = getattr(cfg, knob)
         if val not in ("dense", "ws"):
-            # "mesh-ws" is forward/serving-only in the reference; anything
-            # else would select no training-capable dispatch
+            # "mesh-ws" is real but forward/serving-only (no backward through
+            # the cross-device collectives), as in the reference; anything else
+            # would select no training-capable dispatch
             raise ValueError(f"cfg.{knob}={val!r}: expected 'dense' or 'ws' "
-                             "(training-capable dispatches)")
+                             "(training-capable dispatches; 'mesh-ws' is forward-only)")
 
 
 def loss_and_grads(params, cfg, batch, *, remat: bool = True, chunk: int = 1024):

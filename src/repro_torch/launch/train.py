@@ -25,6 +25,16 @@ on the card is the same).
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --steps 3 --ws-mode ws-wmult --skew 4 --device cpu
 
+``--devices N`` (N > 1, a MoE config) runs the reference example's mesh
+demo after training: ``moe_dispatch="mesh-ws"`` is forward-only, so
+:func:`repro_torch.mesh_ws.selfcheck.run_checks` spawns N gloo ranks on this
+host (on the CPU, or all on ``cuda:0``: the ranks share the card) and holds
+the cross-device dispatch on 2 seeded skewed routings to the no-drop oracle,
+printing each row.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b \
+        --steps 2 --devices 4 --device cpu
+
 Checkpoints (:mod:`repro_torch.checkpoint`, atomic and written in the
 background): ``--ckpt-dir`` saves the state ``{"params", "opt"}`` every
 ``--ckpt-every`` steps and at the last one; ``--resume`` restores the
@@ -171,7 +181,13 @@ def main(argv=None):
     ap.add_argument("--log-path", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="after training a MoE config, the mesh-ws demo over N ranks")
     args = ap.parse_args(argv)
+    moe = get_config(args.arch, smoke=not args.full_config).is_moe
+    if args.devices is not None and args.devices > 1 and not moe:
+        raise ValueError(f"--devices runs the mesh-ws demo, which needs a MoE config; "
+                         f"{args.arch} has no experts")
     _, losses = train(args.arch, smoke=not args.full_config, steps=args.steps,
                       rows=args.rows, seq=args.seq, moe_dispatch=args.moe_dispatch,
                       moe_grad_dispatch=args.moe_grad_dispatch, ws_mode=args.ws_mode,
@@ -183,6 +199,18 @@ def main(argv=None):
     k = max(len(losses) // 10, 1)
     print(f"[train] done: first-{k} mean loss {np.mean(losses[:k]):.4f} -> "
           f"last-{k} mean loss {np.mean(losses[-k:]):.4f}")
+    if args.devices is not None and args.devices > 1:
+        from repro_torch.mesh_ws.selfcheck import run_checks
+
+        dev = resolve_device(args.device)
+        print(f"[train] mesh-ws demo: {args.devices} ranks on {dev.type}, n_experts=16")
+        rows = run_checks(args.devices, seeds=2, device=dev.type)
+        for r in rows:
+            print(f"  seed={r['seed']} max_abs_err={r['max_abs_err']:.3g} "
+                  f"within_tol={r['within_tol']} ranks_equal={r['ranks_equal']} "
+                  f"devices_stole={r['devices_stole']} tiles_stolen={r['tiles_stolen']}")
+        if not all(r["within_tol"] and r["ranks_equal"] for r in rows):
+            raise RuntimeError(f"mesh-ws demo diverged from the no-drop oracle: {rows}")
     return 0
 
 

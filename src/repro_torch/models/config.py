@@ -49,8 +49,9 @@ class ModelConfig:
     first_k_dense: int = 0          # leading dense layers (counted only, as the reference)
     capacity_factor: float = 1.25
     # "dense" = capacity-dropping dispatch/combine einsums; "ws" = dropless
-    # expert tiles through the work-stealing expert megakernel; "mesh-ws" is
-    # the reference's cross-device dispatch, not ported (it raises).
+    # expert tiles through the work-stealing expert megakernel; "mesh-ws" =
+    # the same tiles split over a mesh of ranks (repro_torch.mesh_ws,
+    # forward-only).
     moe_dispatch: str = "dense"
     # backward evaluation of the ws dispatch's custom VJP: "dense" = the
     # closed-form transpose over the routed pairs; "ws" = its per-row tiles

@@ -8,7 +8,8 @@
   dropped from the routed path.
 * :func:`moe_ffn_dispatch` — picks the dispatch by ``cfg.moe_dispatch``:
   ``"ws"`` is the dropless work-stealing path (``repro_torch.moe_ws``),
-  ``"dense"`` the dropping path; ``"mesh-ws"`` is not ported and raises.
+  ``"mesh-ws"`` the same path split over a mesh of ranks
+  (``repro_torch.mesh_ws``), ``"dense"`` the dropping path.
 """
 
 from __future__ import annotations
@@ -108,7 +109,10 @@ def moe_ffn(x, p, cfg, group_size: int = 1024):
 def moe_ffn_dispatch(x, p, cfg, group_size: int = 1024, *, mode=None, drain=None):
     """Route through the dispatch ``cfg.moe_dispatch`` names: ``"ws"`` the
     dropless work-stealing path (``mode`` is its kernel's, free by default;
-    ``drain`` takes its device Put), ``"dense"`` the capacity-dropping path.
+    ``drain`` takes its device Put), ``"mesh-ws"`` the same dispatch split
+    over the expert mesh of the default process group's ranks
+    (:func:`repro_torch.mesh_ws.moe_ffn_mesh_ws`, forward-only; 1 device
+    without a process group), ``"dense"`` the capacity-dropping path.
     Anything else raises: no dispatch substitutes for another unannounced."""
     dispatch = cfg.moe_dispatch
     if dispatch == "ws":
@@ -117,8 +121,12 @@ def moe_ffn_dispatch(x, p, cfg, group_size: int = 1024, *, mode=None, drain=None
         return moe_ffn_ws(x, p, cfg, group_size, mode=mode,
                           grad_dispatch=cfg.moe_grad_dispatch, drain=drain)
     if dispatch == "mesh-ws":
-        raise NotImplementedError("moe_dispatch='mesh-ws' (cross-device expert "
-                                  "stealing) is not ported yet")
+        if drain is not None:
+            raise ValueError("moe_dispatch='mesh-ws' checks its tiles itself; it takes no "
+                             "drain counter (the device-Put decode step is 'ws')")
+        from repro_torch.mesh_ws import moe_ffn_mesh_ws
+
+        return moe_ffn_mesh_ws(x, p, cfg, group_size, mode=mode)
     if dispatch != "dense":
         raise ValueError(f"unknown moe_dispatch {dispatch!r}")
     return moe_ffn(x, p, cfg, group_size)

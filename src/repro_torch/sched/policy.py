@@ -24,16 +24,18 @@ Every pick function takes one worker's ``view [n_q]`` with a scalar
 The hash is the reference's uint32 xorshift-multiply computed in int64 with
 every product split into 16-bit halves and masked to 32 bits, so the CPU and
 CUDA give the reference's bits without uint32 tensor arithmetic.  The
-``axis_name`` forms (``pmax``/``pmin`` collectives inside ``shard_map``)
-belong to the mesh port and raise.
+``axis_name`` forms (the reference's ``pmax``/``pmin`` inside ``shard_map``)
+are ``all_reduce`` MAX / MIN over the axis's process group
+(:func:`repro_torch.launch.mesh.resolve_axis`: an ``Axis`` of a mesh, or a
+name of the default group); without a process group they raise.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 _M32 = 0xFFFFFFFF
-_MESH = "the axis_name (collective) form belongs to the mesh port (ROADMAP queue 1 item 6)"
 
 
 def queue_bases(tails: torch.Tensor) -> torch.Tensor:
@@ -178,25 +180,49 @@ def pick_ranked(view: torch.Tensor, tails: torch.Tensor, worker_id, n_workers: i
     return _out(single, task, new_view)
 
 
-def sync_views(views: torch.Tensor, axis_name: str | None = None) -> torch.Tensor:
-    """MaxRegister read: the true head is the max over workers' local views
-    (the ``[n_w, n_q]`` matrix form; every row gets the column max)."""
+def sync_views(views: torch.Tensor, axis_name=None) -> torch.Tensor:
+    """MaxRegister read: the true head is the max over workers' local views.
+
+    Without ``axis_name``: the ``[n_w, n_q]`` matrix form (every row gets
+    the column max).  With it: this rank's views (any shape), the
+    elementwise max over the axis's ranks (``all_reduce`` MAX, a new
+    tensor)."""
     if axis_name is not None:
-        raise NotImplementedError(f"sync_views: {_MESH}")
+        from repro_torch.launch.mesh import resolve_axis
+
+        ax = resolve_axis(axis_name)
+        out = views.clone()
+        if ax.group is not None:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group)
+        return out
     return views.amax(0, keepdim=True).expand_as(views).clone()
 
 
 def resolve_claims(tasks: torch.Tensor, worker_ids: torch.Tensor, n_tasks: int,
-                   axis_name: str | None = None) -> torch.Tensor:
+                   axis_name=None) -> torch.Tensor:
     """B-WS-style claim resolution: at most one worker wins each task.
 
     The paper's Swap becomes a deterministic min-reduce: every worker writes
-    its id into its picked task's slot and the lowest id wins.  ``tasks``
-    and ``worker_ids`` are ``[n_w]``; returns a bool per worker.
+    its id into its picked task's slot and the lowest id wins.  Without
+    ``axis_name``, ``tasks`` and ``worker_ids`` are ``[n_w]`` and a bool per
+    worker returns.  With it, each rank passes its scalar pick and id: the
+    pick becomes a one-hot claim row, the rows meet in one ``all_reduce``
+    MIN over the axis's ranks, and the rank learns whether its claim won.
     """
-    if axis_name is not None:
-        raise NotImplementedError(f"resolve_claims: {_MESH}")
     big = 2 ** 30
+    if axis_name is not None:
+        from repro_torch.launch.mesh import resolve_axis
+
+        ax = resolve_axis(axis_name)
+        tasks = torch.as_tensor(tasks).to(torch.int32)
+        wid = torch.as_tensor(worker_ids).to(device=tasks.device, dtype=torch.int32)
+        safe_t = torch.clamp(tasks, min=0)
+        slots = torch.arange(n_tasks, dtype=torch.int32, device=tasks.device)
+        claim = torch.where((slots == safe_t) & (tasks >= 0), wid,
+                            torch.full((n_tasks,), big, dtype=torch.int32, device=tasks.device))
+        if ax.group is not None:
+            dist.all_reduce(claim, op=dist.ReduceOp.MIN, group=ax.group)
+        return (tasks >= 0) & (claim[safe_t.long()] == wid)
     claim = torch.full((n_tasks,), big, dtype=torch.int32, device=tasks.device)
     safe_t = torch.clamp(tasks, min=0).to(torch.int64)
     mine = torch.where(tasks >= 0, worker_ids.to(torch.int32), torch.full_like(tasks, big))

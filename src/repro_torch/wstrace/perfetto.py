@@ -18,7 +18,7 @@ the lockstep *tile-slot round*, exported 1 round = 1 µs:
   reconstructed from the initial queue loads minus each claim's cost at its
   start round: round-aligned sawtooth counters next to the slices.
 * **pid 2 "mesh devices"** — when the trace carries ``mesh_phases``
-  (cross-device runs, not ported yet): per-device phase slices (local
+  (cross-device runs, ``repro_torch.mesh_ws.mesh_wstrace``): per-device phase slices (local
   drain / steal) plus advisory and collective-bytes counters.
 * **pid 3 "ws task families"** — one thread track per task family
   (resolved from EV_OP): the same extraction intervals re-grouped by

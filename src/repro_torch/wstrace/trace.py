@@ -57,8 +57,8 @@ class WSTrace:
     makespan: int
     dropped: np.ndarray      # [n_programs] ring-overflow drops
     queue_loads: Optional[np.ndarray] = None  # initial cost per queue
-    # per-device phase counters of a mesh run; None until the mesh path is
-    # ported (the Perfetto export renders them when present)
+    # per-device phase counters of a mesh run (``mesh_ws.mesh_wstrace``);
+    # the Perfetto export renders them when present
     mesh_phases: Optional[List[dict]] = field(default=None)
 
     @classmethod

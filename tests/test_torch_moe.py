@@ -275,7 +275,9 @@ def test_backward_and_mesh_dispatch_raise(layer_inputs):
     """The backward is ported: with inputs that require grad the layer
     records its custom VJP and its gradients (the dense transpose, by
     default) match the reference's, and under ``no_grad`` it runs the same
-    forward.  The cross-device ``mesh-ws`` dispatch still raises."""
+    forward.  The cross-device ``mesh-ws`` dispatch is forward-only: it
+    raises when autograd records the call, and under ``no_grad`` it runs the
+    1-device mesh (no process group) and gives the ws layer's output."""
     jp, tp, x = layer_inputs
     names = sorted(tp)
     tpg = {n: t.clone().requires_grad_() for n, t in tp.items()}
@@ -288,8 +290,12 @@ def test_backward_and_mesh_dispatch_raise(layer_inputs):
         y, _ = moe_ffn_ws(xg, tp, SMOKE)
     y_grad, _ = moe_ffn_ws(xg, tpg, SMOKE)
     torch.testing.assert_close(y, y_grad.detach(), rtol=0, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="mesh-ws"):
-        moe_ffn_dispatch(torch.from_numpy(x), tp, SMOKE.replace(moe_dispatch="mesh-ws"))
+    mesh_cfg = SMOKE.replace(moe_dispatch="mesh-ws")
+    with pytest.raises(ValueError, match="mesh-ws.*forward-only"):
+        moe_ffn_dispatch(xg, tpg, mesh_cfg)
+    with torch.no_grad():
+        y_mesh, _ = moe_ffn_dispatch(torch.from_numpy(x), tp, mesh_cfg)
+    torch.testing.assert_close(y_mesh, y, rtol=0, atol=ATOL)
 
 
 def test_return_stats_under_autograd_raises(layer_inputs):

@@ -152,9 +152,9 @@ def test_sync_views_and_resolve_claims_match_reference(seed):
 
 def test_mesh_forms_raise():
     v = torch.zeros((2, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="needs an initialised process group"):
         sync_views(v, axis_name="dp")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="needs an initialised process group"):
         resolve_claims(v[0], v[0], 2, axis_name="dp")
     with pytest.raises(ValueError, match="not in"):
         schedule_rounds(torch.tensor([1, 1]), 2, "ws-bogus", 1, 2, 2)

@@ -374,6 +374,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               64 rows, and each decode step's) and of one more counted
               decode step within ATOL of the oracle on its own inputs, step
               p50/p99 and tokens/s.
+19. zero      ZeRO-style sharding (repro_torch.models.fsdp, ZERO): 2 gloo
+              ranks on the one card over a ("data", "model") = (2, 1) mesh,
+              make_train_step under use_mesh(mesh, fsdp=True), 2 steps each
+              of minicpm-2b at full width, depth 1 (its tied embedding),
+              deepseek-v2 at full widths cut to depth 1 and 40 routed
+              experts (moe_dispatch "ws": ws_expert 2 and ws_expert_grad 1 a
+              step a rank, on weights gathered inside the layer's remat) and
+              gemma3-12b at full width, depth 2 (its local window, B 2 x S
+              4096), then one step of an fp32 twin at deepseek's widths with
+              8 experts.  Rank 0 first runs the same steps on one rank
+              without a mesh (same seed, weights and batch) and frees them.
+              The step-1 gradients the sharded optimizer gets (copied on
+              the card, gathered whole after the step's clock stops)
+              against the one-rank step's: bf16 within ZERO_SLACK
+              yardsticks (one ulp of each element in quadrature with the
+              residual stream's one-ulp cascade) where one rank's rows
+              without a reduction (the control) must miss; fp32 within
+              ZERO_FP32_RTOL of each leaf's max |gradient|, and its
+              parameters after step 1 likewise plus what the two
+              gradients' first AdamW updates imply (an allowance that
+              widens past it for at most ZERO_WIDENED_SHARE of the
+              elements); losses; the
+              gathered parameters the same bits on both ranks after each
+              step; resident parameter and optimizer bytes a rank beside
+              the one-rank run's, peak, step seconds and the bytes each
+              rank gathered, reduce-scattered and all-reduced a step.
 
 The last three lines are the card (nvidia-smi name, power limit), one JSON
 object listing the 7 ported kernels (the megakernels each with its
@@ -398,6 +424,7 @@ true, "device": {...}}.
     python3 chip_smoke.py --phases build,families      # MLA serving, the vlm and encdec families
     python3 chip_smoke.py --phases build,windowed,core # banded attention, windowed configs, core
     python3 chip_smoke.py --phases build,mesh          # cross-device expert stealing
+    python3 chip_smoke.py --phases build,zero          # ZeRO sharding over 2 ranks
     python3 chip_smoke.py --probe                # the tagged hand-off probe alone
     python3 chip_smoke.py --audit-baseline DIR   # another checkout's per-function audit
     python3 chip_smoke.py --expert-ab DIR [DIR ...]
@@ -459,7 +486,7 @@ EXPERT = dict(d=7168, f=2048, E=384, k=8, bt=8, P=8)
 EXPERT_T = {"decode": 4, "prefill": 64}
 PHASES = ("build", "parity", "expert", "audit", "chaos", "halfrun", "kernels", "serving", "times",
           "moe", "grad", "train", "sched", "unified", "unified_moe", "ckpt", "ssm", "families",
-          "windowed", "core", "mesh")
+          "windowed", "core", "mesh", "zero")
 FLASH = dict(B=2, H=24, Hkv=8, hd=128, S=256, bq=16, bk=64, P=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -6746,6 +6773,493 @@ def phase_mesh(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-style sharding: two gloo ranks on the one card over a ("data", "model")
+# = (2, 1) mesh
+
+
+# deepseek-v2 at full widths, depth 1, 40 routed experts (one rank's share in
+# the mesh phase: at 160 the sharded run's reckoning passes the card's 80 GB
+# for two ranks), moe_dispatch "ws", B 4 x S 512 (one routing group of 1024
+# tokens a rank); gemma3-12b at full width, depth 2 (its local window; its
+# embedding is not tied), B 2 x S 4096 (one row a rank); minicpm-2b at full
+# width, depth 1, B 2 x S 512 (the tied embedding, gathered once for both
+# uses; first, so the second rank's first card work is a small model's);
+# the fp32 twin at deepseek's widths with 8 experts, one step.  2 steps
+# each otherwise, AdamW (the policy of the cut configs, which are under 8 B
+# parameters; the step runs fsdp=True).
+ZERO = dict(ranks=2, steps=2, models=(
+    dict(tag="minicpm-2b", arch="minicpm-2b", dtype="bfloat16", n_layers=1, B=2, S=512),
+    dict(tag="deepseek-v2-236b", arch="deepseek-v2-236b", dtype="bfloat16", n_layers=1,
+         n_experts=40, B=4, S=512),
+    dict(tag="gemma3-12b", arch="gemma3-12b", dtype="bfloat16", n_layers=2, B=2, S=4096),
+    dict(tag="deepseek-v2-236b fp32 twin", arch="deepseek-v2-236b", dtype="float32",
+         n_layers=1, n_experts=8, B=4, S=512, steps=1)))
+# The sharded step against the same step on one rank without a mesh (same
+# seed, weights and batch), by the gradients it hands its optimizer at step
+# 1 (the parameters are then the same on both sides).  bf16: each rank's
+# partial gradient is rounded to bf16 once more than the one-rank step
+# rounds its gradient (the sum is taken in fp32, then rounded), and the
+# forward runs other GEMM shapes (half the rows), so a last bit of any bf16
+# product may flip (and with it a top-k near-tie of the router).  So each
+# leaf's gradient is held to ZERO_SLACK times the quadrature sum of two
+# distances that rounding already in the step makes: every element of the
+# one-rank gradient moved one bf16 ulp (the partials' rounding), and the
+# one-rank gradient when the residual stream entering every layer is moved
+# one bf16 ulp (the cascade, as the train phase's yardstick for a last-bit
+# change).  The control, one rank's rows alone with no reduction over the
+# ranks (what a rank would apply without the reduce-scatter and the
+# all-reduce), must miss it.  The step-1 loss is held (the parameters are
+# the same); step 2's is reported: AdamW's sign-like first update moves an
+# element by 2 lr wherever the two gradients' signs differ.  The fp32 twin is held
+# elementwise to ZERO_FP32_RTOL of each leaf's max |gradient| (both step
+# 1's own), and every parameter after step 1 to ZERO_FP32_RTOL of the leaf's
+# max |value| plus the difference the two gradients already imply: AdamW's
+# first update is u = c g / (|c g| + eps) (c the clip scale), so an element
+# may differ by ZERO_PEAK_LR x |u(sharded g) - u(one-rank g)| more (a sign
+# flip of a gradient near 0, or one within a few eps of it).  The elements
+# whose allowance that widens past the flat tolerance are counted and must be
+# at most ZERO_WIDENED_SHARE of the tree's.
+# Step-1 losses within STEP_LOSS_ATOL (bf16) and ZERO_FP32_RTOL (fp32).
+# The checks read the gradients after the step's clock stops: the step
+# keeps a copy of its gradients on the card, and the peak it reports leaves
+# that copy out.
+ZERO_SLACK = 2
+ZERO_FP32_RTOL = 1e-5
+ZERO_ADAM_EPS = 1e-8     # make_adamw's
+ZERO_PEAK_LR = 3e-4      # make_optimizer's peak: no step's lr is larger
+ZERO_WIDENED_SHARE = 1e-3
+ZERO_LAUNCHES = {"ws_expert": 2, "ws_expert_grad": 1}   # a step a rank at depth 1
+
+
+@contextmanager
+def residual_moved_one_ulp(seed):
+    """The residual stream entering every layer moved one ulp per element
+    (``one_ulp``), a constant shift the gradient flows through unchanged:
+    every product of the layer (attention, router, experts) sees a last-bit
+    change of its input."""
+    from repro_torch.models import transformer as T
+
+    orig = T._attn_block
+
+    def moved(h, *a, **kw):
+        hd = h.detach()
+        return orig(h + (one_ulp(hd, seed) - hd), *a, **kw)
+
+    T._attn_block = moved
+    try:
+        yield
+    finally:
+        T._attn_block = orig
+
+
+def _zero_cfg(m):
+    from repro_torch.configs import get_config
+
+    over = dict(n_layers=m["n_layers"], dtype=m["dtype"])
+    cfg = get_config(m["arch"], smoke=m.get("smoke", False))   # smoke: a CPU rehearsal
+    if cfg.is_moe:
+        over.update(n_experts=m.get("n_experts", cfg.n_experts), moe_dispatch="ws",
+                    moe_grad_dispatch="ws")
+    return cfg.replace(**over)
+
+
+def _zero_batch(cfg, m, dev):
+    rng = np.random.default_rng(SEED)
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (m["B"], m["S"]))).to(dev)}
+
+
+def _zero_bytes(state):
+    """Bytes of a train state's parameters and optimizer moments."""
+    from repro_torch.optim import tree_leaves
+
+    total = 0
+    for tree in (state["params"], state["opt"].m, state["opt"].v):
+        for leaf in tree_leaves(tree):
+            for t in (leaf if isinstance(leaf, tuple) else (leaf,)):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _zero_peak(dev):
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def _zero_reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _zero_free(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _host_copy(t):
+    """A host copy of a tensor that later in-place updates cannot reach
+    (pinned when it comes from the card)."""
+    h = t.detach().to("cpu", copy=True)
+    return h.pin_memory() if t.is_cuda else h
+
+
+def _zero_snapshot(snap, grads, dev):
+    """At a run's first ``apply`` only: a copy of the step's gradients on the
+    card, the peak before it and its bytes, into ``snap``."""
+    if snap:
+        return
+    before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    snap.update(peak=_zero_peak(dev), copies=[g.detach().clone() for g in _leaves(grads)])
+    snap["bytes"] = (torch.cuda.memory_allocated() if dev.type == "cuda" else 0) - before
+
+
+def _zero_peak_without(snap, dev):
+    """The step's peak memory with ``snap``'s copy, resident from its
+    ``apply`` on, left out."""
+    return max(snap["peak"], _zero_peak(dev) - snap["bytes"])
+
+
+def _zero_one_rank(cfg, m, dev):
+    """The one-rank reference (no mesh): the step-1 gradient (bf16: from
+    ``loss_and_grads`` before the steps, with its yardstick and control
+    distances; fp32: the step's own), then ``steps`` train steps.  Returns
+    the gradient and the parameters after step 1 on the host."""
+    from repro_torch.launch.steps import loss_and_grads, make_optimizer, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import Optimizer, clip_by_global_norm
+    from repro_torch.pallas_ws import launches, reset_launches
+
+    batch = _zero_batch(cfg, m, dev)
+    params = init_params(cfg, seed=SEED, device=dev)
+    names = list(_paths(params))
+    seen = {}
+
+    def keep(g1):
+        seen["clip_scale"] = float(clip_by_global_norm(g1, 1.0)[0])  # make_adamw's clip_norm
+        seen["g1_max"] = {n: float(g.abs().max()) for n, g in zip(names, _leaves(g1))}
+        return {n: _host_copy(g) for n, g in zip(names, _leaves(g1))}
+
+    g1_host = None
+    if m["dtype"] != "float32":
+        _, _, g1 = loss_and_grads(params, cfg, batch)
+        with residual_moved_one_ulp(SEED):
+            _, _, gu = loss_and_grads(params, cfg, batch)
+        seen["cascade"] = {n: float((u.float() - g.float()).norm()) for n, u, g in
+                           zip(names, _leaves(gu), _leaves(g1))}
+        del gu
+        seen["acc_ulp"] = {n: float((one_ulp(g, SEED).float() - g.float()).norm())
+                           for n, g in zip(names, _leaves(g1))}
+        half = {"tokens": batch["tokens"][: m["B"] // ZERO["ranks"]]}
+        _, _, gc_ = loss_and_grads(params, cfg, half)
+        seen["control"] = {n: float((c.float() - g.float()).norm()) for n, c, g in
+                           zip(names, _leaves(gc_), _leaves(g1))}
+        del gc_
+        g1_host = keep(g1)
+        del g1
+        _zero_free(dev)
+
+    base = make_optimizer(cfg, total_steps=10)
+    snap = {}
+
+    def apply(p, grads, st):
+        if m["dtype"] == "float32":
+            _zero_snapshot(snap, grads, dev)
+        return base.apply(p, grads, st)
+
+    opt = Optimizer(base.init, apply)
+    state = {"params": params, "opt": opt.init(params)}
+    resident = _zero_bytes(state)
+    step = make_train_step(cfg, opt)
+    out = dict(losses=[], step_s=[], launches=[], peak_bytes=[], resident_bytes=resident)
+    p1_host = None
+    for s in range(m.get("steps", ZERO["steps"])):
+        reset_launches()
+        _zero_reset_peak(dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        _sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(metrics["loss"])
+        out["launches"].append({n: launches[n] for n in ZERO_LAUNCHES})
+        peak = _zero_peak(dev)
+        if s == 0:
+            p1_host = {n: _host_copy(p) for n, p in zip(names, _leaves(state["params"]))}
+            if snap:
+                peak = _zero_peak_without(snap, dev)
+                g1_host = keep(dict(zip(names, snap.pop("copies"))))
+        out["peak_bytes"].append(peak)
+    del state, params, step, opt, base
+    _zero_free(dev)
+    out.update(seen)
+    return out, g1_host, p1_host
+
+
+def _zero_digest(t):
+    """A position-weighted sum of a tensor's bits, a slice at a time."""
+    itype = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    flat = t.detach().contiguous().view(itype).view(-1)
+    total = 0
+    for i, s in enumerate(flat.split(1 << 24)):
+        w = torch.arange(s.numel(), device=s.device, dtype=torch.int64) % 65521 + 1 + i
+        total += int((s.to(torch.int64) * w).sum())
+    return total
+
+
+def _zero_sharded(rank, cfg, m, mesh, dev, ref, g1_host, p1_host):
+    """The same steps sharded over the mesh's ranks (fsdp=True): each
+    rank's losses, launches, bytes moved, peak and resident bytes, whether
+    the gathered parameters are the same bits on every rank after each
+    step, and (rank 0) the step-1 gradient and parameters against the
+    one-rank run's."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import fsdp, init_params
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.optim import Optimizer
+    from repro_torch.pallas_ws import launches, reset_launches
+
+    fp32 = m["dtype"] == "float32"
+    batch = _zero_batch(cfg, m, dev)
+    with use_mesh(mesh, True):
+        full = init_params(cfg, seed=SEED, device=dev)
+        params = fsdp.shard_params(full, mesh, True)
+        del full
+        _zero_free(dev)
+        opt = make_optimizer(cfg, total_steps=10)
+    names = list(_paths(params))
+    snap = {}
+
+    def apply(p, grads, st):
+        _zero_snapshot(snap, grads, dev)
+        return opt.apply(p, grads, st)
+
+    def check(params_1):
+        """Step 1's gradients (fp32: and the parameters after it) gathered
+        whole, one leaf at a time, and held on rank 0 to the one-rank run's
+        (not counted as the step's traffic)."""
+        grads, p1 = {}, {}
+        before = dict(fsdp.STATS)
+        with use_mesh(mesh, True):
+            for n, g, q in zip(names, snap.pop("copies"), _leaves(params_1)):
+                whole = fsdp.unshard(fsdp.set_layout(g, fsdp.layout_of(q))).float()
+                wp = fsdp.unshard(q).detach().float() if fp32 else None
+                del g
+                if rank != 0:
+                    grads[n] = {}
+                    continue
+                want = g1_host[n].to(dev).float()
+                diff = whole - want
+                grads[n] = dict(dist=float(diff.norm()), max_abs=float(diff.abs().max()))
+                del diff
+                if fp32:
+                    pwant = p1_host[n].to(dev).float()
+                    pdiff = (wp - pwant).abs()
+                    tol = ZERO_FP32_RTOL * float(pwant.abs().max())
+                    c = ref["clip_scale"]
+                    du = ((c * whole) / ((c * whole).abs() + ZERO_ADAM_EPS)
+                          - (c * want) / ((c * want).abs() + ZERO_ADAM_EPS)).abs()
+                    implied = ZERO_PEAK_LR * du
+                    p1[n] = dict(max_abs=float(pdiff.max()),
+                                 max_beyond_implied=float((pdiff - implied).max()),
+                                 widened=int((implied > tol).sum()), numel=pdiff.numel(),
+                                 max_leaf=float(pwant.abs().max()))
+                    del pwant, pdiff, du, implied
+                del want, whole, wp
+        fsdp.STATS.update(before)
+        return grads, p1
+
+    zopt = Optimizer(opt.init, apply)
+    state = {"params": params, "opt": zopt.init(params)}
+    resident = _zero_bytes(state)
+    with use_mesh(mesh, True):
+        step = make_train_step(cfg, zopt)
+    out = dict(losses=[], step_s=[], launches=[], peak_bytes=[], bytes=[], ranks_equal=[],
+               resident_bytes=resident, sharded_leaves=sum(
+                   fsdp.layout_of(t) is not None for t in _leaves(params)))
+    for s in range(m.get("steps", ZERO["steps"])):
+        reset_launches()
+        fsdp.reset_stats()
+        _zero_reset_peak(dev)
+        dist.barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        _sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(metrics["loss"])
+        out["launches"].append({n: launches[n] for n in ZERO_LAUNCHES})
+        peak = _zero_peak(dev)
+        if s == 0:
+            peak = _zero_peak_without(snap, dev)
+            out["grads"], out["params_after_step_1"] = check(state["params"])
+        out["peak_bytes"].append(peak)
+        out["bytes"].append(dict(fsdp.STATS))
+        # every whole leaf's digest and every shard's: the gathered
+        # parameters are the shards in their layout's order, so the same
+        # list on every rank is the same gathered tree
+        digests = [_zero_digest(leaf) for leaf in _leaves(state["params"])]
+        every = [None] * ZERO["ranks"]
+        dist.all_gather_object(every, digests)
+        whole_leaves = [i for i, leaf in enumerate(_leaves(state["params"]))
+                        if fsdp.layout_of(leaf) is None]
+        out["ranks_equal"].append(all(e[i] == every[0][i] for e in every for i in whole_leaves))
+    del state, step, params, zopt, opt
+    _zero_free(dev)
+    return out
+
+
+def _zero_rank(rank, c, device):
+    """One rank of the zero phase (a process of its own on cuda:0, or on the
+    CPU for a rehearsal): for each model, rank 0 first runs the one-rank
+    reference while the other ranks wait, then every rank the sharded
+    steps.  Returns plain Python values only."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type != "cuda":   # a CPU rehearsal: count the plain walks in the kernels' place
+        from repro_torch.moe_ws import expert_kernel as X
+        from repro_torch.pallas_ws import launches
+
+        def counted(name, fn):
+            def run(*a, **kw):
+                launches[name] += 1
+                return fn(*a, **kw)
+            return run
+
+        X.launch_moe_grid = counted("ws_expert", X.launch_moe_grid)
+        X.launch_moe_grad_grid = counted("ws_expert_grad", X.launch_moe_grad_grid)
+    mesh = make_host_mesh((c["ranks"], 1), ("data", "model"))
+    out = {}
+    for m in c["models"]:
+        cfg = _zero_cfg(m)
+        ref = g1_host = p1_host = None
+        if rank == 0:
+            t0 = time.perf_counter()
+            ref, g1_host, p1_host = _zero_one_rank(cfg, m, dev)
+            ref["seconds"] = time.perf_counter() - t0
+        elif dev.type == "cuda":   # while rank 0 works: this rank's cuBLAS handles
+            for dt in (torch.bfloat16, torch.float32):
+                a = torch.ones((256, 256), dtype=dt, device=dev, requires_grad=True)
+                (a @ a).sum().backward()
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = _zero_sharded(rank, cfg, m, mesh, dev, ref, g1_host, p1_host)
+        res["seconds"] = time.perf_counter() - t0
+        del g1_host, p1_host
+        out[m["tag"]] = dict(one_rank=ref, sharded=res, params=cfg.param_count())
+        dist.barrier()
+    return out
+
+
+def _zero_held(tag, m, runs):
+    """One model's readings against its criteria; raises on a miss."""
+    ref = runs[0]["one_rank"]
+    ranks = [r["sharded"] for r in runs]
+    fp32 = m["dtype"] == "float32"
+    res = dict(one_rank={k: v for k, v in ref.items() if k not in ("cascade", "acc_ulp",
+                                                                  "control", "g1_max")},
+               ranks={k: [r[k] for r in ranks] for k in (
+                   "losses", "step_s", "launches", "peak_bytes", "bytes", "resident_bytes",
+                   "ranks_equal", "seconds", "sharded_leaves")})
+    grads = ranks[0]["grads"]
+    if fp32:
+        worst = max((g["max_abs"] / max(ref["g1_max"][n], 1e-30), n) for n, g in grads.items())
+        p1 = ranks[0]["params_after_step_1"]
+        pworst = max((p["max_beyond_implied"] / max(p["max_leaf"], 1e-30), n)
+                     for n, p in p1.items())
+        flat = sum(p["widened"] for p in p1.values())
+        numel = sum(p["numel"] for p in p1.values())
+        loss_err = abs(ranks[0]["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+        res.update(grad_rel_max=worst[0], grad_worst=worst[1], params_rel_max=pworst[0],
+                   params_worst=pworst[1], widened_elements=flat, elements=numel,
+                   loss_rel=loss_err)
+        ok = worst[0] <= ZERO_FP32_RTOL and pworst[0] <= ZERO_FP32_RTOL and \
+            loss_err <= ZERO_FP32_RTOL and flat <= ZERO_WIDENED_SHARE * numel
+        verdict = (f"gradients: worst {worst[1]} at {worst[0]:.3g} of its max |g| (<= "
+                   f"{ZERO_FP32_RTOL}); parameters after step 1 beyond what the two "
+                   f"gradients' first AdamW updates imply (x {ZERO_PEAK_LR}): worst "
+                   f"{pworst[1]} at {pworst[0]:.3g} of its max |leaf| (<= {ZERO_FP32_RTOL}); "
+                   f"{flat} of {numel} elements ({flat / numel:.3g}, <= {ZERO_WIDENED_SHARE}) "
+                   f"allowed more than that by the implied difference; losses {loss_err:.3g} "
+                   "relative")
+    else:
+        yard = {n: float(np.hypot(ref["cascade"][n], ref["acc_ulp"][n])) for n in grads}
+        worst = max((g["dist"] / max(yard[n], 1e-30), n) for n, g in grads.items())
+        ctl = max((ref["control"][n] / max(yard[n], 1e-30), n) for n in grads)
+        loss_err = abs(ranks[0]["losses"][0] - ref["losses"][0])
+        res.update(grad_yard_max=worst[0], grad_worst=worst[1], control=ctl[0],
+                   control_leaf=ctl[1], loss_abs=loss_err)
+        ok = worst[0] <= ZERO_SLACK and ctl[0] > ZERO_SLACK and loss_err <= STEP_LOSS_ATOL
+        verdict = (f"gradients: worst {worst[1]} at {worst[0]:.3g} yardsticks (<= {ZERO_SLACK};"
+                   f" one ulp of each element in quadrature with the residual cascade); the "
+                   f"control (one rank's rows, no reduction) {ctl[0]:.3g} at {ctl[1]} (must be "
+                   f"> {ZERO_SLACK}); step-1 loss within {loss_err:.3g} (<= {STEP_LOSS_ATOL})")
+    launches_ok = all(n == {k: v * (m.get("n_experts") is not None)
+                            for k, v in ZERO_LAUNCHES.items()}
+                      for r in ranks for n in r["launches"]) and all(
+        n == {k: v * (m.get("n_experts") is not None) for k, v in ZERO_LAUNCHES.items()}
+        for n in ref["launches"])
+    equal = all(all(r["ranks_equal"]) for r in ranks)
+    gb = lambda b: round(b / 1e9, 3)  # noqa: E731
+    log(f"[zero] {tag} ({m['dtype']}, depth {m['n_layers']}, {runs[0]['params'] / 1e9:.3f} B "
+        f"parameters, B {m['B']} x S {m['S']}): losses one rank {ref['losses']}, sharded "
+        f"{ranks[0]['losses']}; {verdict}")
+    log(f"[zero] {tag}: launches a step one rank {ref['launches']}, each rank "
+        f"{[r['launches'] for r in ranks]}; gathered parameters the same bits on every rank "
+        f"after each step {[r['ranks_equal'] for r in ranks]}; parameter + optimizer bytes "
+        f"resident a rank {[gb(r['resident_bytes']) for r in ranks]} GB against one rank's "
+        f"{gb(ref['resident_bytes'])}; peak a rank a step "
+        f"{[[gb(p) for p in r['peak_bytes']] for r in ranks]} GB (one rank "
+        f"{[gb(p) for p in ref['peak_bytes']]}); step s a rank "
+        f"{[[round(s, 3) for s in r['step_s']] for r in ranks]} (one rank "
+        f"{[round(s, 3) for s in ref['step_s']]}); bytes a rank a step "
+        f"{[r['bytes'] for r in ranks]}")
+    if not (ok and launches_ok and equal):
+        raise AssertionError(f"[zero] {tag}: the sharded step missed its criterion ({ok}), "
+                             f"its launches ({launches_ok}) or its ranks differ ({equal})")
+    return res
+
+
+def phase_zero(dev):
+    """ZeRO-style sharding (repro_torch.models.fsdp) over 2 gloo ranks on
+    the card: deepseek-v2 (40 experts, ws kernels), gemma3-12b and the fp32
+    twin, each against the same steps on one rank."""
+    from repro_torch.launch.mesh import run_ranks
+
+    c = ZERO
+    t_phase = time.perf_counter()
+    _zero_free(dev)
+    t0 = time.perf_counter()
+    runs = run_ranks(_zero_rank, c["ranks"], c, dev.type, device=dev.type, timeout=900)
+    spawn_s = time.perf_counter() - t0
+    out = dict(card=card_line(), ranks=c["ranks"], models={})
+    for m in c["models"]:
+        out["models"][m["tag"]] = _zero_held(m["tag"], m, [r[m["tag"]] for r in runs])
+    moe = out["models"]["deepseek-v2-236b"]["ranks"]["launches"]
+    out["launches"] = {n: sum(s[n] for model in out["models"].values()
+                              for steps in (*model["ranks"]["launches"],
+                                            model["one_rank"]["launches"]) for s in steps)
+                       for n in ZERO_LAUNCHES}
+    out["launches_per_step_a_rank"] = moe[0][0]
+    out["spawn_s"] = spawn_s
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[zero] phase {out['seconds']:.1f} s (the ranks' run {spawn_s:.1f}); launches on the "
+        f"ranks {out['launches']}; card: {out['card']}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6841,6 +7355,7 @@ def main(argv=None) -> int:
     windowed = model_path("windowed", phase_windowed, dev)
     core = model_path("core", phase_core, dev)
     mesh = model_path("mesh", phase_mesh, dev)
+    zero = model_path("zero", phase_zero, dev)
     stray = {p: n for p, n in on_path.items() if any(n.values())}
     if stray:
         raise AssertionError(f"a model path launched a standalone kernel: {stray}")
@@ -6896,7 +7411,10 @@ def main(argv=None) -> int:
                              **{m: n["ws_expert"] for m, n in families["launches"].items()},
                              **{m: n["ws_expert"] for m, n in windowed["launches"].items()},
                              "mesh phase (this process)": mesh["launches"]["ws_expert"],
-                             "mesh phase (4 ranks)": sum(mesh["ranks"]["rank_launches"])},
+                             "mesh phase (4 ranks)": sum(mesh["ranks"]["rank_launches"]),
+                             "zero phase (2 ranks and the one-rank runs)":
+                                 zero["launches"]["ws_expert"]},
+        "launches_per_zero_train_step_a_rank": zero["launches_per_step_a_rank"]["ws_expert"],
         "launches_per_decode_step": moe["ws_expert_launches_per_decode_step"],
         "launches_per_decode_step_deepseek_served": families[
             "deepseek-v2-236b (depth 2, served)"]["serving"]["launches_per_decode_step"][
@@ -6933,7 +7451,11 @@ def main(argv=None) -> int:
                              umserving["model"]: umserving["launches"]["ws_expert_grad"],
                              **{m: n["ws_expert_grad"] for m, n in families["launches"].items()},
                              **{m: n["ws_expert_grad"] for m, n in windowed["launches"].items()},
-                             "mesh phase (this process)": mesh["launches"]["ws_expert_grad"]},
+                             "mesh phase (this process)": mesh["launches"]["ws_expert_grad"],
+                             "zero phase (2 ranks and the one-rank runs)":
+                                 zero["launches"]["ws_expert_grad"]},
+        "launches_per_zero_train_step_a_rank":
+            zero["launches_per_step_a_rank"]["ws_expert_grad"],
         "launches_per_decode_step": moe["ws_expert_grad_launches_per_decode_step"],
         "launches_per_train_step": training["launches_per_step"]["ws_expert_grad"],
         "launches_per_ws_round": sched["launches_per_round"]["ws_expert_grad"],
@@ -6977,7 +7499,7 @@ def main(argv=None) -> int:
              "ckpt": ckpt["model"], "ssm": "mamba2-2.7b, zamba2-2.7b (ssm phase)",
              "families": "deepseek-v2-236b, pixtral-12b, whisper-base (families phase)",
              "windowed": "gemma3-12b, h2o-danube-1.8b, minicpm-2b (windowed phase)",
-             "core": "core phase", "mesh": "mesh phase",
+             "core": "core phase", "mesh": "mesh phase", "zero": "zero phase",
              "times": "times phase", "grad": "grad phase"}
     standalone_lines = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
@@ -7009,6 +7531,7 @@ def main(argv=None) -> int:
     log("[windowed] " + json.dumps(windowed))
     log("[core] " + json.dumps(core))
     log("[mesh] " + json.dumps(mesh))
+    log("[zero] " + json.dumps(zero))
     print(card_line())
     print(json.dumps({"kernels": [attention, expert_line, grad_line, unified_line,
                                   *standalone_lines]}))

@@ -23,7 +23,17 @@ Layout, the reference's on disk: ``<dir>/step_<N:08d>/`` holding
 Trees are nested dicts, lists, tuples and NamedTuples of tensors, numpy
 arrays or Python scalars; dict keys are walked in sorted order, as JAX
 flattens them.  :func:`restore` places tensors on ``device`` (``cuda``
-unless given); the reference's elastic ``shardings`` are not ported.
+unless given).
+
+* Meshes: in a process group of more than one rank, :func:`save` gathers
+  a ZeRO-sharded tree (``repro_torch.models.fsdp``: leaves carrying a
+  layout, under the ``use_mesh`` they were sharded on) one leaf at a time,
+  and rank 0 alone writes the same two files; the other ranks wait on a
+  barrier.  The file does not say which mesh wrote it.
+  ``restore(..., shardings=...)`` takes a tree of the port's
+  ``NamedSharding`` (``param_shardings``, ``opt_state_shardings``) on a
+  mesh that runs, of any shape, and returns this rank's slices: the
+  reference's elastic reshard-on-load.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import DeviceLike, resolve_device
 
@@ -107,13 +118,49 @@ def _snapshot(leaf):
     return np.array(leaf) if isinstance(leaf, np.ndarray) else leaf
 
 
+def _ranks() -> Tuple[int, int]:
+    """(size, rank) of the default process group, (1, 0) without one."""
+    if dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def _whole(leaf):
+    """A leaf gathered whole if it is a ZeRO shard (a collective: every rank
+    calls it for every leaf, in one order)."""
+    if isinstance(leaf, torch.Tensor) and getattr(leaf, "zero_layout", None) is not None:
+        from repro_torch.models.fsdp import unshard
+
+        return unshard(leaf)
+    return leaf
+
+
 def save(directory: str, step: int, tree: Any, metadata: Optional[dict] = None) -> str:
-    """Atomically write ``tree`` as step ``step``; returns its directory."""
+    """Atomically write ``tree`` as step ``step``; returns its directory.  In
+    a process group of more than one rank every rank calls it with its
+    shard of the tree: the leaves are gathered one at a time, rank 0
+    writes, and every rank returns after a barrier."""
+    n_ranks, rank = _ranks()
+    if n_ranks == 1:
+        return _write(directory, step, tree, _flatten(tree), metadata)
+    flat = []
+    for path, leaf in _flatten(tree):
+        whole = _whole(leaf)
+        flat.append((path, _host(whole) if rank == 0 else None))
+        del whole
+    final = os.path.join(directory, f"step_{step:08d}")
+    if rank == 0:
+        final = _write(directory, step, tree, flat, metadata, hosted=True)
+    dist.barrier()
+    return final
+
+
+def _write(directory: str, step: int, tree: Any, flat, metadata: Optional[dict],
+           hosted: bool = False) -> str:
     os.makedirs(directory, exist_ok=True)
-    flat = _flatten(tree)
     arrays, leaves = {}, []
     for path, leaf in flat:
-        a, dtype = _host(leaf)
+        a, dtype = leaf if hosted else _host(leaf)
         arrays[path] = a
         leaves.append({"path": path, "shape": list(a.shape), "dtype": dtype})
     manifest = {"step": int(step), "treedef": f"PyTreeDef({_treedef(tree)})",
@@ -165,12 +212,45 @@ def _leaf(arr: np.ndarray, stored: str, like, dev: torch.device):
     return type(like)(t.item())
 
 
+def _flatten_up_to(like, tree) -> List[Any]:
+    """``tree``'s nodes at the places of ``like``'s leaves (``_flatten``'s
+    order): a sharding tree whose leaves are NamedTuples, read by ``like``."""
+    if like is None:
+        return []
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _flatten_up_to(like[k], tree[k])]
+    if _is_namedtuple(like):
+        return [x for f in like._fields for x in _flatten_up_to(getattr(like, f),
+                                                                 getattr(tree, f))]
+    if isinstance(like, (list, tuple)):
+        return [x for i, v in enumerate(like) for x in _flatten_up_to(v, tree[i])]
+    return [tree]
+
+
+def _resharded(t: torch.Tensor, sharding, dev: torch.device, like):
+    """This rank's slice of a whole leaf (on the host) under ``sharding``,
+    on ``dev`` with its layout; and the shape ``like`` may have instead of
+    the whole one (a shard's)."""
+    from repro_torch.models.fsdp import set_layout, spec_layout, take_shard
+
+    layout = spec_layout(sharding.spec, t.shape, sharding.mesh)
+    part = take_shard(t, layout, sharding.mesh)
+    out = part.to(device=dev, dtype=like.dtype if isinstance(like, torch.Tensor) else None)
+    return set_layout(out, layout), tuple(part.shape)
+
+
 def restore(directory: str, like: Any, step: Optional[int] = None,
-            device: DeviceLike = None):
+            device: DeviceLike = None, shardings: Any = None):
     """Restore step ``step`` (the latest by default) into the structure of
     ``like``; returns ``(tree, step)``.  Tensor and numpy leaves come back as
     tensors of ``like``'s dtypes on ``device`` (``cuda`` unless given),
-    Python scalars as scalars."""
+    Python scalars as scalars.
+
+    ``shardings``: a tree of ``repro_torch.models.sharding.NamedSharding``
+    shaped like ``like`` (a factored pair a pair) on a mesh that runs, of
+    any shape: each tensor leaf comes back as this rank's slice carrying its
+    ZeRO layout, whatever mesh saved the file.  ``like``'s leaves may have
+    the whole shapes or this rank's slices'."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(directory)
@@ -180,16 +260,28 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         stored = {leaf["path"]: leaf["dtype"] for leaf in json.load(f)["leaves"]}
     out = []
+    flat_like = _flatten(like)
+    flat_sh = (_flatten_up_to(like, shardings) if shardings is not None
+               else [None] * len(flat_like))
     with np.load(os.path.join(d, "arrays-0.npz")) as z:
         files = set(z.files)
-        for path, lk in _flatten(like):
+        for (path, lk), sh in zip(flat_like, flat_sh):
             if path not in files:
                 raise KeyError(f"checkpoint missing leaf {path}")
             arr = z[path]  # one leaf in host memory at a time
             want = tuple(lk.shape) if hasattr(lk, "shape") else ()
-            if tuple(arr.shape) != want:
-                raise ValueError(f"shape mismatch at {path}: ckpt {arr.shape} vs model {want}")
-            out.append(_leaf(arr, stored.get(path, str(arr.dtype)), lk, dev))
+            if sh is None or not hasattr(lk, "shape"):
+                if tuple(arr.shape) != want:
+                    raise ValueError(f"shape mismatch at {path}: ckpt {arr.shape} vs model "
+                                     f"{want}")
+                out.append(_leaf(arr, stored.get(path, str(arr.dtype)), lk, dev))
+                continue
+            leaf, part = _resharded(_leaf(arr, stored.get(path, str(arr.dtype)), lk,
+                                          torch.device("cpu")), sh, dev, lk)
+            if want not in (tuple(arr.shape), part):
+                raise ValueError(f"shape mismatch at {path}: ckpt {arr.shape} (this rank's "
+                                 f"slice {part}) vs model {want}")
+            out.append(leaf)
     return _unflatten(like, iter(out)), step
 
 
@@ -207,16 +299,25 @@ class AsyncCheckpointer:
         self.records: List[dict] = []
 
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None) -> None:
+        """In a process group every rank calls it: the snapshot gathers a
+        ZeRO-sharded tree's leaves (one at a time), and rank 0 alone writes."""
         self.wait()
         t0 = time.perf_counter()
-        flat = iter([_snapshot(leaf) for _, leaf in _flatten(tree)])  # snapshot now
-        host_tree = _unflatten(tree, flat)
+        rank = _ranks()[1]
+        flat = []  # snapshot now; every rank takes part in each leaf's gather
+        for _, leaf in _flatten(tree):
+            whole = _whole(leaf)
+            flat.append(_snapshot(whole) if rank == 0 else None)
+            del whole
+        if rank != 0:
+            return
+        host_tree = _unflatten(tree, iter(flat))
         snapshot_s = time.perf_counter() - t0
 
-        def _write():
+        def _write_now():
             try:
                 t1 = time.perf_counter()
-                path = save(self.directory, step, host_tree, metadata)
+                path = _write(self.directory, step, host_tree, _flatten(host_tree), metadata)
                 self.records.append(dict(
                     step=step, snapshot_s=snapshot_s, write_s=time.perf_counter() - t1,
                     bytes=os.path.getsize(os.path.join(path, "arrays-0.npz"))))
@@ -224,7 +325,7 @@ class AsyncCheckpointer:
             except BaseException as e:  # surfaced on the next wait()
                 self.last_error = e
 
-        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread = threading.Thread(target=_write_now, daemon=True)
         self._thread.start()
 
     def wait(self) -> None:

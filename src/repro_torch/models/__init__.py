@@ -29,6 +29,7 @@ from .model import (
     ws_decode_supported,
 )
 from .moe import init_moe, moe_ffn, moe_ffn_dispatch, router_topk
+from .sharding import param_shardings, shard, use_mesh
 from .ssm import SSMCache, init_ssm_cache, mamba_decode, mamba_train
 from .transformer import init_params, lm_hidden
 from .unified import (
@@ -44,7 +45,7 @@ __all__ = [
     "decode_hidden_ws", "decode_step", "decode_step_unified", "decode_step_ws", "flash_ref",
     "gqa_decode", "gqa_decode_ws", "gqa_train", "init_caches", "init_moe", "init_params",
     "init_ssm_cache", "lm_hidden", "loss_fn", "mamba_decode", "mamba_train", "mla_decode",
-    "mla_train", "moe_ffn", "moe_ffn_dispatch",
-    "plain_decode_step_unified", "prefill", "router_topk", "unified_step_supported",
-    "vocab_parallel_xent", "ws_decode_supported",
+    "mla_train", "moe_ffn", "moe_ffn_dispatch", "param_shardings",
+    "plain_decode_step_unified", "prefill", "router_topk", "shard", "unified_step_supported",
+    "use_mesh", "vocab_parallel_xent", "ws_decode_supported",
 ]

@@ -26,6 +26,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from . import attention as attn
+from . import fsdp
 from . import transformer as tf
 from .common import rms_norm, swiglu
 from .moe import moe_ffn_dispatch
@@ -54,18 +55,29 @@ def vocab_parallel_xent(hidden, w_un, labels, mask=None, valid_vocab=None,
     if row_weights is not None:
         row_mean = (nll * mk).sum(1) / torch.clamp(mk.sum(1), min=1.0)
         return (row_mean * row_weights).sum()
-    return (nll * mk).sum() / torch.clamp(mk.sum(), min=1.0)
+    # under a data mesh the token count is the global batch's (fsdp.dp_sum),
+    # so the ranks' shares sum to the global mean
+    return (nll * mk).sum() / torch.clamp(fsdp.dp_sum(mk.sum()), min=1.0)
 
 
 def loss_fn(params, cfg, batch, *, remat: bool = True, chunk: int = 1024,
             row_weights=None):
     """Mean next-token cross entropy (+ the MoE aux loss) of ``batch["tokens"]``
     [B, S]; a vlm model's over the text positions only, after the patches.
-    Returns (loss, {"ce", "aux"})."""
+    Returns (loss, {"ce", "aux"}).
+
+    Under a mesh with data axes (``sharding.use_mesh``) ``batch`` is this
+    rank's slice of the global batch and the loss and both metrics are this
+    rank's shares: summed over the data-parallel ranks they are the global
+    batch's (the token mean over the global count, the aux loss the mean of
+    every global routing group's).  ZeRO-sharded parameters are gathered
+    where they are read; a tied embedding once, for both of its uses."""
     tf.check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
+    if cfg.tie_embeddings and fsdp.layout_of(params["embed"]) is not None:
+        params = {**params, "embed": fsdp.gathered(params["embed"])}
     x = _embed(params, cfg, tokens)
     if cfg.family == "encdec":
         enc_out = tf.encode(params, cfg, batch["frames"], remat=remat, chunk=chunk)
@@ -86,7 +98,9 @@ def loss_fn(params, cfg, batch, *, remat: bool = True, chunk: int = 1024,
     mask[:, -1] = 0.0
     ce = vocab_parallel_xent(h, _unembed_matrix(params, cfg), labels, mask,
                              valid_vocab=cfg.vocab_size, row_weights=row_weights)
-    weight = row_weights.sum() if row_weights is not None else 1.0
+    # every rank holds as many whole routing groups (fsdp.moe_group)
+    aux = aux / fsdp.dp_size()
+    weight = fsdp.dp_sum(row_weights.sum()) if row_weights is not None else 1.0
     return ce + AUX_LOSS_W * aux * weight, {"ce": ce, "aux": aux}
 
 
@@ -156,13 +170,13 @@ def _pad_seq(k, cap: int):
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens.long()].to(tf.torch_dtype(cfg.dtype))
+    return fsdp.gathered(params["embed"])[tokens.long()].to(tf.torch_dtype(cfg.dtype))
 
 
 def _unembed_matrix(params, cfg):
     if cfg.tie_embeddings:
-        return params["embed"].T  # [d, V]
-    return params["unembed"]
+        return fsdp.gathered(params["embed"]).T  # [d, V]
+    return fsdp.gathered(params["unembed"])
 
 
 def _mask_pad_vocab(logits, cfg):

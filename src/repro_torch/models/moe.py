@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import fsdp
 from .common import dense_init, dense_init_slabs
 
 
@@ -72,7 +73,7 @@ def moe_ffn(x, p, cfg, group_size: int = 1024):
     B, S, d = x.shape
     E, k, cf = cfg.n_experts, cfg.top_k, cfg.capacity_factor
     T = B * S
-    g = min(group_size, T)
+    g = fsdp.moe_group(T, group_size)
     G = T // g
     if G * g != T:
         raise ValueError(f"{T} tokens do not split into groups of {g}")

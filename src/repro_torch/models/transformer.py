@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from . import attention as attn
+from . import fsdp
 from .common import dense_init, rms_norm, swiglu
 from .moe import init_moe, moe_ffn_dispatch
 from .ssm import init_mamba, mamba_train
@@ -160,12 +161,25 @@ def _gqa_layers(cfg, L: int, init, zeros, dev, mlp: bool = True):
 
 
 def layer_params(params, idx: int, key: str = "layers"):
-    """Views of layer ``idx`` of the stacked per-layer parameters under ``key``."""
+    """Views of layer ``idx`` of the stacked per-layer parameters under
+    ``key``; a ZeRO shard's slice is gathered (``fsdp.layer_slice``)."""
 
     def take(tree):
-        return {k: take(v) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
+        return {k: take(v) if isinstance(v, dict) else fsdp.layer_slice(v, idx)
+                for k, v in tree.items()}
 
     return take(params[key])
+
+
+def layer_source(params, idx: int, key: str = "layers"):
+    """Layer ``idx``'s parameters for a checkpointed block, as a function
+    that the block calls.  Without ZeRO shards the views are taken now; with
+    them each call gathers the layer (in the forward and again in the remat
+    replay), so the gathered weights live only inside the block."""
+    if fsdp.has_layouts(params[key]):
+        return lambda: layer_params(params, idx, key)
+    p = layer_params(params, idx, key)
+    return lambda: p
 
 
 def shared_block_params(params, layer_idx: int, every: int):
@@ -223,19 +237,32 @@ def lm_hidden(params, cfg, x, positions, *, remat: bool = True, chunk: int = 102
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
     if cfg.is_ssm:
+        # ZeRO: the shared blocks' leaves are read by several layers, so each
+        # is gathered inside every block that reads it and its gradients are
+        # summed before one reduce-scatter (fsdp.share / fsdp.fetch)
+        shared = (fsdp.share(params["shared_attn"])
+                  if "shared_attn" in params and fsdp.has_layouts(params["shared_attn"])
+                  else None)
         for idx in range(cfg.n_layers):
-            blocks = [lambda h, p=layer_params(params, idx): _ssm_block(h, p, cfg)]
+            get = layer_source(params, idx)
+            blocks = [lambda h, get=get: _ssm_block(h, get(), cfg)]
             if shared_attn_after(cfg, idx):
-                sp = shared_block_params(params, idx, cfg.hybrid_attn_every)
-                blocks.append(lambda h, sp=sp: _attn_block(h, sp, cfg, positions, 0, chunk)[0])
+                if shared is None:
+                    sp = shared_block_params(params, idx, cfg.hybrid_attn_every)
+                    blocks.append(
+                        lambda h, sp=sp: _attn_block(h, sp, cfg, positions, 0, chunk)[0])
+                else:
+                    which = (idx // cfg.hybrid_attn_every) % 2
+                    blocks.append(lambda h, which=which: _attn_block(
+                        h, fsdp.fetch(shared, which), cfg, positions, 0, chunk)[0])
             for block in blocks:
                 h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
         return h, aux
     for idx, w in enumerate(cfg.layer_windows):
-        p = layer_params(params, idx)
+        get = layer_source(params, idx)
 
-        def block(h, p=p, w=w):
-            return _attn_block(h, p, cfg, positions, w, chunk)
+        def block(h, get=get, w=w):
+            return _attn_block(h, get(), cfg, positions, w, chunk)
 
         h, a = checkpoint(block, h, use_reentrant=False) if remat else block(h)
         aux = aux + a

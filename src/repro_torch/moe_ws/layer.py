@@ -84,10 +84,11 @@ GRAD_DISPATCHES = ("dense", "ws")
 def _router(x_flat, p, cfg, group_size: int):
     """The dense path's router (``models.moe.router_topk``), reshaped to flat
     [T, ...] views."""
+    from repro_torch.models.fsdp import moe_group
     from repro_torch.models.moe import router_topk
 
     T, d = x_flat.shape
-    g = min(group_size, T)
+    g = moe_group(T, group_size)
     G = T // g
     if G * g != T:
         raise ValueError(f"{T} tokens do not split into groups of {g}")

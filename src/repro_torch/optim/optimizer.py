@@ -13,6 +13,13 @@ fp32 temporary exceeds one slice.
 
 Trees are nested dicts of tensors (the parameter layout); ``apply(params,
 grads, state)`` updates ``params`` and ``state`` in place and returns them.
+
+ZeRO shards (``repro_torch.models.fsdp``): ``init`` gives each state
+tensor its parameter's layout (a factored pair's row and column drop the
+reduced dim), the global norm sums each shard's squares over the ranks
+that split its leaf and counts a replicated leaf once, and a factored
+second moment whose reduced dim is split takes its means over the whole
+leaf.  AdamW is elementwise and needs nothing else.
 """
 
 from __future__ import annotations
@@ -57,35 +64,71 @@ def _slices(t: torch.Tensor):
     return t.view(-1).split(CHUNK)
 
 
+def _layout(p):
+    return getattr(p, "zero_layout", None)
+
+
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32, a slice at a time."""
+def global_norm(tree, params=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32, a slice at a time.
+    With ``params`` (the tree's parameters) a ZeRO shard's squares are
+    summed over the ranks that split its leaf."""
+    if params is not None and any(_layout(p) is not None for p in tree_leaves(params)):
+        return _sharded_norm(tree, params)
     total = None
     for leaf in tree_leaves(tree):
-        for s in _slices(leaf):
+        # a tied embedding's gradient (its lookup's plus its transpose's) may
+        # come back non-contiguous
+        for s in _slices(leaf.contiguous()):
             sq = s.float().square().sum()
             total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
+def _sharded_norm(tree, params) -> torch.Tensor:
+    from repro_torch.models import fsdp
+
+    parts = {}  # the split axes (() replicated) -> this rank's sum of squares
+    for g, p in zip(tree_leaves(tree), tree_leaves(params)):
+        lay = _layout(p)
+        key = () if lay is None else lay.axes
+        for s in _slices(g.contiguous()):
+            sq = s.float().square().sum()
+            parts[key] = sq if key not in parts else parts[key] + sq
+    total = parts.pop((), None)
+    for key in sorted(parts):  # the same collectives in the same order on every rank
+        part = fsdp.sum_over(parts[key], key)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def clip_by_global_norm(grads, max_norm: float, params=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(scale, norm)``: the factor ``min(1, max_norm / norm)`` that the
     reference multiplies into an fp32 copy of every grad.  The port applies
     it inside each tensor's update instead of materialising that copy."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, params)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+def _zeros(p, shape, dtype, layout):
+    """A zero state tensor carrying ``layout`` (a shard's, or None)."""
+    t = torch.zeros(shape, dtype=dtype, device=p.device)
+    if layout is not None:
+        t.zero_layout = layout
+    return t
 
 
 def make_adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                clip_norm=1.0) -> Optimizer:
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        zeros = lambda p: _zeros(p, p.shape, torch.float32, _layout(p))  # noqa: E731
         return OptState(step=0, m=tree_map(zeros, params), v=tree_map(zeros, params))
 
     @torch.no_grad()
     def apply(params, grads, state):
-        scale, _ = clip_by_global_norm(grads, clip_norm)
+        scale, _ = clip_by_global_norm(grads, clip_norm, params)
         step = state.step + 1
         lr_t = lr(step)
         bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
@@ -117,21 +160,23 @@ def make_adafactor_momentum(lr: Callable, *, b1=0.9, decay=0.99, eps=1e-30,
     and column means), as the reference's."""
 
     def init(params):
+        from repro_torch.models.fsdp import factored_layouts
+
         def v_init(p):
             if _factored(p):
-                return (torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
-                        torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
-                                    device=p.device))
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                row, col = factored_layouts(_layout(p), p.dim())
+                return (_zeros(p, p.shape[:-1], torch.float32, row),
+                        _zeros(p, p.shape[:-2] + p.shape[-1:], torch.float32, col))
+            return _zeros(p, p.shape, torch.float32, _layout(p))
 
         return OptState(step=0,
-                        m=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.bfloat16,
-                                                         device=p.device), params),
+                        m=tree_map(lambda p: _zeros(p, p.shape, torch.bfloat16, _layout(p)),
+                                   params),
                         v=tree_map(v_init, params))
 
     @torch.no_grad()
     def apply(params, grads, state):
-        scale, _ = clip_by_global_norm(grads, clip_norm)
+        scale, _ = clip_by_global_norm(grads, clip_norm, params)
         lr_t = lr(state.step + 1)
 
         def update(p, g, m, vhat, dec):
@@ -151,6 +196,10 @@ def make_adafactor_momentum(lr: Callable, *, b1=0.9, decay=0.99, eps=1e-30,
                 return
             vr, vc = v
             r, c = p.shape[-2:]
+            lay = _layout(p)
+            if lay is not None and lay.dim >= p.dim() - 2:
+                _split_factored(p, g, m, vr, vc, scale, lay, update, dec)
+                return
             # one [r, c] slab of the leading dims at a time
             for ps, gs, ms, vrs, vcs in zip(p.view(-1, r, c), g.view(-1, r, c),
                                             m.view(-1, r, c), vr.view(-1, r), vc.view(-1, c)):
@@ -160,6 +209,36 @@ def make_adafactor_momentum(lr: Callable, *, b1=0.9, decay=0.99, eps=1e-30,
                 vcs.mul_(decay).add_((1 - decay) * g2.mean(-2))
                 denom = torch.clamp(vrs.mean(-1, keepdim=True), min=eps)
                 update(ps, g32, ms, vrs[:, None] * vcs[None, :] / denom, dec)
+
+        def _split_factored(p, g, m, vr, vc, scale, lay, update, dec):
+            """A shard split along a reduced dim (rows r or columns c): the
+            slabs' sums of squares first, summed over the ranks that split
+            the leaf in one collective, then the update, slab by slab."""
+            from repro_torch.models import fsdp
+
+            r, c = p.shape[-2:]
+            rows = lay.dim == p.dim() - 2  # else the columns are split
+            sums = torch.empty((p.numel() // (r * c), c if rows else r), dtype=torch.float32,
+                               device=p.device)
+            for gs, out in zip(g.view(-1, r, c), sums):
+                g2 = (gs.float() * scale).square() + eps
+                out.copy_(g2.sum(-2) if rows else g2.sum(-1))
+            means = fsdp.sum_over(sums, lay.axes) / lay.full
+            denoms = torch.empty(sums.shape[0], dtype=torch.float32, device=p.device)
+            for i, (gs, vrs, vcs) in enumerate(zip(g.view(-1, r, c), vr.view(-1, r),
+                                                   vc.view(-1, c))):
+                g2 = (gs.float() * scale).square() + eps
+                vrs.mul_(decay).add_((1 - decay) * (means[i] if not rows else g2.mean(-1)))
+                vcs.mul_(decay).add_((1 - decay) * (means[i] if rows else g2.mean(-2)))
+                denoms[i] = vrs.sum(-1)
+            if rows:  # vr is split: its mean over the rows spans the ranks
+                fsdp.sum_over(denoms, lay.axes)
+            denoms = torch.clamp(denoms / (lay.full if rows else r), min=eps)
+            for ps, gs, ms, vrs, vcs, dn in zip(p.view(-1, r, c), g.view(-1, r, c),
+                                                m.view(-1, r, c), vr.view(-1, r),
+                                                vc.view(-1, c), denoms):
+                g32 = gs.float() * scale
+                update(ps, g32, ms, vrs[:, None] * vcs[None, :] / dn, dec)
 
         tree_map(upd, params, grads, state.m, state.v)
         return params, OptState(step=state.step + 1, m=state.m, v=state.v)

@@ -15,6 +15,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models import fsdp
 from repro_torch.optim import tree_leaves, tree_map
 
 from .rounds import schedule_rounds
@@ -59,9 +60,18 @@ def ws_accumulate_grads(loss_fn: Callable[..., torch.Tensor], params: Any, batch
     added into it and freed), and ``aux`` = counts, coverage, extractions,
     loss_weight.  A round whose picks are all -1 has weight 0 and would add
     exact zeros, so it is not run.
+
+    Under a mesh with data axes (``flat_loss`` only) every rank passes the
+    whole task batch and computes the same schedule; each round's flat rows
+    and their weights are split over the data-parallel ranks, as the
+    reference keeps them dp-sharded (a round whose rows do not divide
+    raises), and the loss and gradients come back summed over the ranks.
     """
     first = next(tree_leaves(batch))
     n_tasks, dev = first.shape[0], first.device
+    if fsdp.dp_size() > 1 and not flat_loss:
+        raise ValueError("under a data mesh the rounds' rows are split over the ranks: "
+                         "pass flat_loss=True (the train step's contract)")
     if max_rounds is None:
         max_rounds = default_max_rounds(n_tasks, n_workers, mode, slack)
     assignment, counts, _done = schedule_rounds(tails, n_workers, mode, sync_every, max_rounds,
@@ -86,8 +96,9 @@ def ws_accumulate_grads(loss_fn: Callable[..., torch.Tensor], params: Any, batch
         wd = w.to(dev)
         if flat_loss:
             rows = next(tree_leaves(micro)).shape[1]
-            flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), micro)
-            loss = loss_fn(params, flat, wd.repeat_interleave(rows) / rows)
+            flat = tree_map(lambda x: fsdp.dp_rows(x.reshape((-1,) + tuple(x.shape[2:]))),
+                            micro)
+            loss = loss_fn(params, flat, fsdp.dp_rows(wd.repeat_interleave(rows) / rows))
         else:
             loss = (loss_fn(params, micro) * wd).sum()
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
@@ -101,6 +112,8 @@ def ws_accumulate_grads(loss_fn: Callable[..., torch.Tensor], params: Any, batch
         a.div_(denom)
     it = iter(acc)
     grads = tree_map(lambda _: next(it), params)
+    fsdp.reduce_replicated(params, grads)
+    loss_acc = fsdp.dp_sum(loss_acc)
     aux = {"counts": counts, "coverage": (counts > 0).to(torch.float32).mean(),
            "extractions": counts.sum(), "loss_weight": wsum}
     return loss_acc / denom.to(dev), grads, aux
